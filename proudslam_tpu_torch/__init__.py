@@ -1,0 +1,21 @@
+"""proudslam_tpu_torch — the PyTorch + CUDA port of the SLAM engine.
+
+A second package beside ``proudslam_tpu`` (the JAX reference). Plain
+tensor code is PyTorch; the render hot loop runs through two CUDA C++
+kernels written for Hopper (``csrc/``): the fused sample-feature +
+decoder forward (``ops/kernels/render_kernel.py``) and the fused decoder
+backward (``ops/kernels/mlp_kernel.py``). This package never imports JAX.
+"""
+
+__version__ = "0.1.0"
+
+import torch as _torch
+
+# Geometry runs through matmuls (``dirs @ R.T``, point transforms, pose
+# composition). TF32 keeps ~10 mantissa bits, which quantizes positions to
+# ~0.1% — cm-class SLAM needs true f32. The decoder's reduced precision is
+# explicit (bf16 operands inside the kernels), never a global switch.
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False
+
+from proudslam_tpu_torch.config import Config, load_config  # noqa: E402,F401
