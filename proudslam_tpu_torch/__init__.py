@@ -1,10 +1,12 @@
 """proudslam_tpu_torch — the PyTorch + CUDA port of the SLAM engine.
 
 A second package beside ``proudslam_tpu`` (the JAX reference). Plain
-tensor code is PyTorch; the render hot loop runs through two CUDA C++
+tensor code is PyTorch; the render hot loop runs through three CUDA C++
 kernels written for Hopper (``csrc/``): the fused sample-feature +
-decoder forward (``ops/kernels/render_kernel.py``) and the fused decoder
-backward (``ops/kernels/mlp_kernel.py``). This package never imports JAX.
+decoder forward (``ops/kernels/render_kernel.py``, the vox branch), and
+the fused decoder forward and backward (``ops/kernels/mlp_kernel.py``,
+the pcd branch's decoder and both branches' backward). This package never
+imports JAX.
 """
 
 __version__ = "0.1.0"

@@ -1,6 +1,18 @@
-// Fused decoder backward (kernel K3 of the port).
+// Fused decoder forward (kernel K2) and backward (kernel K3) of the port.
 //
-// Replaces the TPU kernel `_bwd_kernel` of
+// K2 replaces the TPU kernel `_fwd_kernel` of
+// proudslam_tpu/ops/pallas/mlp_kernel.py (`_run_fwd`, bf16=True): inputs x
+// (N, D) f32 -> out (N, 4) f32 [sigmoid(rgb), sdf], the five products with
+// bf16 operands and f32 sums. What bounds it on an H100: arithmetic (~108k
+// flops per row against 80 bytes of input and output), so the design keeps
+// everything but x and out on chip: the weights sit in shared memory as
+// bf16 for the block's whole life, and a persistent block (one per SM)
+// walks 64-row tiles whose activations never leave shared memory
+// (`forward_tile` of decoder_tile.cuh, the arithmetic K1 also runs). The
+// last tile is masked, so the rows need no padding. This first form runs
+// on the FMA units; tensor cores are later work.
+//
+// K3 replaces the TPU kernel `_bwd_kernel` of
 // proudslam_tpu/ops/pallas/mlp_kernel.py (`_run_bwd`, bf16=True): per tile
 // of rows it recomputes the decoder forward, then back-propagates the
 // cotangent g (N, 4) [r, g, b, sdf] to dx (N, D) and to all 11 weight and
@@ -293,9 +305,54 @@ __global__ void reduce_partials_kernel(const float* __restrict__ partial,
   out[e] = s;
 }
 
+// K2: persistent blocks stride over the 64-row tiles
+__global__ void __launch_bounds__(THREADS, 1)
+decoder_forward_kernel(const float* __restrict__ x, Params prm,
+                       float* __restrict__ out, long long N) {
+  extern __shared__ __align__(16) char smem[];
+  Arena arena{smem};
+  Weights w;
+  Acts t;
+  carve_weights(arena, w);
+  carve_acts(arena, t);
+  load_weights(w, prm);
+
+  const long long ntiles = (N + TR - 1) / TR;
+  const int tid = threadIdx.x;
+  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const long long row0 = tile * TR;
+    const int nvalid = static_cast<int>(min(static_cast<long long>(TR), N - row0));
+    // inputs rounded to bf16 (missing rows: zeros); forward_tile starts
+    // with a barrier, and the previous tile's last reader of t.x finished
+    // before its closing one
+    for (int i = tid; i < TR * D; i += THREADS) {
+      const int r = i / D;
+      t.x[i] = __float2bfloat16_rn(r < nvalid ? x[row0 * D + i] : 0.f);
+    }
+    forward_tile(w, t);
+    for (int i = tid; i < TR * 4; i += THREADS)
+      if (i / 4 < nvalid) out[row0 * 4 + i] = t.out[i];
+  }
+}
+
 }  // namespace
 
-// dx (N, D); dparams (NPARAM,) in FusedParams order when want_wgrad;
+// K2: out (N, 4) from x (N, D); `blocks` persistent blocks (<= tiles).
+// Returns cudaGetLastError() after the launch (0 = launched).
+extern "C" int decoder_forward(const float* x, const void* const* params,
+                               float* out, long long N, int blocks,
+                               cudaStream_t stream) {
+  const int smem = WEIGHT_SMEM + ACT_SMEM;
+  cudaError_t err = cudaFuncSetAttribute(
+      decoder_forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  decoder_forward_kernel<<<blocks, THREADS, smem, stream>>>(
+      x, params_from(params), out, N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K3: dx (N, D); dparams (NPARAM,) in FusedParams order when want_wgrad;
 // partial: (P, NPARAM) scratch. P blocks each take tiles_per_block tiles.
 // Returns cudaGetLastError() after the launches (0 = launched).
 extern "C" int decoder_backward(const float* x, const float* g,

@@ -6,7 +6,10 @@ Port of ``proudslam_tpu/engine/mapper.py`` in its fixed-batch form
 intersected and sampled once at the round's starting poses, then
 ``num_iterations`` joint Adam steps. Invalid window slots have their ray
 origins moved ``FAR_AWAY`` so they hit nothing; their pose rows, and
-rows whose gauge flag is 0 (the anchor), are masked from updates.
+rows whose gauge flag is 0 (the anchor), are masked from updates. In the
+pcd branch the PointNet params ride in the decoder dict (and its Adam); the
+embeddings are not rendered from and get zero gradients, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -62,7 +65,8 @@ def map_draws(generator: torch.Generator, settings: SystemSettings,
 def map_step(map_state, decoder_params, store: KeyframeStore,
              opt: MapOptState, rays_dir: torch.Tensor, sel_idx: List[int],
              sel_valid: List[bool], settings: SystemSettings,
-             draws: Tuple[torch.Tensor, torch.Tensor]) -> MapStepResult:
+             draws: Tuple[torch.Tensor, torch.Tensor],
+             point_store=None) -> MapStepResult:
     """One mapping round (one reference ``do_mapping`` call).
 
     Args:
@@ -71,6 +75,7 @@ def map_step(map_state, decoder_params, store: KeyframeStore,
       sel_idx: distinct keyframe-store slots (window + provisional slot).
       sel_valid: live entries of ``sel_idx``.
       draws: ``(pix, noise)`` from :func:`map_draws` (or injected).
+      point_store: the pcd branch's ``VoxelPointStore``.
 
     The window's refined poses and pose-Adam moments are written back into
     ``store`` in place; the new embeddings, decoder and optimizer state are
@@ -106,15 +111,17 @@ def map_step(map_state, decoder_params, store: KeyframeStore,
                                      map_state, rnd, noise.reshape(-1, SJ))
     gt_c = gt_c.reshape(-1, 3)
     gt_d = gt_d.reshape(-1)
+    pcd = rnd.feature_mode == "pcd"
 
     def loss_fn(embeddings, dec_params, poses):
         R = se3.exp_rotation(poses[:, 3:6])
         world_d = torch.einsum("fnd,fed->fne", dirs, R)
         world_o = (poses[:, 0:3] + origin_shift)[:, None, :].expand_as(
             world_d)
-        outputs = render_rays(world_o.reshape(-1, 3), world_d.reshape(-1, 3),
-                              map_state, embeddings, dec_params,
-                              settings.decoder, rnd, precomputed=fixed)
+        outputs = render_rays(
+            world_o.reshape(-1, 3), world_d.reshape(-1, 3), map_state,
+            embeddings, dec_params, settings.decoder, rnd,
+            point_store=point_store, precomputed=fixed)
         loss, _ = compute_loss(outputs, gt_c, gt_d, settings.loss,
                                weight_depth_loss=False)
         return loss
@@ -132,7 +139,9 @@ def map_step(map_state, decoder_params, store: KeyframeStore,
             t.requires_grad_(True)
         loss = loss_fn(embeddings, tree_unflatten(decoder_params, dec_leaves),
                        poses)
-        grads = torch.autograd.grad(loss, [embeddings, poses] + dec_leaves)
+        # unused inputs (the embeddings in the pcd branch) get zeros
+        grads = torch.autograd.grad(loss, [embeddings, poses] + dec_leaves,
+                                    allow_unused=pcd, materialize_grads=pcd)
         with torch.no_grad():
             (embeddings,), embed_opt = adam_update(
                 [embeddings.detach()], [grads[0]], embed_opt, mpr.embed_lr)

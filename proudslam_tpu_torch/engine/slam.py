@@ -15,6 +15,11 @@ the validity masks make equivalent. Kept as they are: the uint8/uint16
 frame quantization of ``upload_frame``, the numpy ``default_rng(seed)``
 keyframe-window choice, the freshness threshold from the per-insert voxel
 count history, and the fixed lag of the rotation keyframe trigger.
+
+With ``feature_mode="pcd"`` (or ``map.store_points``) the system also keeps
+a per-voxel point store, filled with each inserted frame's points and
+colors; in pcd mode the PointNet params ride in the decoder dict, so the
+mapper's joint Adam trains them.
 """
 
 from __future__ import annotations
@@ -35,7 +40,10 @@ from proudslam_tpu_torch.engine.mapper import (init_map_opt, map_draws,
 from proudslam_tpu_torch.engine.tracker import track_draws, track_frame
 from proudslam_tpu_torch.geometry import camera, se3
 from proudslam_tpu_torch.models.decoder import init_decoder
+from proudslam_tpu_torch.models.pointnet import init_pointnet
 from proudslam_tpu_torch.ops import voxel_hash as vh
+from proudslam_tpu_torch.render.pcd_features import (init_point_store,
+                                                     insert_frame_points)
 
 
 class PhaseClock:
@@ -101,6 +109,15 @@ class SlamSystem:
                                            self.device)
         self.decoder_params = init_decoder(self.generator, settings.decoder,
                                            self.device)
+        self._use_pcd = (settings.render.feature_mode == "pcd"
+                         or settings.map.store_points)
+        self.point_store = None
+        if self._use_pcd:
+            if settings.render.feature_mode == "pcd":
+                self.decoder_params["pointnet"] = init_pointnet(
+                    self.generator, settings.decoder.in_dim, self.device)
+            self.point_store = init_point_store(
+                settings.map, settings.map.points_per_voxel, self.device)
         self.opt = init_map_opt(self.map_state.embeddings,
                                 self.decoder_params)
         self.store = kfstate.init_keyframe_store(
@@ -145,8 +162,9 @@ class SlamSystem:
                            voxel_vertex_ids=ms.voxel_vertex_ids[:nv])
 
     def _insert(self, rgb, depth, pose6, big: bool = False) -> None:
-        """Backproject a depth map at ``pose6`` and allocate voxels;
-        ``big`` uses the full per-insert capacity (first frame)."""
+        """Backproject a depth map at ``pose6`` and allocate voxels (and
+        store its points when the point store is on); ``big`` uses the
+        full per-insert capacity (first frame)."""
         with self.clock.phase("insert"), torch.no_grad():
             st = self.point_stride
             d = depth[::st, ::st]
@@ -158,6 +176,10 @@ class SlamSystem:
             self.map_state = vh.insert_points(
                 self.map_state, pts, valid, self.settings.map,
                 frame_capacity=None if big else self._steady_cap)
+            if self._use_pcd:
+                self.point_store = insert_frame_points(
+                    self.point_store, self.map_state, pts,
+                    rgb[::st, ::st].reshape(-1, 3), valid, self.settings.map)
         self._nv_hist.append(self.map_state.num_voxels)
         self._check_capacity()
 
@@ -205,7 +227,8 @@ class SlamSystem:
         with self.clock.phase("map"):
             res = map_step(self._render_view(), self.decoder_params,
                            self.store, self.opt, self.rays_dir, sel, valid,
-                           self.settings, self._draws("map", len(sel)))
+                           self.settings, self._draws("map", len(sel)),
+                           point_store=self.point_store)
         self.map_state = self.map_state._replace(embeddings=res.embeddings)
         self.decoder_params = res.decoder_params
         self.opt = res.opt
@@ -296,7 +319,8 @@ class SlamSystem:
             result = track_frame(self._render_view(), self.decoder_params,
                                  prior, self.rays_dir, rgb_d, depth_d, s,
                                  self._draws("track"),
-                                 fresh_thresh=self._fresh_thresh())
+                                 fresh_thresh=self._fresh_thresh(),
+                                 point_store=self.point_store)
 
         slot = min(self.num_kf, s.mapper.max_keyframes - 1)
         flag = 0 if slot < s.mapper.anchor_keyframes else 1

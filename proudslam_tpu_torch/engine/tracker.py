@@ -4,9 +4,10 @@ Port of ``proudslam_tpu/engine/tracker.py`` in its fixed-batch form
 (``fixed_sample_batch=True``): one pixel batch per frame, intersected and
 sampled once at the predicted pose, then ``num_iterations`` Adam steps on
 the 6-dof pose tangent with an exponential lr anneal, the depth-variance
-outlier rule and fresh-voxel ray weighting. Embeddings and decoder are
-frozen; only the pose gets gradients (kernel K3 skips its weight-gradient
-pass).
+outlier rule and fresh-voxel ray weighting. The map, decoder and PointNet
+are frozen; only the pose gets gradients (kernel K3 skips its
+weight-gradient pass). The vox branch hoists the corner view out of the
+iterations; the pcd branch renders from the point store.
 """
 
 from __future__ import annotations
@@ -51,7 +52,8 @@ def track_frame(map_state, decoder_params, prev_pose: torch.Tensor,
                 rays_dir: torch.Tensor, rgb: torch.Tensor,
                 depth: torch.Tensor, settings: SystemSettings,
                 draws: Tuple[torch.Tensor, torch.Tensor],
-                fresh_thresh: Optional[int] = None) -> TrackResult:
+                fresh_thresh: Optional[int] = None,
+                point_store=None) -> TrackResult:
     """Track one RGB-D frame starting from ``prev_pose``.
 
     Args:
@@ -60,6 +62,7 @@ def track_frame(map_state, decoder_params, prev_pose: torch.Tensor,
       rgb: (H, W, 3); depth: (H, W).
       draws: ``(pix, noise)`` from :func:`track_draws` (or injected).
       fresh_thresh: voxel-slot freshness threshold (fresh_window_frames).
+      point_store: the pcd branch's ``VoxelPointStore``.
     """
     trk = settings.tracker
     rnd = settings.render
@@ -71,9 +74,10 @@ def track_frame(map_state, decoder_params, prev_pose: torch.Tensor,
         fresh_thresh = None
     pix, noise = draws
     pix = pix.long()
+    pcd = rnd.feature_mode == "pcd"
     with torch.no_grad():
-        corner_feats = corner_view(map_state.embeddings,
-                                   map_state.voxel_vertex_ids)
+        corner_feats = None if pcd else corner_view(
+            map_state.embeddings, map_state.voxel_vertex_ids)
         f_dirs = rays_dir.reshape(-1, 3)[pix]
         f_gt_c = rgb.reshape(-1, 3)[pix]
         f_gt_d = depth.reshape(-1)[pix]
@@ -88,7 +92,7 @@ def track_frame(map_state, decoder_params, prev_pose: torch.Tensor,
         outputs = render_rays(
             pose6[0:3].expand_as(world_d), world_d, map_state,
             map_state.embeddings, decoder_params, settings.decoder, rnd,
-            corner_feats=corner_feats, fresh_thresh=fresh_thresh,
+            point_store=point_store, corner_feats=corner_feats, fresh_thresh=fresh_thresh,
             precomputed=fixed)
         ray_w = None
         if rnd.fresh_voxel_margin > 0 or rnd.fresh_window_frames > 0:

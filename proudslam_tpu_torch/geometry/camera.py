@@ -10,9 +10,9 @@ from __future__ import annotations
 import torch
 
 
-def pixel_ray_directions(width: int, height: int, fx, fy, cx, cy,
-                         device=None) -> torch.Tensor:
-    """(H, W, 3) per-pixel camera-frame ray directions."""
+def pixel_ray_directions(width: int, height: int, fx, fy, cx, cy, *,
+                         device) -> torch.Tensor:
+    """(H, W, 3) per-pixel camera-frame ray directions on ``device``."""
     ix = torch.arange(width, dtype=torch.float32, device=device)[None, :]
     iy = torch.arange(height, dtype=torch.float32, device=device)[:, None]
     x = ((ix - cx) / fx).expand(height, width)

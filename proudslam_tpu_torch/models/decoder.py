@@ -89,7 +89,7 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
-def params_from_jax(tree: Params, device="cpu") -> Params:
+def params_from_jax(tree: Params, device="cuda") -> Params:
     """JAX decoder params (arrays convertible by ``np.asarray``) -> port."""
     return _tree_map(lambda a: torch.as_tensor(
         np.array(a, dtype=np.float32), device=device), tree)
@@ -129,7 +129,7 @@ _MAP_FIELDS = ("cell_keys", "cell_ids", "cell_vslot", "num_cells",
                "inv_map")
 
 
-def map_state_from_numpy(arrays, device="cpu"):
+def map_state_from_numpy(arrays, device="cuda"):
     """A JAX ``MapState`` (or any object with its fields) -> port MapState."""
     from proudslam_tpu_torch.ops.voxel_hash import MapState
 
@@ -146,3 +146,18 @@ def map_state_to_numpy(state) -> dict:
     return {name: (np.int32(v) if isinstance(v, int)
                    else v.detach().cpu().numpy())
             for name, v in state._asdict().items()}
+
+
+def point_store_from_numpy(arrays, device="cuda"):
+    """A JAX ``VoxelPointStore`` (or any object with its fields) -> port."""
+    from proudslam_tpu_torch.render.pcd_features import VoxelPointStore
+
+    return VoxelPointStore(*[
+        torch.as_tensor(np.array(getattr(arrays, name)), device=device)
+        for name in VoxelPointStore._fields])
+
+
+def point_store_to_numpy(store) -> dict:
+    """Port VoxelPointStore -> dict of numpy arrays under its field names."""
+    return {name: v.detach().cpu().numpy()
+            for name, v in store._asdict().items()}

@@ -1,14 +1,18 @@
-"""Fused decoder backward (kernel K3): CUDA kernel + plain PyTorch version.
+"""Fused decoder forward (kernel K2) and backward (kernel K3): CUDA kernels,
+their plain PyTorch versions, and the autograd function that joins them.
 
-Port of ``_run_bwd``/``_bwd_kernel`` in
-``proudslam_tpu/ops/pallas/mlp_kernel.py`` (bf16=True). Given the decoder
-inputs ``x`` (N, D) and the output cotangent ``g`` (N, 4) [r, g, b, sdf],
-it recomputes the forward and returns ``dx`` (N, D) and the 11 parameter
-gradients in :class:`FusedParams` layout.
+Ports of ``_run_fwd``/``_fwd_kernel`` and ``_run_bwd``/``_bwd_kernel`` in
+``proudslam_tpu/ops/pallas/mlp_kernel.py``. The decoder maps inputs ``x``
+(N, D) to (N, 4) [r, g, b, sdf]; the backward takes the output cotangent
+``g`` (N, 4), recomputes the forward, and returns ``dx`` (N, D) and the
+11 parameter gradients in :class:`FusedParams` layout.
 
-:func:`decoder_bwd` launches ``csrc/mlp_kernel.cu`` for CUDA tensors and
-runs :func:`decoder_bwd_plain` for CPU tensors; any other device raises.
-The plain version rounds at the kernel's points: both operands of every
+:func:`decoder_fwd` and :func:`decoder_bwd` launch ``csrc/mlp_kernel.cu``
+for CUDA tensors and run :func:`decoder_fwd_plain` /
+:func:`decoder_bwd_plain` for CPU tensors; any other device raises. The
+kernels take bf16 operands only; the plain versions compute both operand
+types, as the Pallas kernels' ``_make_dot`` does. With bf16 operands the
+plain versions round at the kernels' points: both operands of every
 product are rounded to bf16, cotangents (``dzo``, ``dhc``, ``dso``,
 ``dh2``, ``dh1``) included, while bias gradients sum the unrounded f32
 cotangents. (Autograd through a bf16-rounded forward would not round the
@@ -78,13 +82,17 @@ def _r(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).float()
 
 
-def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """bf16 operands, exact products, f32 sums."""
-    return _r(a) @ _r(b)
+def _make_dot(bf16: bool):
+    """Products with bf16 operands (exact products, f32 sums) or f32 ones."""
+    if bf16:
+        return lambda a, b: _r(a) @ _r(b)
+    return lambda a, b: a @ b
 
 
-def decoder_fwd_plain(x: torch.Tensor, fp: FusedParams):
-    """The fused decoder forward with bf16 operands -> activations."""
+def decoder_fwd_plain(x: torch.Tensor, fp: FusedParams, bf16: bool = True):
+    """The fused decoder forward -> activations (h1, h2, feat, sdf, hc,
+    rgb)."""
+    _dot = _make_dot(bf16)
     h1 = torch.relu(_dot(x, fp.w1) + fp.b1)
     h2 = torch.relu(_dot(h1, fp.w2) + fp.b2)
     so = _dot(h2, fp.ws) + fp.bs
@@ -95,11 +103,12 @@ def decoder_fwd_plain(x: torch.Tensor, fp: FusedParams):
 
 
 def decoder_bwd_plain(x: torch.Tensor, g: torch.Tensor, fp: FusedParams,
-                      want_wgrad: bool = True
+                      want_wgrad: bool = True, bf16: bool = True
                       ) -> Tuple[torch.Tensor, Optional[FusedParams]]:
-    """Plain PyTorch version of the kernel (same rounding points)."""
+    """Plain PyTorch version of K3 (same rounding points)."""
+    _dot = _make_dot(bf16)
     with torch.no_grad():
-        h1, h2, feat, sdf, hc, rgb = decoder_fwd_plain(x, fp)
+        h1, h2, feat, sdf, hc, rgb = decoder_fwd_plain(x, fp, bf16)
         dzo = g[:, 0:3] * rgb * (1.0 - rgb)
         dhc = _dot(dzo, fp.wo.T) * (hc > 0)
         dfeat = _dot(dhc, fp.wc_f.T)
@@ -124,25 +133,65 @@ def _check_kernel_inputs(x, g, fp):
         raise ValueError("the CUDA decoder kernels take in_dim 16, width "
                          f"128, sdf_dim 128; got x {tuple(x.shape)}, "
                          f"w2 {tuple(fp.w2.shape)}, ws {tuple(fp.ws.shape)}")
-    if g.shape != (N, 4):
+    if g is not None and g.shape != (N, 4):
         raise ValueError(f"g shape {tuple(g.shape)} != ({N}, 4)")
-    for t in (x, g, *fp):
+    for t in (x, *([] if g is None else [g]), *fp):
         if t.device != x.device or t.dtype != torch.float32:
             raise ValueError("decoder kernel inputs must be f32 on one device")
         if not t.is_contiguous():
             raise ValueError("decoder kernel inputs must be contiguous")
 
 
-def decoder_bwd(x: torch.Tensor, g: torch.Tensor, fp: FusedParams,
-                want_wgrad: bool = True
-                ) -> Tuple[torch.Tensor, Optional[FusedParams]]:
-    """Decoder backward: the CUDA kernel on CUDA tensors, the plain version
-    on CPU tensors. ``want_wgrad=False`` skips the parameter gradients
-    (tracking differentiates the pose only)."""
+def _kernel_device(x: torch.Tensor, bf16: bool, what: str) -> bool:
+    """True when ``x`` is a CUDA tensor the kernel takes; False on the CPU
+    (the plain version's device); raises on anything else."""
     if x.device.type == "cpu":
-        return decoder_bwd_plain(x, g, fp, want_wgrad)
+        return False
     if x.device.type != "cuda":
-        raise ValueError(f"decoder_bwd: unsupported device {x.device}")
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    if not bf16:
+        raise NotImplementedError(
+            f"{what}: the CUDA decoder kernels take bf16 operands only "
+            "(matmul_dtype='bf16'); the f32-operand variant is in ROADMAP "
+            "Queue 2")
+    return True
+
+
+def decoder_fwd(x: torch.Tensor, fp: FusedParams,
+                bf16: bool = True) -> torch.Tensor:
+    """K2, the decoder forward (N, D) -> (N, 4) [r, g, b, sdf]: the CUDA
+    kernel on CUDA tensors, the plain version on CPU tensors."""
+    if not _kernel_device(x, bf16, "decoder_fwd"):
+        _, _, _, sdf, _, rgb = decoder_fwd_plain(x, fp, bf16)
+        return torch.cat([rgb, sdf], dim=1)
+    fp = FusedParams(*[t.detach().contiguous() for t in fp])
+    x = x.detach().contiguous()
+    _check_kernel_inputs(x, None, fp)
+    N = x.shape[0]
+    out = torch.empty((N, 4), dtype=torch.float32, device=x.device)
+    if N > 0:
+        lib = build.load("mlp_kernel", _bind)
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        err = lib.decoder_forward(
+            x.data_ptr(), build.pointer_array(fp), out.data_ptr(), N,
+            min(-(-N // TILE_ROWS), sms),
+            torch.cuda.current_stream(x.device).cuda_stream)
+        build.check(err, "decoder_forward")
+        decoder_fwd.launches += 1
+    return out
+
+
+decoder_fwd.launches = 0
+
+
+def decoder_bwd(x: torch.Tensor, g: torch.Tensor, fp: FusedParams,
+                want_wgrad: bool = True, bf16: bool = True
+                ) -> Tuple[torch.Tensor, Optional[FusedParams]]:
+    """K3, the decoder backward: the CUDA kernel on CUDA tensors, the plain
+    version on CPU tensors. ``want_wgrad=False`` skips the parameter
+    gradients (tracking differentiates the pose only)."""
+    if not _kernel_device(x, bf16, "decoder_bwd"):
+        return decoder_bwd_plain(x, g, fp, want_wgrad, bf16)
     fp = FusedParams(*[t.detach().contiguous() for t in fp])
     x, g = x.detach().contiguous(), g.detach().contiguous()
     _check_kernel_inputs(x, g, fp)
@@ -179,5 +228,47 @@ decoder_bwd.launches = 0
 def _bind(lib) -> None:
     import ctypes
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.decoder_forward.argtypes = [p, p, p, ll, i, p]
+    lib.decoder_forward.restype = i
     lib.decoder_backward.argtypes = [p, p, p, p, p, p, ll, i, i, i, p]
     lib.decoder_backward.restype = i
+
+
+class FusedDecoder(torch.autograd.Function):
+    """Decoder forward through K2 with a K3 backward (the JAX package's
+    ``fused_decoder`` custom VJP). Differentiable w.r.t. ``x`` and the 11
+    packed params; K3 skips its weight-gradient pass when no param needs a
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, bf16, *fp):
+        fp = FusedParams(*fp)
+        ctx.save_for_backward(x, *fp)
+        ctx.bf16 = bf16
+        return decoder_fwd(x, fp, bf16)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *fp = ctx.saved_tensors
+        want_wgrad = any(ctx.needs_input_grad[2:])
+        dx, dfp = decoder_bwd(x, g.contiguous(), FusedParams(*fp),
+                              want_wgrad, ctx.bf16)
+        grads_fp = tuple(dfp) if want_wgrad else (None,) * 11
+        return (dx if ctx.needs_input_grad[0] else None, None, *grads_fp)
+
+
+def fused_applicable(dec: DecoderSettings) -> bool:
+    """True when the fused decoder kernels take the architecture (the device
+    of the tensors then chooses kernel or plain version)."""
+    return (dec.use_fused_mlp and dec.depth == 2 and not dec.skips
+            and dec.embedder == "none")
+
+
+def decoder_values_fused(params: dict, dec: DecoderSettings,
+                         x: torch.Tensor) -> torch.Tensor:
+    """``models.decoder.decoder_values`` through K2/K3: (N, in_dim) ->
+    (N, 4) [r, g, b, sdf]; gradients reach ``x`` and the dict ``params``.
+    No padding: the kernels mask their last tile."""
+    fp = pack_params(params, dec)
+    return FusedDecoder.apply(x.contiguous(), dec.matmul_dtype == "bf16",
+                              *fp)

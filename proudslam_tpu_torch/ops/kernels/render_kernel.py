@@ -30,11 +30,6 @@ from proudslam_tpu_torch.ops.kernels.mlp_kernel import (
 from proudslam_tpu_torch.ops.voxel_hash import unpack_key
 
 
-def fused_render_applicable(dec: DecoderSettings) -> bool:
-    return (dec.use_fused_mlp and dec.depth == 2 and not dec.skips
-            and dec.embedder == "none")
-
-
 def fused_render_forward_plain(rb, keys_rb, bins, z, rays_o, rays_d,
                                fp: FusedParams, voxel_size: float
                                ) -> Tuple[torch.Tensor, torch.Tensor]:

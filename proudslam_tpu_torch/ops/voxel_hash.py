@@ -69,7 +69,7 @@ def init_map_state(settings: MapSettings, generator: torch.Generator,
 
 
 def build_map_state_numpy(coords, settings: MapSettings, seed: int = 0,
-                          device="cpu") -> MapState:
+                          device="cuda") -> MapState:
     """MapState for given integer voxel coords, built in numpy (the JAX
     package's ``build_map_state_numpy``, same tables and embeddings)."""
     coords = np.unique(np.asarray(coords, np.int64), axis=0)

@@ -1,11 +1,19 @@
-"""Differentiable SDF volume renderer (the fused render branch).
+"""Differentiable SDF volume renderer.
 
-Port of ``proudslam_tpu/render/renderer.py`` on its fused branch
-(``use_fused_mlp=True``, ``feature_mode="vox"``): intersect -> stratified
-samples -> kernel K1 (sample features + decoder) -> sdf-to-weights ->
-integrate. Every ray keeps its lane; misses are masked by ``hit_mask``.
-Sample depths and indices carry no gradient; pose gradients flow through
-``o + d*z`` inside the fused op, map gradients through the corner view.
+Port of ``proudslam_tpu/render/renderer.py`` on two of its branches:
+intersect -> stratified samples -> sample features + decoder ->
+sdf-to-weights -> integrate.
+
+* ``feature_mode="vox"`` with ``use_fused_mlp=True``: kernel K1 blends the
+  corner embeddings and decodes in one pass; map gradients flow through
+  the corner view.
+* ``feature_mode="pcd"``: PointNet features of each voxel's stored points
+  (``render/pcd_features.py``), decoded by kernels K2/K3
+  (``decoder_values_fused``) when ``use_fused_mlp=True``, else by the plain
+  ``models/decoder.decoder_values``.
+
+Every ray keeps its lane; misses are masked by ``hit_mask``. Sample depths
+and indices carry no gradient; pose gradients flow through ``o + d*z``.
 """
 
 from __future__ import annotations
@@ -15,12 +23,15 @@ from typing import NamedTuple, Optional
 import torch
 
 from proudslam_tpu_torch.config import DecoderSettings, RenderSettings
+from proudslam_tpu_torch.models.decoder import decoder_values
 from proudslam_tpu_torch.ops.interp import corner_view
 from proudslam_tpu_torch.ops.intersect import ray_intersect
-from proudslam_tpu_torch.ops.kernels.render_kernel import (
-    fused_feats_decode, fused_render_applicable)
+from proudslam_tpu_torch.ops.kernels.mlp_kernel import (decoder_values_fused,
+                                                        fused_applicable)
+from proudslam_tpu_torch.ops.kernels.render_kernel import fused_feats_decode
 from proudslam_tpu_torch.ops.sampling import sample_rays_in_segments
 from proudslam_tpu_torch.ops.voxel_hash import unpack_key
+from proudslam_tpu_torch.render.pcd_features import gather_pcd_features
 
 
 class RenderOutputs(NamedTuple):
@@ -82,30 +93,31 @@ def intersect_and_sample(rays_o, rays_d, map_state, settings: RenderSettings,
 
 def render_rays(rays_o, rays_d, map_state, embeddings, decoder_params,
                 decoder_settings: DecoderSettings, settings: RenderSettings,
-                noise=None, corner_feats=None, fresh_thresh=None,
+                noise=None, point_store=None, corner_feats=None, fresh_thresh=None,
                 precomputed=None) -> RenderOutputs:
-    """Render a batch of rays against the current map (fused branch).
+    """Render a batch of rays against the current map.
 
     Args:
       rays_o, rays_d: (R, 3) world rays (directions unnormalized).
       map_state: ops.voxel_hash.MapState (may be a view sliced to the live
         voxels).
-      embeddings: (E, D) vertex embeddings (differentiable).
+      embeddings: (E, D) vertex embeddings (differentiable; unused by the
+        pcd branch).
       noise: (R, S - H) stratification uniforms (unused with precomputed).
-      corner_feats: optional precomputed (V, 8D) corner view.
+      decoder_params: the decoder's params; the pcd branch also reads the
+        PointNet params from ``decoder_params["pointnet"]``.
+      point_store: the pcd branch's ``render.pcd_features.VoxelPointStore``.
+      corner_feats: optional precomputed (V, 8D) corner view (vox branch).
       fresh_thresh: optional voxel-slot threshold for ``fresh_frac``.
       precomputed: optional ``(Intersections, RaySamples)`` reused across
         optimizer iterations.
     """
-    if settings.feature_mode == "pcd":
+    pcd = settings.feature_mode == "pcd"
+    # K1 and K2/K3 take the same architectures (as in the JAX package)
+    if not pcd and not fused_applicable(decoder_settings):
         raise NotImplementedError(
-            "feature_mode='pcd' is not ported yet (ROADMAP Queue 1, the pcd "
-            "feature branch)")
-    if not fused_render_applicable(decoder_settings):
-        raise NotImplementedError(
-            "only the fused render branch (use_fused_mlp=True, default "
-            "architecture) is ported; the unfused branch is in ROADMAP "
-            "Queue 2 (K2 and gather_ray_features)")
+            "the unfused vox branch (use_fused_mlp=False: "
+            "gather_ray_features) is not ported yet (ROADMAP Queue 1)")
     if precomputed is not None:
         inter, samples = precomputed
     else:
@@ -116,17 +128,32 @@ def render_rays(rays_o, rays_d, map_state, embeddings, decoder_params,
     R, S = z_vals.shape
     H = inter.voxel_idx.shape[1]
 
-    vidx = inter.voxel_idx.clamp_min(0)
-    EV = corner_feats
-    if EV is None:
-        EV = corner_view(embeddings, map_state.voxel_vertex_ids)
-    keys_rb = map_state.voxel_keys[vidx.long()]
-    S_bins = torch.where(valid, samples.bin, H).to(torch.int32)
-    out = fused_feats_decode(EV, keys_rb, vidx, S_bins, z_vals, rays_o,
-                             rays_d, decoder_params, settings,
-                             decoder_settings)
+    if pcd:
+        if point_store is None:
+            raise ValueError("feature_mode='pcd' needs a VoxelPointStore")
+        sampled_xyz = (rays_o[:, None, :]
+                       + rays_d[:, None, :] * z_vals[..., None])
+        feats = gather_pcd_features(
+            sampled_xyz, samples.bin, inter.voxel_idx, point_store,
+            decoder_params["pointnet"], settings.voxel_size).reshape(R * S, -1)
+        if fused_applicable(decoder_settings):
+            out = decoder_values_fused(decoder_params, decoder_settings,
+                                       feats)
+        else:
+            out = decoder_values(decoder_params, decoder_settings, feats)
+    else:
+        vidx = inter.voxel_idx.clamp_min(0)
+        EV = corner_feats
+        if EV is None:
+            EV = corner_view(embeddings, map_state.voxel_vertex_ids)
+        keys_rb = map_state.voxel_keys[vidx.long()]
+        S_bins = torch.where(valid, samples.bin, H).to(torch.int32)
+        out = fused_feats_decode(EV, keys_rb, vidx, S_bins, z_vals, rays_o,
+                                 rays_d, decoder_params, settings,
+                                 decoder_settings)
     color = out[:, :3].reshape(R, S, 3)
     sdf = out[:, 3].reshape(R, S)
+    # invalid lanes: sdf -> 1 (free space), color -> 0
     sdf = torch.where(valid, sdf, 1.0)
     color = torch.where(valid[..., None], color, 0.0)
     weights, z_min = sdf_to_weights(sdf, z_vals, valid, settings.truncation)

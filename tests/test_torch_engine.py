@@ -136,12 +136,12 @@ def test_track_frame_matches(dataset):
     rj = fn(ms, params, prev, rays, jnp.asarray(rgb), jnp.asarray(depth),
             key, fresh_thresh=jnp.int32(thresh))
     ts = port_system(s)
-    tm = map_state_from_numpy(ms)
+    tm = map_state_from_numpy(ms, device="cpu")
     nv = tm.num_voxels
     view = tm._replace(voxel_keys=tm.voxel_keys[:nv],
                        voxel_vertex_ids=tm.voxel_vertex_ids[:nv])
-    rt = ttracker.track_frame(view, params_from_jax(params), t(n(prev)),
-                              t(n(rays)), t(rgb), t(depth), ts,
+    rt = ttracker.track_frame(view, params_from_jax(params, device="cpu"),
+                              t(n(prev)), t(n(rays)), t(rgb), t(depth), ts,
                               track_draws(key, s, rgb.shape[0] * rgb.shape[1]),
                               fresh_thresh=thresh)
     assert float(rj.hit_ratio) > 0.5
@@ -178,7 +178,7 @@ def test_map_step_matches(dataset, padded):
     rj = fn(ms, params, store, opt, rays, jnp.asarray(sel, jnp.int32),
             jnp.asarray(valid), key)
 
-    tms = map_state_from_numpy(ms)
+    tms = map_state_from_numpy(ms, device="cpu")
     nv = tms.num_voxels
     view = tms._replace(voxel_keys=tms.voxel_keys[:nv],
                         voxel_vertex_ids=tms.voxel_vertex_ids[:nv])
@@ -187,7 +187,7 @@ def test_map_step_matches(dataset, padded):
         stamps=t(n(store.stamps)), poses=t(n(store.poses)),
         adam_m=t(n(store.pose_adam.m)), adam_v=t(n(store.pose_adam.v)),
         adam_t=t(n(store.pose_adam.t)))
-    tp = params_from_jax(params)
+    tp = params_from_jax(params, device="cpu")
     rt = tmapper.map_step(view, tp, tst, tmapper.init_map_opt(tms.embeddings,
                                                              tp),
                           t(n(rays)), sel, valid, port_system(s),

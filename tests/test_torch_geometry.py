@@ -49,7 +49,7 @@ def test_exp_gradient_finite_at_zero():
 def test_camera_matches_jax():
     K = (50.0, 48.0, 31.5, 23.5)
     a = jcam.pixel_ray_directions(64, 48, *K)
-    b = tcam.pixel_ray_directions(64, 48, *K)
+    b = tcam.pixel_ray_directions(64, 48, *K, device="cpu")
     np.testing.assert_allclose(n(b), n(a), atol=1e-6)
     depth = RNG.uniform(0.5, 3.0, (48, 64)).astype(np.float32)
     pts_a = jcam.backproject(a, depth).reshape(-1, 3)

@@ -1,13 +1,22 @@
-"""Decoder and kernel-K3 parity.
+"""Decoder and kernel-K2/K3 parity.
 
 ``decoder_bwd_plain`` (the plain version of the CUDA decoder backward)
 against the JAX package's Pallas ``_run_bwd(..., bf16=True)`` in interpret
 mode: the same bf16 rounding points, so differences are f32 summation
 order only, which can flip the bf16 rounding of an intermediate; held at
-1e-3 of each output's largest magnitude. Also: the weight bridge round
-trip (exact) and ``decoder_values`` in f32 (1e-5) and bf16 (1e-3: f32
-accumulation order against XLA's, through bf16-rounded operands).
+1e-3 of each output's largest magnitude. The port's K2 path on CPU tensors
+(``decoder_fwd``, the plain version) against ``_run_fwd(...,
+interpret=True)`` with both operand types, and ``decoder_values_fused``
+with its gradients (``FusedDecoder``: K2 forward, K3 backward) against
+``jax.grad`` through the JAX package's ``decoder_values_fused(...,
+interpret=True)`` at a row count that is no multiple of its 2048-row tile:
+bf16 1e-3 and f32 1e-5 of each output's largest magnitude. Also: the weight
+bridge round trip (exact) and ``decoder_values`` in f32 (1e-5) and bf16
+(1e-3: f32 accumulation order against XLA's, through bf16-rounded
+operands).
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -26,6 +35,8 @@ from proudslam_tpu_torch.ops.kernels import mlp_kernel as tmk
 
 from torch_parity import DEC, assert_close_scaled, n, port, t
 
+FWD_TOL = {"bf16": 1e-3, "f32": 1e-5}
+
 
 @pytest.fixture(scope="module")
 def params():
@@ -33,7 +44,7 @@ def params():
 
 
 def test_weight_bridge_roundtrip(params):
-    tp = params_from_jax(params)
+    tp = params_from_jax(params, device="cpu")
     back = params_to_numpy(tp)
     a = jax.tree.leaves(params)
     b = jax.tree.leaves(back)
@@ -44,16 +55,15 @@ def test_weight_bridge_roundtrip(params):
 
 @pytest.mark.parametrize("dtype,tol", [("f32", 1e-5), ("bf16", 1e-3)])
 def test_decoder_values_match(params, dtype, tol):
-    import dataclasses
     dec = dataclasses.replace(DEC, matmul_dtype=dtype)
     x = np.random.default_rng(1).standard_normal((512, 16)).astype(np.float32)
     a = j_values(params, dec, jnp.asarray(x))
-    b = decoder_values(params_from_jax(params), port(dec), t(x))
+    b = decoder_values(params_from_jax(params, device="cpu"), port(dec), t(x))
     np.testing.assert_allclose(n(b), n(a), atol=tol)
 
 
 def test_pack_unpack_roundtrip(params):
-    tp = params_from_jax(params)
+    tp = params_from_jax(params, device="cpu")
     fp = tmk.pack_params(tp, port(DEC))
     jfp = jmk.pack_params(params, DEC)
     for x, y in zip(fp, jfp):
@@ -72,7 +82,7 @@ def test_decoder_bwd_plain_matches_pallas(params, seed):
     jfp = jmk.pack_params(params, DEC)
     outs = jmk._run_bwd(jnp.asarray(x), jnp.asarray(g), jfp, interpret=True,
                         bf16=True)
-    fp = tmk.pack_params(params_from_jax(params), port(DEC))
+    fp = tmk.pack_params(params_from_jax(params, device="cpu"), port(DEC))
     dx, grads = tmk.decoder_bwd_plain(t(x), t(g), fp)
     assert_close_scaled(dx, outs[0], 1e-3, "dx")
     for name, a, b in zip(jmk.FusedParams._fields, grads, outs[1:]):
@@ -86,7 +96,7 @@ def test_decoder_bwd_dispatch_cpu(params):
     rng = np.random.default_rng(4)
     x = t(rng.standard_normal((100, 16)).astype(np.float32))
     g = t(rng.standard_normal((100, 4)).astype(np.float32))
-    fp = tmk.pack_params(params_from_jax(params), port(DEC))
+    fp = tmk.pack_params(params_from_jax(params, device="cpu"), port(DEC))
     before = tmk.decoder_bwd.launches
     dx, grads = tmk.decoder_bwd(x, g, fp)
     dx2, none = tmk.decoder_bwd(x, g, fp, want_wgrad=False)
@@ -94,4 +104,67 @@ def test_decoder_bwd_dispatch_cpu(params):
     assert tmk.decoder_bwd.launches == before      # no kernel on the CPU
     with pytest.raises(ValueError):
         tmk.decoder_bwd(x.to("meta"), g.to("meta"),
+                        tmk.FusedParams(*[p.to("meta") for p in fp]))
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_decoder_fwd_plain_matches_pallas(params, dtype):
+    bf16 = dtype == "bf16"
+    x = np.random.default_rng(5).standard_normal(
+        (jmk.TILE, 16)).astype(np.float32)
+    a = jmk._run_fwd(jnp.asarray(x), jmk.pack_params(params, DEC),
+                     interpret=True, bf16=bf16)
+    fp = tmk.pack_params(params_from_jax(params, device="cpu"), port(DEC))
+    before = tmk.decoder_fwd.launches
+    b = tmk.decoder_fwd(t(x), fp, bf16=bf16)
+    assert tmk.decoder_fwd.launches == before      # no kernel on the CPU
+    assert b.shape == (jmk.TILE, 4)
+    assert_close_scaled(b, a, FWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_decoder_values_fused_and_grads_match(params, dtype):
+    dec = dataclasses.replace(DEC, matmul_dtype=dtype)
+    rng = np.random.default_rng(6)
+    N = 1000                                  # no multiple of jmk.TILE
+    x = rng.standard_normal((N, 16)).astype(np.float32)
+    w = rng.standard_normal((N, 4)).astype(np.float32)
+
+    def jf(x_, p):
+        out = jmk.decoder_values_fused(p, dec, x_, interpret=True)
+        return jnp.sum(out * w), out
+
+    (_, out_j), (gx, gp) = jax.value_and_grad(jf, argnums=(0, 1),
+                                              has_aux=True)(
+        jnp.asarray(x), params)
+    x_t = t(x).requires_grad_(True)
+    p_t = params_from_jax(params, device="cpu")
+    for p in tree_leaves(p_t):
+        p.requires_grad_(True)
+    out_t = tmk.decoder_values_fused(p_t, port(dec), x_t)
+    (out_t * t(w)).sum().backward()
+    tol = FWD_TOL[dtype]
+    assert out_t.shape == (N, 4)
+    assert_close_scaled(out_t, out_j, tol, "out")
+    assert_close_scaled(x_t.grad, gx, tol, "dx")
+    for a, b in zip(tree_leaves(p_t), jax.tree.leaves(gp)):
+        assert_close_scaled(a.grad, b, tol, "params")
+
+
+def test_fused_decoder_skips_weight_grads(params):
+    """With frozen params (tracking) only dx is computed; it equals the
+    full backward's dx. Other devices raise; no rows give no output."""
+    fp = tmk.pack_params(params_from_jax(params, device="cpu"), port(DEC))
+    x = t(np.random.default_rng(7).standard_normal((70, 16)).astype(
+        np.float32)).requires_grad_(True)
+    tmk.FusedDecoder.apply(x, True, *fp).sum().backward()
+    dx_full, _ = tmk.decoder_bwd(x.detach(), torch.ones(70, 4), fp)
+    assert torch.equal(x.grad, dx_full)
+    assert all(p.grad is None for p in fp)
+    assert tmk.decoder_fwd(x[:0].detach(), fp).shape == (0, 4)
+    assert tmk.fused_applicable(port(DEC))
+    assert not tmk.fused_applicable(
+        dataclasses.replace(port(DEC), use_fused_mlp=False))
+    with pytest.raises(ValueError):
+        tmk.decoder_fwd(x.detach().to("meta"),
                         tmk.FusedParams(*[p.to("meta") for p in fp]))

@@ -64,7 +64,7 @@ def test_forward_plain_matches_pallas(case):
     out_j, feats_j = jrk.fused_render_forward(
         rb, c["keys_rb"], c["bins"], c["z"], jnp.asarray(c["o"]),
         jnp.asarray(c["d"]), c["params"], RENDER, DEC, interpret=True)
-    fp = tmk.pack_params(params_from_jax(c["params"]), port(DEC))
+    fp = tmk.pack_params(params_from_jax(c["params"], device="cpu"), port(DEC))
     out_t, feats_t = trk.fused_render_forward_plain(
         t(n(rb)), t(n(c["keys_rb"])), t(n(c["bins"])), t(n(c["z"])),
         t(c["o"]), t(c["d"]), fp, RENDER.voxel_size)
@@ -95,7 +95,7 @@ def test_gradients_match_jax(case):
     EV = t(n(c["EV"])).requires_grad_(True)
     o = t(c["o"]).requires_grad_(True)
     d = t(c["d"]).requires_grad_(True)
-    params = params_from_jax(c["params"])
+    params = params_from_jax(c["params"], device="cpu")
     for p in tree_leaves(params):
         p.requires_grad_(True)
     out = trk.fused_feats_decode(

@@ -1,14 +1,21 @@
-"""Render + loss parity on the fused branch: the port's ``render_rays`` and
-``compute_loss`` against the JAX package's with its fused Pallas branch
-forced on (interpret mode, as ``tests/test_fused_render.py`` does), on the
-same map, rays and noise. Outputs and the gradients the SLAM loops consume
+"""Render + loss parity: the port's ``render_rays`` and ``compute_loss``
+against the JAX package's with its fused Pallas branches forced on
+(interpret mode, as ``tests/test_fused_render.py`` does), on the same map,
+rays and noise. Outputs and the gradients the SLAM loops consume
 (embeddings for mapping, ray origins/directions for tracking, decoder
-params) are compared.
+params) are compared, for the vox branch (kernel K1) and the pcd branch
+(PointNet features, kernels K2/K3; there the PointNet params' gradients
+too). The JAX pcd branch reaches K2 only on a TPU backend, so
+``fused_applicable`` is patched to skip that check and
+``decoder_values_fused`` to run in interpret mode.
 
 Tolerances: rendered color/depth/sdf 2e-3 (bf16 decoder operands in both,
 f32 summation order differs); loss 1e-3 relative; gradients 5e-3 of each
 gradient's largest magnitude (the same, through the normalized weights).
 """
+
+import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -18,12 +25,17 @@ import torch
 
 from proudslam_tpu.config import LossSettings
 from proudslam_tpu.models.decoder import init_decoder as j_init
+from proudslam_tpu.models.pointnet import init_pointnet as j_init_pn
 from proudslam_tpu.ops import voxel_hash as jvh
+from proudslam_tpu.ops.pallas import mlp_kernel as jmk
 from proudslam_tpu.ops.pallas import render_kernel as jrk
+from proudslam_tpu.render import pcd_features as jpf
 from proudslam_tpu.render.losses import compute_loss as j_loss
 from proudslam_tpu.render.renderer import render_rays as j_render
 from proudslam_tpu_torch.models.decoder import (map_state_from_numpy,
-                                                params_from_jax, tree_leaves)
+                                                params_from_jax,
+                                                point_store_from_numpy,
+                                                tree_leaves)
 from proudslam_tpu_torch.render import losses as tl
 from proudslam_tpu_torch.render import renderer as tr
 
@@ -67,11 +79,11 @@ def test_render_and_loss_match(case, depth_variance):
                                          has_aux=True)(
         state.embeddings, jnp.asarray(o), jnp.asarray(d), params)
 
-    ts = map_state_from_numpy(state)
+    ts = map_state_from_numpy(state, device="cpu")
     emb = ts.embeddings.clone().requires_grad_(True)
     o_t = t(o).requires_grad_(True)
     d_t = t(d).requires_grad_(True)
-    p_t = params_from_jax(params)
+    p_t = params_from_jax(params, device="cpu")
     for p in tree_leaves(p_t):
         p.requires_grad_(True)
     out_t = tr.render_rays(o_t, d_t, ts, emb, p_t, port(DEC), port(RENDER),
@@ -96,6 +108,71 @@ def test_render_and_loss_match(case, depth_variance):
         assert_close_scaled(a.grad, b, 5e-3, "params")
 
 
+def test_pcd_render_and_loss_match(case, monkeypatch):
+    """pcd branch: outputs, loss and the gradients w.r.t. ray origins and
+    directions (pose), PointNet and decoder params, at the vox branch's
+    tolerances."""
+    monkeypatch.setattr(jmk, "fused_applicable",
+                        lambda dec: dec.use_fused_mlp and dec.depth == 2
+                        and not dec.skips and dec.embedder == "none")
+    monkeypatch.setattr(jmk, "decoder_values_fused", functools.partial(
+        jmk.decoder_values_fused, interpret=True))
+    state, params, o, d, noise, gt_c, gt_d = case
+    rnd = dataclasses.replace(RENDER, feature_mode="pcd")
+    rng = np.random.default_rng(8)
+    coords = map_coords(0)
+    pick = coords[rng.integers(0, len(coords) // 2, 1500)]
+    pts = ((pick + rng.uniform(0.01, 0.99, pick.shape))
+           * MAP.voxel_size).astype(np.float32)
+    store = jpf.insert_frame_points(
+        jpf.init_point_store(MAP, 8), state, jnp.asarray(pts),
+        jnp.asarray(rng.random(pts.shape), jnp.float32),
+        jnp.ones(len(pts), bool), MAP)
+    pn = j_init_pn(jax.random.PRNGKey(4), 16)
+    ls = LossSettings()
+
+    def jf(o_, d_, p, pn_):
+        out = j_render(o_, d_, state, state.embeddings, p, DEC, rnd,
+                       jnp.asarray(noise), point_store=store,
+                       pointnet_params=pn_)
+        loss, _ = j_loss(out, jnp.asarray(gt_c), jnp.asarray(gt_d), ls,
+                         weight_depth_loss=True)
+        return loss, out
+
+    (lj, out_j), gj = jax.jit(jax.value_and_grad(
+        jf, argnums=(0, 1, 2, 3), has_aux=True))(
+        jnp.asarray(o), jnp.asarray(d), params, pn)
+
+    ts = map_state_from_numpy(state, device="cpu")
+    o_t = t(o).requires_grad_(True)
+    d_t = t(d).requires_grad_(True)
+    p_t = params_from_jax(params, device="cpu")
+    pn_t = params_from_jax(pn, device="cpu")
+    for p in tree_leaves(p_t) + tree_leaves(pn_t):
+        p.requires_grad_(True)
+    out_t = tr.render_rays(o_t, d_t, ts, ts.embeddings,
+                           {**p_t, "pointnet": pn_t}, port(DEC), port(rnd),
+                           t(noise), point_store=point_store_from_numpy(
+                               store, device="cpu"))
+    lt, _ = tl.compute_loss(out_t, t(gt_c), t(gt_d), port(ls),
+                            weight_depth_loss=True)
+    lt.backward()
+
+    assert n(out_j.hit_mask).mean() > 0.5
+    np.testing.assert_array_equal(n(out_t.sample_mask), n(out_j.sample_mask))
+    for f in ("color", "depth", "sdf", "weights"):
+        np.testing.assert_allclose(n(getattr(out_t, f)),
+                                   n(getattr(out_j, f)), atol=2e-3,
+                                   err_msg=f)
+    np.testing.assert_allclose(float(lt.detach()), float(lj), rtol=1e-3)
+    assert_close_scaled(o_t.grad, gj[0], 5e-3, "d_o")
+    assert_close_scaled(d_t.grad, gj[1], 5e-3, "d_d")
+    for a, b in zip(tree_leaves(p_t), jax.tree.leaves(gj[2])):
+        assert_close_scaled(a.grad, b, 5e-3, "decoder params")
+    for a, b in zip(tree_leaves(pn_t), jax.tree.leaves(gj[3])):
+        assert_close_scaled(a.grad, b, 5e-3, "pointnet params")
+
+
 def test_fresh_fraction_and_median_match():
     from proudslam_tpu.render.losses import _masked_median as j_med
     from proudslam_tpu.render.renderer import _fresh_fraction as j_fresh
@@ -111,10 +188,10 @@ def test_fresh_fraction_and_median_match():
 
 
 def test_unported_branches_raise():
-    import dataclasses
-    ts = map_state_from_numpy(jvh.build_map_state_numpy(map_coords(0), MAP))
+    ts = map_state_from_numpy(jvh.build_map_state_numpy(map_coords(0), MAP),
+                              device="cpu")
     o, d = ray_batch(4)
     unfused = dataclasses.replace(port(DEC), use_fused_mlp=False)
-    with pytest.raises(NotImplementedError, match="Queue 2"):
+    with pytest.raises(NotImplementedError, match="unfused vox branch"):
         tr.render_rays(t(o), t(d), ts, ts.embeddings, {}, unfused,
                        port(RENDER), torch.rand(4, 18))

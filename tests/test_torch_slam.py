@@ -66,8 +66,8 @@ def _adam(state) -> AdamState:
 
 def sync_from_jax(ts: TSlam, js: JSlam) -> None:
     """Set the port's continuous state to the JAX engine's."""
-    ts.map_state = map_state_from_numpy(js.map_state)
-    ts.decoder_params = params_from_jax(js.decoder_params)
+    ts.map_state = map_state_from_numpy(js.map_state, device="cpu")
+    ts.decoder_params = params_from_jax(js.decoder_params, device="cpu")
     ts.opt = MapOptState(embed=_adam(js.opt.embed),
                          decoder=_adam(js.opt.decoder))
     st = js.store

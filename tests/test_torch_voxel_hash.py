@@ -44,12 +44,12 @@ def test_build_map_state_numpy_matches():
     coords = np.unique(np.random.default_rng(1).integers(-5, 5, (150, 3)),
                        axis=0)
     js = jvh.build_map_state_numpy(coords, MAP)
-    ts = tvh.build_map_state_numpy(coords, port(MAP))
+    ts = tvh.build_map_state_numpy(coords, port(MAP), device="cpu")
     assert_tables_equal(js, ts)
     np.testing.assert_array_equal(n(ts.embeddings), n(js.embeddings))
     # the bridge back to the JAX field layout and in again is lossless
     back = jvh.MapState(**map_state_to_numpy(ts))
-    assert_tables_equal(back, map_state_from_numpy(back))
+    assert_tables_equal(back, map_state_from_numpy(back, device="cpu"))
     for f in jvh.MapState._fields:
         np.testing.assert_array_equal(np.asarray(getattr(back, f)),
                                       np.asarray(getattr(js, f)), err_msg=f)
@@ -82,7 +82,7 @@ def test_insert_sequence_matches(case):
         ms = dataclasses.replace(MAP, voxel_capacity=150,
                                  frame_voxel_capacity=256)
     js = jvh.init_map_state(ms, jax.random.PRNGKey(0))
-    ts = map_state_from_numpy(js)
+    ts = map_state_from_numpy(js, device="cpu")
     for i, (pts, valid) in enumerate(_clouds(5)):
         cap = steady if (steady and i > 0) else None
         js = jvh.insert_points(js, jnp.asarray(pts), jnp.asarray(valid), ms,
@@ -97,7 +97,7 @@ def test_lookups_match():
     coords = np.unique(np.random.default_rng(2).integers(-4, 4, (100, 3)),
                        axis=0)
     js = jvh.build_map_state_numpy(coords, MAP)
-    ts = tvh.build_map_state_numpy(coords, port(MAP))
+    ts = tvh.build_map_state_numpy(coords, port(MAP), device="cpu")
     q = np.random.default_rng(3).integers(-6, 6, (300, 3)).astype(np.int32)
     kj = jvh.pack_coords(jnp.asarray(q))
     np.testing.assert_array_equal(
