@@ -1,9 +1,11 @@
-// Shared pieces of the two decoder kernels (render_kernel.cu, mlp_kernel.cu):
-// the decoder's weights held in shared memory as bf16, and the forward pass
-// of one tile of TR rows. Every matrix product takes bf16-rounded operands
-// (round to nearest even) and accumulates their exact products in f32; bias
-// add, ReLU and sigmoid run in f32. This is the arithmetic of the TPU
-// kernels' `_dot` (bf16 operands, preferred_element_type=f32).
+// The decoder's parameter layout, shared by the three decoder kernels, and
+// the FMA-unit decoder tile of K2 (mlp_kernel.cu): the decoder's weights
+// held in shared memory as bf16, and the forward pass of one tile of TR
+// rows. Every matrix product takes bf16-rounded operands (round to nearest
+// even) and accumulates their exact products in f32; bias add, ReLU and
+// sigmoid run in f32. This is the arithmetic of the TPU kernels' `_dot`
+// (bf16 operands, preferred_element_type=f32). K1 and K3 run the same
+// arithmetic on the tensor cores (decoder_tc.cuh).
 //
 // Layout (the JAX package's `FusedParams`, all f32 row-major in global
 // memory): w1 (D,W) b1 (W) w2 (W,W) b2 (W) ws (W,W+1) [feat cols | sdf col
@@ -13,8 +15,7 @@
 // 8w..8w+7 and lane l owns the 4 columns l, l+32, l+64, l+96 of every
 // 128-wide product, so one thread keeps an 8x4 block of sums in registers.
 // Operand rows are read by all lanes of a warp at once (a broadcast); weight
-// rows are padded to LDW = 130 bf16 (65 words), so the transposed weight
-// reads of the backward pass hit 32 distinct banks.
+// rows are padded to LDW = 130 bf16.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -103,9 +104,6 @@ constexpr int ACT_SMEM = pad16(TR * D * 2) + 4 * pad16(TR * LDW * 2)
                          + pad16(TR * 4 * 4);
 
 __device__ inline float ldb(const bf16* p) { return __bfloat162float(*p); }
-__device__ inline float rbf(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
 
 __device__ inline void carve_weights(Arena& a, Weights& w) {
   w.w1 = a.take<bf16>(D * LDW);
@@ -164,10 +162,8 @@ __device__ inline void zero(float acc[RPT][4]) {
     for (int q = 0; q < 4; ++q) acc[p][q] = 0.f;
 }
 
-// acc[p][q] += sum_k A[r][k] * B(k, c) over k < K, for this thread's rows
-// r = 8*warp + p and columns c = lane + 32q. B(k, c) = M[k][c] when
-// TRANS is false and M[c][k] when it is true (a product with M^T).
-template <bool TRANS>
+// acc[p][q] += sum_k A[r][k] * M[k][c] over k < K, for this thread's rows
+// r = 8*warp + p and columns c = lane + 32q.
 __device__ inline void mm(const bf16* A, int lda, int K, const bf16* M,
                           int ldm, float acc[RPT][4]) {
   const int lane = threadIdx.x & 31;
@@ -179,7 +175,7 @@ __device__ inline void mm(const bf16* A, int lda, int K, const bf16* M,
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const int c = lane + 32 * q;
-      b[q] = TRANS ? ldb(M + c * ldm + k) : ldb(M + k * ldm + c);
+      b[q] = ldb(M + k * ldm + c);
     }
 #pragma unroll
     for (int p = 0; p < RPT; ++p)
@@ -211,20 +207,20 @@ __device__ inline void forward_tile(const Weights& w, const Acts& t) {
   float acc[RPT][4];
   __syncthreads();
   zero(acc);
-  mm<false>(t.x, D, D, w.w1, LDW, acc);
+  mm(t.x, D, D, w.w1, LDW, acc);
   store_act(t.h1, acc, w.b1, true);
   __syncthreads();
   zero(acc);
-  mm<false>(t.h1, LDW, W, w.w2, LDW, acc);
+  mm(t.h1, LDW, W, w.w2, LDW, acc);
   store_act(t.h2, acc, w.b2, true);
   __syncthreads();
   zero(acc);
-  mm<false>(t.h2, LDW, W, w.ws, LDW, acc);     // feat columns 0..W-1
+  mm(t.h2, LDW, W, w.ws, LDW, acc);     // feat columns 0..W-1
   store_act(t.feat, acc, w.bs, false);
   __syncthreads();
   zero(acc);
-  mm<false>(t.feat, LDW, W, w.wc_f, LDW, acc);
-  mm<false>(t.x, D, D, w.wc_x, LDW, acc);
+  mm(t.feat, LDW, W, w.wc_f, LDW, acc);
+  mm(t.x, D, D, w.wc_x, LDW, acc);
   store_act(t.hc, acc, w.bc, true);
   __syncthreads();
   // heads: thread (r, c) = (tid / 4, tid % 4); c < 3 color, c == 3 sdf

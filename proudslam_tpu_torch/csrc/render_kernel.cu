@@ -11,96 +11,303 @@
 //
 // What bounds it on an H100: arithmetic. Per sample the decoder does
 // ~2 * 54k = 108k flops against ~64 B of feature reads and 80 B of writes,
-// far above the card's balance point, so the kernel's job is to keep every
-// activation on chip: the weights (~107 KB as bf16) and one 64-row tile of
-// activations stay in shared memory, and nothing but the features and the
-// four outputs ever reaches device memory. The TPU kernel looped over all H
-// slots with masks (its vector unit wants dense work); here each sample
-// reads only its own slot's 8 x 16 corner values. This first version runs
-// the products on the FMA units (not the tensor cores), with an 8x4 block
-// of sums per thread; wgmma/TMA are for later work.
-//
-// Grid: persistent, one block per SM (the ~180 KB of shared memory allows
-// one), each block walking tiles of TR = 64 sample rows; the weights are
-// loaded once per block.
+// far above the card's balance point, so nothing but the features and the
+// four outputs reaches device memory, and the products run on the tensor
+// cores (`wgmma`, decoder_tc.cuh). Design:
+//   - a block of two warpgroups; each warpgroup walks its own 64-sample
+//     tiles (one tile is one wgmma M of 64 rows), with the weights (~109 KB
+//     as bf16) shared in shared memory for the block's life;
+//   - the layers chain through registers: each m64n128 accumulator, plus
+//     bias and activation, is rounded to bf16 and becomes the A operand of
+//     the next layer's wgmma, so h1, h2, feat and hc never touch shared
+//     memory. Only the blended input x goes through shared memory (it is
+//     the A operand of the first product and of the color head's x part);
+//   - the odd widths run on the FMA units: the sdf column (h2 . ws[:, W])
+//     and the 3-wide color head, as per-thread partial dots summed over the
+//     four lanes that share a row;
+//   - the gather of the next tile overlaps this tile's products: each
+//     sample's own slot (8 x 16 f32, selected by bins, so TMA does not fit)
+//     is copied with 16-byte cp.async into the warpgroup's buffer right
+//     after this tile's blend, and read at the next tile's blend.
+// The blend keeps the exact f32 arithmetic (__fmul_rn/__fadd_rn, the same
+// order) of the plain version, so `feats` matches it to rounding.
 
-#include "decoder_tile.cuh"
-
-using namespace dec;
+#include "decoder_tc.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(THREADS, 1)
-render_forward_kernel(const float* __restrict__ rb,
-                      const int* __restrict__ keys,
-                      const int* __restrict__ bins,
-                      const float* __restrict__ z,
-                      const float* __restrict__ rays_o,
-                      const float* __restrict__ rays_d, Params prm,
-                      float* __restrict__ out, float* __restrict__ feats,
-                      int R, int H, int S, float voxel) {
-  extern __shared__ __align__(16) char smem[];
-  Arena arena{smem};
-  Weights w;
-  Acts t;
-  carve_weights(arena, w);
-  carve_acts(arena, t);
-  load_weights(w, prm);
+using tc::bf16;
+using dec::D;
+using dec::W;
 
-  const long long N = static_cast<long long>(R) * S;
-  const long long ntiles = (N + TR - 1) / TR;
-  const int K8 = 8 * D;
-  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const long long row0 = tile * TR;
-    // ---- features: thread (r, quarter) = (tid / 4, tid % 4) -> 4 dims
-    {
-      const int r = threadIdx.x >> 2, qd = threadIdx.x & 3;
-      const long long n = row0 + r;
-      float f[4] = {0.f, 0.f, 0.f, 0.f};
-      if (n < N) {
-        const long long ray = n / S;
-        const int h = bins[n];
-        if (h >= 0 && h < H) {
-          const float zz = z[n];
-          const int key = keys[ray * H + h];
-          const float cx = static_cast<float>(((key >> 20) & 1023) - 512);
-          const float cy = static_cast<float>(((key >> 10) & 1023) - 512);
-          const float cz = static_cast<float>((key & 1023) - 512);
-          const float px = __fdiv_rn(__fadd_rn(rays_o[ray * 3 + 0],
-                                               __fmul_rn(rays_d[ray * 3 + 0], zz)),
-                                     voxel) - cx;
-          const float py = __fdiv_rn(__fadd_rn(rays_o[ray * 3 + 1],
-                                               __fmul_rn(rays_d[ray * 3 + 1], zz)),
-                                     voxel) - cy;
-          const float pz = __fdiv_rn(__fadd_rn(rays_o[ray * 3 + 2],
-                                               __fmul_rn(rays_d[ray * 3 + 2], zz)),
-                                     voxel) - cz;
-          const float* src = rb + (ray * H + h) * K8 + qd * 4;
+constexpr int THREADS = 2 * tc::WG;          // two warpgroups, own tiles each
+constexpr int KS = 8 * D;                    // corner values of a hit slot
+constexpr int GROW = KS * 4 + 16;            // gather-buffer row, bytes (padded)
+constexpr int GBUF = tc::TR * GROW;
+constexpr int XTILE = tc::TR * D;            // bf16 input tile (TR, D)
+constexpr int SMEM = tc::TC_WEIGHT_SMEM
+                     + 2 * (dec::pad16(GBUF) + dec::pad16(XTILE * 2));
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+struct Inputs {
+  const float *rb, *z, *rays_o, *rays_d;
+  const int *keys, *bins;
+  float *out, *feats;
+  long long N;
+  int H, S;
+  float voxel;
+};
+
+// What one thread needs to blend its (row, half) of a tile, loaded when
+// its copies are issued.
+struct Sample {
+  bool slot;          // the sample has a hit slot
+  float z, o[3], d[3];
+  int key;
+};
+
+// Gather of a tile: thread (row = t % 64, half = t / 64) loads its sample's
+// scalars and issues the cp.async copies of dims [8 half, 8 half + 8) of
+// the slot's 8 corners into the warpgroup's buffer.
+__device__ inline void issue(const Inputs& in, long long tile, int row,
+                             int half, char* gbuf, Sample& s) {
+  const long long n = tile * tc::TR + row;
+  s.slot = false;
+  if (n < in.N) {
+    const int h = in.bins[n];
+    if (h >= 0 && h < in.H) {
+      const long long ray = n / in.S;
+      s.slot = true;
+      s.z = in.z[n];
+      s.key = in.keys[ray * in.H + h];
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const float wx = (j & 4) ? px : 1.f - px;
-            const float wy = (j & 2) ? py : 1.f - py;
-            const float wz = (j & 1) ? pz : 1.f - pz;
-            const float wj = __fmul_rn(__fmul_rn(wx, wy), wz);
-            const float4 e = *reinterpret_cast<const float4*>(src + j * D);
-            f[0] = __fadd_rn(f[0], __fmul_rn(wj, e.x));
-            f[1] = __fadd_rn(f[1], __fmul_rn(wj, e.y));
-            f[2] = __fadd_rn(f[2], __fmul_rn(wj, e.z));
-            f[3] = __fadd_rn(f[3], __fmul_rn(wj, e.w));
-          }
-        }
-        *reinterpret_cast<float4*>(feats + n * D + qd * 4) =
-            make_float4(f[0], f[1], f[2], f[3]);
+      for (int k = 0; k < 3; ++k) {
+        s.o[k] = in.rays_o[ray * 3 + k];
+        s.d[k] = in.rays_d[ray * 3 + k];
       }
+      const float* src = in.rb + (ray * in.H + h) * KS + 8 * half;
+      char* dst = gbuf + row * GROW + 32 * half;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        t.x[r * D + qd * 4 + i] = __float2bfloat16_rn(f[i]);
+      for (int j = 0; j < 8; ++j) {
+        cp_async16(dst + 64 * j, src + j * D);
+        cp_async16(dst + 64 * j + 16, src + j * D + 4);
+      }
     }
-    forward_tile(w, t);
-    {
-      const int r = threadIdx.x >> 2, c = threadIdx.x & 3;
-      if (row0 + r < N) out[(row0 + r) * 4 + c] = t.out[r * 4 + c];
+  }
+  cp_async_commit();
+}
+
+// The trilinear blend of this thread's 8 features: written to feats (f32)
+// and, rounded to bf16, to the tile's input x.
+__device__ inline void blend(const Inputs& in, long long tile, int row,
+                             int half, const char* gbuf, const Sample& s,
+                             bf16* xs) {
+  const long long n = tile * tc::TR + row;
+  float f[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) f[i] = 0.f;
+  if (s.slot) {
+    const float cx = static_cast<float>(((s.key >> 20) & 1023) - 512);
+    const float cy = static_cast<float>(((s.key >> 10) & 1023) - 512);
+    const float cz = static_cast<float>((s.key & 1023) - 512);
+    const float px = __fdiv_rn(__fadd_rn(s.o[0], __fmul_rn(s.d[0], s.z)),
+                               in.voxel) - cx;
+    const float py = __fdiv_rn(__fadd_rn(s.o[1], __fmul_rn(s.d[1], s.z)),
+                               in.voxel) - cy;
+    const float pz = __fdiv_rn(__fadd_rn(s.o[2], __fmul_rn(s.d[2], s.z)),
+                               in.voxel) - cz;
+    const float* src = reinterpret_cast<const float*>(gbuf + row * GROW) + 8 * half;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float wx = (j & 4) ? px : 1.f - px;
+      const float wy = (j & 2) ? py : 1.f - py;
+      const float wz = (j & 1) ? pz : 1.f - pz;
+      const float wj = __fmul_rn(__fmul_rn(wx, wy), wz);
+      const float4 e0 = *reinterpret_cast<const float4*>(src + j * D);
+      const float4 e1 = *reinterpret_cast<const float4*>(src + j * D + 4);
+      f[0] = __fadd_rn(f[0], __fmul_rn(wj, e0.x));
+      f[1] = __fadd_rn(f[1], __fmul_rn(wj, e0.y));
+      f[2] = __fadd_rn(f[2], __fmul_rn(wj, e0.z));
+      f[3] = __fadd_rn(f[3], __fmul_rn(wj, e0.w));
+      f[4] = __fadd_rn(f[4], __fmul_rn(wj, e1.x));
+      f[5] = __fadd_rn(f[5], __fmul_rn(wj, e1.y));
+      f[6] = __fadd_rn(f[6], __fmul_rn(wj, e1.z));
+      f[7] = __fadd_rn(f[7], __fmul_rn(wj, e1.w));
     }
+  }
+  if (n < in.N) {
+    float4* o = reinterpret_cast<float4*>(in.feats + n * D + 8 * half);
+    o[0] = make_float4(f[0], f[1], f[2], f[3]);
+    o[1] = make_float4(f[4], f[5], f[6], f[7]);
+  }
+  uint4 v;
+  v.x = tc::pack_bf16x2(f[0], f[1]);
+  v.y = tc::pack_bf16x2(f[2], f[3]);
+  v.z = tc::pack_bf16x2(f[4], f[5]);
+  v.w = tc::pack_bf16x2(f[6], f[7]);
+  *reinterpret_cast<uint4*>(xs + tc::tofs(row, 8 * half, D)) = v;
+}
+
+// acc + bias (ReLU if asked), rounded to bf16: the A operand of the next
+// layer (entries 8j..8j+7 of the accumulator are k-step j's fragment).
+// Also returns the rounded values in `acc` for the FMA heads.
+__device__ __forceinline__ void to_frags(float (&acc)[64], const float* bias,
+                                         bool relu, uint32_t (&af)[8][4]) {
+  const int c = threadIdx.x & 3;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const float2 b = *reinterpret_cast<const float2*>(bias + 8 * i + 2 * c);
+    float v[4] = {acc[4 * i] + b.x, acc[4 * i + 1] + b.y,
+                  acc[4 * i + 2] + b.x, acc[4 * i + 3] + b.y};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (relu) v[e] = fmaxf(v[e], 0.f);
+      acc[4 * i + e] = tc::rbf(v[e]);
+    }
+    af[i >> 1][2 * (i & 1)] = tc::pack_bf16x2(v[0], v[1]);
+    af[i >> 1][2 * (i & 1) + 1] = tc::pack_bf16x2(v[2], v[3]);
+  }
+}
+
+// sum over the four lanes that hold one row's columns
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  return v;
+}
+
+// The decoder of one tile whose input x (bf16, tile layout) is in place;
+// writes out[tile rows] = [sigmoid(hc wo + bo), sdf].
+__device__ inline void decode(const tc::TcWeights& w, const bf16* xs,
+                              const Inputs& in, long long tile, int t) {
+  const int l = t & 31, c = l & 3;
+  const int r0 = 16 * (t >> 5) + (l >> 2);
+  float acc[64];
+  uint32_t af[8][4];
+  const uint64_t dx = tc::desc_k(xs, D);
+
+  // h1 = relu(x w1 + b1)
+  tc::fence_regs(acc);
+  tc::wg_fence();
+  tc::mma_m64n128<0, 0>(acc, dx, tc::desc_k(w.w1, D), 0);
+  tc::wg_commit();
+  tc::wg_wait_all();
+  tc::fence_regs(acc);
+  to_frags(acc, w.b1, true, af);
+
+  // h2 = relu(h1 w2 + b2); sdf = h2 . ws[:, W] + bs[W]
+  tc::wg_fence();
+  const uint64_t dw2 = tc::desc_k(w.w2, W);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    tc::mma_m64n128_rs<0>(acc, af[j], dw2 + j * tc::KSTEP_K, j > 0);
+  tc::wg_commit();
+  tc::wg_wait_all();
+  tc::fence_regs(acc);
+  tc::fence_regs(af);
+  to_frags(acc, w.b2, true, af);
+  float sdf0 = 0.f, sdf1 = 0.f;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const float2 ws = *reinterpret_cast<const float2*>(w.ws_sdf + 8 * i + 2 * c);
+    sdf0 = fmaf(acc[4 * i], ws.x, fmaf(acc[4 * i + 1], ws.y, sdf0));
+    sdf1 = fmaf(acc[4 * i + 2], ws.x, fmaf(acc[4 * i + 3], ws.y, sdf1));
+  }
+  sdf0 = quad_sum(sdf0) + w.bs[W];
+  sdf1 = quad_sum(sdf1) + w.bs[W];
+
+  // feat = h2 ws[:, :W] + bs[:W]
+  tc::wg_fence();
+  const uint64_t dws = tc::desc_k(w.ws, W);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    tc::mma_m64n128_rs<0>(acc, af[j], dws + j * tc::KSTEP_K, j > 0);
+  tc::wg_commit();
+  tc::wg_wait_all();
+  tc::fence_regs(acc);
+  tc::fence_regs(af);
+  to_frags(acc, w.bs, false, af);
+
+  // hc = relu(feat wc_f + x wc_x + bc); rgb = sigmoid(hc wo + bo)
+  tc::wg_fence();
+  const uint64_t dwc = tc::desc_k(w.wc_f, W);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    tc::mma_m64n128_rs<0>(acc, af[j], dwc + j * tc::KSTEP_K, j > 0);
+  tc::mma_m64n128<0, 0>(acc, dx, tc::desc_k(w.wc_x, D), 1);
+  tc::wg_commit();
+  tc::wg_wait_all();
+  tc::fence_regs(acc);
+  tc::fence_regs(af);
+  to_frags(acc, w.bc, true, af);
+  float p0[3] = {0.f, 0.f, 0.f}, p1[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float4 wo = *reinterpret_cast<const float4*>(w.wo + 4 * (8 * i + 2 * c + e));
+      p0[0] = fmaf(acc[4 * i + e], wo.x, p0[0]);
+      p0[1] = fmaf(acc[4 * i + e], wo.y, p0[1]);
+      p0[2] = fmaf(acc[4 * i + e], wo.z, p0[2]);
+      p1[0] = fmaf(acc[4 * i + 2 + e], wo.x, p1[0]);
+      p1[1] = fmaf(acc[4 * i + 2 + e], wo.y, p1[1]);
+      p1[2] = fmaf(acc[4 * i + 2 + e], wo.z, p1[2]);
+    }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    p0[k] = 1.f / (1.f + expf(-(quad_sum(p0[k]) + w.bo[k])));
+    p1[k] = 1.f / (1.f + expf(-(quad_sum(p1[k]) + w.bo[k])));
+  }
+  if (c == 0) {
+    const long long n0 = tile * tc::TR + r0, n1 = n0 + 8;
+    if (n0 < in.N)
+      *reinterpret_cast<float4*>(in.out + n0 * 4) =
+          make_float4(p0[0], p0[1], p0[2], sdf0);
+    if (n1 < in.N)
+      *reinterpret_cast<float4*>(in.out + n1 * 4) =
+          make_float4(p1[0], p1[1], p1[2], sdf1);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+render_forward_kernel(Inputs in, dec::Params prm) {
+  extern __shared__ __align__(16) char smem[];
+  dec::Arena arena{smem};
+  tc::TcWeights w;
+  tc::carve_weights(arena, w);
+  char* gbuf = arena.take<char>(2 * dec::pad16(GBUF));
+  bf16* xbuf = arena.take<bf16>(2 * XTILE);
+  tc::load_weights(w, prm);
+
+  const int wg = threadIdx.x / tc::WG, t = threadIdx.x % tc::WG;
+  const int row = t % tc::TR, half = t / tc::TR;
+  char* gb = gbuf + wg * dec::pad16(GBUF);
+  bf16* xs = xbuf + wg * XTILE;
+  const long long ntiles = (in.N + tc::TR - 1) / tc::TR;
+  const long long stride = 2LL * gridDim.x;
+  Sample s;
+  long long tile = 2LL * blockIdx.x + wg;
+  if (tile < ntiles) issue(in, tile, row, half, gb, s);
+  for (; tile < ntiles; tile += stride) {
+    cp_async_wait_all();
+    tc::wg_barrier(wg);               // this tile's copies are visible
+    blend(in, tile, row, half, gb, s, xs);
+    tc::fence_proxy_async();
+    tc::wg_barrier(wg);               // x is in place; the buffer is free
+    if (tile + stride < ntiles) issue(in, tile + stride, row, half, gb, s);
+    decode(w, xs, in, tile, t);
   }
 }
 
@@ -114,13 +321,13 @@ extern "C" int fused_render_forward(const float* rb, const int* keys,
                                     float* feats, int R, int H, int S,
                                     float voxel, int grid,
                                     cudaStream_t stream) {
-  const int smem = WEIGHT_SMEM + ACT_SMEM;
   cudaError_t err = cudaFuncSetAttribute(
       render_forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  render_forward_kernel<<<grid, THREADS, smem, stream>>>(
-      rb, keys, bins, z, rays_o, rays_d, params_from(params), out, feats, R,
-      H, S, voxel);
+  Inputs in{rb, z, rays_o, rays_d, keys, bins, out, feats,
+            static_cast<long long>(R) * S, H, S, voxel};
+  render_forward_kernel<<<grid, THREADS, SMEM, stream>>>(
+      in, dec::params_from(params));
   return static_cast<int>(cudaGetLastError());
 }

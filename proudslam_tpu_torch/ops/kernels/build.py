@@ -23,7 +23,6 @@ CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
-HEADERS = ("decoder_tile.cuh",)
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -42,11 +41,14 @@ def _nvcc() -> str:
     return path
 
 
-def library_path(name: str) -> Path:
-    """Path of the built library for ``csrc/<name>.cu`` (content-hashed)."""
+def library_path(name: str, csrc: Path = CSRC) -> Path:
+    """Path of the built library for ``<csrc>/<name>.cu``, named by a hash
+    of the flags, the source and every header in ``csrc`` (any header may
+    be included, so an edit to any one rebuilds)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in (f"{name}.cu",) + HEADERS:
-        h.update((CSRC / f).read_bytes())
+    for f in [csrc / f"{name}.cu", *sorted(csrc.glob("*.cuh"))]:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 

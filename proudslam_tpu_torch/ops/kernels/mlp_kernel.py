@@ -28,10 +28,8 @@ import torch
 from proudslam_tpu_torch.config import DecoderSettings
 from proudslam_tpu_torch.ops.kernels import build
 
-# rows of the kernel's tiles, and the most blocks that split the rows (each
-# block owns one slab of partial weight gradients)
+# rows of the kernels' tiles
 TILE_ROWS = 64
-MAX_BLOCKS = 128
 
 
 class FusedParams(NamedTuple):
@@ -142,6 +140,19 @@ def _check_kernel_inputs(x, g, fp):
             raise ValueError("decoder kernel inputs must be contiguous")
 
 
+def backward_partition(n_rows: int, sms: int) -> Tuple[int, int]:
+    """K3's split of ``n_rows`` rows over its blocks -> (blocks,
+    tiles_per_block). Block b takes the 64-row tiles [b * tiles_per_block,
+    (b + 1) * tiles_per_block) (the last block fewer); each block owns one
+    slab of partial weight gradients, so there are at most ``sms`` blocks
+    (one per SM) and no empty one. No rows: (0, 0), nothing to launch."""
+    ntiles = -(-n_rows // TILE_ROWS)
+    if ntiles == 0:
+        return 0, 0
+    per_block = -(-ntiles // max(1, min(sms, ntiles)))
+    return -(-ntiles // per_block), per_block
+
+
 def _kernel_device(x: torch.Tensor, bf16: bool, what: str) -> bool:
     """True when ``x`` is a CUDA tensor the kernel takes; False on the CPU
     (the plain version's device); raises on anything else."""
@@ -201,9 +212,8 @@ def decoder_bwd(x: torch.Tensor, g: torch.Tensor, fp: FusedParams,
     dflat = torch.zeros((nparam if want_wgrad else 0,), device=x.device)
     if N > 0:
         lib = build.load("mlp_kernel", _bind)
-        ntiles = -(-N // TILE_ROWS)
-        per_block = -(-ntiles // MAX_BLOCKS)
-        blocks = -(-ntiles // per_block)
+        blocks, per_block = backward_partition(
+            N, torch.cuda.get_device_properties(x.device).multi_processor_count)
         partial = torch.empty(((blocks if want_wgrad else 0) * nparam,),
                               device=x.device)
         err = lib.decoder_backward(

@@ -151,6 +151,26 @@ def test_decoder_values_fused_and_grads_match(params, dtype):
         assert_close_scaled(a.grad, b, tol, "params")
 
 
+@pytest.mark.parametrize("sms", [132, 7, 1])
+@pytest.mark.parametrize("n_rows", [0, 1, 63, 64, 65, 4096, 65536, 327643,
+                                    327680])
+def test_backward_partition(n_rows, sms):
+    """K3's blocks: at most one per SM, none empty, every 64-row tile in
+    exactly one block's run, the last (ragged) tile included."""
+    blocks, per_block = tmk.backward_partition(n_rows, sms)
+    ntiles = -(-n_rows // tmk.TILE_ROWS)
+    if n_rows == 0:
+        assert (blocks, per_block) == (0, 0)
+        return
+    assert 1 <= blocks <= min(sms, ntiles)
+    runs = [range(b * per_block, min(ntiles, (b + 1) * per_block))
+            for b in range(blocks)]
+    assert all(len(r) > 0 for r in runs)
+    assert [t for r in runs for t in r] == list(range(ntiles))
+    # rows of the last tile: the kernel masks the rest
+    assert n_rows - (ntiles - 1) * tmk.TILE_ROWS in range(1, tmk.TILE_ROWS + 1)
+
+
 def test_fused_decoder_skips_weight_grads(params):
     """With frozen params (tracking) only dx is computed; it equals the
     full backward's dx. Other devices raise; no rows give no output."""
