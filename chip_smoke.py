@@ -11,19 +11,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``nvcc`` per source, all started together);
    each library's ``-Xptxas -v`` report (registers, spills, wgmma
    warnings) and its count of tensor-core instructions (HGMMA, HMMA) in
-   ``cuobjdump -sass`` are logged, and K1 and K3 must hold HGMMA, K2 none;
-3. kernels: run each kernel at the slices' mapping shapes on inputs from
-   the real pipeline and hold it against its plain PyTorch version (stated
-   tolerances; K1 and K3 also at the tracking shape, 1024 rays and 65,536
-   rows, K3 there full and dx-only, and at row counts that are no
-   multiple of their 64-row tile), with CUDA-event times of both at the
-   mapping shape and, for K1 and K3, at the tracking shape, each kernel's
-   bound (least time on the card, from this run's shapes) and, for the
-   decoder kernels, a chain of bf16 ``torch.matmul`` calls as a yardstick
-   (no single PyTorch call computes these functions); then hold the pcd
-   branch's ``render_rays`` (PointNet gather, K2, K3 through autograd) on
-   the card against the same call on the CPU, outputs and gradients, on
-   512 rays;
+   ``cuobjdump -sass`` are logged; K1, K2 and K3 must each hold HGMMA, no
+   HMMA, and no spills;
+3. kernels: run each kernel at the slices' mapping and tracking shapes
+   (1024 rays, 65,536 rows) on inputs from the real pipeline and hold it
+   against its plain PyTorch version (stated tolerances; K3 full and
+   dx-only; all three also at row counts that are no multiple of their
+   64-row tile), K2 on K1's features against K1's outputs bit for bit (the
+   two run one decoder), with CUDA-event times of each kernel and its
+   plain version at both shapes, each kernel's bound (least time on the
+   card, from this run's shapes) and, for the decoder kernels, a chain of
+   bf16 ``torch.matmul`` calls as a yardstick (no single PyTorch call
+   computes these functions); then hold the pcd branch's ``render_rays``
+   (PointNet gather, K2, K3 through autograd) on the card against the
+   same call on the CPU, outputs and gradients, on 512 rays;
 4. vox slice: the bench configuration with the fused render path on
    (``config.bench_settings``): ``SlamSystem.initialize`` (200 mapping
    iterations), 39 ``process_frame`` calls over the first 40 frames of the
@@ -71,20 +72,24 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # K1 `feats` are f32 blends computed by the same formula in the same order
 # (only FMA contraction can differ): 1e-5 absolute at unit-scale features.
 TOL_FEATS = 1e-5
-# K2 and its plain version round the same operands to bf16 and differ only
-# by f32 summation order; on an H100 it stays within 1.1e-5 of its plain
-# version. 1e-4 absolute, and the check must be able to tell a kernel that
-# reads a neighbouring row: the plain outputs of neighbouring rows must
-# differ by more than SHIFT_MARGIN x the tolerance.
-TOL_K2 = 1e-4
-SHIFT_MARGIN = 100.0
-# K1's decoder sums on the tensor cores, in another order than the plain
-# version's f32 matmuls: a rounding-level difference can flip the bf16
-# rounding of one hidden activation (2^-8 relative), which moves an output
-# by up to ~|h| * |w| / 256 (~3e-4 for the sdf column: |ws| <= 0.09). On an
-# H100 the largest error was 1.7e-4, in the sdf column (the colors 4e-5);
-# held at 3e-4, where the row-shift check still has a margin of ~500x.
+# K1's decoder, which K2 runs too, sums on the tensor cores, in another
+# order than the plain version's f32 matmuls: a rounding-level difference
+# can flip the bf16 rounding of one hidden activation (2^-8 relative),
+# which moves an output by up to ~|h| * |w| / 256 (~3e-4 for the sdf
+# column: |ws| <= 0.09). On an H100 the largest error was 1.7e-4 on
+# trilinear features, in the sdf column (the colors 4e-5); held at 3e-4,
+# where the row-shift check still has a margin of ~500x. Every check must
+# be able to tell a kernel that reads a neighbouring row: the plain outputs
+# of neighbouring rows must differ by more than SHIFT_MARGIN x the
+# tolerance.
 TOL_K1_OUT = 3e-4
+SHIFT_MARGIN = 100.0
+# K2 on the pcd branch's features (rms ~0.07, small hidden activations, so
+# a flipped bf16 rounding moves an output less): 1e-4 absolute (2.5e-5 on
+# an H100). On K1's trilinear features K2 gives K1's outputs bit for bit
+# (it runs K1's decoder on inputs rounded the same way), so it is held
+# there at K1's tolerance.
+TOL_K2 = 1e-4
 # pcd render_rays on the card against the CPU (plain kernel versions):
 # PointNet's f32 sums run in another order on each, so a feature can round
 # to a neighbouring bf16 value at the decoder's input, as between the port
@@ -124,10 +129,11 @@ PEAK_BYTES = 3.35e12
 # the color head 2*128*3
 DEC_FLOPS = 2 * (16 * 128 + 128 * 128 + 128 * 129 + 128 * 128 + 16 * 128
                  + 128 * 3)
-# (library, kernel function, whether its SASS must hold HGMMA)
-SASS_EXPECT = (("render_kernel", "render_forward_kernel", True),
-               ("mlp_kernel", "decoder_backward_kernel", True),
-               ("mlp_kernel", "decoder_forward_kernel", False))
+# (library, kernel function): each must hold HGMMA (wgmma), no HMMA and no
+# spills
+KERNEL_FUNCTIONS = (("render_kernel", "render_forward_kernel"),
+                    ("mlp_kernel", "decoder_forward_kernel"),
+                    ("mlp_kernel", "decoder_backward_kernel"))
 
 
 def log(msg: str) -> None:
@@ -171,9 +177,34 @@ def sass_counts(lib) -> dict:
     return counts
 
 
+def ptxas_resources(log_text: str) -> dict:
+    """Registers and spill bytes per function from ``-Xptxas -v`` output:
+    {mangled name: {"registers": n, "spill_stores": b, "spill_loads": b}}."""
+    import re
+
+    res, fn = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)'?", line)
+        if m:
+            fn = m.group(1)
+            res.setdefault(fn, {})
+        elif fn is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                res[fn]["spill_stores"] = int(m.group(1))
+                res[fn]["spill_loads"] = int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                res[fn]["registers"] = int(m.group(1))
+    return res
+
+
 def build_phase():
     """Build both libraries (one nvcc each, in parallel); log the ptxas
-    report and the tensor-core instruction counts -> (seconds, counts)."""
+    report and the tensor-core instruction counts -> (seconds, {kernel
+    function: its SASS counts and ptxas resources})."""
     from proudslam_tpu_torch.ops.kernels import build
 
     names = ("render_kernel", "mlp_kernel")
@@ -182,26 +213,34 @@ def build_phase():
         for f in [pool.submit(build.build, name) for name in names]:
             f.result()
     seconds = time.perf_counter() - t0
-    sass = {}
+    sass, ptxas = {}, {}
     for name in names:
-        for line in build.build_log(name).splitlines():
+        text = build.build_log(name)
+        for line in text.splitlines():
             if any(k in line for k in ("registers", "spill", "smem", "wgmma",
                                        "Performance", "Compiling entry")):
                 log(f"ptxas {name}: {line.strip()}")
         sass[name] = sass_counts(build.library_path(name))
+        ptxas[name] = ptxas_resources(text)
         log(f"sass {name}: {json.dumps(sass[name])}")
-    # K1 and K3 run their products on the tensor cores (wgmma), K2 on the
-    # FMA units
-    for lib, fn, tensor_cores in SASS_EXPECT:
-        found = [c for f, c in sass[lib].items() if fn in f]
-        if len(found) != 1:
-            raise AssertionError(f"{fn}: {len(found)} functions in the "
-                                 f"SASS of {lib}")
-        if (found[0]["HGMMA"] > 0) != tensor_cores or found[0]["HMMA"]:
+    # all three kernels run their products on the tensor cores (wgmma),
+    # with no spills
+    found = {}
+    for lib, fn in KERNEL_FUNCTIONS:
+        counts = [c for f, c in sass[lib].items() if fn in f]
+        res = [r for f, r in ptxas[lib].items() if fn in f and r]
+        if len(counts) != 1 or len(res) != 1:
+            raise AssertionError(f"{fn}: {len(counts)} functions in the "
+                                 f"SASS and {len(res)} in the ptxas report "
+                                 f"of {lib}")
+        found[fn] = {**counts[0], **res[0]}
+        log(f"{fn}: {json.dumps(found[fn])}")
+        if not (counts[0]["HGMMA"] > 0 and counts[0]["HMMA"] == 0):
             raise AssertionError(f"{fn}: tensor-core instructions "
-                                 f"{found[0]}, expected HGMMA "
-                                 f"{'> 0' if tensor_cores else '0'}, HMMA 0")
-    return seconds, sass
+                                 f"{counts[0]}, expected HGMMA > 0, HMMA 0")
+        if res[0].get("spill_stores", 1) or res[0].get("spill_loads", 1):
+            raise AssertionError(f"{fn}: spills in the ptxas report {res[0]}")
+    return seconds, found
 
 
 def _nbytes(*tensors) -> int:
@@ -218,8 +257,13 @@ def _bound(bf16_flops: float, f32_flops: float, nbytes: int):
             else (bytes_ms, "bytes"))
 
 
-def _event_ms(fn, reps: int = 5) -> float:
-    """Median CUDA-event time of one call, after a warm-up call."""
+def _event_ms(fn, reps: int = 5, calls: int = 10) -> float:
+    """Time of one call: the median over ``reps`` of the CUDA-event time
+    of ``calls`` back-to-back calls, divided by ``calls``, after a warm-up
+    call. The host issues a call while the card runs the one before, so a
+    call's host time (a kernel wrapper's Python before its launch) is
+    hidden wherever the card's time per call exceeds it; with
+    ``calls=1`` the card waits for it, and it is counted."""
     import torch
 
     fn()
@@ -228,10 +272,11 @@ def _event_ms(fn, reps: int = 5) -> float:
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
-        fn()
+        for _ in range(calls):
+            fn()
         e.record()
         torch.cuda.synchronize()
-        times.append(s.elapsed_time(e))
+        times.append(s.elapsed_time(e) / calls)
     return float(np.median(times))
 
 
@@ -408,6 +453,17 @@ def kernel_phase(device):
             raise AssertionError(f"K1 disagrees with fused_render_forward_plain"
                                  f" at the {shape} shape")
         err_feats, err_out = max(err_feats, ef), max(err_out, eo.max().item())
+        # K2 runs K1's decoder on inputs rounded as K1 rounds its features
+        out_2 = mk.decoder_fwd(feats_k, a[6])
+        torch.cuda.synchronize()
+        same = torch.equal(out_2, out_k)
+        log(f"K2 on K1's feats at the {shape} shape: "
+            + ("bitwise equal to K1's out" if same else
+               f"{int((out_2 != out_k).sum())} values differ from K1's out, "
+               f"max_abs_err {(out_2 - out_k).abs().max().item():.3e}"))
+        if not same:
+            raise AssertionError(f"K2 on K1's feats differs from K1's out at "
+                                 f"the {shape} shape")
         if shape == "mapping":
             x = feats_p
             # the same samples' outputs one row off: what a kernel reading a
@@ -425,6 +481,7 @@ def kernel_phase(device):
         st["bound_ms"], st["bound_by"] = _bound(
             DEC_FLOPS * st["rows"], (2 * 8 * 16 + 8 * 2) * st["rows"],
             _nbytes(*a[:6], *inp["fp"]) + st["rows"] * (4 + 16) * 4)
+        st["share"] = st["bound_ms"] / st["ms"]
 
     g = 1e-2 * torch.randn((x.shape[0], 4), generator=inp["gen"],
                            device=device)
@@ -487,6 +544,7 @@ def kernel_phase(device):
             _nbytes(xn, gn, *fp, dx_k[:st["rows"]], *gr_k))
         st["dx_only_bound_ms"], _ = _bound(
             2 * DEC_FLOPS * st["rows"], 0, _nbytes(xn, gn, *fp, xn))
+        st["share"] = st["bound_ms"] / st["ms"]
         blocks, per_block = mk.backward_partition(st["rows"], sms)
         ntiles = -(-st["rows"] // mk.TILE_ROWS)
         # a count from the code, not a measurement: each tile adds its
@@ -497,15 +555,18 @@ def kernel_phase(device):
             f"code: {(2 * ntiles + 1) * _nbytes(*fp) / 1e6:.0f} MB")
 
     # K2 on the pcd branch's decoder inputs (PointNet features of frame 0's
-    # stored points, blended per sample), then on K1's trilinear features
-    # at a row count that is no multiple of the 64-row tile
+    # stored points, blended per sample) at the mapping and tracking shapes
+    # (the first TRACK_RAYS rays), then on K1's trilinear features at a row
+    # count that is no multiple of the 64-row tile
     pcd_args = inp["pcd_args"]
     with torch.no_grad():
         x2 = gather_pcd_features(*pcd_args)
     x2 = x2.reshape(-1, x2.shape[-1]).contiguous()
     N2 = x2.shape[0]
     k2_inputs = {}
-    for label, xi in (("pcd", x2), ("trilinear", x[:N - 37])):
+    for label, xi, tol in (("pcd", x2, TOL_K2),
+                           ("pcd tracking", x2[:TR], TOL_K2),
+                           ("trilinear", x[:N - 37], TOL_K1_OUT)):
         out_k = mk.decoder_fwd(xi, fp)
         _, _, _, sdf_p, _, rgb_p = mk.decoder_fwd_plain(xi, fp)
         out_p = torch.cat([rgb_p, sdf_p], dim=1)
@@ -519,27 +580,34 @@ def kernel_phase(device):
                   zero_row_share=(xi.abs().sum(1) == 0).float().mean().item(),
                   out_std_min=out_p.std(dim=0).min().item(),
                   shift_err=shift,
-                  max_abs_err=(out_k - out_p).abs().max().item())
+                  max_abs_err_per_column=(out_k - out_p).abs().amax(0).tolist())
+        st["max_abs_err"] = max(st["max_abs_err_per_column"])
         k2_inputs[label] = st
         log(f"K2 on {label} features: " + json.dumps(st)
-            + f" (tol {TOL_K2}, shift margin {SHIFT_MARGIN})")
-        if not st["max_abs_err"] <= TOL_K2:
+            + f" (tol {tol}, shift margin {SHIFT_MARGIN})")
+        if not st["max_abs_err"] <= tol:
             raise AssertionError(f"K2 disagrees with decoder_fwd_plain on "
                                  f"{label} features")
         if not torch.equal(out_k, out_k2):
             raise AssertionError("K2 is not bitwise repeatable")
-    if not k2_inputs["trilinear"]["shift_err"] > SHIFT_MARGIN * TOL_K2:
+    if not k2_inputs["trilinear"]["shift_err"] > SHIFT_MARGIN * TOL_K1_OUT:
         raise AssertionError("the K2 check cannot tell neighbouring rows")
     err2 = max(st["max_abs_err"] for st in k2_inputs.values())
-    k2_ms = _event_ms(lambda: mk.decoder_fwd(x2, fp))
-    k2_plain_ms = _event_ms(lambda: mk.decoder_fwd_plain(x2, fp))
-    k2_bound = _bound(DEC_FLOPS * N2, 0, _nbytes(x2, *fp) + N2 * 4 * 4)
 
-    # yardstick: the same decoder as a chain of bf16 matmuls
+    # K2, its plain version and the same decoder as a chain of bf16 matmuls
+    # (the yardstick) at both shapes
     chain, leaves = _matmul_chain(fp)
     x2b = x2.to(torch.bfloat16)
-    with torch.no_grad():
-        chain_fwd_ms = _event_ms(lambda: chain(x2b))
+    k2 = {"mapping": dict(rows=N2), "tracking": dict(rows=min(TR, N2))}
+    for shape, st in k2.items():
+        xn, xb_n = x2[:st["rows"]], x2b[:st["rows"]]
+        st["ms"] = _event_ms(lambda: mk.decoder_fwd(xn, fp))
+        st["plain_ms"] = _event_ms(lambda: mk.decoder_fwd_plain(xn, fp))
+        with torch.no_grad():
+            st["matmul_chain_ms"] = _event_ms(lambda: chain(xb_n))
+        st["bound_ms"], st["bound_by"] = _bound(
+            DEC_FLOPS * st["rows"], 0, _nbytes(xn, *fp) + st["rows"] * 4 * 4)
+        st["share"] = st["bound_ms"] / st["ms"]
     xb = x.to(torch.bfloat16).requires_grad_(True)
     gb = g.to(torch.bfloat16)
 
@@ -567,19 +635,20 @@ def kernel_phase(device):
     gather_peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     for shape in ("mapping", "tracking"):
-        a, b = k1[shape], k3[shape]
+        a, b, c = k1[shape], k3[shape], k2[shape]
         log(f"{shape} shape: K1 {a['ms']:.3f} ms (plain {a['plain_ms']:.3f} "
-            f"ms, bound {a['bound_ms']:.4f} ms by {a['bound_by']}, "
-            f"{a['rows']} rows); K3 {b['ms']:.3f} ms (plain "
-            f"{b['plain_ms']:.3f} ms, bound {b['bound_ms']:.4f} ms by "
-            f"{b['bound_by']}); K3 dx-only {b['dx_only_ms']:.3f} ms "
-            f"(plain {b['dx_only_plain_ms']:.3f} ms, bound "
+            f"ms, bound {a['bound_ms']:.4f} ms by {a['bound_by']}, share "
+            f"{a['share']:.3f}, {a['rows']} rows); K2 {c['ms']:.3f} ms (plain "
+            f"{c['plain_ms']:.3f} ms, bound {c['bound_ms']:.4f} ms by "
+            f"{c['bound_by']}, share {c['share']:.3f}; bf16 torch.matmul "
+            f"chain forward {c['matmul_chain_ms']:.3f} ms, {c['rows']} rows); "
+            f"K3 {b['ms']:.3f} ms (plain {b['plain_ms']:.3f} ms, bound "
+            f"{b['bound_ms']:.4f} ms by {b['bound_by']}, share "
+            f"{b['share']:.3f}); K3 dx-only {b['dx_only_ms']:.3f} ms (plain "
+            f"{b['dx_only_plain_ms']:.3f} ms, bound "
             f"{b['dx_only_bound_ms']:.4f} ms)")
-    log(f"K2 {k2_ms:.3f} ms (plain {k2_plain_ms:.3f} ms, bound "
-        f"{k2_bound[0]:.4f} ms by {k2_bound[1]})")
     log(f"bf16 torch.matmul chain (a chain of calls, not one library call): "
-        f"forward {chain_fwd_ms:.3f} ms at N={N2}; forward+backward "
-        f"{chain_bwd_ms:.3f} ms at N={N}")
+        f"forward+backward {chain_bwd_ms:.3f} ms at N={N}")
     log(f"pcd gather (PointNet at {pcd_args[3].xyz.shape[1] * R * H} rows + "
         f"blend): forward {gather_ms:.3f} ms, forward+backward "
         f"{gather_bwd_ms:.3f} ms, peak memory {gather_peak_gb:.2f} GB")
@@ -594,13 +663,15 @@ def kernel_phase(device):
             e["matmul_chain_ms"] = chain_ms
         return e
 
-    m1, m3 = k1["mapping"], k3["mapping"]
+    m1, m2, m3 = k1["mapping"], k2["mapping"], k3["mapping"]
     return {
         "fused_render_forward": dict(
             entry(max(err_feats, err_out), m1["ms"], m1["plain_ms"],
                   (m1["bound_ms"], m1["bound_by"])), shapes=k1),
-        "decoder_forward": entry(err2, k2_ms, k2_plain_ms, k2_bound,
-                                 chain_fwd_ms),
+        "decoder_forward": dict(
+            entry(err2, m2["ms"], m2["plain_ms"],
+                  (m2["bound_ms"], m2["bound_by"]), m2["matmul_chain_ms"]),
+            shapes=k2),
         "decoder_backward": dict(
             entry(worst_abs, m3["ms"], m3["plain_ms"],
                   (m3["bound_ms"], m3["bound_by"]), chain_bwd_ms),
@@ -908,7 +979,7 @@ def main() -> None:
 
     device = torch.device("cuda", 0)
     log(f"device: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
-    build_s, sass = build_phase()
+    build_s, built = build_phase()
     log(f"build: {build_s:.1f} s")
     kern = kernel_phase(device)
     frames = render_frames()
@@ -931,24 +1002,24 @@ def main() -> None:
         "fused_render_forward": (
             "proudslam_tpu_torch/csrc/render_kernel.cu",
             "proudslam_tpu/ops/pallas/render_kernel.py:63",
-            "render_kernel", "render_forward_kernel"),
+            "render_forward_kernel"),
         "decoder_forward": (
             "proudslam_tpu_torch/csrc/mlp_kernel.cu",
             "proudslam_tpu/ops/pallas/mlp_kernel.py:132",
-            "mlp_kernel", "decoder_forward_kernel"),
+            "decoder_forward_kernel"),
         "decoder_backward": (
             "proudslam_tpu_torch/csrc/mlp_kernel.cu",
             "proudslam_tpu/ops/pallas/mlp_kernel.py:141",
-            "mlp_kernel", "decoder_backward_kernel"),
+            "decoder_backward_kernel"),
     }
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(st["launches"][name] for st in stats.values()),
          "launches_by_path": {p: st["launches"][name]
                               for p, st in stats.items()},
-         "sass": {f: c for f, c in sass[lib].items() if fn in f},
+         "build": built[fn],
          **kern[name]}
-        for name, (src, rep, lib, fn) in meta.items()]}
+        for name, (src, rep, fn) in meta.items()]}
     print(json.dumps({"slices": stats, "kernel_phase": kern["extra"],
                       "vox_profile": profile}))
     print(json.dumps(record))

@@ -1,8 +1,9 @@
-// Tensor-core pieces of the decoder kernels K1 (render_kernel.cu) and K3
-// (mlp_kernel.cu): the weights in shared memory as bf16 in the layout that
-// Hopper's warpgroup matrix multiply (`wgmma`) reads, shared-memory matrix
-// descriptors, and the `wgmma.mma_async` shapes the two kernels issue
-// (m64nNk16, bf16 operands, f32 sums).
+// Tensor-core pieces of the decoder kernels K1 (render_kernel.cu), K2 and
+// K3 (mlp_kernel.cu): the weights in shared memory as bf16 in the layout
+// that Hopper's warpgroup matrix multiply (`wgmma`) reads, shared-memory
+// matrix descriptors, and the `wgmma.mma_async` shapes the kernels issue
+// (m64nNk16, bf16 operands, f32 sums). The forward that K1 and K2 share is
+// in decoder_chain.cuh.
 //
 // Tile layout. A bf16 matrix of `rows` x `cols` (cols is its inner
 // dimension, a multiple of 8) is stored as 8x8 core matrices of 128

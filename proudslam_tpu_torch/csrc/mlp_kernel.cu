@@ -4,13 +4,23 @@
 // proudslam_tpu/ops/pallas/mlp_kernel.py (`_run_fwd`, bf16=True): inputs x
 // (N, D) f32 -> out (N, 4) f32 [sigmoid(rgb), sdf], the five products with
 // bf16 operands and f32 sums. What bounds it on an H100: arithmetic (~108k
-// flops per row against 80 bytes of input and output), so the design keeps
-// everything but x and out on chip: the weights sit in shared memory as
-// bf16 for the block's whole life, and a persistent block (one per SM)
-// walks 64-row tiles whose activations never leave shared memory
-// (`forward_tile` of decoder_tile.cuh, the arithmetic K1 also runs). The
-// last tile is masked, so the rows need no padding. This first form runs
-// on the FMA units; tensor cores are later work.
+// flops per row against 80 bytes of input and output), so everything but x
+// and out stays on chip and the products run on the tensor cores. K2 has
+// K1's block shape and runs K1's decoder (`tc::decode`, decoder_chain.cuh),
+// without the blend: a persistent block of two warpgroups holds the
+// weights in shared memory as bf16 wgmma tiles for its whole life, each
+// warpgroup walks its own 64-row tiles (tile = 2 block + warpgroup, stride
+// 2 grid), and the layers chain through registers, so only x goes through
+// shared memory. The next tile's x (64 x 16 f32 = 4 KB, contiguous) is
+// staged with 16-byte cp.async copies into the warpgroup's f32 buffer
+// right after this tile's x is in place, while this tile's products run;
+// at the next tile it is rounded to bf16 into the tile layout. cp.async
+// rather than a bulk TMA copy: it needs no mbarrier or phase bookkeeping,
+// a thread copies just the 32 bytes it later converts, and the ragged last
+// tile is masked per row (missing rows are zeros and write nothing), the
+// way K1's gather already works. x is rounded as K1 rounds its blended
+// features (`pack_bf16x2`), so K2 on K1's f32 `feats` gives K1's `out` bit
+// for bit.
 //
 // K3 replaces the TPU kernel `_bwd_kernel` of
 // proudslam_tpu/ops/pallas/mlp_kernel.py (`_run_bwd`, bf16=True): per tile
@@ -47,8 +57,7 @@
 // its missing rows carry zero inputs and zero cotangents (so they add
 // nothing to any gradient) and write no dx.
 
-#include "decoder_tc.cuh"
-#include "decoder_tile.cuh"
+#include "decoder_chain.cuh"
 
 using namespace dec;
 
@@ -498,49 +507,79 @@ __global__ void reduce_partials_kernel(const float* __restrict__ partial,
   out[e] = s;
 }
 
-// K2: persistent blocks stride over the 64-row tiles
-__global__ void __launch_bounds__(THREADS, 1)
+// ---- K2: the decoder forward on the tensor cores ----
+
+constexpr int K2_THREADS = 2 * tc::WG;      // two warpgroups, own tiles each
+constexpr int XSTAGE = tc::TR * D * 4;      // f32 staging of one tile's x
+constexpr int XTILE = tc::TR * D;           // bf16 input tile (TR, D)
+constexpr int K2_SMEM = tc::TC_WEIGHT_SMEM
+                        + 2 * (pad16(XSTAGE) + pad16(XTILE * 2));
+
+// Thread (row, half) of a warpgroup copies x[row, 8 half:8 half + 8] of
+// `tile` (32 bytes) into its staging buffer, if the row exists.
+__device__ __forceinline__ void stage_x(const float* __restrict__ x,
+                                        long long N, long long tile, int row,
+                                        int half, float* stage) {
+  const long long n = tile * tc::TR + row;
+  if (n < N) {
+    const float* src = x + n * D + 8 * half;
+    float* dst = stage + row * D + 8 * half;
+    tc::cp_async16(dst, src);
+    tc::cp_async16(dst + 4, src + 4);
+  }
+  tc::cp_async_commit();
+}
+
+__global__ void __launch_bounds__(K2_THREADS, 1)
 decoder_forward_kernel(const float* __restrict__ x, Params prm,
                        float* __restrict__ out, long long N) {
   extern __shared__ __align__(16) char smem[];
   Arena arena{smem};
-  Weights w;
-  Acts t;
-  carve_weights(arena, w);
-  carve_acts(arena, t);
-  load_weights(w, prm);
+  tc::TcWeights w;
+  tc::carve_weights(arena, w);
+  float* stages = arena.take<float>(2 * tc::TR * D);
+  bf16* xbuf = arena.take<bf16>(2 * XTILE);
+  tc::load_weights(w, prm);
 
-  const long long ntiles = (N + TR - 1) / TR;
-  const int tid = threadIdx.x;
-  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const long long row0 = tile * TR;
-    const int nvalid = static_cast<int>(min(static_cast<long long>(TR), N - row0));
-    // inputs rounded to bf16 (missing rows: zeros); forward_tile starts
-    // with a barrier, and the previous tile's last reader of t.x finished
-    // before its closing one
-    for (int i = tid; i < TR * D; i += THREADS) {
-      const int r = i / D;
-      t.x[i] = __float2bfloat16_rn(r < nvalid ? x[row0 * D + i] : 0.f);
-    }
-    forward_tile(w, t);
-    for (int i = tid; i < TR * 4; i += THREADS)
-      if (i / 4 < nvalid) out[row0 * 4 + i] = t.out[i];
+  const int wg = threadIdx.x / tc::WG, t = threadIdx.x % tc::WG;
+  const int row = t % tc::TR, half = t / tc::TR;
+  float* stage = stages + wg * tc::TR * D;
+  bf16* xs = xbuf + wg * XTILE;
+  const long long ntiles = (N + tc::TR - 1) / tc::TR;
+  const long long stride = 2LL * gridDim.x;
+  long long tile = 2LL * blockIdx.x + wg;
+  if (tile < ntiles) stage_x(x, N, tile, row, half, stage);
+  for (; tile < ntiles; tile += stride) {
+    tc::cp_async_wait_all();
+    // this thread's copies have landed; the barrier also keeps x's tile
+    // until every warp's products of the previous tile have finished
+    tc::wg_barrier(wg);
+    float f[8];
+    const float* src = stage + row * D + 8 * half;
+    const bool live = tile * tc::TR + row < N;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) f[i] = live ? src[i] : 0.f;
+    tc::put_x(xs, row, half, f);
+    tc::fence_proxy_async();
+    tc::wg_barrier(wg);               // x is in place
+    if (tile + stride < ntiles) stage_x(x, N, tile + stride, row, half, stage);
+    tc::decode(w, xs, out, N, tile, t);
   }
 }
 
 }  // namespace
 
-// K2: out (N, 4) from x (N, D); `blocks` persistent blocks (<= tiles).
+// K2: out (N, 4) from x (N, D); `blocks` persistent blocks of two
+// warpgroups (<= ceil(tiles / 2)).
 // Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int decoder_forward(const float* x, const void* const* params,
                                float* out, long long N, int blocks,
                                cudaStream_t stream) {
-  const int smem = WEIGHT_SMEM + ACT_SMEM;
   cudaError_t err = cudaFuncSetAttribute(
       decoder_forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      K2_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  decoder_forward_kernel<<<blocks, THREADS, smem, stream>>>(
+  decoder_forward_kernel<<<blocks, K2_THREADS, K2_SMEM, stream>>>(
       x, params_from(params), out, N);
   return static_cast<int>(cudaGetLastError());
 }

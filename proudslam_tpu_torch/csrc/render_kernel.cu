@@ -17,14 +17,10 @@
 //   - a block of two warpgroups; each warpgroup walks its own 64-sample
 //     tiles (one tile is one wgmma M of 64 rows), with the weights (~109 KB
 //     as bf16) shared in shared memory for the block's life;
-//   - the layers chain through registers: each m64n128 accumulator, plus
-//     bias and activation, is rounded to bf16 and becomes the A operand of
-//     the next layer's wgmma, so h1, h2, feat and hc never touch shared
-//     memory. Only the blended input x goes through shared memory (it is
-//     the A operand of the first product and of the color head's x part);
-//   - the odd widths run on the FMA units: the sdf column (h2 . ws[:, W])
-//     and the 3-wide color head, as per-thread partial dots summed over the
-//     four lanes that share a row;
+//   - each tile runs the register-chained decoder of decoder_chain.cuh
+//     (`tc::decode`, which K2 runs too): the layers chain through
+//     registers, only the blended input x goes through shared memory, and
+//     the sdf column and the 3-wide color head run on the FMA units;
 //   - the gather of the next tile overlaps this tile's products: each
 //     sample's own slot (8 x 16 f32, selected by bins, so TMA does not fit)
 //     is copied with 16-byte cp.async into the warpgroup's buffer right
@@ -32,13 +28,12 @@
 // The blend keeps the exact f32 arithmetic (__fmul_rn/__fadd_rn, the same
 // order) of the plain version, so `feats` matches it to rounding.
 
-#include "decoder_tc.cuh"
+#include "decoder_chain.cuh"
 
 namespace {
 
 using tc::bf16;
 using dec::D;
-using dec::W;
 
 constexpr int THREADS = 2 * tc::WG;          // two warpgroups, own tiles each
 constexpr int KS = 8 * D;                    // corner values of a hit slot
@@ -47,19 +42,6 @@ constexpr int GBUF = tc::TR * GROW;
 constexpr int XTILE = tc::TR * D;            // bf16 input tile (TR, D)
 constexpr int SMEM = tc::TC_WEIGHT_SMEM
                      + 2 * (dec::pad16(GBUF) + dec::pad16(XTILE * 2));
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
 
 struct Inputs {
   const float *rb, *z, *rays_o, *rays_d;
@@ -101,12 +83,12 @@ __device__ inline void issue(const Inputs& in, long long tile, int row,
       char* dst = gbuf + row * GROW + 32 * half;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        cp_async16(dst + 64 * j, src + j * D);
-        cp_async16(dst + 64 * j + 16, src + j * D + 4);
+        tc::cp_async16(dst + 64 * j, src + j * D);
+        tc::cp_async16(dst + 64 * j + 16, src + j * D + 4);
       }
     }
   }
-  cp_async_commit();
+  tc::cp_async_commit();
 }
 
 // The trilinear blend of this thread's 8 features: written to feats (f32)
@@ -152,133 +134,7 @@ __device__ inline void blend(const Inputs& in, long long tile, int row,
     o[0] = make_float4(f[0], f[1], f[2], f[3]);
     o[1] = make_float4(f[4], f[5], f[6], f[7]);
   }
-  uint4 v;
-  v.x = tc::pack_bf16x2(f[0], f[1]);
-  v.y = tc::pack_bf16x2(f[2], f[3]);
-  v.z = tc::pack_bf16x2(f[4], f[5]);
-  v.w = tc::pack_bf16x2(f[6], f[7]);
-  *reinterpret_cast<uint4*>(xs + tc::tofs(row, 8 * half, D)) = v;
-}
-
-// acc + bias (ReLU if asked), rounded to bf16: the A operand of the next
-// layer (entries 8j..8j+7 of the accumulator are k-step j's fragment).
-// Also returns the rounded values in `acc` for the FMA heads.
-__device__ __forceinline__ void to_frags(float (&acc)[64], const float* bias,
-                                         bool relu, uint32_t (&af)[8][4]) {
-  const int c = threadIdx.x & 3;
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    const float2 b = *reinterpret_cast<const float2*>(bias + 8 * i + 2 * c);
-    float v[4] = {acc[4 * i] + b.x, acc[4 * i + 1] + b.y,
-                  acc[4 * i + 2] + b.x, acc[4 * i + 3] + b.y};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      if (relu) v[e] = fmaxf(v[e], 0.f);
-      acc[4 * i + e] = tc::rbf(v[e]);
-    }
-    af[i >> 1][2 * (i & 1)] = tc::pack_bf16x2(v[0], v[1]);
-    af[i >> 1][2 * (i & 1) + 1] = tc::pack_bf16x2(v[2], v[3]);
-  }
-}
-
-// sum over the four lanes that hold one row's columns
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  v += __shfl_xor_sync(0xffffffffu, v, 2);
-  return v;
-}
-
-// The decoder of one tile whose input x (bf16, tile layout) is in place;
-// writes out[tile rows] = [sigmoid(hc wo + bo), sdf].
-__device__ inline void decode(const tc::TcWeights& w, const bf16* xs,
-                              const Inputs& in, long long tile, int t) {
-  const int l = t & 31, c = l & 3;
-  const int r0 = 16 * (t >> 5) + (l >> 2);
-  float acc[64];
-  uint32_t af[8][4];
-  const uint64_t dx = tc::desc_k(xs, D);
-
-  // h1 = relu(x w1 + b1)
-  tc::fence_regs(acc);
-  tc::wg_fence();
-  tc::mma_m64n128<0, 0>(acc, dx, tc::desc_k(w.w1, D), 0);
-  tc::wg_commit();
-  tc::wg_wait_all();
-  tc::fence_regs(acc);
-  to_frags(acc, w.b1, true, af);
-
-  // h2 = relu(h1 w2 + b2); sdf = h2 . ws[:, W] + bs[W]
-  tc::wg_fence();
-  const uint64_t dw2 = tc::desc_k(w.w2, W);
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-    tc::mma_m64n128_rs<0>(acc, af[j], dw2 + j * tc::KSTEP_K, j > 0);
-  tc::wg_commit();
-  tc::wg_wait_all();
-  tc::fence_regs(acc);
-  tc::fence_regs(af);
-  to_frags(acc, w.b2, true, af);
-  float sdf0 = 0.f, sdf1 = 0.f;
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    const float2 ws = *reinterpret_cast<const float2*>(w.ws_sdf + 8 * i + 2 * c);
-    sdf0 = fmaf(acc[4 * i], ws.x, fmaf(acc[4 * i + 1], ws.y, sdf0));
-    sdf1 = fmaf(acc[4 * i + 2], ws.x, fmaf(acc[4 * i + 3], ws.y, sdf1));
-  }
-  sdf0 = quad_sum(sdf0) + w.bs[W];
-  sdf1 = quad_sum(sdf1) + w.bs[W];
-
-  // feat = h2 ws[:, :W] + bs[:W]
-  tc::wg_fence();
-  const uint64_t dws = tc::desc_k(w.ws, W);
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-    tc::mma_m64n128_rs<0>(acc, af[j], dws + j * tc::KSTEP_K, j > 0);
-  tc::wg_commit();
-  tc::wg_wait_all();
-  tc::fence_regs(acc);
-  tc::fence_regs(af);
-  to_frags(acc, w.bs, false, af);
-
-  // hc = relu(feat wc_f + x wc_x + bc); rgb = sigmoid(hc wo + bo)
-  tc::wg_fence();
-  const uint64_t dwc = tc::desc_k(w.wc_f, W);
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-    tc::mma_m64n128_rs<0>(acc, af[j], dwc + j * tc::KSTEP_K, j > 0);
-  tc::mma_m64n128<0, 0>(acc, dx, tc::desc_k(w.wc_x, D), 1);
-  tc::wg_commit();
-  tc::wg_wait_all();
-  tc::fence_regs(acc);
-  tc::fence_regs(af);
-  to_frags(acc, w.bc, true, af);
-  float p0[3] = {0.f, 0.f, 0.f}, p1[3] = {0.f, 0.f, 0.f};
-#pragma unroll
-  for (int i = 0; i < 16; ++i)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const float4 wo = *reinterpret_cast<const float4*>(w.wo + 4 * (8 * i + 2 * c + e));
-      p0[0] = fmaf(acc[4 * i + e], wo.x, p0[0]);
-      p0[1] = fmaf(acc[4 * i + e], wo.y, p0[1]);
-      p0[2] = fmaf(acc[4 * i + e], wo.z, p0[2]);
-      p1[0] = fmaf(acc[4 * i + 2 + e], wo.x, p1[0]);
-      p1[1] = fmaf(acc[4 * i + 2 + e], wo.y, p1[1]);
-      p1[2] = fmaf(acc[4 * i + 2 + e], wo.z, p1[2]);
-    }
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    p0[k] = 1.f / (1.f + expf(-(quad_sum(p0[k]) + w.bo[k])));
-    p1[k] = 1.f / (1.f + expf(-(quad_sum(p1[k]) + w.bo[k])));
-  }
-  if (c == 0) {
-    const long long n0 = tile * tc::TR + r0, n1 = n0 + 8;
-    if (n0 < in.N)
-      *reinterpret_cast<float4*>(in.out + n0 * 4) =
-          make_float4(p0[0], p0[1], p0[2], sdf0);
-    if (n1 < in.N)
-      *reinterpret_cast<float4*>(in.out + n1 * 4) =
-          make_float4(p1[0], p1[1], p1[2], sdf1);
-  }
+  tc::put_x(xs, row, half, f);
 }
 
 __global__ void __launch_bounds__(THREADS, 1)
@@ -301,13 +157,13 @@ render_forward_kernel(Inputs in, dec::Params prm) {
   long long tile = 2LL * blockIdx.x + wg;
   if (tile < ntiles) issue(in, tile, row, half, gb, s);
   for (; tile < ntiles; tile += stride) {
-    cp_async_wait_all();
+    tc::cp_async_wait_all();
     tc::wg_barrier(wg);               // this tile's copies are visible
     blend(in, tile, row, half, gb, s, xs);
     tc::fence_proxy_async();
     tc::wg_barrier(wg);               // x is in place; the buffer is free
     if (tile + stride < ntiles) issue(in, tile + stride, row, half, gb, s);
-    decode(w, xs, in, tile, t);
+    tc::decode(w, xs, in.out, in.N, tile, t);
   }
 }
 

@@ -140,6 +140,16 @@ def _check_kernel_inputs(x, g, fp):
             raise ValueError("decoder kernel inputs must be contiguous")
 
 
+def forward_grid(n_rows: int, sms: int) -> int:
+    """Blocks of K2 (and K1, which has the same block shape) for ``n_rows``
+    rows: a persistent block of two warpgroups, each walking its own 64-row
+    tiles (tile = 2 * block + warpgroup, stride 2 * blocks), so
+    ``min(ceil(tiles / 2), sms)``: at most one block per SM and none
+    without a tile. No rows: 0, nothing to launch."""
+    ntiles = -(-n_rows // TILE_ROWS)
+    return min(-(-ntiles // 2), sms)
+
+
 def backward_partition(n_rows: int, sms: int) -> Tuple[int, int]:
     """K3's split of ``n_rows`` rows over its blocks -> (blocks,
     tiles_per_block). Block b takes the 64-row tiles [b * tiles_per_block,
@@ -185,7 +195,7 @@ def decoder_fwd(x: torch.Tensor, fp: FusedParams,
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
         err = lib.decoder_forward(
             x.data_ptr(), build.pointer_array(fp), out.data_ptr(), N,
-            min(-(-N // TILE_ROWS), sms),
+            forward_grid(N, sms),
             torch.cuda.current_stream(x.device).cuda_stream)
         build.check(err, "decoder_forward")
         decoder_fwd.launches += 1

@@ -26,7 +26,7 @@ from proudslam_tpu_torch.config import DecoderSettings, RenderSettings
 from proudslam_tpu_torch.ops.interp import CORNER_BITS
 from proudslam_tpu_torch.ops.kernels import build
 from proudslam_tpu_torch.ops.kernels.mlp_kernel import (
-    FusedParams, decoder_bwd, decoder_fwd_plain, pack_params)
+    FusedParams, decoder_bwd, decoder_fwd_plain, forward_grid, pack_params)
 from proudslam_tpu_torch.ops.voxel_hash import unpack_key
 
 
@@ -103,14 +103,13 @@ def fused_render_forward(rb, keys_rb, bins, z, rays_o, rays_d,
     if R * S == 0:
         return out, feats
     lib = build.load("render_kernel", _bind)
-    # a block's two warpgroups take a 64-sample tile each
-    ntiles = -(-R * S // 64)
     sms = torch.cuda.get_device_properties(rb.device).multi_processor_count
     err = lib.fused_render_forward(
         rb.data_ptr(), keys_rb.data_ptr(), bins.data_ptr(), z.data_ptr(),
         rays_o.data_ptr(), rays_d.data_ptr(), build.pointer_array(fp),
         out.data_ptr(), feats.data_ptr(), R, H, S, float(voxel_size),
-        min(-(-ntiles // 2), sms), torch.cuda.current_stream(rb.device).cuda_stream)
+        forward_grid(R * S, sms),
+        torch.cuda.current_stream(rb.device).cuda_stream)
     build.check(err, "fused_render_forward")
     fused_render_forward.launches += 1
     return out, feats

@@ -24,7 +24,8 @@ def csrc(tmp_path):
 
 def test_sources_and_headers_found():
     assert {"render_kernel", "mlp_kernel"} <= set(SOURCES)
-    assert {"decoder_tile.cuh", "decoder_tc.cuh"} <= set(HEADERS)
+    assert {"decoder_tile.cuh", "decoder_tc.cuh",
+            "decoder_chain.cuh"} <= set(HEADERS)
 
 
 def test_copy_hashes_like_the_package(csrc):

@@ -171,6 +171,29 @@ def test_backward_partition(n_rows, sms):
     assert n_rows - (ntiles - 1) * tmk.TILE_ROWS in range(1, tmk.TILE_ROWS + 1)
 
 
+@pytest.mark.parametrize("sms", [132, 7, 1])
+@pytest.mark.parametrize("n_rows", [0, 1, 63, 64, 65, 2 * 7 * 64,
+                                    2 * 132 * 64, 2 * 132 * 64 + 1, 65536,
+                                    327643, 327680])
+def test_forward_grid(n_rows, sms):
+    """K2's (and K1's) blocks of two warpgroups: at most one per SM, none
+    without a tile, and the strided walk (tile = 2 * block + warpgroup,
+    stride 2 * blocks) visits every 64-row tile once, the last (ragged)
+    one included."""
+    blocks = tmk.forward_grid(n_rows, sms)
+    ntiles = -(-n_rows // tmk.TILE_ROWS)
+    if n_rows == 0:
+        assert blocks == 0
+        return
+    assert 1 <= blocks <= sms
+    assert all(2 * b < ntiles for b in range(blocks))
+    # every SM busy once there are two tiles for each
+    assert blocks == (sms if ntiles >= 2 * sms else -(-ntiles // 2))
+    walked = sorted(t for b in range(blocks) for wg in range(2)
+                    for t in range(2 * b + wg, ntiles, 2 * blocks))
+    assert walked == list(range(ntiles))
+
+
 def test_fused_decoder_skips_weight_grads(params):
     """With frozen params (tracking) only dx is computed; it equals the
     full backward's dx. Other devices raise; no rows give no output."""
