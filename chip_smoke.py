@@ -30,7 +30,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    iterations), 39 ``process_frame`` calls over the first 40 frames of the
    480-frame ``scan`` trajectory at 320x240, and ``global_refine(rounds=2)``;
    K1 and K3 must have been launched, the poses finite and the unaligned
-   ATE under 3 cm;
+   ATE under 3 cm. Then its mesh: ``extract_mesh(res=8)`` with vertex
+   colors, cleaned against the slice's depth cloud at the final trajectory
+   (``run_slam.accumulate_depth_cloud``), held against the analytic scene
+   as ``bench.py`` does: accuracy (mean vertex-to-surface distance) and
+   completion (mean distance from depth samples of every 30th frame to
+   the nearest vertex) must each be under 10 cm, half the voxel, the mesh
+   non-empty, and no kernel may launch inside it (the mesher decodes with
+   the plain decoder, as the JAX package's);
 5. pcd slice: the same configuration with ``feature_mode="pcd"`` (PointNet
    features of <= 8 stored points per voxel): ``initialize``, the first
    5 frames and ``global_refine(rounds=2)``, which returns at once: the
@@ -45,9 +52,19 @@ Phases, in order; any failure raises and the script exits non-zero:
 6. vox profile: another vox run, ``torch.profiler`` over frames 5-8 (each
    engine phase a profiler range): device busy ms per frame in all and
    per phase with each phase's idle share, kernel launches per frame, the
-   top kernels' shares, and the host's CPU ms per frame.
+   top kernels' shares, and the host's CPU ms per frame;
+7. cli: ``proudslam_tpu_torch.run_slam.main`` on
+   ``configs/synthetic/room.yaml`` as it stands (40 frames at 320x240, the
+   unfused branch with an f32 decoder, 100 initial mapping iterations,
+   mesh at res 8) into a temporary log directory: every artifact must be
+   there (trajectory, mesh that parses back, checkpoint + sidecar,
+   metrics), no kernel launched (the unfused branch runs none), the
+   unaligned ATE under 3 cm, and the checkpoint, loaded into a fresh
+   ``SlamSystem`` on the card, must give the saved trajectory bit for
+   bit.
 
-Every launch count is set to 0 just before a slice and read just after it.
+Every launch count is set to 0 just before a slice (and the cli run) and
+read just after it; the mesh's launches are the counts' change across it.
 Standard output ends with the slices' JSON line, the kernels' JSON line,
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 The script imports no JAX.
@@ -113,6 +130,14 @@ K3_SMALL = (27, 91)
 K1_RAGGED = (1001, 40)    # rays x samples of K1's ragged check (40,040 rows)
 TRACK_RAYS = 1024         # the tracking shape: 1024 rays x S samples
 ATE_LIMIT_CM = 3.0
+# the mesh: accuracy and completion each under half the 20 cm voxel
+MESH_LIMIT_CM = 10.0
+MESH_RES = 8
+# the cli phase: the larger of the verify skill's 3 cm "something is
+# broken" line and 1.5x the JAX CLI's ATE on the same command (0.666 cm,
+# a CPU run of scripts/run_slam.py configs/synthetic/room.yaml)
+CLI_ATE_LIMIT_CM = max(3.0, 1.5 * 0.666)
+CLI_CONFIG = os.path.join("configs", "synthetic", "room.yaml")
 PCD_ATE_LIMIT_CM = 60.0
 N_FRAMES = 40
 PCD_FRAMES = 5
@@ -815,11 +840,82 @@ def _timed(fn) -> float:
     return time.perf_counter() - t0
 
 
+class _FrameSequence:
+    """The slice's frames as a dataset (``run_slam``'s protocol:
+    ``intrinsics``, ``dataset[i] -> (i, rgb, depth, K, pose)``),
+    dequantized."""
+
+    def __init__(self, frames, n_frames):
+        self.quant, self.poses, self.intrinsics, self.depth_quant = frames
+        self.n = n_frames
+
+    def __getitem__(self, i):
+        if not 0 <= i < self.n:
+            raise IndexError(i)
+        c, d = self.quant[i]
+        return (i, c.astype(np.float32) / 255.0,
+                d.astype(np.float32) / self.depth_quant, None, self.poses[i])
+
+
+def mesh_phase(slam, settings, frames, n_frames, est) -> dict:
+    """``extract_mesh`` of a slice's map with colors, cleaned against the
+    slice's depth cloud at the trajectory ``est``, and its accuracy and
+    completion against the analytic scene (``bench.py``'s measure)."""
+    from scipy.spatial import cKDTree
+
+    from proudslam_tpu_torch.mesher import extract_mesh
+    from proudslam_tpu_torch.run_slam import accumulate_depth_cloud
+
+    seq = _FrameSequence(frames, n_frames)
+    before = _launches()
+    t0 = time.perf_counter()
+    cloud = accumulate_depth_cloud(seq, est, 0, settings)
+    cloud_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mesh = extract_mesh(slam.map_state, slam.decoder_params, settings.map,
+                        settings.decoder, res=MESH_RES, depth_points=cloud)
+    mesh_s = time.perf_counter() - t0      # ends with host arrays
+    launched = {k: v - before[k] for k, v in _launches().items()}
+    st = dict(res=MESH_RES, cloud_points=len(cloud), cloud_ms=cloud_s * 1e3,
+              mesh_ms=mesh_s * 1e3, verts=len(mesh.verts),
+              faces=len(mesh.faces), launches=launched)
+    if not (len(mesh.verts) and len(mesh.faces)):
+        raise AssertionError(f"empty mesh: {st}")
+    if mesh.colors is None or not np.isfinite(mesh.colors).all():
+        raise AssertionError("mesh without finite vertex colors")
+    scene = _scene()[0]
+    st["acc_cm"] = float(np.mean(scene.surface_distance(mesh.verts))) * 100
+    kept = np.unique(mesh.faces)
+    st["acc_kept_cm"] = float(np.mean(
+        scene.surface_distance(mesh.verts[kept]))) * 100
+    fx, fy, cx, cy = seq.intrinsics
+    ys, xs = np.mgrid[0:HEIGHT:4, 0:WIDTH:4]
+    dirs = np.stack([(xs - cx) / fx, (ys - cy) / fy,
+                     np.ones_like(xs, np.float32)], axis=-1)
+    samples = []
+    for i in range(0, n_frames, 30):
+        _, _, d, _, pose = seq[i]
+        pts = (dirs * d[::4, ::4, None]).reshape(-1, 3)
+        pts = pts[(d[::4, ::4] > 0).reshape(-1)]
+        samples.append(pts @ pose[:3, :3].T + pose[:3, 3])
+    st["comp_cm"] = float(np.mean(
+        cKDTree(mesh.verts).query(np.concatenate(samples))[0])) * 100
+    log("mesh: " + json.dumps(st) + f" (limit {MESH_LIMIT_CM} cm)")
+    if any(launched.values()):
+        raise AssertionError(f"a kernel launched inside the mesh: {launched}")
+    if not (st["acc_cm"] < MESH_LIMIT_CM and st["comp_cm"] < MESH_LIMIT_CM):
+        raise AssertionError(f"mesh accuracy {st['acc_cm']:.2f} cm or "
+                             f"completion {st['comp_cm']:.2f} cm >= "
+                             f"{MESH_LIMIT_CM}")
+    return st
+
+
 def slice_phase(device, name, settings, frames, n_frames, ate_limit_cm,
-                launched, not_launched):
+                launched, not_launched, mesh=False):
     """``initialize``, ``process_frame`` over frames 1..n_frames-1 and
     ``global_refine(rounds=2)``; the kernels in ``launched`` must have been
-    launched in the run and those in ``not_launched`` not."""
+    launched in the run and those in ``not_launched`` not. ``mesh``: then
+    the slice's mesh (:func:`mesh_phase`)."""
     import torch
 
     from proudslam_tpu_torch.utils.metrics import ate_rmse, rpe_rmse
@@ -880,7 +976,94 @@ def slice_phase(device, name, settings, frames, n_frames, ate_limit_cm,
     if not ate < ate_limit_cm:
         raise AssertionError(
             f"{name} slice: unaligned ATE {ate:.3f} cm >= {ate_limit_cm}")
+    if mesh:
+        stats["mesh"] = mesh_phase(slam, settings, frames, n_frames, est)
     return stats
+
+
+def _read_ply(path):
+    """(verts (N, 3), faces (M, 3)) of an ASCII PLY as ``save_ply``
+    writes it."""
+    with open(path) as f:
+        head, body = f.read().split("end_header\n")
+    nv = int(head.split("element vertex ")[1].split()[0])
+    nf = int(head.split("element face ")[1].split()[0])
+    lines = body.splitlines()
+    if len(lines) != nv + nf:
+        raise AssertionError(f"{path}: {len(lines)} lines for {nv} vertices "
+                             f"and {nf} faces")
+    verts = np.array([ln.split()[:3] for ln in lines[:nv]], np.float64)
+    faces = np.array([ln.split()[1:] for ln in lines[nv:]], np.int64)
+    return verts.reshape(-1, 3), faces.reshape(-1, 3)
+
+
+def cli_phase(device, overrides=()):
+    """``run_slam.main`` on ``configs/synthetic/room.yaml`` (with the
+    config ``overrides``, none by default) into a temporary log directory:
+    artifacts, no kernel launch, the ATE limit, and the checkpoint reloaded
+    to the saved trajectory bit for bit."""
+    import tempfile
+
+    import torch
+
+    from proudslam_tpu_torch.config import load_config, settings_from_config
+    from proudslam_tpu_torch.engine.slam import SlamSystem
+    from proudslam_tpu_torch.run_slam import main as run_slam_main
+    from proudslam_tpu_torch.run_slam import parse_overrides
+    from proudslam_tpu_torch.utils.checkpoint import load_checkpoint
+
+    config = os.path.join(ROOT, CLI_CONFIG)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as logs:
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        res = run_slam_main([config, "--log_dir", logs, "--device",
+                             str(device), *overrides])
+        wall_s = time.perf_counter() - t0
+        launches = _launches()
+        run = res["dir"]
+        paths = {k: os.path.join(run, *k.split("/")) for k in (
+            "misc/frame_poses.npy", "mesh/final_mesh.ply",
+            "ckpt/final_ckpt.npz", "ckpt/final_ckpt.meta.json",
+            "metrics.jsonl")}
+        missing = [k for k, p in paths.items() if not os.path.exists(p)]
+        if missing:
+            raise AssertionError(f"cli: missing artifacts {missing}")
+        poses = np.load(paths["misc/frame_poses.npy"])
+        verts, faces = _read_ply(paths["mesh/final_mesh.ply"])
+        if not (len(verts) and len(faces) and np.isfinite(verts).all()):
+            raise AssertionError("cli: empty or non-finite mesh")
+        with open(paths["metrics.jsonl"]) as f:
+            metrics = [json.loads(ln) for ln in f]
+        cfg = load_config(config, parse_overrides(list(overrides)))
+        fresh = SlamSystem(settings_from_config(cfg),
+                           res["intrinsics"], tuple(res["image_hw"]), seed=1,
+                           device=device)
+        load_checkpoint(paths["ckpt/final_ckpt.npz"], fresh)
+        reloaded = fresh.get_trajectory()
+    same = reloaded.shape == poses.shape and np.array_equal(reloaded, poses)
+    st = {k: res[k] for k in ("frames", "skipped", "fps", "init_s", "loop_s",
+                              "refine_s", "mesh_s", "track_ms", "map_ms",
+                              "insert_ms", "ate_cm", "ate_aligned_cm",
+                              "num_voxels", "num_keyframes", "mesh_verts",
+                              "mesh_faces")}
+    st.update(wall_s=wall_s, launches=launches,
+              metrics_ate_cm=metrics[-1].get("ate_rmse_cm"),
+              checkpoint_trajectory_bitwise=same)
+    log("cli: " + json.dumps(st) + f" (ATE limit {CLI_ATE_LIMIT_CM} cm)")
+    if any(launches.values()):
+        raise AssertionError(f"cli: kernels launched on the unfused branch: "
+                             f"{launches}")
+    if not (poses.shape == (res["frames"] + 1, 4, 4)
+            and np.isfinite(poses).all()):
+        raise AssertionError(f"cli: trajectory {poses.shape}")
+    if not same:
+        raise AssertionError("cli: the reloaded checkpoint's trajectory "
+                             "differs from frame_poses.npy")
+    if not st["ate_cm"] < CLI_ATE_LIMIT_CM:
+        raise AssertionError(f"cli: unaligned ATE {st['ate_cm']:.3f} cm >= "
+                             f"{CLI_ATE_LIMIT_CM}")
+    return st
 
 
 def profile_phase(device, settings, frames, start=PROFILE_START,
@@ -987,7 +1170,7 @@ def main() -> None:
     stats = {"vox": slice_phase(
         device, "vox", vox, frames, N_FRAMES, ATE_LIMIT_CM,
         launched=("fused_render_forward", "decoder_backward"),
-        not_launched=("decoder_forward",))}
+        not_launched=("decoder_forward",), mesh=True)}
     pcd = dataclasses.replace(
         vox, render=dataclasses.replace(vox.render, feature_mode="pcd"),
         map=dataclasses.replace(vox.map, points_per_voxel=8))
@@ -996,6 +1179,7 @@ def main() -> None:
         launched=("decoder_forward", "decoder_backward"),
         not_launched=("fused_render_forward",))
     profile = profile_phase(device, vox, frames)
+    stats["cli"] = cli_phase(device)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     meta = {

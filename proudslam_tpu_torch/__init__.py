@@ -5,8 +5,10 @@ tensor code is PyTorch; the render hot loop runs through three CUDA C++
 kernels written for Hopper (``csrc/``): the fused sample-feature +
 decoder forward (``ops/kernels/render_kernel.py``, the vox branch), and
 the fused decoder forward and backward (``ops/kernels/mlp_kernel.py``,
-the pcd branch's decoder and both branches' backward). This package never
-imports JAX.
+the pcd branch's decoder and both branches' backward). The configs under
+``configs/`` run the unfused branch in plain PyTorch; ``run_slam.py`` is
+the command line (``python -m proudslam_tpu_torch.run_slam``). This
+package never imports JAX.
 """
 
 __version__ = "0.1.0"

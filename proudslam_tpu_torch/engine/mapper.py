@@ -6,7 +6,9 @@ Port of ``proudslam_tpu/engine/mapper.py`` in its fixed-batch form
 intersected and sampled once at the round's starting poses, then
 ``num_iterations`` joint Adam steps. Invalid window slots have their ray
 origins moved ``FAR_AWAY`` so they hit nothing; their pose rows, and
-rows whose gauge flag is 0 (the anchor), are masked from updates. In the
+rows whose gauge flag is 0 (the anchor), are masked from updates;
+``update_pose=False`` / ``update_decoder=False`` freeze the window's poses
+/ the decoder (final refinement and re-baking). In the
 pcd branch the PointNet params ride in the decoder dict (and its Adam); the
 embeddings are not rendered from and get zero gradients, as in the JAX
 package.
@@ -66,7 +68,8 @@ def map_step(map_state, decoder_params, store: KeyframeStore,
              opt: MapOptState, rays_dir: torch.Tensor, sel_idx: List[int],
              sel_valid: List[bool], settings: SystemSettings,
              draws: Tuple[torch.Tensor, torch.Tensor],
-             point_store=None) -> MapStepResult:
+             point_store=None, update_pose: bool = True,
+             update_decoder: bool = True) -> MapStepResult:
     """One mapping round (one reference ``do_mapping`` call).
 
     Args:
@@ -76,6 +79,8 @@ def map_step(map_state, decoder_params, store: KeyframeStore,
       sel_valid: live entries of ``sel_idx``.
       draws: ``(pix, noise)`` from :func:`map_draws` (or injected).
       point_store: the pcd branch's ``VoxelPointStore``.
+      update_pose/update_decoder: False freezes the window's poses (no pose
+        gradient is taken) / the decoder (no decoder gradient is taken).
 
     The window's refined poses and pose-Adam moments are written back into
     ``store`` in place; the new embeddings, decoder and optimizer state are
@@ -133,24 +138,28 @@ def map_step(map_state, decoder_params, store: KeyframeStore,
     embed_opt, dec_opt = opt.embed, opt.decoder
     loss = None
     for _ in range(mpr.num_iterations):
-        embeddings.requires_grad_(True)
-        poses.requires_grad_(True)
-        for t in dec_leaves:
-            t.requires_grad_(True)
+        wrt = [embeddings.requires_grad_(True)]
+        if update_pose:
+            wrt.append(poses.requires_grad_(True))
+        if update_decoder:
+            wrt += [t.requires_grad_(True) for t in dec_leaves]
         loss = loss_fn(embeddings, tree_unflatten(decoder_params, dec_leaves),
                        poses)
         # unused inputs (the embeddings in the pcd branch) get zeros
-        grads = torch.autograd.grad(loss, [embeddings, poses] + dec_leaves,
-                                    allow_unused=pcd, materialize_grads=pcd)
+        grads = list(torch.autograd.grad(loss, wrt, allow_unused=pcd,
+                                         materialize_grads=pcd))
         with torch.no_grad():
             (embeddings,), embed_opt = adam_update(
-                [embeddings.detach()], [grads[0]], embed_opt, mpr.embed_lr)
-            dec_leaves, dec_opt = adam_update(
-                [t.detach() for t in dec_leaves], list(grads[2:]), dec_opt,
-                mpr.decoder_lr)
-            poses, pm, pv, pt = adam_update_rows(
-                poses.detach(), grads[1], pm, pv, pt,
-                settings.tracker.learning_rate, pose_mask)
+                [embeddings.detach()], [grads.pop(0)], embed_opt,
+                mpr.embed_lr)
+            if update_pose:
+                poses, pm, pv, pt = adam_update_rows(
+                    poses.detach(), grads.pop(0), pm, pv, pt,
+                    settings.tracker.learning_rate, pose_mask)
+            if update_decoder:
+                dec_leaves, dec_opt = adam_update(
+                    [t.detach() for t in dec_leaves], grads, dec_opt,
+                    mpr.decoder_lr)
 
     with torch.no_grad():
         rows = sel[valid]

@@ -20,6 +20,12 @@ With ``feature_mode="pcd"`` (or ``map.store_points``) the system also keeps
 a per-voxel point store, filled with each inserted frame's points and
 colors; in pcd mode the PointNet params ride in the decoder dict, so the
 mapper's joint Adam trains them.
+
+After the frame loop: ``finalize`` (map-only rounds, poses and decoder
+frozen), ``global_refine`` (pose-updating BA sweeps over every keyframe,
+optionally anchored to slot 0) and ``rebake_map`` (embeddings re-drawn and
+re-trained at the refined poses). Frames that fail ``validate_frame`` are
+recorded by ``skip_frame``, which keeps the trajectory index-aligned.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import torch
 
 from proudslam_tpu_torch.config import SystemSettings
 from proudslam_tpu_torch.engine import state as kfstate
+from proudslam_tpu_torch.engine.adam import init_adam
 from proudslam_tpu_torch.engine.mapper import (init_map_opt, map_draws,
                                                map_step)
 from proudslam_tpu_torch.engine.tracker import track_draws, track_frame
@@ -87,9 +94,11 @@ class SlamSystem:
                  point_stride: int = 1, device="cuda",
                  draw_source: Optional[Callable] = None):
         """``draw_source(kind, wsel)``: optional provider of the random
-        draws (``kind`` "track" or "map"; returns ``(pix, noise)``), for
-        runs that must consume externally chosen draws; by default they
-        come from a ``torch.Generator`` seeded with ``seed``."""
+        draws, for runs that must consume externally chosen draws: for
+        ``kind`` "track" or "map" it returns ``(pix, noise)``, for
+        "rebake" the (E, D) standard normal draw that ``rebake_map``
+        scales by 0.01. By default they come from a ``torch.Generator``
+        seeded with ``seed``."""
         if settings.map.coord_bits != 10:
             raise ValueError("the render stack assumes coord_bits == 10")
         self.device = torch.device(device)
@@ -142,6 +151,12 @@ class SlamSystem:
         self._last_angle = 0.0
         self._capacity_warned = False
         self.clock = PhaseClock(self.device)
+        # per-frame telemetry (device scalars, read by get_track_stats)
+        self._track_losses: List[torch.Tensor] = []
+        self._hit_ratios: List[torch.Tensor] = []
+        self._map_losses: List[torch.Tensor] = []
+        self._tracked_pose6: List[torch.Tensor] = []
+        self._refined_pose6: List[torch.Tensor] = []
 
     # ------------------------------------------------------------------
 
@@ -151,6 +166,9 @@ class SlamSystem:
         npix = self.height * self.width
         if kind == "track":
             return track_draws(self.generator, self.settings, npix)
+        if kind == "rebake":
+            return torch.randn(self.map_state.embeddings.shape,
+                               generator=self.generator, device=self.device)
         return map_draws(self.generator, self.settings, wsel, npix)
 
     def _render_view(self) -> vh.MapState:
@@ -223,15 +241,19 @@ class SlamSystem:
         return (rgb_q.float() * (1.0 / 255.0),
                 depth_q.float() * (1.0 / self._depth_quant))
 
-    def _map(self, sel: List[int], valid: List[bool]) -> None:
+    def _map(self, sel: List[int], valid: List[bool],
+             update_pose: bool = True, update_decoder: bool = True):
         with self.clock.phase("map"):
             res = map_step(self._render_view(), self.decoder_params,
                            self.store, self.opt, self.rays_dir, sel, valid,
                            self.settings, self._draws("map", len(sel)),
-                           point_store=self.point_store)
+                           point_store=self.point_store,
+                           update_pose=update_pose,
+                           update_decoder=update_decoder)
         self.map_state = self.map_state._replace(embeddings=res.embeddings)
         self.decoder_params = res.decoder_params
         self.opt = res.opt
+        return res
 
     def _select_window(self) -> Tuple[List[int], List[bool]]:
         """Random keyframe window (latest keyframe always in) padded to
@@ -321,6 +343,8 @@ class SlamSystem:
                                  self._draws("track"),
                                  fresh_thresh=self._fresh_thresh(),
                                  point_store=self.point_store)
+        self._track_losses.append(result.loss)
+        self._hit_ratios.append(result.hit_ratio)
 
         slot = min(self.num_kf, s.mapper.max_keyframes - 1)
         flag = 0 if slot < s.mapper.anchor_keyframes else 1
@@ -328,9 +352,11 @@ class SlamSystem:
                             result.pose, result.adam_m, result.adam_v,
                             result.adam_t)
         sel, valid = self._select_window()
-        self._map(sel, valid)
+        self._map_losses.append(self._map(sel, valid).loss)
 
         refined = self.store.poses[slot].clone()
+        self._tracked_pose6.append(result.pose)
+        self._refined_pose6.append(refined)
         stride = s.mapper.insert_stride
         if stride <= 1 or stamp % stride == 0:
             self._insert(rgb_d, depth_d, refined)
@@ -359,19 +385,96 @@ class SlamSystem:
         self.prev_pose6 = self.last_pose6
         self.last_pose6 = refined
 
-    def global_refine(self, rounds: int = 2) -> None:
+    @staticmethod
+    def validate_frame(rgb, depth) -> None:
+        """Reject a corrupt sensor frame (non-finite values, all-zero
+        depth) before it reaches the map: raises ``ValueError``."""
+        rgb = np.asarray(rgb)
+        depth = np.asarray(depth)
+        if not np.isfinite(rgb).all():
+            raise ValueError("rgb contains non-finite values")
+        if not np.isfinite(depth).all():
+            raise ValueError("depth contains non-finite values")
+        if float(np.abs(depth).sum()) == 0.0:
+            raise ValueError("all-zero depth frame")
+
+    def skip_frame(self, stamp: int) -> None:
+        """Record a skipped frame: repeat the last trajectory entry (the
+        identity at keyframe 0 before any), so the trajectory stays
+        index-aligned with the input sequence."""
+        if self.frame_poses:
+            self.frame_poses.append(self.frame_poses[-1])
+        else:
+            self.frame_poses.append(
+                (0, torch.eye(4, dtype=torch.float32, device=self.device)))
+
+    def counters(self, exact: bool = False) -> dict:
+        """Map occupancy. The port keeps the live counts on the host, so
+        ``exact`` (a blocking refresh in the JAX package) changes nothing."""
+        ms = self.map_state
+        return {"num_voxels": ms.num_voxels, "num_cells": ms.num_cells,
+                "voxel_capacity": self.settings.map.voxel_capacity,
+                "cell_capacity": self.settings.map.num_embeddings}
+
+    def finalize(self, final_rounds: int = 0) -> None:
+        """Final map-only rounds over random keyframe windows, poses and
+        decoder frozen."""
+        for _ in range(final_rounds):
+            sel, valid = self._select_window()
+            self._map(sel, valid, update_pose=False, update_decoder=False)
+
+    def global_refine(self, rounds: int = 2, anchored: bool = False) -> None:
         """Pose-updating BA sweeping overlapping windows over every
-        keyframe and the provisional slot (slot 0 stays the anchor)."""
+        keyframe and the provisional slot (slot 0 stays the anchor).
+        ``anchored``: every window leads with slot 0, followed by
+        consecutive keyframes."""
         w0 = min(self.num_kf + 1, self.settings.mapper.window_size + 1)
         if self.num_kf < 2 or w0 < 2:
             return
+        width = w0 - 1 if anchored else w0
+        first = 1 if anchored else 0
+        stride = max(width - 1, 1)   # consecutive windows overlap by one
+        for _ in range(rounds):
+            for start in range(first, self.num_kf, stride):
+                start = min(start, self.num_kf + 1 - width)
+                if start < first:
+                    break
+                run = list(range(start, start + width))
+                self._map([0] + run if anchored else run, [True] * w0)
+
+    def rebake_map(self, iterations: int = 200) -> None:
+        """Re-draw the embeddings (0.01 * N(0, 1)) and re-train them from
+        every stored keyframe at the current poses, poses frozen (the
+        decoder is kept and trained)."""
+        if self.num_kf < 1:
+            return
+        emb = 0.01 * self._draws("rebake")
+        self.map_state = self.map_state._replace(embeddings=emb)
+        self.opt = self.opt._replace(embed=init_adam([emb]))
+        w0 = min(self.num_kf + 1, self.settings.mapper.window_size + 1)
         stride = max(w0 - 1, 1)
+        rounds = max(1, iterations // self.settings.mapper.num_iterations)
         for _ in range(rounds):
             for start in range(0, self.num_kf, stride):
                 start = min(start, self.num_kf + 1 - w0)
                 if start < 0:
                     break
-                self._map(list(range(start, start + w0)), [True] * w0)
+                self._map(list(range(start, start + w0)), [True] * w0,
+                          update_pose=False)
+
+    def get_track_stats(self) -> Dict[str, np.ndarray]:
+        """Per-frame telemetry as host arrays: track_loss, hit_ratio and
+        map_loss (each step's final iteration), tracked_pose6 (before BA)
+        and refined_pose6 (after it)."""
+        out = {}
+        for name, buf in (("track_loss", self._track_losses),
+                          ("hit_ratio", self._hit_ratios),
+                          ("map_loss", self._map_losses),
+                          ("tracked_pose6", self._tracked_pose6),
+                          ("refined_pose6", self._refined_pose6)):
+            out[name] = (torch.stack(buf).cpu().numpy() if buf
+                         else np.zeros((0,), np.float32))
+        return out
 
     def get_trajectory(self) -> np.ndarray:
         """(N, 4, 4) world poses recomposed with the final keyframe poses."""

@@ -7,7 +7,10 @@ the 6-dof pose tangent with an exponential lr anneal, the depth-variance
 outlier rule and fresh-voxel ray weighting. The map, decoder and PointNet
 are frozen; only the pose gets gradients (kernel K3 skips its
 weight-gradient pass). The vox branch hoists the corner view out of the
-iterations; the pcd branch renders from the point store.
+iterations, and the unfused vox branch also the per-sample corner
+features and voxel centers (``ops/interp.precompute_f8``), leaving only
+the pose-dependent trilinear weights inside; the pcd branch renders from
+the point store.
 """
 
 from __future__ import annotations
@@ -20,7 +23,8 @@ import torch
 from proudslam_tpu_torch.config import SystemSettings
 from proudslam_tpu_torch.engine.adam import adam_update, init_adam
 from proudslam_tpu_torch.geometry import se3
-from proudslam_tpu_torch.ops.interp import corner_view
+from proudslam_tpu_torch.ops.interp import corner_view, precompute_f8
+from proudslam_tpu_torch.ops.kernels.mlp_kernel import fused_applicable
 from proudslam_tpu_torch.ops.sampling import sample_frame_pixels
 from proudslam_tpu_torch.render.losses import compute_loss
 from proudslam_tpu_torch.render.renderer import (intersect_and_sample,
@@ -85,6 +89,13 @@ def track_frame(map_state, decoder_params, prev_pose: torch.Tensor,
         w_d = f_dirs @ R0.T
         fixed = intersect_and_sample(prev_pose[0:3].expand_as(w_d), w_d,
                                      map_state, rnd, noise)
+        f8c = None
+        if not pcd and not fused_applicable(settings.decoder):
+            inter0, samples0 = fixed
+            bins0 = torch.where(samples0.voxel_idx >= 0, samples0.bin,
+                                inter0.voxel_idx.shape[1])
+            f8c = precompute_f8(corner_feats, inter0.voxel_idx.clamp_min(0),
+                                bins0, map_state.voxel_keys, rnd.voxel_size)
 
     def loss_fn(pose6):
         R = se3.exp_rotation(pose6[3:6])
@@ -92,8 +103,8 @@ def track_frame(map_state, decoder_params, prev_pose: torch.Tensor,
         outputs = render_rays(
             pose6[0:3].expand_as(world_d), world_d, map_state,
             map_state.embeddings, decoder_params, settings.decoder, rnd,
-            point_store=point_store, corner_feats=corner_feats, fresh_thresh=fresh_thresh,
-            precomputed=fixed)
+            point_store=point_store, corner_feats=corner_feats,
+            fresh_thresh=fresh_thresh, precomputed=fixed, f8_center=f8c)
         ray_w = None
         if rnd.fresh_voxel_margin > 0 or rnd.fresh_window_frames > 0:
             ray_w = 1.0 - (1.0 - trk.fresh_ray_floor) * outputs.fresh_frac

@@ -1,9 +1,11 @@
-"""Build and load the CUDA kernels of ``proudslam_tpu_torch/csrc``.
+"""Build and load the CUDA kernels of ``proudslam_tpu_torch/csrc`` and the
+host C++ libraries the port uses (``native/pointstore``).
 
 Each kernel source is compiled by ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface, loaded with ``ctypes``. The build happens
+library with a plain C interface, loaded with ``ctypes``; a host source is
+compiled the same way by ``g++`` (:func:`build_host`). The build happens
 at first use, into ``proudslam_tpu_torch/_build/``, and is redone when the
-hash of the sources or flags changes. A missing ``nvcc`` or a failed build
+hash of the sources or flags changes. A missing compiler or a failed build
 raises; nothing falls back to another implementation.
 """
 
@@ -23,6 +25,9 @@ CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+# native/pointstore/Makefile's flags without -march=native: the build
+# directory may be copied to another host
+CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-Wall", "-shared"]
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -65,6 +70,29 @@ def build(name: str) -> Path:
     so.with_suffix(".log").write_text(res.stdout + res.stderr)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{res.stderr}")
+    os.replace(tmp, so)
+    return so
+
+
+def build_host(source: Path) -> Path:
+    """Compile the host C++ file ``source`` with ``g++`` into a shared
+    library in ``_build`` (named by a hash of the flags and the source)
+    unless it exists; raises if ``g++`` is missing or fails."""
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    h.update(source.read_bytes())
+    so = BUILD_DIR / f"lib{source.stem}_{h.hexdigest()[:16]}.so"
+    if so.exists():
+        return so
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError(f"g++ not found: {source.name} is built from "
+                           "source at first use")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    res = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(source)],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"g++ failed for {source.name}:\n{res.stderr}")
     os.replace(tmp, so)
     return so
 

@@ -23,7 +23,8 @@ from typing import Tuple
 import torch
 
 from proudslam_tpu_torch.config import DecoderSettings, RenderSettings
-from proudslam_tpu_torch.ops.interp import CORNER_BITS
+from proudslam_tpu_torch.ops.interp import (CORNER_BITS, corner_bits,
+                                            segment_sum_rows)
 from proudslam_tpu_torch.ops.kernels import build
 from proudslam_tpu_torch.ops.kernels.mlp_kernel import (
     FusedParams, decoder_bwd, decoder_fwd_plain, forward_grid, pack_params)
@@ -126,29 +127,6 @@ def _bind(lib) -> None:
     lib.fused_render_forward.restype = i
 
 
-def _corner_bits(device) -> torch.Tensor:
-    """(8, 3) corner offset bits (j>>2, (j>>1)&1, j&1), made on the device
-    (a host-to-device copy would synchronize the stream)."""
-    j = torch.arange(8, device=device)
-    return torch.stack([(j >> 2) & 1, (j >> 1) & 1, j & 1], dim=-1).float()
-
-
-def _segment_sum_rows(rows: torch.Tensor, index: torch.Tensor,
-                      n: int) -> torch.Tensor:
-    """out[i] = sum of rows[index == i] for i < n, in a fixed order on every
-    device: rows are grouped by a stable sort and each group is summed in
-    sequence. (A scatter-add of these heavily repeated indices is either
-    nondeterministic, with atomics, or serialized per index.) The counts
-    are an integer scatter-add, exact in any order; ``torch.bincount``
-    would read the largest index back to the host."""
-    index = index.long()
-    order = torch.argsort(index, stable=True)
-    counts = torch.zeros(n, dtype=torch.long, device=index.device)
-    counts.scatter_add_(0, index, torch.ones_like(index))
-    return torch.segment_reduce(rows[order], "sum", lengths=counts,
-                                unsafe=True)
-
-
 class FusedFeatsDecode(torch.autograd.Function):
     """Corner view -> per-sample [r, g, b, sdf] through K1, with the
     ``_ffd_bwd`` backward. Differentiable w.r.t. EV (the (V, 8D) corner
@@ -187,7 +165,7 @@ class FusedFeatsDecode(torch.autograd.Function):
         xyz = rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]
         p = (xyz - center) / vox + 0.5                             # (R, S, 3)
         vf = valid.float()
-        q = _corner_bits(EV.device)                                # (8, 3)
+        q = corner_bits(EV.device)                                # (8, 3)
         pe = p[:, :, None, :]
         ax = pe * q + (1.0 - pe) * (1.0 - q)                       # (R,S,8,3)
         w = torch.prod(ax, dim=-1) * vf[..., None]                 # (R, S, 8)
@@ -200,8 +178,7 @@ class FusedFeatsDecode(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             g8 = (w[..., None] * d_feats[:, :, None, :]).reshape(R, S, K)
             d_rb = torch.bmm(onehot.transpose(1, 2), g8)           # (R, H, K)
-            dEV = _segment_sum_rows(d_rb.reshape(-1, K), vidx.reshape(-1),
-                                    V)
+            dEV = segment_sum_rows(d_rb.reshape(-1, K), vidx.reshape(-1), V)
 
         # pose: dL/dw_j = f8_j . d_feats, then the trilinear derivative
         rb = EV[vidx.long()]

@@ -1,12 +1,15 @@
 """Differentiable SDF volume renderer.
 
-Port of ``proudslam_tpu/render/renderer.py`` on two of its branches:
-intersect -> stratified samples -> sample features + decoder ->
-sdf-to-weights -> integrate.
+Port of ``proudslam_tpu/render/renderer.py``: intersect -> stratified
+samples -> sample features + decoder -> sdf-to-weights -> integrate.
 
 * ``feature_mode="vox"`` with ``use_fused_mlp=True``: kernel K1 blends the
   corner embeddings and decodes in one pass; map gradients flow through
   the corner view.
+* ``feature_mode="vox"`` with ``use_fused_mlp=False`` (the configs'
+  default): ``ops/interp.gather_ray_features`` blends the corner
+  embeddings and the plain ``models/decoder.decoder_values`` decodes, at
+  the config's ``matmul_dtype``.
 * ``feature_mode="pcd"``: PointNet features of each voxel's stored points
   (``render/pcd_features.py``), decoded by kernels K2/K3
   (``decoder_values_fused``) when ``use_fused_mlp=True``, else by the plain
@@ -24,7 +27,7 @@ import torch
 
 from proudslam_tpu_torch.config import DecoderSettings, RenderSettings
 from proudslam_tpu_torch.models.decoder import decoder_values
-from proudslam_tpu_torch.ops.interp import corner_view
+from proudslam_tpu_torch.ops.interp import corner_view, gather_ray_features
 from proudslam_tpu_torch.ops.intersect import ray_intersect
 from proudslam_tpu_torch.ops.kernels.mlp_kernel import (decoder_values_fused,
                                                         fused_applicable)
@@ -94,7 +97,7 @@ def intersect_and_sample(rays_o, rays_d, map_state, settings: RenderSettings,
 def render_rays(rays_o, rays_d, map_state, embeddings, decoder_params,
                 decoder_settings: DecoderSettings, settings: RenderSettings,
                 noise=None, point_store=None, corner_feats=None, fresh_thresh=None,
-                precomputed=None) -> RenderOutputs:
+                precomputed=None, f8_center=None) -> RenderOutputs:
     """Render a batch of rays against the current map.
 
     Args:
@@ -111,13 +114,12 @@ def render_rays(rays_o, rays_d, map_state, embeddings, decoder_params,
       fresh_thresh: optional voxel-slot threshold for ``fresh_frac``.
       precomputed: optional ``(Intersections, RaySamples)`` reused across
         optimizer iterations.
+      f8_center: optional ``ops.interp.precompute_f8`` result for
+        ``precomputed`` (unfused vox branch, frozen embeddings).
     """
     pcd = settings.feature_mode == "pcd"
     # K1 and K2/K3 take the same architectures (as in the JAX package)
-    if not pcd and not fused_applicable(decoder_settings):
-        raise NotImplementedError(
-            "the unfused vox branch (use_fused_mlp=False: "
-            "gather_ray_features) is not ported yet (ROADMAP Queue 1)")
+    fused = fused_applicable(decoder_settings)
     if precomputed is not None:
         inter, samples = precomputed
     else:
@@ -127,20 +129,29 @@ def render_rays(rays_o, rays_d, map_state, embeddings, decoder_params,
     valid = samples.voxel_idx >= 0
     R, S = z_vals.shape
     H = inter.voxel_idx.shape[1]
+    if pcd or not fused:
+        sampled_xyz = (rays_o[:, None, :]
+                       + rays_d[:, None, :] * z_vals[..., None])
 
     if pcd:
         if point_store is None:
             raise ValueError("feature_mode='pcd' needs a VoxelPointStore")
-        sampled_xyz = (rays_o[:, None, :]
-                       + rays_d[:, None, :] * z_vals[..., None])
         feats = gather_pcd_features(
             sampled_xyz, samples.bin, inter.voxel_idx, point_store,
             decoder_params["pointnet"], settings.voxel_size).reshape(R * S, -1)
-        if fused_applicable(decoder_settings):
+        if fused:
             out = decoder_values_fused(decoder_params, decoder_settings,
                                        feats)
         else:
             out = decoder_values(decoder_params, decoder_settings, feats)
+    elif not fused:
+        # invalid samples -> bin H: zero features, zero cotangents
+        S_bins = torch.where(valid, samples.bin, H)
+        feats = gather_ray_features(
+            sampled_xyz, S_bins, inter.voxel_idx, map_state.voxel_keys,
+            map_state.voxel_vertex_ids, embeddings, settings.voxel_size,
+            EV=corner_feats, f8_center=f8_center).reshape(R * S, -1)
+        out = decoder_values(decoder_params, decoder_settings, feats)
     else:
         vidx = inter.voxel_idx.clamp_min(0)
         EV = corner_feats

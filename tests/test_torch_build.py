@@ -61,3 +61,22 @@ def test_source_edit_changes_only_its_library(csrc, name):
     for other in SOURCES:
         changed = build.library_path(other, csrc) != before[other]
         assert changed == (other == name), (name, other)
+
+
+def test_host_build_is_content_hashed(tmp_path, monkeypatch):
+    """``build_host`` (the native point store, g++) builds once per source
+    content, and a broken source raises."""
+    from proudslam_tpu_torch import native
+
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    src = tmp_path / "pointstore.cpp"
+    src.write_text(native.SOURCE.read_text())
+    so = build.build_host(src)
+    assert so.exists() and so.parent == tmp_path / "_build"
+    assert build.build_host(src) == so
+    src.write_text(src.read_text() + "\n// edited\n")
+    edited = build.build_host(src)
+    assert edited != so and edited.exists()
+    src.write_text("this is not C++\n")
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+        build.build_host(src)

@@ -37,6 +37,9 @@ from proudslam_tpu_torch.models.decoder import (map_state_from_numpy,
                                                 params_from_jax, tree_leaves)
 
 from torch_parity import n, port_system, t
+from torch_parity import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def settings(**render) -> SystemSettings:

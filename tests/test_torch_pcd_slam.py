@@ -48,6 +48,9 @@ from test_torch_engine import (assert_adam_updates_close, map_draws,
                                track_draws)
 from test_torch_slam import assert_same_map, sync_from_jax
 from torch_parity import n, port_system
+from torch_parity import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 N_FRAMES = 5
 POSE_TOL = 1e-4

@@ -3,15 +3,19 @@ against the JAX package's with its fused Pallas branches forced on
 (interpret mode, as ``tests/test_fused_render.py`` does), on the same map,
 rays and noise. Outputs and the gradients the SLAM loops consume
 (embeddings for mapping, ray origins/directions for tracking, decoder
-params) are compared, for the vox branch (kernel K1) and the pcd branch
-(PointNet features, kernels K2/K3; there the PointNet params' gradients
-too). The JAX pcd branch reaches K2 only on a TPU backend, so
+params) are compared, for the vox branch (kernel K1), the unfused vox
+branch (``use_fused_mlp=False``: ``gather_ray_features`` + the plain
+decoder, at f32 and bf16 decoder operands) and the pcd branch (PointNet
+features, kernels K2/K3; there the PointNet params' gradients too). The JAX pcd branch reaches K2 only on a TPU backend, so
 ``fused_applicable`` is patched to skip that check and
 ``decoder_values_fused`` to run in interpret mode.
 
 Tolerances: rendered color/depth/sdf 2e-3 (bf16 decoder operands in both,
 f32 summation order differs); loss 1e-3 relative; gradients 5e-3 of each
 gradient's largest magnitude (the same, through the normalized weights).
+The unfused branch with f32 operands has no bf16 rounding to flip: 1e-4
+on outputs, 1e-5 relative on the loss, 1e-4 of each gradient's largest
+magnitude.
 """
 
 import dataclasses
@@ -41,6 +45,9 @@ from proudslam_tpu_torch.render import renderer as tr
 
 from torch_parity import (DEC, MAP, RENDER, assert_close_scaled, map_coords,
                           n, port, ray_batch, t)
+from torch_parity import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.fixture
@@ -62,14 +69,25 @@ def case(monkeypatch):
     return state, params, o, d, noise, gt_c, gt_d
 
 
-@pytest.mark.parametrize("depth_variance", [False, True])
-def test_render_and_loss_match(case, depth_variance):
+UNFUSED_TOL = {"f32": (1e-4, 1e-5, 1e-4), "bf16": (2e-3, 1e-3, 5e-3)}
+
+
+@pytest.mark.parametrize("depth_variance,dec", [
+    (False, DEC), (True, DEC),
+    (True, dataclasses.replace(DEC, use_fused_mlp=False,
+                               matmul_dtype="f32")),
+    (True, dataclasses.replace(DEC, use_fused_mlp=False))],
+    ids=["False", "True", "unfused-f32", "unfused-bf16"])
+def test_render_and_loss_match(case, depth_variance, dec):
     state, params, o, d, noise, gt_c, gt_d = case
     ls = LossSettings()
     ray_w = np.linspace(0.2, 1.0, o.shape[0]).astype(np.float32)
+    tol_out, tol_loss, tol_grad = (UNFUSED_TOL[dec.matmul_dtype]
+                                   if not dec.use_fused_mlp
+                                   else (2e-3, 1e-3, 5e-3))
 
     def jf(emb, o_, d_, p):
-        out = j_render(o_, d_, state, emb, p, DEC, RENDER, jnp.asarray(noise))
+        out = j_render(o_, d_, state, emb, p, dec, RENDER, jnp.asarray(noise))
         loss, _ = j_loss(out, jnp.asarray(gt_c), jnp.asarray(gt_d), ls,
                          weight_depth_loss=depth_variance,
                          ray_weights=jnp.asarray(ray_w))
@@ -86,7 +104,7 @@ def test_render_and_loss_match(case, depth_variance):
     p_t = params_from_jax(params, device="cpu")
     for p in tree_leaves(p_t):
         p.requires_grad_(True)
-    out_t = tr.render_rays(o_t, d_t, ts, emb, p_t, port(DEC), port(RENDER),
+    out_t = tr.render_rays(o_t, d_t, ts, emb, p_t, port(dec), port(RENDER),
                            t(noise))
     lt, _ = tl.compute_loss(out_t, t(gt_c), t(gt_d), port(ls),
                             weight_depth_loss=depth_variance,
@@ -98,14 +116,14 @@ def test_render_and_loss_match(case, depth_variance):
     np.testing.assert_array_equal(n(out_t.sample_mask), n(out_j.sample_mask))
     for f in ("color", "depth", "sdf", "weights"):
         np.testing.assert_allclose(n(getattr(out_t, f)),
-                                   n(getattr(out_j, f)), atol=2e-3,
+                                   n(getattr(out_j, f)), atol=tol_out,
                                    err_msg=f)
-    np.testing.assert_allclose(float(lt.detach()), float(lj), rtol=1e-3)
-    assert_close_scaled(emb.grad, gj[0], 5e-3, "d_embeddings")
-    assert_close_scaled(o_t.grad, gj[1], 5e-3, "d_o")
-    assert_close_scaled(d_t.grad, gj[2], 5e-3, "d_d")
+    np.testing.assert_allclose(float(lt.detach()), float(lj), rtol=tol_loss)
+    assert_close_scaled(emb.grad, gj[0], tol_grad, "d_embeddings")
+    assert_close_scaled(o_t.grad, gj[1], tol_grad, "d_o")
+    assert_close_scaled(d_t.grad, gj[2], tol_grad, "d_d")
     for a, b in zip(tree_leaves(p_t), jax.tree.leaves(gj[3])):
-        assert_close_scaled(a.grad, b, 5e-3, "params")
+        assert_close_scaled(a.grad, b, tol_grad, "params")
 
 
 def test_pcd_render_and_loss_match(case, monkeypatch):
@@ -188,10 +206,12 @@ def test_fresh_fraction_and_median_match():
 
 
 def test_unported_branches_raise():
+    """The unfused vox branch is ported; the dda intersection is not."""
     ts = map_state_from_numpy(jvh.build_map_state_numpy(map_coords(0), MAP),
                               device="cpu")
     o, d = ray_batch(4)
     unfused = dataclasses.replace(port(DEC), use_fused_mlp=False)
-    with pytest.raises(NotImplementedError, match="unfused vox branch"):
-        tr.render_rays(t(o), t(d), ts, ts.embeddings, {}, unfused,
-                       port(RENDER), torch.rand(4, 18))
+    dda = dataclasses.replace(port(RENDER), intersect_mode="dda")
+    with pytest.raises(NotImplementedError, match="dda"):
+        tr.render_rays(t(o), t(d), ts, ts.embeddings, {}, unfused, dda,
+                       torch.rand(4, 18))

@@ -41,6 +41,9 @@ from proudslam_tpu_torch.models.decoder import (map_state_from_numpy,
 from test_torch_engine import (assert_adam_updates_close, map_draws,
                                settings, track_draws)
 from torch_parity import n, port_system, t
+from torch_parity import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 N_FRAMES = 6
 POSE_TOL = 1e-4

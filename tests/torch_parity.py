@@ -3,6 +3,7 @@ inputs go through the JAX package and the PyTorch port (on the CPU, where
 every kernel wrapper of the port runs its plain version)."""
 
 import numpy as np
+import pytest
 import torch
 
 from proudslam_tpu.config import DecoderSettings, MapSettings, RenderSettings
@@ -62,3 +63,16 @@ def assert_close_scaled(a, b, atol, what=""):
     a, b = n(a), n(b)
     scale = float(np.max(np.abs(b))) + 1e-12
     np.testing.assert_allclose(a / scale, b / scale, atol=atol, err_msg=what)
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """Run a test module with one intra-op thread in PyTorch (restored after).
+    Under several test workers on one machine, PyTorch's default of one
+    thread per core makes each parallel region wait on threads the other
+    workers hold: a cut-down CLI run that takes 5 s alone took 108 s under
+    five busy processes, and 11 s with one thread (CPU runs)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
