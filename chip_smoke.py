@@ -10,9 +10,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build: compile the CUDA kernels from ``proudslam_tpu_torch/csrc`` (one
    ``nvcc`` per source, all started together);
    each library's ``-Xptxas -v`` report (registers, spills, wgmma
-   warnings) and its count of tensor-core instructions (HGMMA, HMMA) in
-   ``cuobjdump -sass`` are logged; K1, K2 and K3 must each hold HGMMA, no
-   HMMA, and no spills;
+   warnings) and its count of tensor-core instructions (HGMMA, HMMA) and
+   FFMA in ``cuobjdump -sass`` are logged; K1, K2 and K3 must each hold
+   HGMMA, no HMMA, and no spills; K2-f32 and K3-f32 (f32 operands) FFMA,
+   no tensor-core instruction at all (so no TF32), and no spills;
 3. kernels: run each kernel at the slices' mapping and tracking shapes
    (1024 rays, 65,536 rows) on inputs from the real pipeline and hold it
    against its plain PyTorch version (stated tolerances; K3 full and
@@ -22,9 +23,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    plain version at both shapes, each kernel's bound (least time on the
    card, from this run's shapes) and, for the decoder kernels, a chain of
    bf16 ``torch.matmul`` calls as a yardstick (no single PyTorch call
-   computes these functions); then hold the pcd branch's ``render_rays``
-   (PointNet gather, K2, K3 through autograd) on the card against the
-   same call on the CPU, outputs and gradients, on 512 rays;
+   computes these functions); the same for K2-f32 and K3-f32 (full and
+   dx-only) on the pcd features at the mapping, tracking and ragged row
+   counts, against the plain versions with f32 operands (TF32 off), with a
+   chain of f32 ``torch.matmul`` calls as the yardstick; then hold the pcd
+   branch's ``render_rays`` (PointNet gather, K2, K3 through autograd) on
+   the card against the same call on the CPU, outputs and gradients, on
+   512 rays;
 4. vox slice: the bench configuration with the fused render path on
    (``config.bench_settings``): ``SlamSystem.initialize`` (200 mapping
    iterations), 39 ``process_frame`` calls over the first 40 frames of the
@@ -49,21 +54,37 @@ Phases, in order; any failure raises and the script exits non-zero:
    (``tests/test_pcd_features.py``), where the branch drifts by several cm
    per frame; ``tests/test_torch_pcd_slam.py`` run as a script prints both
    engines' drift at that test's size;
+5b. pcd-f32 slice: the pcd slice with ``matmul_dtype="f32"`` (the
+   configs' default operand type): K2-f32 and K3-f32 must have been
+   launched and K1, K2 and K3 not, the poses finite and the unaligned ATE
+   under the pcd slice's 60 cm;
+5c. resample run: the vox configuration with ``fixed_sample_batch=False``
+   in the tracker and the mapper (a fresh pixel batch per Adam iteration,
+   intersected at the current pose) and the Gumbel pixel sampler, over the
+   first 10 of the rendered frames and ``global_refine(rounds=2)``: K1 and
+   K3 must have been launched, the unaligned ATE under 3 cm; its frames/s
+   and per-phase ms are logged beside the fixed-batch vox slice's;
 6. vox profile: another vox run, ``torch.profiler`` over frames 5-8 (each
    engine phase a profiler range): device busy ms per frame in all and
    per phase with each phase's idle share, kernel launches per frame, the
    top kernels' shares, and the host's CPU ms per frame;
 7. cli: ``proudslam_tpu_torch.run_slam.main`` on
-   ``configs/synthetic/room.yaml`` as it stands (40 frames at 320x240, the
-   unfused branch with an f32 decoder, 100 initial mapping iterations,
-   mesh at res 8) into a temporary log directory: every artifact must be
-   there (trajectory, mesh that parses back, checkpoint + sidecar,
-   metrics), no kernel launched (the unfused branch runs none), the
-   unaligned ATE under 3 cm, and the checkpoint, loaded into a fresh
-   ``SlamSystem`` on the card, must give the saved trajectory bit for
-   bit.
+   ``configs/synthetic/room.yaml`` (40 frames at 320x240, the unfused
+   branch with an f32 decoder, 100 initial mapping iterations, mesh at
+   res 8) with ``--debug_args.render_freq 20`` into a temporary log
+   directory: every artifact must be there (trajectory, mesh that parses
+   back, checkpoint + sidecar, metrics, and the panels
+   ``imgs/render_00019.png`` and ``imgs/render_00039.png``, each decoding
+   to the panel's 3x2 tiles of the 200x160 preview), no kernel launched
+   (the unfused branch and the preview run none), the unaligned ATE under
+   3 cm, and the checkpoint, loaded into a fresh ``SlamSystem`` on the
+   card, must give the saved trajectory bit for bit;
+8. cli-pcd: the same entry point on room.yaml with ``--tpu_specs.feature_mode
+   pcd --tpu_specs.fused_mlp true --no-mesh``, 5 frames (the YAML's f32
+   operands): K2-f32 and K3-f32 must have been launched and no other
+   kernel, the trajectory finite and the checkpoint reloaded bit for bit.
 
-Every launch count is set to 0 just before a slice (and the cli run) and
+Every launch count is set to 0 just before a slice (and each cli run) and
 read just after it; the mesh's launches are the counts' change across it.
 Standard output ends with the slices' JSON line, the kernels' JSON line,
 the card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -127,6 +148,18 @@ K3_RAGGED = 37            # rows cut from the mapping shape for the ragged check
 # small ragged row counts, where the masked last tile carries all (27) or
 # a third (91 = 64 + 27) of each weight and bias gradient's sum
 K3_SMALL = (27, 91)
+# K2-f32 and K3-f32 (true f32 products, summed in another order than the
+# plain version's f32 matmuls): the forward at 1e-5 of each output
+# column's largest magnitude (the f32 CPU parity tolerance of
+# tests/test_torch_mlp_kernel.py); the backward at 1e-4 of each output's
+# largest magnitude: its weight gradients are f32 sums over up to 327,680
+# rows, whose rounding grows ~sqrt(rows) x 6e-8 relative (~3e-5 at the
+# mapping shape) in either summation order. An f32 rounding-level
+# difference can still flip a ReLU mask where a hidden pre-activation is
+# within ~1e-7 of 0 (the bf16 forms' 1e-2 allows for that); the log
+# counts such rows.
+TOL_F32_FWD = 1e-5
+TOL_F32_BWD = 1e-4
 K1_RAGGED = (1001, 40)    # rays x samples of K1's ragged check (40,040 rows)
 TRACK_RAYS = 1024         # the tracking shape: 1024 rays x S samples
 ATE_LIMIT_CM = 3.0
@@ -141,6 +174,10 @@ CLI_CONFIG = os.path.join("configs", "synthetic", "room.yaml")
 PCD_ATE_LIMIT_CM = 60.0
 N_FRAMES = 40
 PCD_FRAMES = 5
+RESAMPLE_FRAMES = 10
+CLI_RENDER_FREQ = 20      # the cli phase's panels: frames 19 and 39
+PANEL_WH = (3 * 200, 2 * 160)   # room.yaml's default 200x160 preview
+PCD_CLI_FRAMES = 5
 PROFILE_START, PROFILE_FRAMES = 5, 4   # the vox profile: frames 5-8
 WIDTH, HEIGHT = 320, 240
 
@@ -159,6 +196,14 @@ DEC_FLOPS = 2 * (16 * 128 + 128 * 128 + 128 * 129 + 128 * 128 + 16 * 128
 KERNEL_FUNCTIONS = (("render_kernel", "render_forward_kernel"),
                     ("mlp_kernel", "decoder_forward_kernel"),
                     ("mlp_kernel", "decoder_backward_kernel"))
+# (library, kernel function) of the f32-operand forms: FFMA, no
+# tensor-core instruction (no TF32), no spills
+F32_FUNCTIONS = (("mlp_kernel_f32", "decoder_forward_f32_kernel"),
+                 ("mlp_kernel_f32", "decoder_backward_f32_kernel"))
+LIBRARIES = ("render_kernel", "mlp_kernel", "mlp_kernel_f32")
+# the kernels' launch counters, by the name of the kernels JSON line
+KERNELS = ("fused_render_forward", "decoder_forward", "decoder_backward",
+           "decoder_forward_f32", "decoder_backward_f32")
 
 
 def log(msg: str) -> None:
@@ -179,9 +224,10 @@ def device_phase():
 
 
 def sass_counts(lib) -> dict:
-    """Tensor-core instructions per kernel function of a built library, from
-    ``cuobjdump -sass``: {function: {"HGMMA": n, "HMMA": n}} (HGMMA is
-    wgmma, HMMA mma.sync)."""
+    """Tensor-core instructions and f32 FMAs per kernel function of a built
+    library, from ``cuobjdump -sass``: {function: {"HGMMA": n, "HMMA": n,
+    "FFMA": n}} (HGMMA is wgmma, HMMA mma.sync, FFMA an f32 fused
+    multiply-add on the FP32 units)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         raise RuntimeError("cuobjdump not found")
@@ -194,9 +240,9 @@ def sass_counts(lib) -> dict:
     for line in res.stdout.splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            counts[fn] = {"HGMMA": 0, "HMMA": 0}
+            counts[fn] = {"HGMMA": 0, "HMMA": 0, "FFMA": 0}
         elif fn is not None:
-            for op in ("HGMMA", "HMMA"):
+            for op in ("HGMMA", "HMMA", "FFMA"):
                 if f" {op}." in line or f" {op} " in line:
                     counts[fn][op] += 1
     return counts
@@ -227,12 +273,12 @@ def ptxas_resources(log_text: str) -> dict:
 
 
 def build_phase():
-    """Build both libraries (one nvcc each, in parallel); log the ptxas
-    report and the tensor-core instruction counts -> (seconds, {kernel
-    function: its SASS counts and ptxas resources})."""
+    """Build the libraries (one nvcc each, in parallel); log the ptxas
+    report and the instruction counts -> (seconds, {kernel function: its
+    SASS counts and ptxas resources})."""
     from proudslam_tpu_torch.ops.kernels import build
 
-    names = ("render_kernel", "mlp_kernel")
+    names = LIBRARIES
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         for f in [pool.submit(build.build, name) for name in names]:
@@ -248,10 +294,10 @@ def build_phase():
         sass[name] = sass_counts(build.library_path(name))
         ptxas[name] = ptxas_resources(text)
         log(f"sass {name}: {json.dumps(sass[name])}")
-    # all three kernels run their products on the tensor cores (wgmma),
-    # with no spills
+    # the bf16 kernels run their products on the tensor cores (wgmma), the
+    # f32 ones on the FP32 units; none spills
     found = {}
-    for lib, fn in KERNEL_FUNCTIONS:
+    for lib, fn in KERNEL_FUNCTIONS + F32_FUNCTIONS:
         counts = [c for f, c in sass[lib].items() if fn in f]
         res = [r for f, r in ptxas[lib].items() if fn in f and r]
         if len(counts) != 1 or len(res) != 1:
@@ -260,7 +306,12 @@ def build_phase():
                                  f"of {lib}")
         found[fn] = {**counts[0], **res[0]}
         log(f"{fn}: {json.dumps(found[fn])}")
-        if not (counts[0]["HGMMA"] > 0 and counts[0]["HMMA"] == 0):
+        if (lib, fn) in F32_FUNCTIONS:
+            if not (counts[0]["FFMA"] > 0 and counts[0]["HGMMA"] == 0
+                    and counts[0]["HMMA"] == 0):
+                raise AssertionError(f"{fn}: instructions {counts[0]}, "
+                                     "expected FFMA > 0, HGMMA 0, HMMA 0")
+        elif not (counts[0]["HGMMA"] > 0 and counts[0]["HMMA"] == 0):
             raise AssertionError(f"{fn}: tensor-core instructions "
                                  f"{counts[0]}, expected HGMMA > 0, HMMA 0")
         if res[0].get("spill_stores", 1) or res[0].get("spill_loads", 1):
@@ -396,13 +447,18 @@ def kernel_inputs(device):
                             gt_d=d.reshape(-1)[pix]))
 
 
-def _matmul_chain(fp):
-    """The decoder as a chain of bf16 ``torch.matmul`` calls with bf16
-    weight leaves: the yardstick for K2 (forward) and K3 (forward and its
-    autograd backward). No single PyTorch call computes either."""
+def _matmul_chain(fp, dtype=None):
+    """The decoder as a chain of ``torch.matmul`` calls with weight leaves
+    of ``dtype`` (bf16 by default; f32 runs with TF32 off, as the package
+    sets it): the yardstick for K2 (forward) and K3 (forward and its
+    autograd backward) and their f32 forms. No single PyTorch call computes
+    either."""
     import torch
 
-    w = {k: v.to(torch.bfloat16).requires_grad_(True)
+    dtype = torch.bfloat16 if dtype is None else dtype
+    if dtype == torch.float32 and torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("the f32 yardstick must run with TF32 off")
+    w = {k: v.detach().to(dtype, copy=True).requires_grad_(True)
          for k, v in fp._asdict().items()}
 
     def fwd(x):
@@ -415,7 +471,7 @@ def _matmul_chain(fp):
     return fwd, list(w.values())
 
 
-def _dx_err_by_margin(mk, x, fp, dx_k, dx_p) -> dict:
+def _dx_err_by_margin(mk, x, fp, dx_k, dx_p, bf16=True) -> dict:
     """K3's dx error against its plain version's, over dx's largest
     magnitude, binned by each row's margin: its smallest |hidden
     pre-activation| (h1, h2, hc) in the plain forward. Where the margin is
@@ -423,8 +479,8 @@ def _dx_err_by_margin(mk, x, fp, dx_k, dx_p) -> dict:
     different ReLU masks -> {bin: [rows, max error]}."""
     import torch
 
-    dot = mk._make_dot(True)
-    h1, _, feat, _, _, _ = mk.decoder_fwd_plain(x, fp)
+    dot = mk._make_dot(bf16)
+    h1, _, feat, _, _, _ = mk.decoder_fwd_plain(x, fp, bf16)
     pre = (dot(x, fp.w1) + fp.b1, dot(h1, fp.w2) + fp.b2,
            dot(feat, fp.wc_f) + dot(x, fp.wc_x) + fp.bc)
     margin = torch.stack([p.abs().amin(1) for p in pre]).amin(0)
@@ -436,6 +492,159 @@ def _dx_err_by_margin(mk, x, fp, dx_k, dx_p) -> dict:
         bins[f"[{lo:g}, {hi:g})"] = [
             int(sel.sum()), float(err[sel].max()) if bool(sel.any()) else 0.0]
     return bins
+
+
+def _entry(err, ms, plain_ms, bound, chain_ms=None):
+    e = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+             bound_by=bound[1], library_ms=None)
+    if chain_ms is not None:
+        e["matmul_chain_ms"] = chain_ms
+    return e
+
+
+def f32_kernel_phase(x, g, fp, track_rows):
+    """K2-f32 and K3-f32 (``bf16=False``) on the pcd features ``x`` and the
+    cotangents ``g``: against their plain versions with f32 operands at the
+    mapping shape, the tracking shape (the first ``track_rows`` rows), a
+    ragged count (a masked last tile) and small ragged counts of non-zero
+    rows; repeatability; CUDA-event times of each kernel, its plain version
+    and the f32 matmul chain at both shapes, and the bound at the FP32 peak
+    -> the two kernels' JSON entries."""
+    import torch
+
+    from proudslam_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    N = x.shape[0]
+    nz = (x.abs().sum(1) > 0).nonzero().flatten()
+    shapes = [("mapping", x, g), ("tracking", x[:track_rows], g[:track_rows]),
+              ("ragged", x[:N - K3_RAGGED], g[:N - K3_RAGGED])]
+    shapes += [("small ragged", x[nz[:n]], g[nz[:n]]) for n in K3_SMALL]
+    err_fwd = 0.0
+    for label, xi, _ in shapes:
+        xi = xi.contiguous()
+        out_k = mk.decoder_fwd(xi, fp, bf16=False)
+        _, _, _, sdf_p, _, rgb_p = mk.decoder_fwd_plain(xi, fp, False)
+        out_p = torch.cat([rgb_p, sdf_p], dim=1)
+        out_k2 = mk.decoder_fwd(xi, fp, bf16=False)
+        torch.cuda.synchronize()
+        scale = out_p.abs().amax(0).clamp_min(1e-30)
+        rel = ((out_k - out_p).abs().amax(0) / scale).tolist()
+        # what a kernel reading a neighbouring row would give
+        shift = ((out_p[1:] - out_p[:-1]).abs().amax(0) / scale).max().item()
+        log(f"K2-f32 at the {label} shape, N={xi.shape[0]}: max_abs_err "
+            f"over each column's largest magnitude "
+            f"{[float(f'{v:.3e}') for v in rel]} (tol {TOL_F32_FWD}); "
+            f"one-row shift {shift:.3e}")
+        if not max(rel) <= TOL_F32_FWD:
+            raise AssertionError(f"K2-f32 disagrees with decoder_fwd_plain at "
+                                 f"the {label} shape")
+        big = xi.shape[0] > 2 * K3_SMALL[-1]
+        if big and not shift > SHIFT_MARGIN * TOL_F32_FWD:
+            raise AssertionError("the K2-f32 check cannot tell neighbouring "
+                                 "rows")
+        if not torch.equal(out_k, out_k2):
+            raise AssertionError("K2-f32 is not bitwise repeatable")
+        err_fwd = max(err_fwd, (out_k - out_p).abs().max().item())
+
+    err_bwd = 0.0
+    margin_bins = None
+    for label, xi, gi in shapes:
+        xi, gi = xi.contiguous(), gi.contiguous()
+        for wgrad in ((True, False) if label in ("mapping", "tracking")
+                      else (True,)):
+            dx_k, gr_k = mk.decoder_bwd(xi, gi, fp, want_wgrad=wgrad,
+                                        bf16=False)
+            dx_p, gr_p = mk.decoder_bwd_plain(xi, gi, fp, want_wgrad=wgrad,
+                                              bf16=False)
+            torch.cuda.synchronize()
+            rels = {}
+            for name, a, b in [("dx", dx_k, dx_p)] + (list(
+                    zip(mk.FusedParams._fields, gr_k, gr_p)) if wgrad else []):
+                e = (a - b).abs().max().item()
+                rel = e / max(b.abs().max().item(), 1e-30)
+                rels[name] = float(f"{rel:.3e}")
+                err_bwd = max(err_bwd, e)
+            log(f"K3-f32 at the {label} shape, N={xi.shape[0]}, "
+                f"{'full' if wgrad else 'dx-only'}: max_abs_err over each "
+                f"output's largest magnitude {json.dumps(rels)} (tol "
+                f"{TOL_F32_BWD})")
+            if label == "mapping" and wgrad:
+                margin_bins = _dx_err_by_margin(mk, xi, fp, dx_k, dx_p,
+                                                bf16=False)
+                log("K3-f32 dx error at the mapping shape by the row's "
+                    "smallest |hidden pre-activation|, {bin: [rows, "
+                    "max_abs_err over dx's largest magnitude]}: "
+                    + json.dumps(margin_bins))
+            if not max(rels.values()) <= TOL_F32_BWD:
+                raise AssertionError(
+                    f"K3-f32 disagrees with decoder_bwd_plain at the {label} "
+                    f"shape, N={xi.shape[0]}")
+    dx_k, gr_k = mk.decoder_bwd(x, g, fp, bf16=False)
+    dx_k2, gr_k2 = mk.decoder_bwd(x, g, fp, bf16=False)
+    dx_only, _ = mk.decoder_bwd(x, g, fp, want_wgrad=False, bf16=False)
+    if not (torch.equal(dx_k, dx_k2) and torch.equal(dx_k, dx_only)
+            and all(torch.equal(a, b) for a, b in zip(gr_k, gr_k2))):
+        raise AssertionError("K3-f32 is not bitwise repeatable")
+
+    chain, leaves = _matmul_chain(fp, torch.float32)
+    k2 = {"mapping": dict(rows=N), "tracking": dict(rows=track_rows)}
+    k3 = {"mapping": dict(rows=N), "tracking": dict(rows=track_rows)}
+    for shape in k2:
+        rows = k2[shape]["rows"]
+        xn, gn = x[:rows].contiguous(), g[:rows].contiguous()
+        st = k2[shape]
+        st["ms"] = _event_ms(lambda: mk.decoder_fwd(xn, fp, bf16=False))
+        st["plain_ms"] = _event_ms(lambda: mk.decoder_fwd_plain(xn, fp, False))
+        with torch.no_grad():
+            st["matmul_chain_ms"] = _event_ms(lambda: chain(xn))
+        st["bound_ms"], st["bound_by"] = _bound(
+            0, DEC_FLOPS * rows, _nbytes(xn, *fp) + rows * 4 * 4)
+        st["share"] = st["bound_ms"] / st["ms"]
+        st = k3[shape]
+        st["ms"] = _event_ms(lambda: mk.decoder_bwd(xn, gn, fp, bf16=False))
+        st["plain_ms"] = _event_ms(
+            lambda: mk.decoder_bwd_plain(xn, gn, fp, bf16=False))
+        st["dx_only_ms"] = _event_ms(lambda: mk.decoder_bwd(
+            xn, gn, fp, want_wgrad=False, bf16=False))
+        st["dx_only_plain_ms"] = _event_ms(lambda: mk.decoder_bwd_plain(
+            xn, gn, fp, want_wgrad=False, bf16=False))
+        st["bound_ms"], st["bound_by"] = _bound(
+            0, 3 * DEC_FLOPS * rows, _nbytes(xn, gn, *fp, xn, *gr_k))
+        st["dx_only_bound_ms"], _ = _bound(0, 2 * DEC_FLOPS * rows,
+                                           _nbytes(xn, gn, *fp, xn))
+        st["share"] = st["bound_ms"] / st["ms"]
+        st["dx_only_share"] = st["dx_only_bound_ms"] / st["dx_only_ms"]
+    xg = x.detach().clone().requires_grad_(True)
+
+    def chain_fwd_bwd():
+        for t in leaves + [xg]:
+            t.grad = None
+        chain(xg).backward(g)
+    chain_bwd_ms = _event_ms(chain_fwd_bwd)
+    for shape in ("mapping", "tracking"):
+        a, b = k2[shape], k3[shape]
+        log(f"{shape} shape, f32 operands: K2-f32 {a['ms']:.3f} ms (plain "
+            f"{a['plain_ms']:.3f} ms, bound {a['bound_ms']:.4f} ms by "
+            f"{a['bound_by']}, share {a['share']:.3f}; f32 torch.matmul "
+            f"chain forward {a['matmul_chain_ms']:.3f} ms, {a['rows']} rows); "
+            f"K3-f32 {b['ms']:.3f} ms (plain {b['plain_ms']:.3f} ms, bound "
+            f"{b['bound_ms']:.4f} ms, share {b['share']:.3f}); K3-f32 dx-only "
+            f"{b['dx_only_ms']:.3f} ms (plain {b['dx_only_plain_ms']:.3f} ms, "
+            f"bound {b['dx_only_bound_ms']:.4f} ms, share "
+            f"{b['dx_only_share']:.3f})")
+    log(f"f32 torch.matmul chain (a chain of calls, not one library call): "
+        f"forward+backward {chain_bwd_ms:.3f} ms at N={N}")
+    m2, m3 = k2["mapping"], k3["mapping"]
+    return {
+        "decoder_forward_f32": dict(
+            _entry(err_fwd, m2["ms"], m2["plain_ms"],
+                   (m2["bound_ms"], m2["bound_by"]), m2["matmul_chain_ms"]),
+            shapes=k2),
+        "decoder_backward_f32": dict(
+            _entry(err_bwd, m3["ms"], m3["plain_ms"],
+                   (m3["bound_ms"], m3["bound_by"]), chain_bwd_ms),
+            shapes=k3, dx_err_by_margin=margin_bins),
+    }
 
 
 def kernel_phase(device):
@@ -678,29 +887,24 @@ def kernel_phase(device):
         f"blend): forward {gather_ms:.3f} ms, forward+backward "
         f"{gather_bwd_ms:.3f} ms, peak memory {gather_peak_gb:.2f} GB")
 
+    f32 = f32_kernel_phase(x2, g, fp, min(TR, N2))
     render_errs = pcd_render_check(inp["render"], inp["rays_o"],
                                    inp["rays_d"], device)
-
-    def entry(err, ms, plain_ms, bound, chain_ms=None):
-        e = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
-                 bound_by=bound[1], library_ms=None)
-        if chain_ms is not None:
-            e["matmul_chain_ms"] = chain_ms
-        return e
 
     m1, m2, m3 = k1["mapping"], k2["mapping"], k3["mapping"]
     return {
         "fused_render_forward": dict(
-            entry(max(err_feats, err_out), m1["ms"], m1["plain_ms"],
-                  (m1["bound_ms"], m1["bound_by"])), shapes=k1),
+            _entry(max(err_feats, err_out), m1["ms"], m1["plain_ms"],
+                   (m1["bound_ms"], m1["bound_by"])), shapes=k1),
         "decoder_forward": dict(
-            entry(err2, m2["ms"], m2["plain_ms"],
-                  (m2["bound_ms"], m2["bound_by"]), m2["matmul_chain_ms"]),
+            _entry(err2, m2["ms"], m2["plain_ms"],
+                   (m2["bound_ms"], m2["bound_by"]), m2["matmul_chain_ms"]),
             shapes=k2),
         "decoder_backward": dict(
-            entry(worst_abs, m3["ms"], m3["plain_ms"],
-                  (m3["bound_ms"], m3["bound_by"]), chain_bwd_ms),
+            _entry(worst_abs, m3["ms"], m3["plain_ms"],
+                   (m3["bound_ms"], m3["bound_by"]), chain_bwd_ms),
             shapes=k3),
+        **f32,
         "extra": dict(pcd_gather_ms=gather_ms,
                       pcd_gather_fwd_bwd_ms=gather_bwd_ms,
                       pcd_gather_peak_gb=gather_peak_gb,
@@ -767,9 +971,10 @@ def pcd_render_check(r, rays_o, rays_d, device):
     log("pcd render_rays, card against CPU: " + json.dumps(st)
         + f" (tol {TOL_RENDER_OUT}, {TOL_RENDER_GRAD_REL} of each "
         "gradient's largest magnitude)")
-    if device.type == "cuda" and launched != {"fused_render_forward": 0,
-                                              "decoder_forward": 1,
-                                              "decoder_backward": 1}:
+    if device.type == "cuda" and launched != {
+            "fused_render_forward": 0, "decoder_forward": 1,
+            "decoder_backward": 1, "decoder_forward_f32": 0,
+            "decoder_backward_f32": 0}:
         raise AssertionError("pcd render_rays did not run K2 and K3 once")
     if not (err_out <= TOL_RENDER_OUT and err_grad <= TOL_RENDER_GRAD_REL):
         raise AssertionError("pcd render_rays on the card disagrees with "
@@ -792,22 +997,26 @@ def render_frames():
     return quant, poses, K, depth_quant
 
 
-def _launches():
+def _counters():
+    """Each kernel's launch counter (an object with ``launches``), by the
+    kernel's name in the kernels JSON line."""
     from proudslam_tpu_torch.ops.kernels import mlp_kernel as mk
     from proudslam_tpu_torch.ops.kernels import render_kernel as rk
 
-    return {"fused_render_forward": rk.fused_render_forward.launches,
-            "decoder_forward": mk.decoder_fwd.launches,
-            "decoder_backward": mk.decoder_bwd.launches}
+    return {"fused_render_forward": rk.fused_render_forward,
+            "decoder_forward": mk.decoder_fwd,
+            "decoder_backward": mk.decoder_bwd,
+            "decoder_forward_f32": mk.decoder_fwd_f32,
+            "decoder_backward_f32": mk.decoder_bwd_f32}
+
+
+def _launches():
+    return {k: c.launches for k, c in _counters().items()}
 
 
 def _reset_launches() -> None:
-    from proudslam_tpu_torch.ops.kernels import mlp_kernel as mk
-    from proudslam_tpu_torch.ops.kernels import render_kernel as rk
-
-    rk.fused_render_forward.launches = 0
-    mk.decoder_fwd.launches = 0
-    mk.decoder_bwd.launches = 0
+    for c in _counters().values():
+        c.launches = 0
 
 
 def _new_slam(device, settings, frames):
@@ -997,10 +1206,36 @@ def _read_ply(path):
     return verts.reshape(-1, 3), faces.reshape(-1, 3)
 
 
-def cli_phase(device, overrides=()):
-    """``run_slam.main`` on ``configs/synthetic/room.yaml`` (with the
-    config ``overrides``, none by default) into a temporary log directory:
-    artifacts, no kernel launch, the ATE limit, and the checkpoint reloaded
+def _png_size(path):
+    """(width, height) of a PNG from its IHDR chunk, after checking that
+    its pixel data decompresses to that size (8-bit RGB rows with a filter
+    byte, as the port's logger writes them)."""
+    import struct
+    import zlib
+
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path}: not a PNG")
+    w, h = struct.unpack(">II", data[16:24])
+    pos, idat = 8, b""
+    while pos < len(data):
+        length, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        if tag == b"IDAT":
+            idat += data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+    if len(zlib.decompress(idat)) != h * (1 + 3 * w):
+        raise AssertionError(f"{path}: pixel data does not match {w}x{h}")
+    return w, h
+
+
+def cli_phase(device, name, overrides=(), launched=(), panels=(),
+              mesh=True, ate_limit_cm=CLI_ATE_LIMIT_CM):
+    """``run_slam.main`` on ``configs/synthetic/room.yaml`` (with the config
+    ``overrides``) into a temporary log directory: artifacts (the panels
+    ``imgs/render_<frame>.png`` of the frames in ``panels``, the mesh when
+    ``mesh``), the kernels in ``launched`` launched and no other, the ATE
+    limit (none when ``ate_limit_cm`` is None), and the checkpoint reloaded
     to the saved trajectory bit for bit."""
     import tempfile
 
@@ -1013,6 +1248,8 @@ def cli_phase(device, overrides=()):
     from proudslam_tpu_torch.utils.checkpoint import load_checkpoint
 
     config = os.path.join(ROOT, CLI_CONFIG)
+    flags = [o for o in overrides if o == "--no-mesh"]
+    keyed = [o for o in overrides if o != "--no-mesh"]
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as logs:
         torch.cuda.synchronize()
         _reset_launches()
@@ -1022,47 +1259,59 @@ def cli_phase(device, overrides=()):
         wall_s = time.perf_counter() - t0
         launches = _launches()
         run = res["dir"]
-        paths = {k: os.path.join(run, *k.split("/")) for k in (
-            "misc/frame_poses.npy", "mesh/final_mesh.ply",
-            "ckpt/final_ckpt.npz", "ckpt/final_ckpt.meta.json",
-            "metrics.jsonl")}
+        need = ["misc/frame_poses.npy", "ckpt/final_ckpt.npz",
+                "ckpt/final_ckpt.meta.json", "metrics.jsonl"]
+        need += ["mesh/final_mesh.ply"] if mesh else []
+        need += [f"imgs/render_{i:05d}.png" for i in panels]
+        paths = {k: os.path.join(run, *k.split("/")) for k in need}
         missing = [k for k, p in paths.items() if not os.path.exists(p)]
         if missing:
-            raise AssertionError(f"cli: missing artifacts {missing}")
+            raise AssertionError(f"{name}: missing artifacts {missing}")
+        written = sorted(os.listdir(os.path.join(run, "imgs")))
+        if written != sorted(f"render_{i:05d}.png" for i in panels):
+            raise AssertionError(f"{name}: panels {written}")
+        sizes = {os.path.basename(p): _png_size(p) for k, p in paths.items()
+                 if k.startswith("imgs/")}
         poses = np.load(paths["misc/frame_poses.npy"])
-        verts, faces = _read_ply(paths["mesh/final_mesh.ply"])
-        if not (len(verts) and len(faces) and np.isfinite(verts).all()):
-            raise AssertionError("cli: empty or non-finite mesh")
+        if mesh:
+            verts, faces = _read_ply(paths["mesh/final_mesh.ply"])
+            if not (len(verts) and len(faces) and np.isfinite(verts).all()):
+                raise AssertionError(f"{name}: empty or non-finite mesh")
         with open(paths["metrics.jsonl"]) as f:
             metrics = [json.loads(ln) for ln in f]
-        cfg = load_config(config, parse_overrides(list(overrides)))
+        cfg = load_config(config, parse_overrides(keyed))
         fresh = SlamSystem(settings_from_config(cfg),
                            res["intrinsics"], tuple(res["image_hw"]), seed=1,
                            device=device)
         load_checkpoint(paths["ckpt/final_ckpt.npz"], fresh)
         reloaded = fresh.get_trajectory()
     same = reloaded.shape == poses.shape and np.array_equal(reloaded, poses)
-    st = {k: res[k] for k in ("frames", "skipped", "fps", "init_s", "loop_s",
-                              "refine_s", "mesh_s", "track_ms", "map_ms",
-                              "insert_ms", "ate_cm", "ate_aligned_cm",
-                              "num_voxels", "num_keyframes", "mesh_verts",
-                              "mesh_faces")}
-    st.update(wall_s=wall_s, launches=launches,
+    keys = ["frames", "skipped", "fps", "init_s", "loop_s", "refine_s",
+            "track_ms", "map_ms", "insert_ms", "ate_cm", "ate_aligned_cm",
+            "num_voxels", "num_keyframes"]
+    keys += ["mesh_s", "mesh_verts", "mesh_faces"] if mesh else []
+    st = {k: res[k] for k in keys}
+    st.update(wall_s=wall_s, launches=launches, flags=flags,
+              overrides=keyed, panel_sizes=sizes,
               metrics_ate_cm=metrics[-1].get("ate_rmse_cm"),
               checkpoint_trajectory_bitwise=same)
-    log("cli: " + json.dumps(st) + f" (ATE limit {CLI_ATE_LIMIT_CM} cm)")
-    if any(launches.values()):
-        raise AssertionError(f"cli: kernels launched on the unfused branch: "
-                             f"{launches}")
+    log(f"{name}: " + json.dumps(st) + f" (ATE limit {ate_limit_cm} cm)")
+    for k, v in launches.items():
+        if (k in launched) != (v > 0):
+            raise AssertionError(f"{name}: launches {launches}, expected "
+                                 f"{list(launched) or 'none'}")
+    if any(wh != PANEL_WH for wh in sizes.values()):
+        raise AssertionError(f"{name}: panel sizes {sizes}, expected "
+                             f"{PANEL_WH}")
     if not (poses.shape == (res["frames"] + 1, 4, 4)
             and np.isfinite(poses).all()):
-        raise AssertionError(f"cli: trajectory {poses.shape}")
+        raise AssertionError(f"{name}: trajectory {poses.shape}")
     if not same:
-        raise AssertionError("cli: the reloaded checkpoint's trajectory "
+        raise AssertionError(f"{name}: the reloaded checkpoint's trajectory "
                              "differs from frame_poses.npy")
-    if not st["ate_cm"] < CLI_ATE_LIMIT_CM:
-        raise AssertionError(f"cli: unaligned ATE {st['ate_cm']:.3f} cm >= "
-                             f"{CLI_ATE_LIMIT_CM}")
+    if ate_limit_cm is not None and not st["ate_cm"] < ate_limit_cm:
+        raise AssertionError(f"{name}: unaligned ATE {st['ate_cm']:.3f} cm "
+                             f">= {ate_limit_cm}")
     return st
 
 
@@ -1167,43 +1416,80 @@ def main() -> None:
     kern = kernel_phase(device)
     frames = render_frames()
     vox = bench_settings()
+    bf16_kernels = ("fused_render_forward", "decoder_forward",
+                    "decoder_backward")
+    f32_kernels = ("decoder_forward_f32", "decoder_backward_f32")
     stats = {"vox": slice_phase(
         device, "vox", vox, frames, N_FRAMES, ATE_LIMIT_CM,
         launched=("fused_render_forward", "decoder_backward"),
-        not_launched=("decoder_forward",), mesh=True)}
+        not_launched=("decoder_forward",) + f32_kernels, mesh=True)}
     pcd = dataclasses.replace(
         vox, render=dataclasses.replace(vox.render, feature_mode="pcd"),
         map=dataclasses.replace(vox.map, points_per_voxel=8))
     stats["pcd"] = slice_phase(
         device, "pcd", pcd, frames, PCD_FRAMES, PCD_ATE_LIMIT_CM,
         launched=("decoder_forward", "decoder_backward"),
-        not_launched=("fused_render_forward",))
+        not_launched=("fused_render_forward",) + f32_kernels)
+    pcd_f32 = dataclasses.replace(pcd, decoder=dataclasses.replace(
+        pcd.decoder, matmul_dtype="f32"))
+    stats["pcd-f32"] = slice_phase(
+        device, "pcd-f32", pcd_f32, frames, PCD_FRAMES, PCD_ATE_LIMIT_CM,
+        launched=f32_kernels, not_launched=bf16_kernels)
+    resample = dataclasses.replace(
+        vox, render=dataclasses.replace(vox.render, pixel_sampler="gumbel"),
+        tracker=dataclasses.replace(vox.tracker, fixed_sample_batch=False),
+        mapper=dataclasses.replace(vox.mapper, fixed_sample_batch=False))
+    stats["resample"] = slice_phase(
+        device, "resample", resample, frames, RESAMPLE_FRAMES, ATE_LIMIT_CM,
+        launched=("fused_render_forward", "decoder_backward"),
+        not_launched=("decoder_forward",) + f32_kernels)
+    log("resample against the fixed-batch vox slice: " + json.dumps(
+        {k: {p: stats[p][k] for p in ("vox", "resample")}
+         for k in ("frames", "fps", "init_s", "track_ms", "map_ms",
+                   "insert_ms", "ate_cm")}))
     profile = profile_phase(device, vox, frames)
-    stats["cli"] = cli_phase(device)
+    stats["cli"] = cli_phase(
+        device, "cli", ("--debug_args.render_freq", str(CLI_RENDER_FREQ)),
+        panels=range(CLI_RENDER_FREQ - 1, N_FRAMES, CLI_RENDER_FREQ))
+    stats["cli-pcd"] = cli_phase(
+        device, "cli-pcd", ("--tpu_specs.feature_mode", "pcd",
+                            "--tpu_specs.fused_mlp", "true",
+                            "--data_specs.num_frames", str(PCD_CLI_FRAMES),
+                            "--no-mesh"),
+        launched=f32_kernels, mesh=False, ate_limit_cm=None)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
+    mlp = "proudslam_tpu/ops/pallas/mlp_kernel.py"
     meta = {
         "fused_render_forward": (
             "proudslam_tpu_torch/csrc/render_kernel.cu",
-            "proudslam_tpu/ops/pallas/render_kernel.py:63",
+            "proudslam_tpu/ops/pallas/render_kernel.py:63", None,
             "render_forward_kernel"),
         "decoder_forward": (
-            "proudslam_tpu_torch/csrc/mlp_kernel.cu",
-            "proudslam_tpu/ops/pallas/mlp_kernel.py:132",
-            "decoder_forward_kernel"),
+            "proudslam_tpu_torch/csrc/mlp_kernel.cu", f"{mlp}:132",
+            "bf16=True", "decoder_forward_kernel"),
         "decoder_backward": (
-            "proudslam_tpu_torch/csrc/mlp_kernel.cu",
-            "proudslam_tpu/ops/pallas/mlp_kernel.py:141",
-            "decoder_backward_kernel"),
+            "proudslam_tpu_torch/csrc/mlp_kernel.cu", f"{mlp}:141",
+            "bf16=True", "decoder_backward_kernel"),
+        "decoder_forward_f32": (
+            "proudslam_tpu_torch/csrc/mlp_kernel_f32.cu", f"{mlp}:132",
+            "bf16=False", "decoder_forward_f32_kernel"),
+        "decoder_backward_f32": (
+            "proudslam_tpu_torch/csrc/mlp_kernel_f32.cu", f"{mlp}:141",
+            "bf16=False", "decoder_backward_f32_kernel"),
     }
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "replaces_form": form,
          "launches": sum(st["launches"][name] for st in stats.values()),
          "launches_by_path": {p: st["launches"][name]
                               for p, st in stats.items()},
          "build": built[fn],
          **kern[name]}
-        for name, (src, rep, fn) in meta.items()]}
+        for name, (src, rep, form, fn) in meta.items()]}
+    unlaunched = [k["name"] for k in record["kernels"] if k["launches"] <= 0]
+    if unlaunched:
+        raise AssertionError(f"kernels launched on no path: {unlaunched}")
     print(json.dumps({"slices": stats, "kernel_phase": kern["extra"],
                       "vox_profile": profile}))
     print(json.dumps(record))

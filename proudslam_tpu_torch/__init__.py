@@ -1,11 +1,12 @@
 """proudslam_tpu_torch — the PyTorch + CUDA port of the SLAM engine.
 
 A second package beside ``proudslam_tpu`` (the JAX reference). Plain
-tensor code is PyTorch; the render hot loop runs through three CUDA C++
-kernels written for Hopper (``csrc/``): the fused sample-feature +
-decoder forward (``ops/kernels/render_kernel.py``, the vox branch), and
-the fused decoder forward and backward (``ops/kernels/mlp_kernel.py``,
-the pcd branch's decoder and both branches' backward). The configs under
+tensor code is PyTorch; the render hot loop runs through CUDA C++ kernels
+written for Hopper (``csrc/``): the fused sample-feature + decoder forward
+(``ops/kernels/render_kernel.py``, the vox branch), and the fused decoder
+forward and backward (``ops/kernels/mlp_kernel.py``, the pcd branch's
+decoder and both branches' backward) with bf16 operands on the tensor
+cores or with f32 operands on the FP32 units. The configs under
 ``configs/`` run the unfused branch in plain PyTorch; ``run_slam.py`` is
 the command line (``python -m proudslam_tpu_torch.run_slam``). This
 package never imports JAX.

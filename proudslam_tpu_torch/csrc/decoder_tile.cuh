@@ -1,12 +1,14 @@
-// The decoder's parameter layout and sizes, shared by the three decoder
-// kernels (K1 render_kernel.cu, K2 and K3 mlp_kernel.cu): the widths, the
-// 64-row tile, the 11 parameter pointers in FusedParams order, the offsets
-// of each parameter's gradient in a flat slab, and a shared-memory bump
-// allocator. Every matrix product of the kernels takes bf16-rounded
-// operands (round to nearest even) and accumulates their exact products in
-// f32; bias add, ReLU and sigmoid run in f32. This is the arithmetic of the
-// TPU kernels' `_dot` (bf16 operands, preferred_element_type=f32). The
-// kernels run it on the tensor cores (decoder_tc.cuh, decoder_chain.cuh).
+// The decoder's parameter layout and sizes, shared by the decoder kernels
+// (K1 render_kernel.cu, K2 and K3 mlp_kernel.cu, K2-f32 and K3-f32
+// mlp_kernel_f32.cu): the widths, the 64-row tile, the 11 parameter
+// pointers in FusedParams order, the offsets of each parameter's gradient
+// in a flat slab, and a shared-memory bump allocator. In K1, K2 and K3
+// every matrix product takes bf16-rounded operands (round to nearest even)
+// and accumulates their exact products in f32; bias add, ReLU and sigmoid
+// run in f32. This is the arithmetic of the TPU kernels' `_dot` with
+// bf16=True (preferred_element_type=f32), run on the tensor cores
+// (decoder_tc.cuh, decoder_chain.cuh). K2-f32 and K3-f32 are the
+// bf16=False form: f32 operands, FFMA on the FP32 units.
 //
 // Layout (the JAX package's `FusedParams`, all f32 row-major in global
 // memory): w1 (D,W) b1 (W) w2 (W,W) b2 (W) ws (W,W+1) [feat cols | sdf col

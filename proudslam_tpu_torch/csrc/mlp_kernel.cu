@@ -58,6 +58,7 @@
 // nothing to any gradient) and write no dx.
 
 #include "decoder_chain.cuh"
+#include "decoder_slab.cuh"
 
 using namespace dec;
 
@@ -72,16 +73,7 @@ constexpr int K3_SMEM = tc::TC_WEIGHT_SMEM + pad16(tc::TR * D * 2)
                         + 5 * pad16(ACT * 2) + pad16(tc::TR * 4 * 4)
                         + pad16(NBIAS * 8 * 64 * 4);
 
-// A block's slab holds the gradients in FusedParams order, except that ws
-// is stored as its W x W feature part (row stride W) then its sdf column,
-// and wc_f comes before bs: so the three W x W blocks start at even offsets
-// and are read and written as float pairs. The reduce pass maps back.
-constexpr int S_WS_SDF = OFF_WS + W * W;
-constexpr int S_WCF = OFF_BS;
-constexpr int S_BS = OFF_BS + W * W;
-static_assert(OFF_W2 % 2 == 0 && OFF_WS % 2 == 0 && S_WCF % 2 == 0,
-              "float-pair slab blocks");
-static_assert(S_BS + SO == OFF_WCX, "the slab has FusedParams' size");
+// The slab layout (S_WS_SDF, S_WCF, S_BS) is decoder_slab.cuh's.
 
 __device__ __forceinline__ void put(float* p, float v, bool first) {
   *p = first ? v : *p + v;
@@ -486,25 +478,6 @@ decoder_backward_kernel(const float* __restrict__ x,
     }
     __syncthreads();
   }
-}
-
-// out[e] = sum over the P slabs, in slab order (the slab layout is above)
-__global__ void reduce_partials_kernel(const float* __restrict__ partial,
-                                       float* __restrict__ out, int P) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= NPARAM) return;
-  int src = e;
-  if (e >= OFF_WS && e < OFF_BS) {
-    const int m = (e - OFF_WS) / SO, n = (e - OFF_WS) - m * SO;
-    src = n < W ? OFF_WS + m * W + n : S_WS_SDF + m;
-  } else if (e >= OFF_BS && e < OFF_WCF) {
-    src = S_BS + (e - OFF_BS);
-  } else if (e >= OFF_WCF && e < OFF_WCX) {
-    src = S_WCF + (e - OFF_WCF);
-  }
-  float s = 0.f;
-  for (int p = 0; p < P; ++p) s += partial[static_cast<long long>(p) * NPARAM + src];
-  out[e] = s;
 }
 
 // ---- K2: the decoder forward on the tensor cores ----

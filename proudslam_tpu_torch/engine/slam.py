@@ -95,10 +95,11 @@ class SlamSystem:
                  draw_source: Optional[Callable] = None):
         """``draw_source(kind, wsel)``: optional provider of the random
         draws, for runs that must consume externally chosen draws: for
-        ``kind`` "track" or "map" it returns ``(pix, noise)``, for
-        "rebake" the (E, D) standard normal draw that ``rebake_map``
-        scales by 0.01. By default they come from a ``torch.Generator``
-        seeded with ``seed``."""
+        ``kind`` "track" or "map" it returns ``(pix, noise)`` in the shapes
+        of ``track_draws`` / ``map_draws`` (with a leading iteration axis
+        under ``fixed_sample_batch=False``), for "rebake" the (E, D)
+        standard normal draw that ``rebake_map`` scales by 0.01. By default
+        they come from a ``torch.Generator`` seeded with ``seed``."""
         if settings.map.coord_bits != 10:
             raise ValueError("the render stack assumes coord_bits == 10")
         self.device = torch.device(device)

@@ -7,11 +7,15 @@ Ports of ``_run_fwd``/``_fwd_kernel`` and ``_run_bwd``/``_bwd_kernel`` in
 ``g`` (N, 4), recomputes the forward, and returns ``dx`` (N, D) and the
 11 parameter gradients in :class:`FusedParams` layout.
 
-:func:`decoder_fwd` and :func:`decoder_bwd` launch ``csrc/mlp_kernel.cu``
-for CUDA tensors and run :func:`decoder_fwd_plain` /
-:func:`decoder_bwd_plain` for CPU tensors; any other device raises. The
-kernels take bf16 operands only; the plain versions compute both operand
-types, as the Pallas kernels' ``_make_dot`` does. With bf16 operands the
+:func:`decoder_fwd` and :func:`decoder_bwd` launch a CUDA kernel for CUDA
+tensors and run :func:`decoder_fwd_plain` / :func:`decoder_bwd_plain` for
+CPU tensors; any other device raises. Both operand types of the Pallas
+kernels' ``_make_dot`` have a kernel: ``bf16=True`` launches
+``csrc/mlp_kernel.cu`` (bf16 operands on the tensor cores), ``bf16=False``
+``csrc/mlp_kernel_f32.cu`` (true f32 products on the FP32 units, no TF32).
+Each form counts its own launches (``decoder_fwd.launches`` and
+``decoder_fwd_f32.launches``, ``decoder_bwd.launches`` and
+``decoder_bwd_f32.launches``). With bf16 operands the
 plain versions round at the kernels' points: both operands of every
 product are rounded to bf16, cotangents (``dzo``, ``dhc``, ``dso``,
 ``dh2``, ``dh1``) included, while bias gradients sum the unrounded f32
@@ -21,6 +25,7 @@ cotangents, so it is not this function.)
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -138,6 +143,10 @@ def _check_kernel_inputs(x, g, fp):
             raise ValueError("decoder kernel inputs must be f32 on one device")
         if not t.is_contiguous():
             raise ValueError("decoder kernel inputs must be contiguous")
+    for t in (x, *([] if g is None else [g])):
+        if t.data_ptr() % 16:
+            raise ValueError("decoder kernel rows are read as float4: x and "
+                             "g must start 16-byte aligned")
 
 
 def forward_grid(n_rows: int, sms: int) -> int:
@@ -148,6 +157,13 @@ def forward_grid(n_rows: int, sms: int) -> int:
     without a tile. No rows: 0, nothing to launch."""
     ntiles = -(-n_rows // TILE_ROWS)
     return min(-(-ntiles // 2), sms)
+
+
+def forward_f32_grid(n_rows: int, sms: int) -> int:
+    """Blocks of K2-f32 for ``n_rows`` rows: persistent blocks of 256
+    threads, block b taking the 64-row tiles b, b + blocks, ..., so
+    ``min(tiles, sms)``. No rows: 0, nothing to launch."""
+    return min(-(-n_rows // TILE_ROWS), sms)
 
 
 def backward_partition(n_rows: int, sms: int) -> Tuple[int, int]:
@@ -163,26 +179,23 @@ def backward_partition(n_rows: int, sms: int) -> Tuple[int, int]:
     return -(-ntiles // per_block), per_block
 
 
-def _kernel_device(x: torch.Tensor, bf16: bool, what: str) -> bool:
-    """True when ``x`` is a CUDA tensor the kernel takes; False on the CPU
+def _kernel_device(x: torch.Tensor, what: str) -> bool:
+    """True when ``x`` is a CUDA tensor (a kernel runs); False on the CPU
     (the plain version's device); raises on anything else."""
     if x.device.type == "cpu":
         return False
     if x.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x.device}")
-    if not bf16:
-        raise NotImplementedError(
-            f"{what}: the CUDA decoder kernels take bf16 operands only "
-            "(matmul_dtype='bf16'); the f32-operand variant is in ROADMAP "
-            "Queue 2")
     return True
 
 
 def decoder_fwd(x: torch.Tensor, fp: FusedParams,
                 bf16: bool = True) -> torch.Tensor:
-    """K2, the decoder forward (N, D) -> (N, 4) [r, g, b, sdf]: the CUDA
-    kernel on CUDA tensors, the plain version on CPU tensors."""
-    if not _kernel_device(x, bf16, "decoder_fwd"):
+    """K2, the decoder forward (N, D) -> (N, 4) [r, g, b, sdf]: on CUDA
+    tensors the kernel of the operand type (``decoder_forward``, or
+    ``decoder_forward_f32`` for ``bf16=False``), on CPU tensors the plain
+    version."""
+    if not _kernel_device(x, "decoder_fwd"):
         _, _, _, sdf, _, rgb = decoder_fwd_plain(x, fp, bf16)
         return torch.cat([rgb, sdf], dim=1)
     fp = FusedParams(*[t.detach().contiguous() for t in fp])
@@ -191,27 +204,36 @@ def decoder_fwd(x: torch.Tensor, fp: FusedParams,
     N = x.shape[0]
     out = torch.empty((N, 4), dtype=torch.float32, device=x.device)
     if N > 0:
-        lib = build.load("mlp_kernel", _bind)
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        err = lib.decoder_forward(
-            x.data_ptr(), build.pointer_array(fp), out.data_ptr(), N,
-            forward_grid(N, sms),
-            torch.cuda.current_stream(x.device).cuda_stream)
-        build.check(err, "decoder_forward")
-        decoder_fwd.launches += 1
+        args = (x.data_ptr(), build.pointer_array(fp), out.data_ptr(), N)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        if bf16:
+            err = build.load("mlp_kernel", _bind).decoder_forward(
+                *args, forward_grid(N, sms), stream)
+            build.check(err, "decoder_forward")
+            decoder_fwd.launches += 1
+        else:
+            err = build.load("mlp_kernel_f32", _bind_f32).decoder_forward_f32(
+                *args, forward_f32_grid(N, sms), stream)
+            build.check(err, "decoder_forward_f32")
+            decoder_fwd_f32.launches += 1
     return out
 
 
 decoder_fwd.launches = 0
+# K2-f32's launch count (``decoder_fwd`` with ``bf16=False`` launches it)
+decoder_fwd_f32 = SimpleNamespace(launches=0)
 
 
 def decoder_bwd(x: torch.Tensor, g: torch.Tensor, fp: FusedParams,
                 want_wgrad: bool = True, bf16: bool = True
                 ) -> Tuple[torch.Tensor, Optional[FusedParams]]:
-    """K3, the decoder backward: the CUDA kernel on CUDA tensors, the plain
-    version on CPU tensors. ``want_wgrad=False`` skips the parameter
-    gradients (tracking differentiates the pose only)."""
-    if not _kernel_device(x, bf16, "decoder_bwd"):
+    """K3, the decoder backward: on CUDA tensors the kernel of the operand
+    type (``decoder_backward``, or ``decoder_backward_f32`` for
+    ``bf16=False``), on CPU tensors the plain version.
+    ``want_wgrad=False`` skips the parameter gradients (tracking
+    differentiates the pose only)."""
+    if not _kernel_device(x, "decoder_bwd"):
         return decoder_bwd_plain(x, g, fp, want_wgrad, bf16)
     fp = FusedParams(*[t.detach().contiguous() for t in fp])
     x, g = x.detach().contiguous(), g.detach().contiguous()
@@ -221,18 +243,23 @@ def decoder_bwd(x: torch.Tensor, g: torch.Tensor, fp: FusedParams,
     dx = torch.empty_like(x)
     dflat = torch.zeros((nparam if want_wgrad else 0,), device=x.device)
     if N > 0:
-        lib = build.load("mlp_kernel", _bind)
         blocks, per_block = backward_partition(
             N, torch.cuda.get_device_properties(x.device).multi_processor_count)
         partial = torch.empty(((blocks if want_wgrad else 0) * nparam,),
                               device=x.device)
-        err = lib.decoder_backward(
-            x.data_ptr(), g.data_ptr(), build.pointer_array(fp),
-            dx.data_ptr(), dflat.data_ptr(), partial.data_ptr(), N, blocks,
-            per_block, int(want_wgrad),
-            torch.cuda.current_stream(x.device).cuda_stream)
-        build.check(err, "decoder_backward")
-        decoder_bwd.launches += 1
+        args = (x.data_ptr(), g.data_ptr(), build.pointer_array(fp),
+                dx.data_ptr(), dflat.data_ptr(), partial.data_ptr(), N,
+                blocks, per_block, int(want_wgrad),
+                torch.cuda.current_stream(x.device).cuda_stream)
+        if bf16:
+            err = build.load("mlp_kernel", _bind).decoder_backward(*args)
+            build.check(err, "decoder_backward")
+            decoder_bwd.launches += 1
+        else:
+            err = build.load("mlp_kernel_f32",
+                             _bind_f32).decoder_backward_f32(*args)
+            build.check(err, "decoder_backward_f32")
+            decoder_bwd_f32.launches += 1
     if not want_wgrad:
         return dx, None
     parts, off = [], 0
@@ -243,15 +270,25 @@ def decoder_bwd(x: torch.Tensor, g: torch.Tensor, fp: FusedParams,
 
 
 decoder_bwd.launches = 0
+# K3-f32's launch count (``decoder_bwd`` with ``bf16=False`` launches it)
+decoder_bwd_f32 = SimpleNamespace(launches=0)
+
+
+def _argtypes(lib, fwd: str, bwd: str) -> None:
+    import ctypes
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    getattr(lib, fwd).argtypes = [p, p, p, ll, i, p]
+    getattr(lib, fwd).restype = i
+    getattr(lib, bwd).argtypes = [p, p, p, p, p, p, ll, i, i, i, p]
+    getattr(lib, bwd).restype = i
 
 
 def _bind(lib) -> None:
-    import ctypes
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.decoder_forward.argtypes = [p, p, p, ll, i, p]
-    lib.decoder_forward.restype = i
-    lib.decoder_backward.argtypes = [p, p, p, p, p, p, ll, i, i, i, p]
-    lib.decoder_backward.restype = i
+    _argtypes(lib, "decoder_forward", "decoder_backward")
+
+
+def _bind_f32(lib) -> None:
+    _argtypes(lib, "decoder_forward_f32", "decoder_backward_f32")
 
 
 class FusedDecoder(torch.autograd.Function):

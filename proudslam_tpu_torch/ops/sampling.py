@@ -1,8 +1,9 @@
 """Ray sampling: stratified samples inside intersected voxel segments,
-and the uniform pixel sampler.
+and the pixel samplers.
 
-Port of ``sample_rays_in_segments`` and ``sample_frame_pixels(method=
-"uniform")`` in ``proudslam_tpu/ops/sampling.py``. Samples are the sorted
+Port of ``sample_rays_in_segments``, ``gumbel_sample_pixels`` and
+``sample_frame_pixels`` (all-ones mask) in ``proudslam_tpu/ops/sampling.py``.
+Samples are the sorted
 merge of jittered arc-length events ``(k + u_k) * step`` and the segment
 end events, mapped back to depth; each event's depth is the midpoint to
 the previous event (reset to the segment start in a new segment). The
@@ -132,9 +133,55 @@ def sample_rays_in_segments(inter: Intersections, settings: RenderSettings,
         bin=torch.where(valid, bins, 0))
 
 
+def gumbel_sample_pixels(u: torch.Tensor, logp: torch.Tensor,
+                         num: int) -> torch.Tensor:
+    """Top-k Gumbel sampling without replacement: the ``num`` largest
+    ``logp + g`` with ``g = -log(-log(u + 1e-7) + 1e-7)``.
+
+    Args:
+      u: (N,) uniforms in [0, 1) (injected, so tests feed JAX's draws).
+      logp: (N,) log-probabilities.
+    Returns:
+      (num,) int64 flat indices, in descending order of the perturbed keys.
+
+    The selection is an exact top-k, taken as a stable descending sort so
+    that equal keys (f32 rounding makes some) come lower index first, the
+    rule of XLA's TopK: ``torch.topk`` orders ties arbitrarily. The JAX
+    package takes ``jax.lax.approx_max_k``, which is exact on the CPU
+    (where the tests compare the two) and approximate on a TPU, which its
+    docstring accepts since the perturbed top-k is itself a random draw.
+    """
+    gumbel = -torch.log(-torch.log(u + 1e-7) + 1e-7)
+    return torch.sort(logp + gumbel, descending=True,
+                      stable=True).indices[:num]
+
+
 def sample_frame_pixels(generator: torch.Generator, num: int,
-                        num_pixels: int) -> torch.Tensor:
-    """``num`` independent uniform flat pixel indices over the all-ones
-    mask (the ``method="uniform"`` sampler; duplicates allowed)."""
-    return torch.randint(0, num_pixels, (num,), generator=generator,
-                         device=generator.device)
+                        num_pixels: int, method: str = "uniform"
+                        ) -> torch.Tensor:
+    """``num`` flat pixel indices over the all-ones mask of ``num_pixels``
+    pixels. ``"uniform"``: independent uniform draws (duplicates allowed);
+    ``"gumbel"``: without replacement, through :func:`gumbel_sample_pixels`
+    on ``num_pixels`` fresh uniforms and the JAX package's log-probabilities
+    of the all-ones mask, ``log(1 / (num_pixels + 1e-7) + 1e-7)`` in f32."""
+    dev = generator.device
+    if method == "uniform":
+        return torch.randint(0, num_pixels, (num,), generator=generator,
+                             device=dev)
+    if method != "gumbel":
+        raise ValueError(f"unknown pixel sampler {method!r}")
+    flat = torch.ones((num_pixels,), dtype=torch.float32, device=dev)
+    logp = torch.log(flat / (flat.sum() + 1e-7) + 1e-7)
+    u = torch.rand((num_pixels,), generator=generator, device=dev)
+    return gumbel_sample_pixels(u, logp, num)
+
+
+def frame_pixels(generator: torch.Generator, count: int, n: int,
+                 num_pixels: int, method: str) -> torch.Tensor:
+    """(count, n) pixel indices, each row one draw of ``n`` from a frame of
+    ``num_pixels`` (without replacement within a row for ``"gumbel"``)."""
+    if method == "uniform":
+        return sample_frame_pixels(generator, count * n,
+                                   num_pixels).reshape(count, n)
+    return torch.stack([sample_frame_pixels(generator, n, num_pixels, method)
+                        for _ in range(count)])

@@ -13,7 +13,11 @@ frames, then the optional ``finalize``, ``global_refine`` (+ optional
 ``rebake_map``), and writes the trajectory (``misc/frame_poses.npy``), the
 ATE (``metrics.jsonl``), a checkpoint (``ckpt/final_ckpt.npz`` +
 ``.meta.json``), the mesh (``mesh/final_mesh.ply``) and the config
-(``bak/``) under ``<log_dir>/<exp_name>/<timestamp>/``.
+(``bak/``) under ``<log_dir>/<exp_name>/<timestamp>/``. With
+``debug_args.render_freq > 0`` every ``render_freq``-th frame also gets a
+rendered-vs-ground-truth panel at ``debug_args.render_res``
+(``imgs/render_<frame>.png``, ``RunLogger.log_images``), from the preview's
+own noise: the panels do not change the run's trajectory.
 
 The system runs on ``--device`` (default ``cuda``, which must exist; the
 tests pass ``cpu``). :func:`main` also returns a summary of the run.
@@ -91,6 +95,61 @@ def accumulate_depth_cloud(dataset, traj: np.ndarray, start: int, settings,
     return xyz[np.arange(xyz.shape[1])[None, :] < counts[:, None]]
 
 
+def resize_bicubic(image: np.ndarray, width: int, height: int) -> np.ndarray:
+    """(H, W) or (H, W, C) f32 image -> (height, width[, C]), bicubic with
+    antialiasing (``torch.nn.functional.interpolate``'s form of PIL's
+    bicubic ``resize``, which the JAX CLI calls)."""
+    t = torch.from_numpy(np.ascontiguousarray(image, np.float32))
+    t = t[None, None] if t.dim() == 2 else t.permute(2, 0, 1)[None]
+    out = torch.nn.functional.interpolate(
+        t, size=(height, width), mode="bicubic", antialias=True,
+        align_corners=False)[0]
+    return (out[0] if image.ndim == 2 else out.permute(1, 2, 0)).numpy()
+
+
+def preview_targets(rgb, depth, width: int, height: int):
+    """The panel's ground truth at the preview size: rgb through the JAX
+    CLI's uint8 quantization (``(rgb * 255).astype(uint8)``), resized and
+    rounded back to uint8, then scaled to [0, 1]; depth resized in f32."""
+    q = (np.asarray(rgb) * 255).astype(np.uint8).astype(np.float32)
+    gt_rgb = np.clip(np.round(resize_bicubic(q, width, height)), 0, 255)
+    return (gt_rgb / 255.0,
+            resize_bicubic(np.asarray(depth, np.float32), width, height))
+
+
+def check_config(cfg):
+    """The run's ``SystemSettings``, with the checks the CLI makes before
+    it loads any data: raises on a setting the port does not run, so that
+    a run is refused at once rather than at its first frame."""
+    from proudslam_tpu_torch.config import settings_from_config
+
+    s = settings_from_config(cfg)
+    todo = []
+    if s.render.intersect_mode != "brute":
+        todo.append(f"intersect_mode={s.render.intersect_mode!r}")
+    if s.mapper.covis_angle_deg > 0:
+        todo.append("covis_angle_deg > 0")
+    if s.decoder.embedder != "none":
+        todo.append(f"embedder={s.decoder.embedder!r}")
+    if todo:
+        raise NotImplementedError(
+            f"not ported yet (ROADMAP Queue 1): {', '.join(todo)}")
+    if s.render.pixel_sampler not in ("uniform", "gumbel"):
+        raise ValueError(f"unknown pixel_sampler {s.render.pixel_sampler!r}")
+    dbg = cfg.get("debug_args", {})
+    if dbg.get("render_freq", 0) > 0:
+        res = list(dbg.get("render_res", [200, 160]))
+        if not (len(res) == 2 and all(isinstance(v, int) and v > 0
+                                      for v in res)):
+            raise ValueError(f"debug_args.render_res {res}: expected "
+                             "[width, height]")
+        if s.render.feature_mode == "pcd":
+            raise ValueError("debug_args.render_freq > 0 with feature_mode "
+                             "'pcd': the preview panels render without the "
+                             "point store (set render_freq 0)")
+    return s
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -106,21 +165,18 @@ def main(argv: Optional[List[str]] = None) -> dict:
     parser.add_argument("--device", default="cuda")
     args, extra = parser.parse_known_args(argv)
 
-    from proudslam_tpu_torch.config import load_config, settings_from_config
+    from proudslam_tpu_torch.config import load_config
     from proudslam_tpu_torch.data.registry import get_dataset
     from proudslam_tpu_torch.engine.slam import SlamSystem
     from proudslam_tpu_torch.mesher import extract_mesh
+    from proudslam_tpu_torch.render.preview import render_preview
     from proudslam_tpu_torch.utils.checkpoint import (load_checkpoint,
                                                       save_checkpoint)
     from proudslam_tpu_torch.utils.logger import RunLogger
     from proudslam_tpu_torch.utils.metrics import ate_rmse
 
     cfg = load_config(args.config, parse_overrides(extra))
-    if cfg.get("debug_args", {}).get("render_freq", 0) > 0:
-        raise NotImplementedError(
-            "debug_args.render_freq > 0: the rendered-vs-gt image panels "
-            "(render/preview.py, RunLogger.log_images) are not ported yet")
-    settings = settings_from_config(cfg)
+    settings = check_config(cfg)
     device = torch.device(args.device)
     dataset = get_dataset(cfg)
 
@@ -149,6 +205,9 @@ def main(argv: Optional[List[str]] = None) -> dict:
     init_s = time.perf_counter() - t_init
     n_init_maps = len(slam.clock.marks.get("map", []))
 
+    render_freq = cfg.get("debug_args", {}).get("render_freq", 0)
+    w_r, h_r = cfg.get("debug_args", {}).get("render_res", [200, 160])
+    panels = []
     t0 = time.perf_counter()
     skipped = 0
     for i in range(start, end):
@@ -170,6 +229,13 @@ def main(argv: Optional[List[str]] = None) -> dict:
                   f"voxels={c['num_voxels']}/{c['voxel_capacity']} "
                   f"cells={c['num_cells']}/{c['cell_capacity']} "
                   f"kf={slam.num_kf}")
+        if render_freq > 0 and (i + 1) % render_freq == 0:
+            prgb, pdepth = render_preview(
+                slam._render_view(), slam.decoder_params, slam.last_pose6,
+                settings, w_r, h_r, dataset.intrinsics,
+                (depth.shape[1], depth.shape[0]))
+            panels.append(logger.log_images(
+                i, *preview_targets(rgb, depth, w_r, h_r), prgb, pdepth))
     _sync(device)
     loop_s = time.perf_counter() - t0
     n_loop_maps = len(slam.clock.marks.get("map", [])) - n_init_maps
@@ -210,7 +276,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
         "num_voxels": slam.map_state.num_voxels,
         "num_keyframes": slam.num_kf,
         "intrinsics": tuple(float(v) for v in dataset.intrinsics),
-        "image_hw": (h, w),
+        "image_hw": (h, w), "panels": panels,
     }
     print(f"{n_frames} frames in {loop_s:.1f} s: {result['fps']:.2f} fps; "
           f"per frame: track {result['track_ms']} ms, map "

@@ -1,15 +1,23 @@
 """The CUDA build's content hash: a built library is reused only while the
-flags, its source and every header under ``csrc/`` are unchanged.
+flags, its source and every header under ``csrc/`` are unchanged. And the
+``extern "C"`` entries of each source against the ``ctypes`` signatures its
+wrapper declares (names, argument count, and pointer against integer
+arguments), since a mismatch shows only on the card.
 
-Runs on the CPU: ``library_path`` only hashes files (no ``nvcc``). Each
-case edits a temporary copy of ``csrc``.
+Runs on the CPU: ``library_path`` only hashes files (no ``nvcc``); the
+entries are read from the sources' text. Each hashing case edits a
+temporary copy of ``csrc``.
 """
 
+import ctypes
+import re
 import shutil
 
 import pytest
 
 from proudslam_tpu_torch.ops.kernels import build
+from proudslam_tpu_torch.ops.kernels import mlp_kernel as mk
+from proudslam_tpu_torch.ops.kernels import render_kernel as rk
 
 SOURCES = sorted(p.stem for p in build.CSRC.glob("*.cu"))
 HEADERS = sorted(p.name for p in build.CSRC.glob("*.cuh"))
@@ -23,9 +31,43 @@ def csrc(tmp_path):
 
 
 def test_sources_and_headers_found():
-    assert {"render_kernel", "mlp_kernel"} <= set(SOURCES)
-    assert {"decoder_tile.cuh", "decoder_tc.cuh",
-            "decoder_chain.cuh"} <= set(HEADERS)
+    assert {"render_kernel", "mlp_kernel", "mlp_kernel_f32"} <= set(SOURCES)
+    assert {"decoder_tile.cuh", "decoder_tc.cuh", "decoder_chain.cuh",
+            "decoder_slab.cuh"} <= set(HEADERS)
+
+
+def _extern_c(source: str) -> dict:
+    """{name: [is-pointer per parameter]} of the ``extern "C"`` functions
+    in a source."""
+    text = (build.CSRC / f"{source}.cu").read_text()
+    out = {}
+    for m in re.finditer(r'extern "C" int (\w+)\(([^)]*)\)', text):
+        params = [p.strip() for p in m.group(2).split(",")]
+        out[m.group(1)] = ["*" in p or "cudaStream_t" in p for p in params]
+    return out
+
+
+class _Lib:
+    """Stands in for a loaded library: records what ``bind`` declares."""
+
+    def __init__(self):
+        self.fns = {}
+
+    def __getattr__(self, name):
+        return self.fns.setdefault(name, type("Fn", (), {})())
+
+
+@pytest.mark.parametrize("source,bind", [
+    ("render_kernel", rk._bind), ("mlp_kernel", mk._bind),
+    ("mlp_kernel_f32", mk._bind_f32)])
+def test_extern_c_entries_match_bindings(source, bind):
+    lib = _Lib()
+    bind(lib)
+    entries = _extern_c(source)
+    assert set(lib.fns) == set(entries), source
+    for name, fn in lib.fns.items():
+        assert fn.restype is ctypes.c_int, name
+        assert [a is ctypes.c_void_p for a in fn.argtypes] == entries[name], name
 
 
 def test_copy_hashes_like_the_package(csrc):

@@ -13,7 +13,8 @@ interpret=True)`` at a row count that is no multiple of its 2048-row tile:
 bf16 1e-3 and f32 1e-5 of each output's largest magnitude. Also: the weight
 bridge round trip (exact) and ``decoder_values`` in f32 (1e-5) and bf16
 (1e-3: f32 accumulation order against XLA's, through bf16-rounded
-operands).
+operands). On CPU tensors neither operand type launches a kernel: the f32
+forms' launch counters stay at 0 as the bf16 forms' do.
 """
 
 import dataclasses
@@ -90,6 +91,11 @@ def test_decoder_bwd_plain_matches_pallas(params, seed):
         assert_close_scaled(a, b, 1e-3, name)
 
 
+def _launch_counts():
+    return (tmk.decoder_fwd.launches, tmk.decoder_fwd_f32.launches,
+            tmk.decoder_bwd.launches, tmk.decoder_bwd_f32.launches)
+
+
 def test_decoder_bwd_dispatch_cpu(params):
     """On CPU tensors the wrapper is the plain version; the dx-only form
     gives the same dx."""
@@ -105,6 +111,33 @@ def test_decoder_bwd_dispatch_cpu(params):
     with pytest.raises(ValueError):
         tmk.decoder_bwd(x.to("meta"), g.to("meta"),
                         tmk.FusedParams(*[p.to("meta") for p in fp]))
+
+
+def test_f32_dispatch_cpu(params):
+    """``bf16=False`` on CPU tensors: the f32 plain versions (outputs equal
+    to ``decoder_fwd_plain`` / ``decoder_bwd_plain`` with f32 operands), and
+    no launch counter moves, the f32 forms' included."""
+    rng = np.random.default_rng(8)
+    x = t(rng.standard_normal((100, 16)).astype(np.float32))
+    g = t(rng.standard_normal((100, 4)).astype(np.float32))
+    fp = tmk.pack_params(params_from_jax(params, device="cpu"), port(DEC))
+    before = _launch_counts()
+    out = tmk.decoder_fwd(x, fp, bf16=False)
+    _, _, _, sdf, _, rgb = tmk.decoder_fwd_plain(x, fp, bf16=False)
+    assert torch.equal(out, torch.cat([rgb, sdf], dim=1))
+    dx, grads = tmk.decoder_bwd(x, g, fp, bf16=False)
+    dx_p, grads_p = tmk.decoder_bwd_plain(x, g, fp, bf16=False)
+    assert torch.equal(dx, dx_p)
+    assert all(torch.equal(a, b) for a, b in zip(grads, grads_p))
+    dx2, none = tmk.decoder_bwd(x, g, fp, want_wgrad=False, bf16=False)
+    assert none is None and torch.equal(dx2, dx)
+    x.requires_grad_(True)
+    tmk.FusedDecoder.apply(x, False, *fp).sum().backward()
+    assert torch.equal(x.grad, tmk.decoder_bwd(x.detach(), torch.ones(100, 4),
+                                               fp, bf16=False)[0])
+    assert _launch_counts() == before
+    # the f32 form differs from the bf16 one (no operand rounding)
+    assert not torch.equal(out, tmk.decoder_fwd(x.detach(), fp))
 
 
 @pytest.mark.parametrize("dtype", ["bf16", "f32"])
@@ -191,6 +224,21 @@ def test_forward_grid(n_rows, sms):
     assert blocks == (sms if ntiles >= 2 * sms else -(-ntiles // 2))
     walked = sorted(t for b in range(blocks) for wg in range(2)
                     for t in range(2 * b + wg, ntiles, 2 * blocks))
+    assert walked == list(range(ntiles))
+
+
+@pytest.mark.parametrize("sms", [132, 7, 1])
+@pytest.mark.parametrize("n_rows", [0, 1, 63, 64, 65, 7 * 64, 132 * 64,
+                                    132 * 64 + 1, 65536, 327643, 327680])
+def test_forward_f32_grid(n_rows, sms):
+    """K2-f32's persistent blocks (tile = block + k * blocks): at most one
+    per SM, none without a tile, every 64-row tile walked once, the last
+    (ragged) one included."""
+    blocks = tmk.forward_f32_grid(n_rows, sms)
+    ntiles = -(-n_rows // tmk.TILE_ROWS)
+    assert blocks == min(ntiles, sms)
+    walked = sorted(t for b in range(blocks)
+                    for t in range(b, ntiles, blocks))
     assert walked == list(range(ntiles))
 
 
