@@ -12,8 +12,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    each library's ``-Xptxas -v`` report (registers, spills, wgmma
    warnings) and its count of tensor-core instructions (HGMMA, HMMA) and
    FFMA in ``cuobjdump -sass`` are logged; K1, K2 and K3 must each hold
-   HGMMA, no HMMA, and no spills; K2-f32 and K3-f32 (f32 operands) FFMA,
-   no tensor-core instruction at all (so no TF32), and no spills;
+   HGMMA, no HMMA, and no spills; K2-f32 and K3-f32 (f32 operands, 3xTF32
+   on ``mma.sync``; K3-f32's forward recompute FFMA) HMMA, no HGMMA, and
+   no spills;
 3. kernels: run each kernel at the slices' mapping and tracking shapes
    (1024 rays, 65,536 rows) on inputs from the real pipeline and hold it
    against its plain PyTorch version (stated tolerances; K3 full and
@@ -26,7 +27,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    computes these functions); the same for K2-f32 and K3-f32 (full and
    dx-only) on the pcd features at the mapping, tracking and ragged row
    counts, against the plain versions with f32 operands (TF32 off), with a
-   chain of f32 ``torch.matmul`` calls as the yardstick; then hold the pcd
+   chain of f32 ``torch.matmul`` calls as the yardstick, and both the
+   3xTF32 bound (the tensor cores) and the FP32-unit bound; then hold the pcd
    branch's ``render_rays`` (PointNet gather, K2, K3 through autograd) on
    the card against the same call on the CPU, outputs and gradients, on
    512 rays;
@@ -148,16 +150,19 @@ K3_RAGGED = 37            # rows cut from the mapping shape for the ragged check
 # small ragged row counts, where the masked last tile carries all (27) or
 # a third (91 = 64 + 27) of each weight and bias gradient's sum
 K3_SMALL = (27, 91)
-# K2-f32 and K3-f32 (true f32 products, summed in another order than the
-# plain version's f32 matmuls): the forward at 1e-5 of each output
-# column's largest magnitude (the f32 CPU parity tolerance of
-# tests/test_torch_mlp_kernel.py); the backward at 1e-4 of each output's
-# largest magnitude: its weight gradients are f32 sums over up to 327,680
-# rows, whose rounding grows ~sqrt(rows) x 6e-8 relative (~3e-5 at the
-# mapping shape) in either summation order. An f32 rounding-level
+# K2-f32 and K3-f32 (3xTF32 products, each within a few f32 ulps of the
+# true product, summed in another order than the plain version's f32
+# matmuls; tests/test_torch_tf32x3.py emulates that arithmetic and finds
+# it >= 10x inside both tolerances, one-product TF32 outside them; K3-f32
+# recomputes the forward, and so its ReLU masks, with FFMA): the forward at
+# 1e-5 of each output column's largest magnitude (the f32 CPU parity
+# tolerance of tests/test_torch_mlp_kernel.py); the backward at 1e-4 of each
+# output's largest magnitude: its weight gradients are f32 sums over up to
+# 327,680 rows, whose rounding grows ~sqrt(rows) x 6e-8 relative (~3e-5 at
+# the mapping shape) in either summation order. An f32 rounding-level
 # difference can still flip a ReLU mask where a hidden pre-activation is
-# within ~1e-7 of 0 (the bf16 forms' 1e-2 allows for that); the log
-# counts such rows.
+# within ~1e-7 of 0 (the bf16 forms' 1e-2 allows for that); the log counts
+# such rows.
 TOL_F32_FWD = 1e-5
 TOL_F32_BWD = 1e-4
 K1_RAGGED = (1001, 40)    # rays x samples of K1's ragged check (40,040 rows)
@@ -181,9 +186,10 @@ PCD_CLI_FRAMES = 5
 PROFILE_START, PROFILE_FRAMES = 5, 4   # the vox profile: frames 5-8
 WIDTH, HEIGHT = 320, 240
 
-# Published H100 SXM peaks (dense) at a 700 W power limit: bf16 tensor
-# cores, f32 outside the tensor cores, HBM3.
+# Published H100 SXM peaks (dense) at a 700 W power limit: bf16 and TF32
+# tensor cores, f32 outside the tensor cores, HBM3.
 PEAK_BF16 = 989e12
+PEAK_TF32 = 495e12
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 # flops per decoder row (16-128-128-(128+1)-128-3; bf16 operands): the
@@ -196,8 +202,8 @@ DEC_FLOPS = 2 * (16 * 128 + 128 * 128 + 128 * 129 + 128 * 128 + 16 * 128
 KERNEL_FUNCTIONS = (("render_kernel", "render_forward_kernel"),
                     ("mlp_kernel", "decoder_forward_kernel"),
                     ("mlp_kernel", "decoder_backward_kernel"))
-# (library, kernel function) of the f32-operand forms: FFMA, no
-# tensor-core instruction (no TF32), no spills
+# (library, kernel function) of the f32-operand forms: 3xTF32 on
+# ``mma.sync`` (HMMA), no HGMMA, no spills
 F32_FUNCTIONS = (("mlp_kernel_f32", "decoder_forward_f32_kernel"),
                  ("mlp_kernel_f32", "decoder_backward_f32_kernel"))
 LIBRARIES = ("render_kernel", "mlp_kernel", "mlp_kernel_f32")
@@ -294,8 +300,8 @@ def build_phase():
         sass[name] = sass_counts(build.library_path(name))
         ptxas[name] = ptxas_resources(text)
         log(f"sass {name}: {json.dumps(sass[name])}")
-    # the bf16 kernels run their products on the tensor cores (wgmma), the
-    # f32 ones on the FP32 units; none spills
+    # the bf16 kernels run their products on the tensor cores through
+    # wgmma, the f32 ones through mma.sync (3xTF32); none spills
     found = {}
     for lib, fn in KERNEL_FUNCTIONS + F32_FUNCTIONS:
         counts = [c for f, c in sass[lib].items() if fn in f]
@@ -307,10 +313,9 @@ def build_phase():
         found[fn] = {**counts[0], **res[0]}
         log(f"{fn}: {json.dumps(found[fn])}")
         if (lib, fn) in F32_FUNCTIONS:
-            if not (counts[0]["FFMA"] > 0 and counts[0]["HGMMA"] == 0
-                    and counts[0]["HMMA"] == 0):
+            if not (counts[0]["HMMA"] > 0 and counts[0]["HGMMA"] == 0):
                 raise AssertionError(f"{fn}: instructions {counts[0]}, "
-                                     "expected FFMA > 0, HGMMA 0, HMMA 0")
+                                     "expected HMMA > 0, HGMMA 0")
         elif not (counts[0]["HGMMA"] > 0 and counts[0]["HMMA"] == 0):
             raise AssertionError(f"{fn}: tensor-core instructions "
                                  f"{counts[0]}, expected HGMMA > 0, HMMA 0")
@@ -323,11 +328,15 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _bound(bf16_flops: float, f32_flops: float, nbytes: int):
+def _bound(bf16_flops: float, f32_flops: float, nbytes: int,
+           tf32x3_flops: float = 0):
     """(bound_ms, bound_by): the larger of the operations over their peak
     rates and the bytes (each input read once, each output written once)
-    over the memory rate."""
-    ops_ms = (bf16_flops / PEAK_BF16 + f32_flops / PEAK_F32) * 1e3
+    over the memory rate. ``f32_flops`` run on the FP32 units,
+    ``tf32x3_flops`` are f32 products on the tensor cores as three TF32
+    products each."""
+    ops_ms = (bf16_flops / PEAK_BF16 + f32_flops / PEAK_F32
+              + 3 * tf32x3_flops / PEAK_TF32) * 1e3
     bytes_ms = nbytes / PEAK_BYTES * 1e3
     return ((ops_ms, "operations") if ops_ms >= bytes_ms
             else (bytes_ms, "bytes"))
@@ -508,8 +517,10 @@ def f32_kernel_phase(x, g, fp, track_rows):
     mapping shape, the tracking shape (the first ``track_rows`` rows), a
     ragged count (a masked last tile) and small ragged counts of non-zero
     rows; repeatability; CUDA-event times of each kernel, its plain version
-    and the f32 matmul chain at both shapes, and the bound at the FP32 peak
-    -> the two kernels' JSON entries."""
+    and the f32 matmul chain at both shapes, and the bound with every
+    decoder flop as a 3xTF32 product on the tensor cores (the kernels'
+    bound_ms) beside the one at the FP32 units' peak -> the two kernels'
+    JSON entries."""
     import torch
 
     from proudslam_tpu_torch.ops.kernels import mlp_kernel as mk
@@ -597,8 +608,10 @@ def f32_kernel_phase(x, g, fp, track_rows):
         st["plain_ms"] = _event_ms(lambda: mk.decoder_fwd_plain(xn, fp, False))
         with torch.no_grad():
             st["matmul_chain_ms"] = _event_ms(lambda: chain(xn))
-        st["bound_ms"], st["bound_by"] = _bound(
-            0, DEC_FLOPS * rows, _nbytes(xn, *fp) + rows * 4 * 4)
+        nbytes = _nbytes(xn, *fp) + rows * 4 * 4
+        st["bound_ms"], st["bound_by"] = _bound(0, 0, nbytes,
+                                                DEC_FLOPS * rows)
+        st["fp32_bound_ms"], _ = _bound(0, DEC_FLOPS * rows, nbytes)
         st["share"] = st["bound_ms"] / st["ms"]
         st = k3[shape]
         st["ms"] = _event_ms(lambda: mk.decoder_bwd(xn, gn, fp, bf16=False))
@@ -608,10 +621,14 @@ def f32_kernel_phase(x, g, fp, track_rows):
             xn, gn, fp, want_wgrad=False, bf16=False))
         st["dx_only_plain_ms"] = _event_ms(lambda: mk.decoder_bwd_plain(
             xn, gn, fp, want_wgrad=False, bf16=False))
-        st["bound_ms"], st["bound_by"] = _bound(
-            0, 3 * DEC_FLOPS * rows, _nbytes(xn, gn, *fp, xn, *gr_k))
-        st["dx_only_bound_ms"], _ = _bound(0, 2 * DEC_FLOPS * rows,
-                                           _nbytes(xn, gn, *fp, xn))
+        nbytes = _nbytes(xn, gn, *fp, xn, *gr_k)
+        st["bound_ms"], st["bound_by"] = _bound(0, 0, nbytes,
+                                                3 * DEC_FLOPS * rows)
+        st["fp32_bound_ms"], _ = _bound(0, 3 * DEC_FLOPS * rows, nbytes)
+        nbytes = _nbytes(xn, gn, *fp, xn)
+        st["dx_only_bound_ms"], _ = _bound(0, 0, nbytes, 2 * DEC_FLOPS * rows)
+        st["dx_only_fp32_bound_ms"], _ = _bound(0, 2 * DEC_FLOPS * rows,
+                                                nbytes)
         st["share"] = st["bound_ms"] / st["ms"]
         st["dx_only_share"] = st["dx_only_bound_ms"] / st["dx_only_ms"]
     xg = x.detach().clone().requires_grad_(True)
@@ -624,14 +641,17 @@ def f32_kernel_phase(x, g, fp, track_rows):
     for shape in ("mapping", "tracking"):
         a, b = k2[shape], k3[shape]
         log(f"{shape} shape, f32 operands: K2-f32 {a['ms']:.3f} ms (plain "
-            f"{a['plain_ms']:.3f} ms, bound {a['bound_ms']:.4f} ms by "
-            f"{a['bound_by']}, share {a['share']:.3f}; f32 torch.matmul "
-            f"chain forward {a['matmul_chain_ms']:.3f} ms, {a['rows']} rows); "
-            f"K3-f32 {b['ms']:.3f} ms (plain {b['plain_ms']:.3f} ms, bound "
-            f"{b['bound_ms']:.4f} ms, share {b['share']:.3f}); K3-f32 dx-only "
+            f"{a['plain_ms']:.3f} ms, 3xTF32 bound {a['bound_ms']:.4f} ms by "
+            f"{a['bound_by']}, share {a['share']:.3f}, FP32-unit bound "
+            f"{a['fp32_bound_ms']:.4f} ms; f32 torch.matmul chain forward "
+            f"{a['matmul_chain_ms']:.3f} ms, {a['rows']} rows); K3-f32 "
+            f"{b['ms']:.3f} ms (plain {b['plain_ms']:.3f} ms, 3xTF32 bound "
+            f"{b['bound_ms']:.4f} ms, share {b['share']:.3f}, FP32-unit "
+            f"bound {b['fp32_bound_ms']:.4f} ms); K3-f32 dx-only "
             f"{b['dx_only_ms']:.3f} ms (plain {b['dx_only_plain_ms']:.3f} ms, "
-            f"bound {b['dx_only_bound_ms']:.4f} ms, share "
-            f"{b['dx_only_share']:.3f})")
+            f"3xTF32 bound {b['dx_only_bound_ms']:.4f} ms, share "
+            f"{b['dx_only_share']:.3f}, FP32-unit bound "
+            f"{b['dx_only_fp32_bound_ms']:.4f} ms)")
     log(f"f32 torch.matmul chain (a chain of calls, not one library call): "
         f"forward+backward {chain_bwd_ms:.3f} ms at N={N}")
     m2, m3 = k2["mapping"], k3["mapping"]

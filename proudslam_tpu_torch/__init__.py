@@ -6,7 +6,8 @@ written for Hopper (``csrc/``): the fused sample-feature + decoder forward
 (``ops/kernels/render_kernel.py``, the vox branch), and the fused decoder
 forward and backward (``ops/kernels/mlp_kernel.py``, the pcd branch's
 decoder and both branches' backward) with bf16 operands on the tensor
-cores or with f32 operands on the FP32 units. The configs under
+cores or with f32 operands as 3xTF32 products on the tensor cores (bar
+K3-f32's forward recompute, true f32 FMAs). The configs under
 ``configs/`` run the unfused branch in plain PyTorch; ``run_slam.py`` is
 the command line (``python -m proudslam_tpu_torch.run_slam``). This
 package never imports JAX.

@@ -8,7 +8,8 @@
 // run in f32. This is the arithmetic of the TPU kernels' `_dot` with
 // bf16=True (preferred_element_type=f32), run on the tensor cores
 // (decoder_tc.cuh, decoder_chain.cuh). K2-f32 and K3-f32 are the
-// bf16=False form: f32 operands, FFMA on the FP32 units.
+// bf16=False form: f32 operands, products as three TF32 products on the
+// tensor cores (tf32x3.cuh), K3-f32's forward recompute as FFMA.
 //
 // Layout (the JAX package's `FusedParams`, all f32 row-major in global
 // memory): w1 (D,W) b1 (W) w2 (W,W) b2 (W) ws (W,W+1) [feat cols | sdf col

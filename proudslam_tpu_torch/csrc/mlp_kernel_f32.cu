@@ -6,46 +6,61 @@
 // `_run_bwd`): there `_make_dot` does not cast, so every product takes f32
 // operands. The JAX package checks that form against true f32 products
 // (Pallas interpret mode, XLA at "highest" precision), so these kernels
-// compute in true f32: every product is an FFMA on the FP32 units, with no
-// TF32 and no bf16 rounding anywhere. Bias add, ReLU and sigmoid run in f32
-// as in the bf16 kernels (mlp_kernel.cu), and the functions are the same:
+// keep f32 accuracy, with no bf16 rounding anywhere. K2-f32's products and
+// K3-f32's backward products of width 16 or more run on the tensor cores
+// as three TF32 products with f32 sums (3xTF32, tf32x3.cuh), within a few
+// f32 ulps of the true product. K3-f32 recomputes the forward, whose ReLU
+// masks its backward takes, with FFMA on the FP32 units (FwdFma), in the
+// order of the plain version's f32 matmuls: on an H100 at 327,680 rows,
+// 3xTF32 there flipped the mask of pre-activations within ~1e-6 of 0
+// against the plain version (dx off by 4e-2 of its largest magnitude),
+// FFMA none. The sdf column (N = 1) and the color logits (N = 3) are FFMA,
+// spread over all 256 threads as 4 partial sums per row added in a fixed
+// order; bias add, ReLU, sigmoid, dzo and the column sums run in exact f32
+// as in the bf16 kernels (mlp_kernel.cu). The functions are the same:
 // K2-f32 maps x (N, D) to out (N, 4) [sigmoid(rgb), sdf]; K3-f32 recomputes
 // the forward per tile and returns dx (N, D) and, unless dx-only, the 11
 // parameter gradients summed over all rows.
 //
-// What bounds them on an H100: arithmetic, ~108k FMA-flops per row forward
-// (3x that for the full backward) against 80 bytes of input and output, at
-// the FP32 units' 67 TFLOP/s. Design, simple first: persistent blocks of 256
-// threads walk 64-row tiles (K2-f32: tile = block + k * grid; K3-f32: a
+// What bounds them on an H100: arithmetic, ~108k flops per row forward
+// (3x that for the full backward) against 80 bytes of input and output: at
+// the tensor cores' 495 TFLOP/s in TF32, a third of that in 3xTF32, which
+// `mma.sync` reaches only in part; the issue slots of the splits and the
+// shared-memory reads that feed it; the FP32 units' 67 TFLOP/s for
+// K3-f32's forward. Design, simple first: persistent blocks of 256 threads
+// (8 warps) walk 64-row tiles (K2-f32: tile = block + k * grid; K3-f32: a
 // contiguous run per block, `backward_partition`). A tile's activations
 // live in shared memory feature-major (act[k][row], row stride AP = 68
-// floats, so both float4 reads along rows and reads down a feature column
-// avoid bank conflicts). Each product is a register-tiled FFMA loop: a
-// thread owns a 4-row x 8-column (or, for weight gradients, 8 x 8) block of
-// the output and reads float4 operands, 12 or 16 shared loads per 128 or
-// 256 FMAs.
+// floats, so float4 reads along rows and the tensor cores' fragment reads
+// avoid bank conflicts). The 8 warps share each product: a 64 x 128 output
+// as 2 x 4 warp tiles of 32 x 32, a 128 x 128 weight gradient (K = the
+// tile's 64 rows) as 2 x 4 tiles of 64 x 32, a 16 x 128 one as 1 x 8 tiles
+// of 16 x 16, the 64 x 16 input gradient dx as 4 x 2 tiles of 16 x 8.
 //
 // Shared memory is the constraint: the f32 weights (FusedParams, 54,276
 // floats, 217 KB) do not fit beside the activation tiles in a block's
 // 227 KB. So only w1 (8 KB) stays resident; w2, ws and [wc_f; wc_x] are
-// staged in turn through one 76 KB buffer (row stride WP = 132 floats:
-// conflict-free reads of a weight row and of a weight column's float4
-// groups), and the small vectors (biases, wo, ws's sdf column) are read
+// staged in turn through one 76 KB buffer (row stride WP = 132 floats,
+// as w1's: conflict-free fragment reads of w[k][n], one 8-byte read a lane
+// of w[n][k]) with asynchronous copies (cp.async), all of a stage in flight
+// at once, and the small vectors (biases, wo, ws's sdf column) are read
 // through the read-only data path. The backward visits the staged matrices
 // in mirror order (w2, ws, wc | wc, ws, w2), so it stages 4 per tile and
 // the forward 3; they come from L2, where the 212 KB of weights stay.
 //
 // K3-f32 keeps the bf16 K3's reduction (decoder_slab.cuh): each block owns
 // one f32 slab of partial weight gradients, adds each tile's products into
-// it in tile order, and reduce_partials_kernel sums the slabs in a fixed
-// order: no float atomics, bitwise repeatable. The dx-only form (tracking)
-// writes no slab. A ragged last tile is masked: its missing rows carry zero
-// inputs and zero cotangents (they add nothing to any gradient) and write
-// no output.
+// it in tile order (all of a product's reads of the slab, then its writes),
+// and reduce_partials_kernel sums the slabs in a fixed order: no float
+// atomics, bitwise repeatable. The dx-only form (tracking) writes no slab.
+// A ragged last tile is masked: its missing rows carry zero inputs and zero
+// cotangents (they add nothing to any gradient) and write no output.
 
 #include "decoder_slab.cuh"
+#include "tf32x3.cuh"
 
 using namespace dec;
+namespace tf = tf32x3;
 
 namespace {
 
@@ -55,20 +70,40 @@ constexpr int WP = W + 4;         // staged weight row stride, 33 float4
 constexpr int ACT = W * AP;       // one feature-major (W, TR) activation tile
 constexpr int XT = D * AP;        // the input tile (D, TR)
 constexpr int STAGE = (W + D) * WP;   // w2 | ws (W x SO) | [wc_f; wc_x]
-constexpr int W1S = D * W;        // w1, resident (row stride W)
+constexpr int W1S = D * WP;       // w1, resident
 static_assert(SO <= WP, "ws fits a staged row");
+static_assert(THREADS == 8 * 32 && TR == 64 && W == 128 && D == 16,
+              "the warp tilings below");
 
 // what the stage buffer holds
 enum Staged { NONE = 0, ST_W2 = 1, ST_WS = 2, ST_WC = 3 };
 
-constexpr int K2F_SMEM = 4 * (2 * ACT + XT + STAGE + W1S + TR * 4);
-constexpr int K3F_SMEM = 4 * (4 * ACT + XT + STAGE + W1S + TR * 4);
+constexpr int PART = 12 * TR;     // 4 partial sums x 3 columns per row
+constexpr int K2F_SMEM = 4 * (2 * ACT + XT + STAGE + W1S + TR * 4 + PART);
+constexpr int K3F_SMEM = 4 * (4 * ACT + XT + STAGE + W1S + TR * 4 + PART);
 static_assert(K3F_SMEM <= 232448, "one block's shared memory");
 
 __device__ __forceinline__ float ldg(const float* p) { return __ldg(p); }
 
-// Copy a row-major (rows, cols) f32 matrix from global memory into the
-// stage at row stride WP.
+// Asynchronous global-to-shared copies (cp.async): every copy of a stage
+// is in flight at once, then one wait
+__device__ __forceinline__ void copy16(float* dst, const float* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void copy4(float* dst, const float* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_all;\n" ::: "memory");
+}
+
+// Copy a row-major (rows, cols) f32 matrix from global memory into shared
+// memory at row stride WP (asynchronously: copy_wait() completes it).
 __device__ __forceinline__ void stage_rows(float* dst,
                                            const float* __restrict__ src,
                                            int rows, int cols) {
@@ -76,13 +111,12 @@ __device__ __forceinline__ void stage_rows(float* dst,
     const int c4 = cols / 4;
     for (int e = threadIdx.x; e < rows * c4; e += THREADS) {
       const int r = e / c4, c = 4 * (e - r * c4);
-      *reinterpret_cast<float4*>(dst + r * WP + c) =
-          __ldg(reinterpret_cast<const float4*>(src + r * cols + c));
+      copy16(dst + r * WP + c, src + r * cols + c);
     }
   } else {
     for (int e = threadIdx.x; e < rows * cols; e += THREADS) {
       const int r = e / cols;
-      dst[r * WP + (e - r * cols)] = __ldg(src + e);
+      copy4(dst + r * WP + (e - r * cols), src + e);
     }
   }
 }
@@ -101,150 +135,173 @@ __device__ __forceinline__ void ensure_stage(float* stage, int& held, int want,
     stage_rows(stage, p.wc_f, W, W);
     stage_rows(stage + W * WP, p.wc_x, D, W);
   }
+  copy_wait();
   held = want;
   __syncthreads();
 }
 
-// Thread layout of the row x column products: ty = tid / 16 owns rows
-// 4 ty .. 4 ty + 3, tx = tid % 16 owns 8 columns.
+// Thread layout of the elementwise passes and of the FFMA forward: ty =
+// tid / 16 owns rows 4 ty .. 4 ty + 3, tx = tid % 16 owns 8 columns.
 struct Lane {
   int ty, tx;
 };
 
-// Forward product: acc[i][j] += sum_r act[r][4 ty + i] w[r][col(j)], with
-// col(j) = 4 tx + j (j < 4) or 64 + 4 tx + j - 4; act feature-major (stride
-// AP), w row-major (stride ldw).
-template <int R>
-__device__ __forceinline__ void fwd_mm(float (&acc)[4][8],
-                                       const float* act, const float* w,
-                                       int ldw, const Lane& ln) {
-#pragma unroll 4
-  for (int r = 0; r < R; ++r) {
-    const float4 a = *reinterpret_cast<const float4*>(act + r * AP + 4 * ln.ty);
-    const float4 b0 = *reinterpret_cast<const float4*>(w + r * ldw + 4 * ln.tx);
-    const float4 b1 =
-        *reinterpret_cast<const float4*>(w + r * ldw + 64 + 4 * ln.tx);
-    const float av[4] = {a.x, a.y, a.z, a.w};
-    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+// Warp tile of a 64-row x 128-column product on the tensor cores: rows
+// m0 .. m0 + 31, columns n0 .. n0 + 31, as 2 x 4 tiles of 16 x 8.
+struct Tile {
+  int m0, n0;
+};
+typedef float Acc[2][4][4];
+
+__device__ __forceinline__ Tile row_tile() {
+  const int w = threadIdx.x >> 5;
+  return Tile{32 * (w & 1), 32 * (w >> 1)};
+}
+
+// The forward's products (out(row, n) += sum_k act[k][row] w[k][n], act
+// feature-major at stride AP, w row-major at stride WP) and their epilogue
+// (dst[n][row] = act(out + bias[n])), in two forms with one interface.
+// FwdTC: 3xTF32 on the tensor cores (K2-f32).
+struct FwdTC {
+  Tile tl;
+  Acc acc;
+  __device__ __forceinline__ void zero() { tf::zero(acc); }
+  template <int K>
+  __device__ __forceinline__ void mm(const float* act, const float* w) {
+    tf::mm_fm<2, 4, K, true>(acc, act, AP, w, WP, tl.m0, tl.n0);
+  }
+  __device__ __forceinline__ void store(float* dst,
+                                        const float* __restrict__ bias,
+                                        bool relu) {
+    tf::for_each_acc(acc, tl.m0, tl.n0, [&](int r, int c, float& v) {
+      const float o = v + ldg(bias + c);
+      dst[c * AP + r] = relu ? fmaxf(o, 0.f) : o;
+    });
+  }
+};
+
+// FwdFma: FFMA on the FP32 units, each output a sequential fused
+// multiply-add over k (K3-f32's forward recompute, whose ReLU masks must
+// agree with the plain version's: see the top of this file). A thread owns
+// rows 4 ty + i and columns 4 tx + j (j < 4) and 64 + 4 tx + j - 4.
+struct FwdFma {
+  Lane ln;
+  float acc[4][8];
+  __device__ __forceinline__ void zero() {
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
   }
-}
-
-__device__ __forceinline__ int fcol(int j, const Lane& ln) {
-  return j < 4 ? 4 * ln.tx + j : 64 + 4 * ln.tx + (j - 4);
-}
-
-__device__ __forceinline__ void zero(float (&acc)[4][8]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-}
-
-// dst[col][rows] = act(acc + bias[col]) for the forward product's columns
-__device__ __forceinline__ void fwd_store(float* dst, const float (&acc)[4][8],
-                                          const float* __restrict__ bias,
-                                          bool relu, const Lane& ln) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int c = fcol(j, ln);
-    const float b = ldg(bias + c);
-    float v[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      v[i] = acc[i][j] + b;
-      if (relu) v[i] = fmaxf(v[i], 0.f);
-    }
-    *reinterpret_cast<float4*>(dst + c * AP + 4 * ln.ty) =
-        make_float4(v[0], v[1], v[2], v[3]);
-  }
-}
-
-// Input-gradient product: acc[i][j] += sum_c cot[c][4 ty + i] w[k][c] with
-// k = tx + 16 j: cot feature-major, w staged row-major (stride WP), so this
-// is cot times w^T read without a transposed copy.
-__device__ __forceinline__ void bwd_mm(float (&acc)[4][8], const float* cot,
-                                       const float* w, const Lane& ln) {
-#pragma unroll 2
-  for (int c = 0; c < W; c += 4) {
-    float av[4][4];
-#pragma unroll
-    for (int cc = 0; cc < 4; ++cc) {
+  template <int K>
+  __device__ __forceinline__ void mm(const float* act, const float* w) {
+#pragma unroll 4
+    for (int r = 0; r < K; ++r) {
       const float4 a =
-          *reinterpret_cast<const float4*>(cot + (c + cc) * AP + 4 * ln.ty);
-      av[cc][0] = a.x; av[cc][1] = a.y; av[cc][2] = a.z; av[cc][3] = a.w;
+          *reinterpret_cast<const float4*>(act + r * AP + 4 * ln.ty);
+      const float4 b0 =
+          *reinterpret_cast<const float4*>(w + r * WP + 4 * ln.tx);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(w + r * WP + 64 + 4 * ln.tx);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
     }
+  }
+  __device__ __forceinline__ void store(float* dst,
+                                        const float* __restrict__ bias,
+                                        bool relu) {
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const float4 b =
-          *reinterpret_cast<const float4*>(w + (ln.tx + 16 * j) * WP + c);
-      const float bv[4] = {b.x, b.y, b.z, b.w};
+      const int c = j < 4 ? 4 * ln.tx + j : 64 + 4 * ln.tx + (j - 4);
+      const float b = ldg(bias + c);
+      float v[4];
 #pragma unroll
-      for (int cc = 0; cc < 4; ++cc)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          acc[i][j] = fmaf(av[cc][i], bv[cc], acc[i][j]);
+      for (int i = 0; i < 4; ++i) {
+        v[i] = acc[i][j] + b;
+        if (relu) v[i] = fmaxf(v[i], 0.f);
+      }
+      *reinterpret_cast<float4*>(dst + c * AP + 4 * ln.ty) =
+          make_float4(v[0], v[1], v[2], v[3]);
     }
   }
+};
+
+// Input-gradient product: acc(row, k) += sum_c cot[c][row] w[k][c], cot
+// feature-major, w staged row-major (stride WP): cot times w^T, read
+// without a transposed copy
+__device__ __forceinline__ void bwd_mm(Acc& acc, const float* cot,
+                                       const float* w, const Tile& tl) {
+  tf::mm_fm<2, 4, W, false>(acc, cot, AP, w, WP, tl.m0, tl.n0);
 }
 
-// dst[k][rows] = acc * (h[k][rows] > 0) for the input-gradient product's
-// columns k = tx + 16 j (the ReLU derivative from the forward tile h)
-__device__ __forceinline__ void bwd_store(float* dst, const float (&acc)[4][8],
-                                          const float* h, const Lane& ln) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int k = ln.tx + 16 * j;
-    const float4 m = *reinterpret_cast<const float4*>(h + k * AP + 4 * ln.ty);
-    *reinterpret_cast<float4*>(dst + k * AP + 4 * ln.ty) = make_float4(
-        m.x > 0.f ? acc[0][j] : 0.f, m.y > 0.f ? acc[1][j] : 0.f,
-        m.z > 0.f ? acc[2][j] : 0.f, m.w > 0.f ? acc[3][j] : 0.f);
-  }
+// dst[k][row] = acc * (h[k][row] > 0) (the ReLU derivative from the forward
+// tile h)
+__device__ __forceinline__ void bwd_store(float* dst, Acc& acc,
+                                          const float* h, const Tile& tl) {
+  tf::for_each_acc(acc, tl.m0, tl.n0, [&](int r, int c, float& v) {
+    dst[c * AP + r] = h[c * AP + r] > 0.f ? v : 0.f;
+  });
 }
 
 // Weight-gradient product over the tile's rows, added into the slab:
-// out[m][n] (+)= sum_row act[m][row] cot[n][row] for m = ty + 16 i (i < MI),
-// n = tx + 16 j, with out row-major (stride W) in global memory.
-template <int MI>
+// out[m][n] (+)= sum_row act[m][row] cot[n][row] for m < M (W or D), n < W,
+// with out row-major (stride W) in global memory. M = W: warp tiles of
+// 64 x 32 (2 x 4); M = D: 16 x 16 (1 x 8).
+template <int M>
 __device__ __forceinline__ void wgrad_mm(float* __restrict__ out,
                                          const float* act, const float* cot,
-                                         bool first, const Lane& ln) {
-  float acc[MI][8];
+                                         bool first) {
+  constexpr int TM = M == W ? 4 : 1, TN = M == W ? 4 : 2;
+  constexpr int WM = M / (16 * TM);         // warps along m
+  static_assert(WM * (W / (8 * TN)) == 8, "8 warps");
+  const int w = threadIdx.x >> 5;
+  const int m0 = 16 * TM * (w % WM), n0 = 8 * TN * (w / WM);
+  float acc[TM][TN][4];
+  tf::zero(acc);
+  tf::mm_kk<TM, TN, TR>(acc, act, cot, AP, m0, n0);
+  // every read of the slab, then every write; for M = W a row's two
+  // neighbouring entries as one 8-byte access (decoder_slab.cuh keeps those
+  // blocks at even offsets)
+  if (M == W) {
+    // (this loop, not for_each_pair with the test of `first` outside it:
+    // ptxas then took 255 registers instead of 227)
 #pragma unroll
-  for (int i = 0; i < MI; ++i)
+    for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-#pragma unroll 2
-  for (int r = 0; r < TR; r += 4) {
-    float bv[8][4];
+      for (int j = 0; j < TN; ++j)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float4 b =
-          *reinterpret_cast<const float4*>(cot + (ln.tx + 16 * j) * AP + r);
-      bv[j][0] = b.x; bv[j][1] = b.y; bv[j][2] = b.z; bv[j][3] = b.w;
-    }
-#pragma unroll
-    for (int i = 0; i < MI; ++i) {
-      const float4 a =
-          *reinterpret_cast<const float4*>(act + (ln.ty + 16 * i) * AP + r);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-      for (int rr = 0; rr < 4; ++rr)
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          acc[i][j] = fmaf(av[rr], bv[j][rr], acc[i][j]);
-    }
+        for (int h = 0; h < 2; ++h) {
+          const float2* o = reinterpret_cast<const float2*>(
+              out + tf::acc_row(m0 + 16 * i, 2 * h) * W +
+              tf::acc_col(n0 + 8 * j, 0));
+          if (!first) {
+            const float2 q = *o;
+            acc[i][j][2 * h] += q.x;
+            acc[i][j][2 * h + 1] += q.y;
+          }
+        }
+    tf::for_each_pair(acc, m0, n0, [&](int m, int n, float& v0, float& v1) {
+      *reinterpret_cast<float2*>(out + m * W + n) = make_float2(v0, v1);
+    });
+  } else {
+    if (!first)
+      tf::for_each_acc(acc, m0, n0,
+                       [&](int m, int n, float& v) { v += out[m * W + n]; });
+    tf::for_each_acc(acc, m0, n0,
+                     [&](int m, int n, float& v) { out[m * W + n] = v; });
   }
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float* o = out + (ln.ty + 16 * i) * W + ln.tx + 16 * j;
-      *o = first ? acc[i][j] : *o + acc[i][j];
-    }
+}
+
+// dx's part (tile, 64 x 16) += dcot wt^T: dcot feature-major (W, TR), wt
+// the (D, W) weight at stride WP; warp tiles of 16 x 8 (4 x 2)
+__device__ __forceinline__ void dx_mm(float (&acc)[1][1][4], const float* dcot,
+                                      const float* wt) {
+  const int w = threadIdx.x >> 5;
+  tf::mm_fm<1, 1, W, false>(acc, dcot, AP, wt, WP, 16 * (w & 3), 8 * (w >> 2));
 }
 
 // Column sums over the tile's rows of a feature-major tile, threads 0..W-1
@@ -279,58 +336,76 @@ __device__ __forceinline__ void load_x(float* xs, const float* __restrict__ x,
   xs[(4 * q + 3) * AP + r] = v.w;
 }
 
-// The forward through the feature head: h1 (-> a), h2 (-> b), then the
-// feature product of the sdf head (-> c; c may alias a). With `sdf`,
-// threads 0..TR-1 also write each row's sdf output into sdf[row] (the
-// stage then holds ws). Leaves the stage holding ws.
-__device__ __forceinline__ void forward_feat(float* a, float* b, float* c,
-                                             const float* xs, const float* w1s,
-                                             float* stage, int& held,
-                                             const Params& p, float* sdf,
-                                             const Lane& ln) {
-  float acc[4][8];
-  zero(acc);
-  fwd_mm<D>(acc, xs, w1s, W, ln);
-  fwd_store(a, acc, p.b1, true, ln);
+// The forward through the feature head, with the products of `f` (FwdTC
+// or FwdFma): h1 (-> a), h2 (-> b), then the feature product of the sdf
+// head (-> c; c may alias a). With `sdf`, threads 0..TR-1 also write each
+// row's sdf output into sdf[row] (the stage then holds ws). Leaves the
+// stage holding ws.
+template <class F>
+__device__ __forceinline__ void forward_feat(F& f, float* a, float* b,
+                                             float* c, const float* xs,
+                                             const float* w1s, float* stage,
+                                             int& held, const Params& p,
+                                             float* sdf) {
+  f.zero();
+  f.template mm<D>(xs, w1s);
+  f.store(a, p.b1, true);
   ensure_stage(stage, held, ST_W2, p);
   __syncthreads();                                  // h1 in place
-  zero(acc);
-  fwd_mm<W>(acc, a, stage, WP, ln);
-  fwd_store(b, acc, p.b2, true, ln);
+  f.zero();
+  f.template mm<W>(a, stage);
+  f.store(b, p.b2, true);
   ensure_stage(stage, held, ST_WS, p);              // h2 in place
-  zero(acc);
-  fwd_mm<W>(acc, b, stage, WP, ln);
-  if (sdf != nullptr && threadIdx.x < TR) {
-    const int r = threadIdx.x;
+  f.zero();
+  f.template mm<W>(b, stage);
+  if (sdf != nullptr) {             // 4 partial sums per row, 32 k each
+    const int r = threadIdx.x & (TR - 1), q = threadIdx.x / TR;
     float s = 0.f;
 #pragma unroll 8
-    for (int k = 0; k < W; ++k) s = fmaf(b[k * AP + r], stage[k * WP + W], s);
-    sdf[r] = s + ldg(p.bs + W);
+    for (int k = 32 * q; k < 32 * q + 32; ++k)
+      s = fmaf(b[k * AP + r], stage[k * WP + W], s);
+    sdf[q * TR + r] = s;
   }
   if (c == a) __syncthreads();      // c overwrites h1: its readers are done
-  fwd_store(c, acc, p.bs, false, ln);
+  f.store(c, p.bs, false);
 }
 
 // hc = relu(feat wc_f + x wc_x + bc) -> d (the stage then holds wc)
-__device__ __forceinline__ void forward_color(float* d, const float* feat,
+template <class F>
+__device__ __forceinline__ void forward_color(F& f, float* d,
+                                              const float* feat,
                                               const float* xs, float* stage,
-                                              int& held, const Params& p,
-                                              const Lane& ln) {
+                                              int& held, const Params& p) {
   ensure_stage(stage, held, ST_WC, p);              // feat in place
-  float acc[4][8];
-  zero(acc);
-  fwd_mm<W>(acc, feat, stage, WP, ln);
-  fwd_mm<D>(acc, xs, stage + W * WP, WP, ln);
-  fwd_store(d, acc, p.bc, true, ln);
+  f.zero();
+  f.template mm<W>(feat, stage);
+  f.template mm<D>(xs, stage + W * WP);
+  f.store(d, p.bc, true);
 }
 
-// the color head's pre-sigmoid logit of row r, channel c, from hc
-__device__ __forceinline__ float color_logit(const float* hc, int r, int c,
-                                             const Params& p) {
-  float s = 0.f;
+// The color head's partial logits: thread (r, q) = (tid % TR, tid / TR)
+// sums hc[k][r] wo[k][c] over k in [32 q, 32 q + 32) into part[q][c][r]
+__device__ __forceinline__ void color_partials(float* part, const float* hc,
+                                               const Params& p) {
+  const int r = threadIdx.x & (TR - 1), q = threadIdx.x / TR;
+  float s[3] = {0.f, 0.f, 0.f};
 #pragma unroll 8
-  for (int k = 0; k < W; ++k) s = fmaf(hc[k * AP + r], ldg(p.wo + 3 * k + c), s);
-  return s + ldg(p.bo + c);
+  for (int k = 32 * q; k < 32 * q + 32; ++k) {
+    const float h = hc[k * AP + r];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) s[c] = fmaf(h, ldg(p.wo + 3 * k + c), s[c]);
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) part[(3 * q + c) * TR + r] = s[c];
+}
+
+// sigmoid of row r's logit of channel c from its 4 partials
+__device__ __forceinline__ float color_out(const float* part, int r, int c,
+                                           const Params& p) {
+  const float z = part[c * TR + r] + part[(3 + c) * TR + r] +
+                  part[(6 + c) * TR + r] + part[(9 + c) * TR + r] +
+                  ldg(p.bo + c);
+  return 1.f / (1.f + expf(-z));
 }
 
 __global__ void __launch_bounds__(THREADS, 1)
@@ -342,12 +417,11 @@ decoder_forward_f32_kernel(const float* __restrict__ x, Params p,
   float* xs = b + ACT;
   float* stage = xs + XT;
   float* w1s = stage + STAGE;
-  float* sdf = w1s + W1S;
-  for (int e = threadIdx.x; e < W1S / 4; e += THREADS)
-    reinterpret_cast<float4*>(w1s)[e] =
-        __ldg(reinterpret_cast<const float4*>(p.w1) + e);
-  const Lane ln{static_cast<int>(threadIdx.x) >> 4,
-                static_cast<int>(threadIdx.x) & 15};
+  float* sdf = w1s + W1S;           // 4 partial sdf sums per row
+  float* part = sdf + 4 * TR;
+  stage_rows(w1s, p.w1, D, W);
+  copy_wait();
+  FwdTC f{row_tile()};
   int held = NONE;
   const long long ntiles = (N + TR - 1) / TR;
   for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
@@ -356,17 +430,18 @@ decoder_forward_f32_kernel(const float* __restrict__ x, Params p,
     __syncthreads();                                // the last tile's readers
     load_x(xs, x, row0, nvalid);
     __syncthreads();
-    forward_feat(a, b, a, xs, w1s, stage, held, p, sdf, ln);   // feat -> a
-    forward_color(b, a, xs, stage, held, p, ln);               // hc -> b
+    forward_feat(f, a, b, a, xs, w1s, stage, held, p, sdf);   // feat -> a
+    forward_color(f, b, a, xs, stage, held, p);               // hc -> b
+    __syncthreads();
+    color_partials(part, b, p);
     __syncthreads();
     if (threadIdx.x < TR && static_cast<int>(threadIdx.x) < nvalid) {
       const int r = threadIdx.x;
-      float rgb[3];
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-        rgb[c] = 1.f / (1.f + expf(-color_logit(b, r, c, p)));
-      *reinterpret_cast<float4*>(out + (row0 + r) * 4) =
-          make_float4(rgb[0], rgb[1], rgb[2], sdf[r]);
+      const float s = sdf[r] + sdf[TR + r] + sdf[2 * TR + r] + sdf[3 * TR + r]
+                      + ldg(p.bs + W);
+      *reinterpret_cast<float4*>(out + (row0 + r) * 4) = make_float4(
+          color_out(part, r, 0, p), color_out(part, r, 1, p),
+          color_out(part, r, 2, p), s);
     }
   }
 }
@@ -385,19 +460,18 @@ decoder_backward_f32_kernel(const float* __restrict__ x,
   float* stage = xs + XT;
   float* w1s = stage + STAGE;
   float* rowv = w1s + W1S;          // per row [dzo (3) | g_sdf]
-  for (int e = threadIdx.x; e < W1S / 4; e += THREADS)
-    reinterpret_cast<float4*>(w1s)[e] =
-        __ldg(reinterpret_cast<const float4*>(p.w1) + e);
+  float* part = rowv + 4 * TR;
+  stage_rows(w1s, p.w1, D, W);
+  copy_wait();
   const int tid = threadIdx.x;
   const Lane ln{tid >> 4, tid & 15};
+  const Tile tl = row_tile();
+  FwdFma f{ln};
   float* slab = partial + static_cast<long long>(blockIdx.x) * NPARAM;
   const long long ntiles = (N + TR - 1) / TR;
   const long long tile0 = static_cast<long long>(blockIdx.x) * tiles_per_block;
   const long long tile1 = min(ntiles, tile0 + tiles_per_block);
   int held = NONE;
-  // dx's owner: thread (row, kq) = (tid % TR, tid / TR) takes dx[row,
-  // 4 kq : 4 kq + 4]
-  const int xr = tid & (TR - 1), kq = tid / TR;
 
   for (long long tile = tile0; tile < tile1; ++tile) {
     const bool first = tile == tile0;
@@ -414,15 +488,17 @@ decoder_backward_f32_kernel(const float* __restrict__ x,
     __syncthreads();
 
     // forward recompute: h1 -> B0, h2 -> B1, feat -> B2, hc -> B3
-    forward_feat(B0, B1, B2, xs, w1s, stage, held, p, nullptr, ln);
-    forward_color(B3, B2, xs, stage, held, p, ln);
+    forward_feat(f, B0, B1, B2, xs, w1s, stage, held, p, nullptr);
+    forward_color(f, B3, B2, xs, stage, held, p);
     __syncthreads();
 
     // dzo = g_rgb * rgb * (1 - rgb), per row
+    color_partials(part, B3, p);
+    __syncthreads();
     if (tid < TR) {
 #pragma unroll
       for (int c = 0; c < 3; ++c) {
-        const float rgb = 1.f / (1.f + expf(-color_logit(B3, tid, c, p)));
+        const float rgb = color_out(part, tid, c, p);
         rowv[4 * tid + c] = rowv[4 * tid + c] * rgb * (1.f - rgb);
       }
     }
@@ -473,35 +549,24 @@ decoder_backward_f32_kernel(const float* __restrict__ x,
     // with dhc (B3): dwc_f = feat^T dhc, dwc_x = x^T dhc, dbc; dx's part
     // dhc wc_x^T; dfeat = dhc wc_f^T (-> B2 once feat's readers are done)
     if (want_wgrad) {
-      wgrad_mm<8>(slab + S_WCF, B2, B3, first, ln);
-      wgrad_mm<1>(slab + OFF_WCX, xs, B3, first, ln);
+      wgrad_mm<W>(slab + S_WCF, B2, B3, first);
+      wgrad_mm<D>(slab + OFF_WCX, xs, B3, first);
       col_sum(slab + OFF_BC, B3, first);
     }
-    float dxa[4] = {0.f, 0.f, 0.f, 0.f};
-    {
-      const float* wx = stage + (W + 4 * kq) * WP;    // wc_x rows 4kq..
-#pragma unroll 4
-      for (int c = 0; c < W; ++c) {
-        const float d = B3[c * AP + xr];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) dxa[i] = fmaf(d, wx[i * WP + c], dxa[i]);
-      }
-    }
-    float acc[4][8];
-    zero(acc);
-    bwd_mm(acc, B3, stage, ln);
+    float dxa[1][1][4];
+    tf::zero(dxa);
+    dx_mm(dxa, B3, stage + W * WP);
+    Acc acc;
+    tf::zero(acc);
+    bwd_mm(acc, B3, stage, tl);
     __syncthreads();                                // feat's readers are done
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int k = ln.tx + 16 * j;
-      *reinterpret_cast<float4*>(B2 + k * AP + 4 * ln.ty) =
-          make_float4(acc[0][j], acc[1][j], acc[2][j], acc[3][j]);
-    }
+    tf::for_each_acc(acc, tl.m0, tl.n0,
+                     [&](int r, int c, float& v) { B2[c * AP + r] = v; });
     __syncthreads();                                // dfeat in place
 
     // with dso = [dfeat (B2) | g_sdf]: dws = h2^T dso, dbs
     if (want_wgrad) {
-      wgrad_mm<8>(slab + OFF_WS, B1, B2, first, ln);
+      wgrad_mm<W>(slab + OFF_WS, B1, B2, first);
       col_sum(slab + S_BS, B2, first);
       if (tid < W) {
         float s = 0.f;
@@ -517,46 +582,36 @@ decoder_backward_f32_kernel(const float* __restrict__ x,
     }
     // dh2 = (dfeat ws[:, :W]^T + g_sdf ws[:, W]^T) * (h2 > 0) -> B3
     ensure_stage(stage, held, ST_WS, p);
-    zero(acc);
-    bwd_mm(acc, B2, stage, ln);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float wsdf = stage[(ln.tx + 16 * j) * WP + W];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        acc[i][j] = fmaf(rowv[4 * (4 * ln.ty + i) + 3], wsdf, acc[i][j]);
-    }
-    bwd_store(B3, acc, B1, ln);
+    tf::zero(acc);
+    bwd_mm(acc, B2, stage, tl);
+    tf::for_each_acc(acc, tl.m0, tl.n0, [&](int r, int c, float& v) {
+      const float d = fmaf(rowv[4 * r + 3], stage[c * WP + W], v);
+      B3[c * AP + r] = B1[c * AP + r] > 0.f ? d : 0.f;
+    });
     __syncthreads();                                // dh2 in place
 
     // dw2 = h1^T dh2, db2; dh1 = (dh2 w2^T) * (h1 > 0) -> B1
     if (want_wgrad) {
-      wgrad_mm<8>(slab + OFF_W2, B0, B3, first, ln);
+      wgrad_mm<W>(slab + OFF_W2, B0, B3, first);
       col_sum(slab + OFF_B2, B3, first);
     }
     ensure_stage(stage, held, ST_W2, p);
-    zero(acc);
-    bwd_mm(acc, B3, stage, ln);
-    bwd_store(B1, acc, B0, ln);
+    tf::zero(acc);
+    bwd_mm(acc, B3, stage, tl);
+    bwd_store(B1, acc, B0, tl);
     __syncthreads();                                // dh1 in place
 
     // dw1 = x^T dh1, db1; dx = dh1 w1^T + dhc wc_x^T
     if (want_wgrad) {
-      wgrad_mm<1>(slab + OFF_W1, xs, B1, first, ln);
+      wgrad_mm<D>(slab + OFF_W1, xs, B1, first);
       col_sum(slab + OFF_B1, B1, first);
     }
-    {
-      const float* w1r = w1s + 4 * kq * W;            // w1 rows 4kq..
-#pragma unroll 4
-      for (int c = 0; c < W; ++c) {
-        const float d = B1[c * AP + xr];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) dxa[i] = fmaf(d, w1r[i * W + c], dxa[i]);
-      }
-      if (xr < nvalid)
-        *reinterpret_cast<float4*>(dx + (row0 + xr) * D + 4 * kq) =
-            make_float4(dxa[0], dxa[1], dxa[2], dxa[3]);
-    }
+    dx_mm(dxa, B1, w1s);
+    const int w = tid >> 5;
+    tf::for_each_acc(dxa, 16 * (w & 3), 8 * (w >> 2),
+                     [&](int r, int c, float& v) {
+                       if (r < nvalid) dx[(row0 + r) * D + c] = v;
+                     });
   }
 }
 

@@ -12,7 +12,10 @@ tensors and run :func:`decoder_fwd_plain` / :func:`decoder_bwd_plain` for
 CPU tensors; any other device raises. Both operand types of the Pallas
 kernels' ``_make_dot`` have a kernel: ``bf16=True`` launches
 ``csrc/mlp_kernel.cu`` (bf16 operands on the tensor cores), ``bf16=False``
-``csrc/mlp_kernel_f32.cu`` (true f32 products on the FP32 units, no TF32).
+``csrc/mlp_kernel_f32.cu`` (f32 operands: the products on the tensor cores
+as three TF32 products with f32 sums, "3xTF32", within f32 tolerance of
+the true f32 product, except K3-f32's forward recompute, true f32 FMAs
+for its ReLU masks; the plain versions compute true f32).
 Each form counts its own launches (``decoder_fwd.launches`` and
 ``decoder_fwd_f32.launches``, ``decoder_bwd.launches`` and
 ``decoder_bwd_f32.launches``). With bf16 operands the
@@ -193,8 +196,8 @@ def decoder_fwd(x: torch.Tensor, fp: FusedParams,
                 bf16: bool = True) -> torch.Tensor:
     """K2, the decoder forward (N, D) -> (N, 4) [r, g, b, sdf]: on CUDA
     tensors the kernel of the operand type (``decoder_forward``, or
-    ``decoder_forward_f32`` for ``bf16=False``), on CPU tensors the plain
-    version."""
+    ``decoder_forward_f32`` for ``bf16=False``: 3xTF32 products on the
+    tensor cores), on CPU tensors the plain version."""
     if not _kernel_device(x, "decoder_fwd"):
         _, _, _, sdf, _, rgb = decoder_fwd_plain(x, fp, bf16)
         return torch.cat([rgb, sdf], dim=1)
@@ -230,7 +233,8 @@ def decoder_bwd(x: torch.Tensor, g: torch.Tensor, fp: FusedParams,
                 ) -> Tuple[torch.Tensor, Optional[FusedParams]]:
     """K3, the decoder backward: on CUDA tensors the kernel of the operand
     type (``decoder_backward``, or ``decoder_backward_f32`` for
-    ``bf16=False``), on CPU tensors the plain version.
+    ``bf16=False``: 3xTF32 products on the tensor cores), on CPU tensors
+    the plain version.
     ``want_wgrad=False`` skips the parameter gradients (tracking
     differentiates the pose only)."""
     if not _kernel_device(x, "decoder_bwd"):
