@@ -31,7 +31,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    3xTF32 bound (the tensor cores) and the FP32-unit bound; then hold the pcd
    branch's ``render_rays`` (PointNet gather, K2, K3 through autograd) on
    the card against the same call on the CPU, outputs and gradients, on
-   512 rays;
+   512 rays; and ``decoder_values`` with the Gaussian embedder (f32
+   operands, 65,536 rows) on the card against the CPU (1e-5 of the largest
+   output: the embedding's ``x @ B`` in true f32, TF32 off; the same call
+   with TF32 on is logged as the control);
 4. vox slice: the bench configuration with the fused render path on
    (``config.bench_settings``): ``SlamSystem.initialize`` (200 mapping
    iterations), 39 ``process_frame`` calls over the first 40 frames of the
@@ -66,6 +69,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    first 10 of the rendered frames and ``global_refine(rounds=2)``: K1 and
    K3 must have been launched, the unaligned ATE under 3 cm; its frames/s
    and per-phase ms are logged beside the fixed-batch vox slice's;
+5d. dda slice: the vox slice with ``intersect_mode="dda"`` (the grid
+   march through the occupancy grid, built once per tracker and mapper
+   call): K1 and K3 launched and no other kernel, the unaligned ATE under
+   3 cm, frames/s and per-phase ms logged beside the vox slice's. On its
+   final map: ``build_occupancy`` must drop no live voxel; at the tracking
+   (1024 rays) and mapping (5 x 1024) shapes ``ray_intersect_dda`` is held
+   against the brute ``ray_intersect`` (every brute hit it misses a graze
+   with a chord under the march spacing, the hits both find at depths
+   within 1e-4, no hit of its own but past the last of a full brute list,
+   its grazes within 15% of what a march at that spacing must miss), with
+   CUDA-event times of the three functions and the comparison timed by the
+   port's ``Profiler``; and on
+   1024 rays ``gather_ray_features`` (the ``GatherF8`` gather and its
+   segment-sum backward) against ``gather_ray_features_onehot``, values
+   and embedding gradients within 1e-5 of each one's largest magnitude;
+5e. window slice: the vox configuration with covisibility-weighted
+   keyframe windows (``covis_angle_deg=30``, ``keyframe_gap=2``) over the
+   first 30 frames and ``global_refine(rounds=2)``: at least 12 windows
+   drawn by the covisibility rule, K1 and K3 launched, the unaligned ATE
+   under 3 cm;
 6. vox profile: another vox run, ``torch.profiler`` over frames 5-8 (each
    engine phase a profiler range): device busy ms per frame in all and
    per phase with each phase's idle share, kernel launches per frame, the
@@ -84,7 +107,11 @@ Phases, in order; any failure raises and the script exits non-zero:
 8. cli-pcd: the same entry point on room.yaml with ``--tpu_specs.feature_mode
    pcd --tpu_specs.fused_mlp true --no-mesh``, 5 frames (the YAML's f32
    operands): K2-f32 and K3-f32 must have been launched and no other
-   kernel, the trajectory finite and the checkpoint reloaded bit for bit.
+   kernel, the trajectory finite and the checkpoint reloaded bit for bit;
+9. cli-embed: the same entry point on a YAML derived from room.yaml with
+   the NeRF embedder (4 frequencies) and a skip, 10 frames and a mesh: no
+   kernel launched, the trajectory finite, the checkpoint reloaded bit for
+   bit, the ATE logged without a bound.
 
 Every launch count is set to 0 just before a slice (and each cli run) and
 read just after it; the mesh's launches are the counts' change across it.
@@ -185,6 +212,38 @@ PANEL_WH = (3 * 200, 2 * 160)   # room.yaml's default 200x160 preview
 PCD_CLI_FRAMES = 5
 PROFILE_START, PROFILE_FRAMES = 5, 4   # the vox profile: frames 5-8
 WIDTH, HEIGHT = 320, 240
+# the dda slice's intersection check, on its final map (tests/test_intersect
+# .py's rule): every brute hit the grid march misses is a graze, a voxel
+# whose chord is under the march spacing; the depths of the hits both find
+# agree within 1e-4. The march skips a chord c < spacing with probability
+# 1 - c / spacing when its phase is random; on the room's surface map ~28%
+# of the brute hits have such chords, and the JAX package's DDA misses
+# 14.6% of them there (a CPU run, 1024 rays, the port's DDA slot for slot
+# the same), against 2% of the slots on the JAX test's random map. So the
+# grazes are held to within 15% of that expectation (~4.7 standard
+# deviations at the tracking shape): a march at another spacing, or one
+# that skips cells, leaves the band; their share of the hit slots is logged.
+TOL_DDA_DEPTH = 1e-4
+DDA_GRAZE_BAND = 0.15
+# gather_ray_features (GatherF8 gather, segment-sum backward) against the
+# one-hot einsum oracle: the same f32 products summed in another order
+TOL_ONEHOT = 1e-5
+# decoder_values with the Gaussian embedder, card against CPU, f32 operands:
+# x @ B reaches |x @ B| ~ 50 at these inputs (B ~ 25 N(0, 1)), where the
+# f32 sums' order moves the sine by up to ~6e-5; the outputs, 3e-6 of their
+# largest magnitude from an f64 evaluation (a CPU run), are held at 1e-5.
+# TF32 (1e-3 relative) would move the sine's argument by ~0.05.
+TOL_GAUSSIAN = 1e-5
+GAUSSIAN_ROWS = 65536
+# the window slice: covisibility-weighted windows at keyframe_gap 2 (a
+# commit every 3rd frame, so more than window_size = 4 keyframes exist
+# from frame 13 on); at least WINDOW_MIN_DRAWS windows must be drawn by the
+# covisibility rule
+WINDOW_FRAMES = 30
+WINDOW_GAP = 2
+WINDOW_ANGLE = 30.0
+WINDOW_MIN_DRAWS = 12
+CLI_EMBED_FRAMES = 10
 
 # Published H100 SXM peaks (dense) at a 700 W power limit: bf16 and TF32
 # tensor cores, f32 outside the tensor cores, HBM3.
@@ -933,6 +992,50 @@ def kernel_phase(device):
     }
 
 
+def gaussian_check(device):
+    """``decoder_values`` with the Gaussian embedder at the bench decoder's
+    widths and f32 operands, GAUSSIAN_ROWS rows, on the card against the
+    same call on the CPU: the product ``x @ B`` runs in true f32 on the
+    card (TF32 off). The same call with TF32 on is logged as the check's
+    control."""
+    import torch
+
+    from proudslam_tpu_torch.config import bench_settings
+    from proudslam_tpu_torch.models.decoder import (_tree_map, decoder_values,
+                                                    embed_input, init_decoder)
+
+    dec = dataclasses.replace(bench_settings().decoder, embedder="gaussian",
+                              matmul_dtype="f32")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(7)
+    params = init_decoder(gen, dec, device)
+    x = 0.5 * torch.randn((GAUSSIAN_ROWS, dec.in_dim), generator=gen,
+                          device=device)
+    cpu = _tree_map(lambda a: a.cpu(), params)
+    ref = decoder_values(cpu, dec, x.cpu())
+    scale = ref.abs().max()
+
+    def err(fn):
+        return ((fn(params, dec, x).cpu() - ref).abs().max() / scale).item()
+
+    e_out = err(decoder_values)
+    e_emb = (embed_input(dec, params, x).cpu()
+             - embed_input(dec, cpu, x.cpu())).abs().max().item()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        e_tf32 = err(decoder_values)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    st = dict(rows=GAUSSIAN_ROWS, max_rel_err_out=e_out,
+              max_abs_err_embedding=e_emb, max_rel_err_out_tf32_on=e_tf32)
+    log("Gaussian embedder decoder_values, card against CPU: "
+        + json.dumps(st) + f" (tol {TOL_GAUSSIAN} of the largest output)")
+    if not e_out <= TOL_GAUSSIAN:
+        raise AssertionError("the Gaussian-embedder decoder on the card "
+                             "disagrees with the CPU")
+    return st
+
+
 def _to(nt, device):
     return type(nt)(*[f.to(device) if hasattr(f, "to") else f for f in nt])
 
@@ -1140,17 +1243,21 @@ def mesh_phase(slam, settings, frames, n_frames, est) -> dict:
 
 
 def slice_phase(device, name, settings, frames, n_frames, ate_limit_cm,
-                launched, not_launched, mesh=False):
+                launched, not_launched, mesh=False, setup=None, after=None):
     """``initialize``, ``process_frame`` over frames 1..n_frames-1 and
     ``global_refine(rounds=2)``; the kernels in ``launched`` must have been
     launched in the run and those in ``not_launched`` not. ``mesh``: then
-    the slice's mesh (:func:`mesh_phase`)."""
+    the slice's mesh (:func:`mesh_phase`). ``setup(slam)`` runs before the
+    slice, ``after(slam)`` after its checks (after the launch counts are
+    read), its dict joining the slice's stats."""
     import torch
 
     from proudslam_tpu_torch.utils.metrics import ate_rmse, rpe_rmse
 
     poses = frames[1]
     slam = _new_slam(device, settings, frames)
+    if setup is not None:
+        setup(slam)
     pn0 = None
     if "pointnet" in slam.decoder_params:
         pn0 = slam.decoder_params["pointnet"]["fc"]["w"].clone()
@@ -1207,7 +1314,204 @@ def slice_phase(device, name, settings, frames, n_frames, ate_limit_cm,
             f"{name} slice: unaligned ATE {ate:.3f} cm >= {ate_limit_cm}")
     if mesh:
         stats["mesh"] = mesh_phase(slam, settings, frames, n_frames, est)
+    if after is not None:
+        stats.update(after(slam))
     return stats
+
+
+def _view_rays(slam, n_views, gen):
+    """TRACK_RAYS random pixels of each of the slice's last ``n_views``
+    refined camera poses as world rays (origins, directions)."""
+    import torch
+
+    from proudslam_tpu_torch.geometry import se3
+
+    dirs = slam.rays_dir.reshape(-1, 3)
+    os_, ds_ = [], []
+    for p6 in slam._refined_pose6[-n_views:]:
+        pix = torch.randint(0, dirs.shape[0], (TRACK_RAYS,), generator=gen,
+                            device=dirs.device)
+        d = dirs[pix] @ se3.exp_rotation(p6[3:6]).T
+        ds_.append(d)
+        os_.append(p6[0:3].expand_as(d))
+    return torch.cat(os_).contiguous(), torch.cat(ds_).contiguous()
+
+
+def _dda_against_brute(got, want, rays_d, spacing) -> dict:
+    """The grid march's hits ``got`` against the brute slab test's ``want``
+    (see TOL_DDA_DEPTH)."""
+    import torch
+
+    wi, gi = want.voxel_idx, got.voxel_idx
+    brute = wi >= 0
+    match = (wi[:, :, None] == gi[:, None, :]) & brute[:, :, None]
+    missed = brute & ~match.any(-1)
+    # a hit of the march's own is a voxel past the brute list's last one,
+    # where a ray has more hits than the list holds: after a missed graze
+    # the march takes the next voxel
+    extra = (gi >= 0) & ~match.any(1)
+    past = brute.all(-1, keepdim=True) & (
+        got.t_near >= want.t_near[:, -1:] - TOL_DDA_DEPTH)
+    chord = (want.t_far - want.t_near) * rays_d.norm(dim=-1, keepdim=True)
+    expected = torch.where(brute, (1.0 - chord / spacing).clamp_min(0.0),
+                           0.0).sum().item()
+
+    def depth_err(a, b):
+        diff = (a[:, :, None] - b[:, None, :]).abs()
+        return torch.where(match, diff, 0.0).max().item()
+
+    grazes = int(missed.sum())
+    return dict(
+        rays=wi.shape[0], brute_hit_slots=int(brute.sum()),
+        dda_hit_slots=int((gi >= 0).sum()), grazes=grazes,
+        graze_share_of_hit_slots=grazes / max(int(brute.sum()), 1),
+        graze_share_of_slots=grazes / wi.numel(),
+        grazes_expected=expected, grazes_over_expected=grazes / max(
+            expected, 1e-9),
+        brute_hits_with_chord_under_spacing=int((brute & (chord < spacing))
+                                                .sum()),
+        max_missed_chord=chord[missed].max().item() if grazes else 0.0,
+        dda_hits_past_brute_list=int((extra & past).sum()),
+        dda_hits_not_in_brute=int((extra & ~past).sum()),
+        max_t_near_err=depth_err(want.t_near, got.t_near),
+        max_t_far_err=depth_err(want.t_far, got.t_far),
+        dda_sorted=bool((got.t_near[:, 1:] - got.t_near[:, :-1] >= -1e-5)
+                        .all()))
+
+
+def dda_checks(slam) -> dict:
+    """On the dda slice's final map: ``build_occupancy``'s live voxels
+    dropped as outside ``grid_dims`` (must be 0); ``ray_intersect_dda``
+    against the brute ``ray_intersect`` at the tracking and mapping shapes
+    (TOL_DDA_DEPTH), with CUDA-event times of the three functions, the
+    comparison timed by the port's ``Profiler``; and, on TRACK_RAYS rays,
+    ``gather_ray_features`` (GatherF8, segment-sum backward) against
+    ``gather_ray_features_onehot``, values and embedding gradients."""
+    import torch
+
+    from proudslam_tpu_torch.ops.interp import (gather_ray_features,
+                                                gather_ray_features_onehot)
+    from proudslam_tpu_torch.ops.intersect import (build_occupancy,
+                                                   ray_intersect,
+                                                   ray_intersect_dda)
+    from proudslam_tpu_torch.ops.voxel_hash import unpack_key
+    from proudslam_tpu_torch.render.renderer import intersect_and_sample
+    from proudslam_tpu_torch.utils.profiler import Profiler
+
+    rs = slam.settings.render
+    view = slam._render_view()
+    keys, nv = view.voxel_keys, view.num_voxels
+    occ = build_occupancy(keys, nv, rs)
+    dropped = nv - int((occ >= 0).sum())
+    centers = (unpack_key(keys).float() + 0.5) * rs.voxel_size
+    live = torch.ones(nv, dtype=torch.bool, device=keys.device)
+    spacing = rs.dda_step_frac * rs.voxel_size
+    gen = torch.Generator(device=keys.device)
+    gen.manual_seed(5)
+    o5, d5 = _view_rays(slam, 5, gen)
+    prof = Profiler(device=keys.device)
+    prof.enable()
+    shapes = {}
+    for shape, n in (("tracking", TRACK_RAYS), ("mapping", 5 * TRACK_RAYS)):
+        o, d = o5[-n:].contiguous(), d5[-n:].contiguous()
+        prof.tick(f"dda_vs_brute_{shape}")
+        got = ray_intersect_dda(o, d, keys, nv, rs, occupancy=occ)
+        want = ray_intersect(o, d, centers, live, rs)
+        st = _dda_against_brute(got, want, d, spacing)
+        prof.tok(f"dda_vs_brute_{shape}")
+        st.update(
+            build_occupancy_ms=_event_ms(
+                lambda: build_occupancy(keys, nv, rs)),
+            ray_intersect_dda_ms=_event_ms(
+                lambda: ray_intersect_dda(o, d, keys, nv, rs, occupancy=occ)),
+            ray_intersect_ms=_event_ms(
+                lambda: ray_intersect(o, d, centers, live, rs)))
+        shapes[shape] = st
+        log(f"dda against brute at the {shape} shape: " + json.dumps(st)
+            + f" (misses must be grazes, chord < {spacing:.3f} m; depths "
+            f"<= {TOL_DDA_DEPTH}; grazes within {DDA_GRAZE_BAND:.0%} of the "
+            "random-phase expectation)")
+    # the one-hot oracle of the gather on TRACK_RAYS rays of the same map
+    o, d = o5[:TRACK_RAYS], d5[:TRACK_RAYS]
+    H, S = rs.max_hits, rs.max_samples
+    noise = torch.rand((TRACK_RAYS, S - H), generator=gen, device=o.device)
+    inter, samples = intersect_and_sample(o, d, view, rs, noise, occ)
+    valid = samples.voxel_idx >= 0
+    bins = torch.where(valid, samples.bin, H)
+    xyz = o[:, None, :] + d[:, None, :] * samples.depth[..., None]
+    emb0 = slam.map_state.embeddings.detach()
+    cot = torch.randn((TRACK_RAYS, S, emb0.shape[1]), generator=gen,
+                      device=o.device) * valid[..., None]
+    res = {}
+    for name, fn in (("gather", gather_ray_features),
+                     ("onehot", gather_ray_features_onehot)):
+        e = emb0.clone().requires_grad_(True)
+        f = fn(xyz, bins, inter.voxel_idx, view.voxel_keys,
+               view.voxel_vertex_ids, e, rs.voxel_size)
+        (f * cot).sum().backward()
+        res[name] = (f.detach()[valid], e.grad)
+    (fg, gg), (fo, go) = res["gather"], res["onehot"]
+    oracle = dict(rays=TRACK_RAYS, valid_samples=int(valid.sum()),
+                  max_rel_err_values=((fg - fo).abs().max()
+                                      / fo.abs().max()).item(),
+                  max_rel_err_embedding_grad=((gg - go).abs().max()
+                                              / go.abs().max()).item())
+    log("gather_ray_features against the one-hot oracle: "
+        + json.dumps(oracle) + f" (tol {TOL_ONEHOT} of each one's largest "
+        "magnitude)")
+    out = dict(occupancy_dropped=dropped, intersect=shapes,
+               onehot_oracle=oracle, profiler=prof.summary())
+    log(f"dda checks: build_occupancy dropped {dropped} live voxels of {nv}; "
+        "Profiler: " + json.dumps(out["profiler"]))
+    if dropped:
+        raise AssertionError(f"build_occupancy dropped {dropped} voxels")
+    for shape, st in shapes.items():
+        if not (st["max_missed_chord"] < spacing + 1e-5
+                and st["dda_hits_not_in_brute"] == 0 and st["dda_sorted"]
+                and st["max_t_near_err"] <= TOL_DDA_DEPTH
+                and st["max_t_far_err"] <= TOL_DDA_DEPTH
+                and abs(st["grazes_over_expected"] - 1.0) <= DDA_GRAZE_BAND
+                and st["brute_hit_slots"] > st["rays"]):
+            raise AssertionError(f"dda against brute at the {shape} shape")
+    if not (oracle["max_rel_err_values"] <= TOL_ONEHOT
+            and oracle["max_rel_err_embedding_grad"] <= TOL_ONEHOT):
+        raise AssertionError("gather_ray_features disagrees with the one-hot "
+                             "oracle")
+    return {"dda_checks": out}
+
+
+class _WindowLog:
+    """Records each window the engine draws during a slice, and whether the
+    covisibility rule drew it (more committed keyframes than the window
+    holds, and lagged angles present)."""
+
+    def __init__(self):
+        self.windows = []
+
+    def setup(self, slam):
+        draw = slam._select_window
+
+        def recording():
+            sel, valid = draw()
+            covis = (slam.num_kf > slam.settings.mapper.window_size
+                     and slam._covis_host is not None)
+            self.windows.append(dict(num_kf=slam.num_kf, covis=covis,
+                                     window=sel))
+            return sel, valid
+        slam._select_window = recording
+
+    def after(self, slam):
+        drawn = [w for w in self.windows if w["covis"]]
+        st = dict(windows=len(self.windows), covis_drawn=len(drawn),
+                  first_covis_frame=(self.windows.index(drawn[0]) + 1
+                                     if drawn else None),
+                  covis_windows=[w["window"] for w in drawn])
+        log("window slice: " + json.dumps(st)
+            + f" (at least {WINDOW_MIN_DRAWS} drawn by the covisibility rule)")
+        if len(drawn) < WINDOW_MIN_DRAWS:
+            raise AssertionError(f"window slice: {len(drawn)} windows drawn "
+                                 "by the covisibility rule")
+        return {"covis": st}
 
 
 def _read_ply(path):
@@ -1250,9 +1554,10 @@ def _png_size(path):
 
 
 def cli_phase(device, name, overrides=(), launched=(), panels=(),
-              mesh=True, ate_limit_cm=CLI_ATE_LIMIT_CM):
-    """``run_slam.main`` on ``configs/synthetic/room.yaml`` (with the config
-    ``overrides``) into a temporary log directory: artifacts (the panels
+              mesh=True, ate_limit_cm=CLI_ATE_LIMIT_CM, config=None):
+    """``run_slam.main`` on ``config`` (``configs/synthetic/room.yaml`` by
+    default, with the config ``overrides``) into a temporary log directory:
+    artifacts (the panels
     ``imgs/render_<frame>.png`` of the frames in ``panels``, the mesh when
     ``mesh``), the kernels in ``launched`` launched and no other, the ATE
     limit (none when ``ate_limit_cm`` is None), and the checkpoint reloaded
@@ -1267,7 +1572,7 @@ def cli_phase(device, name, overrides=(), launched=(), panels=(),
     from proudslam_tpu_torch.run_slam import parse_overrides
     from proudslam_tpu_torch.utils.checkpoint import load_checkpoint
 
-    config = os.path.join(ROOT, CLI_CONFIG)
+    config = config or os.path.join(ROOT, CLI_CONFIG)
     flags = [o for o in overrides if o == "--no-mesh"]
     keyed = [o for o in overrides if o != "--no-mesh"]
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as logs:
@@ -1333,6 +1638,25 @@ def cli_phase(device, name, overrides=(), launched=(), panels=(),
         raise AssertionError(f"{name}: unaligned ATE {st['ate_cm']:.3f} cm "
                              f">= {ate_limit_cm}")
     return st
+
+
+def cli_embed_phase(device):
+    """``run_slam.main`` on a YAML derived from room.yaml with the NeRF
+    embedder (4 frequencies) and a skip after the first layer (a list
+    value: the command line cannot set it), CLI_EMBED_FRAMES frames and a
+    mesh: the plain decoder only (no kernel takes an embedder), the
+    checkpoint reloaded bit for bit, the ATE logged without a bound."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_embed_") as tmp:
+        path = os.path.join(tmp, "room_nerf.yaml")
+        with open(path, "w") as f:
+            f.write(f"base_config: {os.path.join(ROOT, CLI_CONFIG)}\n"
+                    "decoder_specs:\n  embedder: nerf\n  multires: 4\n"
+                    "  skips: [0]\n")
+        return cli_phase(device, "cli-embed",
+                         ("--data_specs.num_frames", str(CLI_EMBED_FRAMES)),
+                         ate_limit_cm=None, config=path)
 
 
 def profile_phase(device, settings, frames, start=PROFILE_START,
@@ -1434,6 +1758,7 @@ def main() -> None:
     build_s, built = build_phase()
     log(f"build: {build_s:.1f} s")
     kern = kernel_phase(device)
+    kern["extra"]["gaussian_embedder"] = gaussian_check(device)
     frames = render_frames()
     vox = bench_settings()
     bf16_kernels = ("fused_render_forward", "decoder_forward",
@@ -1467,6 +1792,24 @@ def main() -> None:
         {k: {p: stats[p][k] for p in ("vox", "resample")}
          for k in ("frames", "fps", "init_s", "track_ms", "map_ms",
                    "insert_ms", "ate_cm")}))
+    dda = dataclasses.replace(vox, render=dataclasses.replace(
+        vox.render, intersect_mode="dda"))
+    stats["dda"] = slice_phase(
+        device, "dda", dda, frames, N_FRAMES, ATE_LIMIT_CM,
+        launched=("fused_render_forward", "decoder_backward"),
+        not_launched=("decoder_forward",) + f32_kernels, after=dda_checks)
+    log("dda against the brute vox slice: " + json.dumps(
+        {k: {p: stats[p][k] for p in ("vox", "dda")}
+         for k in ("frames", "fps", "init_s", "refine_s", "track_ms",
+                   "map_ms", "insert_ms", "ate_cm", "ate_aligned_cm")}))
+    window = dataclasses.replace(vox, mapper=dataclasses.replace(
+        vox.mapper, covis_angle_deg=WINDOW_ANGLE, keyframe_gap=WINDOW_GAP))
+    wlog = _WindowLog()
+    stats["window"] = slice_phase(
+        device, "window", window, frames, WINDOW_FRAMES, ATE_LIMIT_CM,
+        launched=("fused_render_forward", "decoder_backward"),
+        not_launched=("decoder_forward",) + f32_kernels, setup=wlog.setup,
+        after=wlog.after)
     profile = profile_phase(device, vox, frames)
     stats["cli"] = cli_phase(
         device, "cli", ("--debug_args.render_freq", str(CLI_RENDER_FREQ)),
@@ -1477,6 +1820,7 @@ def main() -> None:
                             "--data_specs.num_frames", str(PCD_CLI_FRAMES),
                             "--no-mesh"),
         launched=f32_kernels, mesh=False, ate_limit_cm=None)
+    stats["cli-embed"] = cli_embed_phase(device)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     mlp = "proudslam_tpu/ops/pallas/mlp_kernel.py"

@@ -28,6 +28,7 @@ from proudslam_tpu_torch.engine.adam import (AdamState, adam_update,
 from proudslam_tpu_torch.engine.state import KeyframeStore
 from proudslam_tpu_torch.geometry import se3
 from proudslam_tpu_torch.models.decoder import tree_leaves, tree_unflatten
+from proudslam_tpu_torch.ops.intersect import build_occupancy
 from proudslam_tpu_torch.ops.sampling import frame_pixels
 from proudslam_tpu_torch.render.losses import compute_loss
 from proudslam_tpu_torch.render.renderer import (intersect_and_sample,
@@ -123,7 +124,10 @@ def map_step(map_state, decoder_params, store: KeyframeStore,
         return (dirs_flat[p], gt_c.reshape(-1, 3),
                 torch.gather(sel_depth, 1, p).reshape(-1))
 
-    fixed = None
+    fixed = occupancy = None
+    if rnd.intersect_mode == "dda":   # voxel topology is frozen: build once
+        occupancy = build_occupancy(map_state.voxel_keys,
+                                    map_state.num_voxels, rnd)
     if mpr.fixed_sample_batch:
         with torch.no_grad():
             f_batch = batch(pix)
@@ -132,7 +136,7 @@ def map_step(map_state, decoder_params, store: KeyframeStore,
             w_o = (poses0[:, 0:3] + origin_shift)[:, None, :].expand_as(w_d)
             fixed = intersect_and_sample(w_o.reshape(-1, 3),
                                          w_d.reshape(-1, 3), map_state, rnd,
-                                         noise.reshape(-1, SJ))
+                                         noise.reshape(-1, SJ), occupancy)
     pcd = rnd.feature_mode == "pcd"
 
     def loss_fn(embeddings, dec_params, poses, dirs, gt_c, gt_d, noise_i):
@@ -144,7 +148,7 @@ def map_step(map_state, decoder_params, store: KeyframeStore,
             world_o.reshape(-1, 3), world_d.reshape(-1, 3), map_state,
             embeddings, dec_params, settings.decoder, rnd,
             noise=noise_i.reshape(-1, SJ), point_store=point_store,
-            precomputed=fixed)
+            precomputed=fixed, occupancy=occupancy)
         loss, _ = compute_loss(outputs, gt_c, gt_d, settings.loss,
                                weight_depth_loss=False)
         return loss

@@ -14,7 +14,8 @@ port renders a view of the voxel table sliced to the live count, which
 the validity masks make equivalent. Kept as they are: the uint8/uint16
 frame quantization of ``upload_frame``, the numpy ``default_rng(seed)``
 keyframe-window choice, the freshness threshold from the per-insert voxel
-count history, and the fixed lag of the rotation keyframe trigger.
+count history, and the fixed lags of the rotation keyframe trigger and of
+the covisibility angles that weight the window draw.
 
 With ``feature_mode="pcd"`` (or ``map.store_points``) the system also keeps
 a per-voxel point store, filled with each inserted frame's points and
@@ -150,6 +151,11 @@ class SlamSystem:
         self._ang_lag = 2
         self._ang_pending: deque = deque()
         self._last_angle = 0.0
+        # covisibility window: (K,) angles of every keyframe-store pose to
+        # the frame's slot, measured after each frame's write and consumed
+        # two frames later (the JAX engine's fixed lag)
+        self._covis_pending: deque = deque()
+        self._covis_host: Optional[np.ndarray] = None
         self._capacity_warned = False
         self.clock = PhaseClock(self.device)
         # per-frame telemetry (device scalars, read by get_track_stats)
@@ -174,7 +180,12 @@ class SlamSystem:
 
     def _render_view(self) -> vh.MapState:
         """The voxel table sliced to the live voxels (what the renderer
-        reads); embeddings stay the full table."""
+        reads); embeddings stay the full table.
+
+        The JAX engine renders the full table under ``intersect_mode="dda"``.
+        The slice gives the same hits: the occupancy grid holds live slots
+        only, and the DDA path's clamp of a slot to the table's last row
+        reaches only invalid slots, whose results are masked."""
         ms = self.map_state
         nv = ms.num_voxels
         return ms._replace(voxel_keys=ms.voxel_keys[:nv],
@@ -270,11 +281,18 @@ class SlamSystem:
             if self.settings.mapper.window_include_anchor:
                 fixed = [0, last]
                 pool = committed[1:-1]
-            if self.settings.mapper.covis_angle_deg > 0:
-                raise NotImplementedError(
-                    "covisibility-weighted windows are not ported yet "
-                    "(ROADMAP Queue 1, non-default engine modes)")
-            rest = self.rng.choice(pool, size=w - len(fixed), replace=False)
+            n_rand = w - len(fixed)
+            ang = self.settings.mapper.covis_angle_deg
+            cv = self._covis_host
+            if ang > 0 and cv is not None and len(cv) >= last:
+                # covisibility-weighted: keyframes looking the way the
+                # current frame looks enter the window preferentially
+                weights = np.exp(-np.asarray(cv, np.float64)[pool] / ang)
+                weights /= weights.sum()
+                rest = self.rng.choice(pool, size=n_rand, replace=False,
+                                       p=weights)
+            else:
+                rest = self.rng.choice(pool, size=n_rand, replace=False)
             window = sorted(set(list(rest) + fixed))
         slot = min(self.num_kf, self.settings.mapper.max_keyframes - 1)
         pad = w - len(window)
@@ -287,6 +305,14 @@ class SlamSystem:
         rel = (se3.inverse_matrix(se3.matrix_from_tangent(poses[ref]))
                @ se3.matrix_from_tangent(poses[slot]))
         self.frame_poses.append((ref, rel))
+
+    def _covis_angles(self, slot: int) -> torch.Tensor:
+        """(K,) rotation angle (deg) of every keyframe-store pose to the
+        pose at ``slot``: the covisibility proxy of the window draw."""
+        R = se3.exp_rotation(self.store.poses[:, 3:6])           # (K, 3, 3)
+        Rb = se3.exp_rotation(self.store.poses[slot, 3:6])
+        c = ((R * Rb).sum(dim=(1, 2)) - 1.0) * 0.5
+        return torch.rad2deg(torch.arccos(torch.clamp(c, -1.0, 1.0)))
 
     def _kf_angle(self, kf: int, slot: int) -> float:
         """Rotation angle (deg) between two keyframe-store poses."""
@@ -352,6 +378,10 @@ class SlamSystem:
         kfstate.write_frame(self.store, slot, rgb_d, depth_d, flag,
                             result.pose, result.adam_m, result.adam_v,
                             result.adam_t)
+        if s.mapper.covis_angle_deg > 0:
+            self._covis_pending.append(self._covis_angles(slot))
+            while len(self._covis_pending) > 2:
+                self._covis_host = self._covis_pending.popleft().cpu().numpy()
         sel, valid = self._select_window()
         self._map_losses.append(self._map(sel, valid).loss)
 

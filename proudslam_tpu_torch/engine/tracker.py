@@ -27,6 +27,7 @@ from proudslam_tpu_torch.config import SystemSettings
 from proudslam_tpu_torch.engine.adam import adam_update, init_adam
 from proudslam_tpu_torch.geometry import se3
 from proudslam_tpu_torch.ops.interp import corner_view, precompute_f8
+from proudslam_tpu_torch.ops.intersect import build_occupancy
 from proudslam_tpu_torch.ops.kernels.mlp_kernel import fused_applicable
 from proudslam_tpu_torch.ops.sampling import frame_pixels
 from proudslam_tpu_torch.render.losses import compute_loss
@@ -91,16 +92,19 @@ def track_frame(map_state, decoder_params, prev_pose: torch.Tensor,
     def batch(p):
         return dirs_flat[p], rgb_flat[p], depth_flat[p]
 
-    fixed = f8c = None
+    fixed = f8c = occupancy = None
     with torch.no_grad():
         corner_feats = None if pcd else corner_view(
             map_state.embeddings, map_state.voxel_vertex_ids)
+        if rnd.intersect_mode == "dda":   # the map is frozen: build once
+            occupancy = build_occupancy(map_state.voxel_keys,
+                                        map_state.num_voxels, rnd)
         if trk.fixed_sample_batch:
             f_batch = batch(pix)
             R0 = se3.exp_rotation(prev_pose[3:6])
             w_d = f_batch[0] @ R0.T
             fixed = intersect_and_sample(prev_pose[0:3].expand_as(w_d), w_d,
-                                         map_state, rnd, noise)
+                                         map_state, rnd, noise, occupancy)
             if not pcd and not fused_applicable(settings.decoder):
                 inter0, samples0 = fixed
                 bins0 = torch.where(samples0.voxel_idx >= 0, samples0.bin,
@@ -117,7 +121,7 @@ def track_frame(map_state, decoder_params, prev_pose: torch.Tensor,
             map_state.embeddings, decoder_params, settings.decoder, rnd,
             noise=noise_i, point_store=point_store,
             corner_feats=corner_feats, fresh_thresh=fresh_thresh,
-            precomputed=fixed, f8_center=f8c)
+            precomputed=fixed, f8_center=f8c, occupancy=occupancy)
         ray_w = None
         if rnd.fresh_voxel_margin > 0 or rnd.fresh_window_frames > 0:
             ray_w = 1.0 - (1.0 - trk.fresh_ray_floor) * outputs.fresh_frac

@@ -1,13 +1,16 @@
 """SDF + color MLP decoder, and the bridge to the JAX package's layouts.
 
-Port of ``proudslam_tpu/models/decoder.py`` for the default architecture
-(identity embedder). Parameters are a plain dict of dicts with the JAX
-layout — ``w`` is (fan_in, fan_out), ``b`` is (fan_out,) — so the bridge
-is a dtype/device conversion and the kernels' ``pack_params`` reads the
-same structure on both sides:
+Port of ``proudslam_tpu/models/decoder.py``: the input embedders
+(identity, NeRF, Gaussian Fourier), the MLP trunk with optional skips, the
+SDF head and the color head on [sdf feature, embedded input]. Parameters
+are a plain dict of dicts with the JAX layout — ``w`` is (fan_in,
+fan_out), ``b`` is (fan_out,) — so the bridge is a dtype/device conversion
+and the kernels' ``pack_params`` reads the same structure on both sides:
 
   {"layers": [{"w","b"}, ...], "sdf_out": {...}, "color0": {...},
-   "color1": {...}}
+   "color1": {...}}  (+ "gaussian_B": (in_dim, 93) with the Gaussian
+  embedder: a leaf like any other, so the mapper's Adam trains it, as the
+  JAX package's does)
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ from proudslam_tpu_torch.config import DecoderSettings
 
 Params = Dict[str, Any]
 
+GAUSSIAN_SIZE = 93  # the reference's default mapping size (``nrgbd.py:16``)
+
 
 def _linear_init(gen: torch.Generator, fan_in: int, fan_out: int, device):
     """Kaiming-uniform like torch.nn.Linear's default."""
@@ -31,18 +36,47 @@ def _linear_init(gen: torch.Generator, fan_in: int, fan_out: int, device):
     return {"w": u(fan_in, fan_out), "b": u(fan_out)}
 
 
+def embedded_size(settings: DecoderSettings) -> int:
+    if settings.embedder == "none":
+        return settings.in_dim
+    if settings.embedder == "nerf":
+        # include_input + sin/cos per frequency
+        return settings.in_dim * (2 * settings.multires + 1)
+    if settings.embedder == "gaussian":
+        return GAUSSIAN_SIZE
+    raise ValueError(f"unknown embedder {settings.embedder!r}")
+
+
+def embed_input(settings: DecoderSettings, params: Params,
+                x: torch.Tensor) -> torch.Tensor:
+    """(N, in_dim) -> (N, embedded_size) by the settings' embedder."""
+    if settings.embedder == "none":
+        return x
+    if settings.embedder == "nerf":
+        freqs = 2.0 ** np.linspace(0.0, settings.multires - 1,
+                                   settings.multires, dtype=np.float32)
+        outs = [x]
+        for f in freqs.tolist():
+            outs.append(torch.sin(x * f))
+            outs.append(torch.cos(x * f))
+        return torch.cat(outs, dim=-1)
+    if settings.embedder == "gaussian":
+        # true f32 whatever matmul_dtype says (TF32 stays off, see the
+        # package's __init__): at |B| ~ 25 TF32's rounding would move the
+        # sine's argument by ~0.03
+        return torch.sin(x @ params["gaussian_B"])
+    raise ValueError(f"unknown embedder {settings.embedder!r}")
+
+
 def init_decoder(gen: torch.Generator, settings: DecoderSettings,
                  device) -> Params:
-    if settings.embedder != "none":
-        raise NotImplementedError(
-            "the port implements the identity embedder only")
-    emb = settings.in_dim
+    emb = embedded_size(settings)
     layers = []
     in_dim = emb
     for i in range(settings.depth):
         layers.append(_linear_init(gen, in_dim, settings.width, device))
         in_dim = settings.width + emb if i in settings.skips else settings.width
-    return {
+    params = {
         "layers": layers,
         "sdf_out": _linear_init(gen, settings.width, 1 + settings.sdf_dim,
                                 device),
@@ -50,6 +84,11 @@ def init_decoder(gen: torch.Generator, settings: DecoderSettings,
                                device),
         "color1": _linear_init(gen, settings.width, 3, device),
     }
+    if settings.embedder == "gaussian":
+        params["gaussian_B"] = 25.0 * torch.randn(
+            (settings.in_dim, GAUSSIAN_SIZE), generator=gen,
+            device=gen.device).to(device)
+    return params
 
 
 def _linear(p, x, dtype):
@@ -64,13 +103,14 @@ def decoder_values(params: Params, settings: DecoderSettings,
                    x: torch.Tensor) -> torch.Tensor:
     """(N, in_dim) features -> (N, 4) [r, g, b, sdf]."""
     dt = torch.bfloat16 if settings.matmul_dtype == "bf16" else torch.float32
-    h = x
+    xe = embed_input(settings, params, x)
+    h = xe
     for i, layer in enumerate(params["layers"]):
         h = torch.relu(_linear(layer, h, dt))
         if i in settings.skips:
-            h = torch.cat([x, h], dim=-1)
+            h = torch.cat([xe, h], dim=-1)
     sdf_out = _linear(params["sdf_out"], h, dt)
-    hc = torch.cat([sdf_out[:, 1:], x], dim=-1)
+    hc = torch.cat([sdf_out[:, 1:], xe], dim=-1)
     rgb = torch.sigmoid(_linear(params["color1"], torch.relu(
         _linear(params["color0"], hc, dt)), dt))
     return torch.cat([rgb, sdf_out[:, :1]], dim=-1)

@@ -187,3 +187,31 @@ def gather_ray_features(sampled_xyz: torch.Tensor,
     # invalid samples: zero weights, so their features are exactly 0
     w = torch.where((sample_bins < H)[:, :, None], w, 0.0)
     return torch.sum(w[..., None] * f8, dim=-2)
+
+
+def gather_ray_features_onehot(sampled_xyz: torch.Tensor,
+                               sample_bins: torch.Tensor,
+                               hit_voxel_idx: torch.Tensor,
+                               voxel_keys: torch.Tensor,
+                               voxel_vertex_ids: torch.Tensor,
+                               embeddings: torch.Tensor,
+                               voxel_size: float) -> torch.Tensor:
+    """Test oracle of :func:`gather_ray_features`: the JAX package's one-hot
+    einsum form (``gather_ray_features_onehot``), differentiated by
+    autograd. Samples select hit slots by one-hot products, and bins >= H
+    select the last slot (their features are not zeroed): compare valid
+    samples only. Nothing on the engine's path calls it."""
+    R, S, _ = sampled_xyz.shape
+    H = hit_voxel_idx.shape[1]
+    D = embeddings.shape[1]
+    vidx = hit_voxel_idx.clamp_min(0).long()                     # (R, H)
+    cids = voxel_vertex_ids[vidx].long()                         # (R, H, 8)
+    emb_rb = embeddings[cids].reshape(R, H, 8 * D)
+    centers_rb = voxel_centers_of(voxel_keys[vidx], voxel_size)  # (R, H, 3)
+    onehot = (sample_bins.clamp_max(H - 1)[:, :, None]
+              == torch.arange(H, device=sample_bins.device)).float()
+    f8 = torch.einsum("rsh,rhk->rsk", onehot, emb_rb).reshape(R, S, 8, D)
+    center = torch.einsum("rsh,rhc->rsc", onehot, centers_rb)
+    p = (sampled_xyz - center) / voxel_size + 0.5
+    w = trilinear_weights(p.reshape(R * S, 3)).reshape(R, S, 8)
+    return torch.sum(w[..., None] * f8, dim=-2)

@@ -1,7 +1,8 @@
 """Differentiable SDF volume renderer.
 
-Port of ``proudslam_tpu/render/renderer.py``: intersect -> stratified
-samples -> sample features + decoder -> sdf-to-weights -> integrate.
+Port of ``proudslam_tpu/render/renderer.py``: intersect (brute slab test,
+or the grid march with ``intersect_mode="dda"``) -> stratified samples ->
+sample features + decoder -> sdf-to-weights -> integrate.
 
 * ``feature_mode="vox"`` with ``use_fused_mlp=True``: kernel K1 blends the
   corner embeddings and decodes in one pass; map gradients flow through
@@ -28,7 +29,8 @@ import torch
 from proudslam_tpu_torch.config import DecoderSettings, RenderSettings
 from proudslam_tpu_torch.models.decoder import decoder_values
 from proudslam_tpu_torch.ops.interp import corner_view, gather_ray_features
-from proudslam_tpu_torch.ops.intersect import ray_intersect
+from proudslam_tpu_torch.ops.intersect import (ray_intersect,
+                                               ray_intersect_dda)
 from proudslam_tpu_torch.ops.kernels.mlp_kernel import (decoder_values_fused,
                                                         fused_applicable)
 from proudslam_tpu_torch.ops.kernels.render_kernel import fused_feats_decode
@@ -79,12 +81,15 @@ def _fresh_fraction(hit_voxel_idx, num_voxels: int,
 
 
 def intersect_and_sample(rays_o, rays_d, map_state, settings: RenderSettings,
-                         noise):
-    """Intersect + stratified-sample a ray batch (brute mode)."""
-    if settings.intersect_mode != "brute":
-        raise NotImplementedError(
-            "intersect_mode='dda' is not ported yet (ROADMAP Queue 1, "
-            "non-default engine modes)")
+                         noise, occupancy=None):
+    """Intersect + stratified-sample a ray batch. ``occupancy``: the
+    ``intersect_mode="dda"`` grid (``ops.intersect.build_occupancy``),
+    built here when not given."""
+    if settings.intersect_mode == "dda":
+        inter = ray_intersect_dda(rays_o, rays_d, map_state.voxel_keys,
+                                  map_state.num_voxels, settings,
+                                  occupancy=occupancy)
+        return inter, sample_rays_in_segments(inter, settings, noise)
     V = map_state.voxel_keys.shape[0]
     centers = ((unpack_key(map_state.voxel_keys).float() + 0.5)
                * settings.voxel_size)
@@ -97,7 +102,8 @@ def intersect_and_sample(rays_o, rays_d, map_state, settings: RenderSettings,
 def render_rays(rays_o, rays_d, map_state, embeddings, decoder_params,
                 decoder_settings: DecoderSettings, settings: RenderSettings,
                 noise=None, point_store=None, corner_feats=None, fresh_thresh=None,
-                precomputed=None, f8_center=None) -> RenderOutputs:
+                precomputed=None, f8_center=None,
+                occupancy=None) -> RenderOutputs:
     """Render a batch of rays against the current map.
 
     Args:
@@ -116,6 +122,9 @@ def render_rays(rays_o, rays_d, map_state, embeddings, decoder_params,
         optimizer iterations.
       f8_center: optional ``ops.interp.precompute_f8`` result for
         ``precomputed`` (unfused vox branch, frozen embeddings).
+      occupancy: optional ``ops.intersect.build_occupancy`` grid for
+        ``intersect_mode="dda"`` (loop-invariant across an optimizer's
+        iterations: callers that iterate build it once).
     """
     pcd = settings.feature_mode == "pcd"
     # K1 and K2/K3 take the same architectures (as in the JAX package)
@@ -124,7 +133,7 @@ def render_rays(rays_o, rays_d, map_state, embeddings, decoder_params,
         inter, samples = precomputed
     else:
         inter, samples = intersect_and_sample(rays_o, rays_d, map_state,
-                                              settings, noise)
+                                              settings, noise, occupancy)
     z_vals = samples.depth.detach()
     valid = samples.voxel_idx >= 0
     R, S = z_vals.shape

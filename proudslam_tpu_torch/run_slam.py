@@ -119,21 +119,13 @@ def preview_targets(rgb, depth, width: int, height: int):
 
 def check_config(cfg):
     """The run's ``SystemSettings``, with the checks the CLI makes before
-    it loads any data: raises on a setting the port does not run, so that
-    a run is refused at once rather than at its first frame."""
+    it loads any data: raises ``ValueError`` on a setting the engine cannot
+    run, so that a run is refused at once rather than at its first frame."""
     from proudslam_tpu_torch.config import settings_from_config
+    from proudslam_tpu_torch.models.decoder import embedded_size
 
     s = settings_from_config(cfg)
-    todo = []
-    if s.render.intersect_mode != "brute":
-        todo.append(f"intersect_mode={s.render.intersect_mode!r}")
-    if s.mapper.covis_angle_deg > 0:
-        todo.append("covis_angle_deg > 0")
-    if s.decoder.embedder != "none":
-        todo.append(f"embedder={s.decoder.embedder!r}")
-    if todo:
-        raise NotImplementedError(
-            f"not ported yet (ROADMAP Queue 1): {', '.join(todo)}")
+    embedded_size(s.decoder)          # raises on an unknown embedder
     if s.render.pixel_sampler not in ("uniform", "gumbel"):
         raise ValueError(f"unknown pixel_sampler {s.render.pixel_sampler!r}")
     dbg = cfg.get("debug_args", {})

@@ -165,14 +165,20 @@ def test_every_yaml_passes_the_checks(path):
 
 
 def test_check_config_refusals():
-    """What the port does not run is refused before any data loads."""
+    """A setting the engine cannot run is refused before any data loads;
+    the engine modes once refused (DDA, covisibility windows, the NeRF and
+    Gaussian embedders) give the JAX package's settings."""
     cfg = lambda *kv: load_config(CONFIG, dict(kv))  # noqa: E731
-    for key, val, exc in (
-            ("tpu_specs.intersect_mode", "dda", NotImplementedError),
-            ("tpu_specs.covis_angle_deg", 30.0, NotImplementedError),
-            ("decoder_specs.embedder", "nerf", NotImplementedError),
-            ("tpu_specs.pixel_sampler", "stratified", ValueError)):
-        with pytest.raises(exc):
+    for kv in ((("tpu_specs.intersect_mode", "dda"),),
+               (("tpu_specs.covis_angle_deg", 30.0),),
+               (("decoder_specs.embedder", "nerf"),
+                ("decoder_specs.multires", 4)),
+               (("decoder_specs.embedder", "gaussian"),)):
+        want = port_system(j_settings(j_load_config(CONFIG, dict(kv))))
+        assert run_slam.check_config(cfg(*kv)) == want
+    for key, val in (("tpu_specs.pixel_sampler", "stratified"),
+                     ("decoder_specs.embedder", "siren")):
+        with pytest.raises(ValueError):
             run_slam.check_config(cfg((key, val)))
     with pytest.raises(ValueError, match="point store"):
         run_slam.check_config(cfg(("debug_args.render_freq", 5),

@@ -5,6 +5,9 @@ port consumes pixel indices and noise computed from JAX's own key splits
 (``tracker.py:118-125``, ``mapper.py:123-152``) on the same map, decoder
 and keyframes.
 
+Each in both intersection modes, the brute slab test and the grid march
+(``intersect_mode="dda"``, whose occupancy grid each call builds once).
+
 Tolerances: a single tracking call's pose 1e-3 (m / rad); a mapping
 call's embedding and decoder updates to 5% in L2 (see
 ``assert_adam_updates_close``), its poses to 1e-3. The multi-frame
@@ -126,8 +129,12 @@ def seeded_map(s, dataset):
     return ms._replace(embeddings=emb), rays
 
 
-def test_track_frame_matches(dataset):
-    s = settings(fresh_window_frames=5)
+MODES = ["brute", "dda"]
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_track_frame_matches(dataset, mode):
+    s = settings(fresh_window_frames=5, intersect_mode=mode)
     ms, rays = seeded_map(s, dataset)
     params = j_init(jax.random.PRNGKey(1), s.decoder)
     _, rgb, depth, _, pose1 = dataset[1]
@@ -157,9 +164,10 @@ def test_track_frame_matches(dataset):
     assert np.abs(n(rj.pose) - n(prev)).max() > 1e-3
 
 
+@pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("padded", [False, True])
-def test_map_step_matches(dataset, padded):
-    s = settings()
+def test_map_step_matches(dataset, padded, mode):
+    s = settings(intersect_mode=mode)
     ms, rays = seeded_map(s, dataset)
     params = j_init(jax.random.PRNGKey(1), s.decoder)
     H, W = dataset.height, dataset.width

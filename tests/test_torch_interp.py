@@ -1,8 +1,10 @@
 """Unfused gather parity: the port's ``ops/interp.py`` (trilinear weights,
 the per-point ``gather_voxel_features``, the ray-structured
-``gather_ray_features`` with its ``GatherF8`` backward, ``precompute_f8``)
-against the JAX package's on the same map and sample topology
-(``tests/test_gather_backward.py``'s generators).
+``gather_ray_features`` with its ``GatherF8`` backward, ``precompute_f8``,
+the one-hot einsum oracle ``gather_ray_features_onehot``) against the JAX
+package's on the same map and sample topology
+(``tests/test_gather_backward.py``'s generators), and the oracle against
+the port's gather.
 
 Tolerances: features and their gradients w.r.t. sample positions and
 embeddings 1e-5 of each one's largest magnitude (f32 sums in another
@@ -126,3 +128,43 @@ def test_precompute_f8_matches(case):
     hoisted = ti.gather_ray_features(*args, f8_center=(f8_t, c_t))
     inline = ti.gather_ray_features(*args, EV=EV)
     assert torch.equal(hoisted, inline)
+
+
+def test_onehot_oracle_matches_jax_and_the_gather(case):
+    """``gather_ray_features_onehot`` against the JAX package's (every
+    sample: both select the last hit slot at bins >= H) and against the
+    port's ``gather_ray_features`` (valid samples: the gather zeroes the
+    rest), values and gradients w.r.t. sample positions and embeddings."""
+    state, s, xyz, bins, hit, g = case
+    valid = n(bins) < hit.shape[1]
+    gv = g * valid[..., None]          # cotangents on valid samples only
+
+    def jf(x, emb):
+        f = ji.gather_ray_features_onehot(x, bins, hit, state.voxel_keys,
+                                          state.voxel_vertex_ids, emb,
+                                          s.voxel_size)
+        return jnp.sum(f * gv), f
+
+    (_, fj), (gx_j, ge_j) = jax.value_and_grad(jf, argnums=(0, 1),
+                                               has_aux=True)(
+        xyz, state.embeddings)
+
+    ts = map_state_from_numpy(state, device="cpu")
+    out = {}
+    for name, fn in (("onehot", ti.gather_ray_features_onehot),
+                     ("gather", ti.gather_ray_features)):
+        x_t = t(xyz).requires_grad_(True)
+        e_t = ts.embeddings.clone().requires_grad_(True)
+        f = fn(x_t, t(bins), t(hit), ts.voxel_keys, ts.voxel_vertex_ids,
+               e_t, s.voxel_size)
+        (f * t(gv)).sum().backward()
+        out[name] = (f.detach(), x_t.grad, e_t.grad)
+    f1, gx1, ge1 = out["onehot"]
+    assert_close_scaled(f1, fj, TOL, "onehot features")
+    assert_close_scaled(gx1, gx_j, TOL, "onehot d_xyz")
+    assert_close_scaled(ge1, ge_j, TOL, "onehot d_embeddings")
+    f2, gx2, ge2 = out["gather"]
+    assert_close_scaled(n(f2)[valid], n(f1)[valid], TOL, "features")
+    assert_close_scaled(n(gx2)[valid], n(gx1)[valid], TOL, "d_xyz")
+    assert_close_scaled(ge2, ge1, TOL, "d_embeddings")
+    assert np.abs(n(f1)[~valid]).max() > 0    # the oracle's last-slot fill

@@ -25,7 +25,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from proudslam_tpu.config import LossSettings
 from proudslam_tpu.models.decoder import init_decoder as j_init
@@ -79,6 +78,10 @@ UNFUSED_TOL = {"f32": (1e-4, 1e-5, 1e-4), "bf16": (2e-3, 1e-3, 5e-3)}
     (True, dataclasses.replace(DEC, use_fused_mlp=False))],
     ids=["False", "True", "unfused-f32", "unfused-bf16"])
 def test_render_and_loss_match(case, depth_variance, dec):
+    _check_render_and_loss(case, depth_variance, dec, RENDER)
+
+
+def _check_render_and_loss(case, depth_variance, dec, rnd):
     state, params, o, d, noise, gt_c, gt_d = case
     ls = LossSettings()
     ray_w = np.linspace(0.2, 1.0, o.shape[0]).astype(np.float32)
@@ -87,7 +90,7 @@ def test_render_and_loss_match(case, depth_variance, dec):
                                    else (2e-3, 1e-3, 5e-3))
 
     def jf(emb, o_, d_, p):
-        out = j_render(o_, d_, state, emb, p, dec, RENDER, jnp.asarray(noise))
+        out = j_render(o_, d_, state, emb, p, dec, rnd, jnp.asarray(noise))
         loss, _ = j_loss(out, jnp.asarray(gt_c), jnp.asarray(gt_d), ls,
                          weight_depth_loss=depth_variance,
                          ray_weights=jnp.asarray(ray_w))
@@ -104,7 +107,7 @@ def test_render_and_loss_match(case, depth_variance, dec):
     p_t = params_from_jax(params, device="cpu")
     for p in tree_leaves(p_t):
         p.requires_grad_(True)
-    out_t = tr.render_rays(o_t, d_t, ts, emb, p_t, port(dec), port(RENDER),
+    out_t = tr.render_rays(o_t, d_t, ts, emb, p_t, port(dec), port(rnd),
                            t(noise))
     lt, _ = tl.compute_loss(out_t, t(gt_c), t(gt_d), port(ls),
                             weight_depth_loss=depth_variance,
@@ -205,13 +208,11 @@ def test_fresh_fraction_and_median_match():
                                       n(j_med(jnp.asarray(x), jnp.asarray(m))))
 
 
-def test_unported_branches_raise():
-    """The unfused vox branch is ported; the dda intersection is not."""
-    ts = map_state_from_numpy(jvh.build_map_state_numpy(map_coords(0), MAP),
-                              device="cpu")
-    o, d = ray_batch(4)
-    unfused = dataclasses.replace(port(DEC), use_fused_mlp=False)
-    dda = dataclasses.replace(port(RENDER), intersect_mode="dda")
-    with pytest.raises(NotImplementedError, match="dda"):
-        tr.render_rays(t(o), t(d), ts, ts.embeddings, {}, unfused, dda,
-                       torch.rand(4, 18))
+def test_unported_branches_raise(case):
+    """Once the refusal of the branches not yet ported; every branch runs
+    now. The last one refused, ``intersect_mode="dda"``, held against the
+    JAX package on the unfused vox branch at bf16 operands (the other
+    branches with DDA: ``test_torch_dda.py``)."""
+    _check_render_and_loss(
+        case, True, dataclasses.replace(DEC, use_fused_mlp=False),
+        dataclasses.replace(RENDER, intersect_mode="dda"))
