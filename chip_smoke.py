@@ -111,13 +111,30 @@ Phases, in order; any failure raises and the script exits non-zero:
 9. cli-embed: the same entry point on a YAML derived from room.yaml with
    the NeRF embedder (4 frequencies) and a skip, 10 frames and a mesh: no
    kernel launched, the trajectory finite, the checkpoint reloaded bit for
-   bit, the ATE logged without a bound.
+   bit, the ATE logged without a bound;
+10. parallel (last, so that no other phase sees a live process group): a
+   real NCCL process group of world size 1 on ``cuda:0`` (one card is one
+   rank: NCCL takes one rank per device; 2 and 4 ranks are held on the CPU
+   by ``tests/test_torch_parallel_*.py`` over gloo), and the vox slice's
+   configuration as ``SlamSystem(mesh=make_engine_mesh(1, mp=1))`` (every
+   collective of ``parallel/engine.py`` on the path) over the first 10
+   frames and ``global_refine(rounds=2)``: K1 and K3 launched on this path
+   (its own ``launches_by_path["parallel"]``), the unaligned ATE under
+   3 cm, and the trajectory held against the plain engine's on the same
+   frames in this call (5 mm, the JAX dry run's mesh-against-single bound;
+   one rank's collectives are identities, so equality is expected and
+   logged); then ``dryrun_multichip(1)`` (the engine on a mesh against the
+   plain engine, the sharded, spatial and Schur BA steps finite, the map
+   stored over the ranks) and the Schur step against its dense joint solve
+   on ``tests/test_schur.py``'s problem (its tolerances: residual norm rtol
+   1e-5, updates atol 5e-4). The process group is destroyed at the end of
+   the phase.
 
 Every launch count is set to 0 just before a slice (and each cli run) and
 read just after it; the mesh's launches are the counts' change across it.
-Standard output ends with the slices' JSON line, the kernels' JSON line,
-the card's name and power limit, and ``{"ok": true, "device": {...}}``.
-The script imports no JAX.
+Standard output ends with the slices' JSON line (with the script's total
+seconds), the kernels' JSON line, the card's name and power limit, and
+``{"ok": true, "device": {...}}``. The script imports no JAX.
 """
 
 from __future__ import annotations
@@ -244,6 +261,17 @@ WINDOW_GAP = 2
 WINDOW_ANGLE = 30.0
 WINDOW_MIN_DRAWS = 12
 CLI_EMBED_FRAMES = 10
+# the parallel phase: the vox engine on a (1, 1) mesh over NCCL, on the
+# first PARALLEL_FRAMES frames. One rank's collectives are identities and
+# the engine's kernels and reductions are deterministic, so its trajectory
+# is expected to equal the plain engine's; it is held at the JAX dry run's
+# 5 mm mesh-against-single bound (the equality is logged).
+PARALLEL_FRAMES = 10
+PARALLEL_TRAJ_TOL_M = 5e-3
+# the Schur step against its dense joint solve (tests/test_schur.py)
+SCHUR_DAMPING = 1e-3
+SCHUR_RTOL = 1e-5
+SCHUR_ATOL = 5e-4
 
 # Published H100 SXM peaks (dense) at a 700 W power limit: bf16 and TF32
 # tensor cores, f32 outside the tensor cores, HBM3.
@@ -1142,12 +1170,12 @@ def _reset_launches() -> None:
         c.launches = 0
 
 
-def _new_slam(device, settings, frames):
+def _new_slam(device, settings, frames, mesh=None):
     """A ``SlamSystem`` for the scan's camera and frame size."""
     from proudslam_tpu_torch.engine.slam import SlamSystem
 
     return SlamSystem(settings, frames[2], (HEIGHT, WIDTH), seed=0,
-                      point_stride=2, device=device)
+                      point_stride=2, device=device, mesh=mesh)
 
 
 def _initialize(slam, frames) -> None:
@@ -1243,19 +1271,21 @@ def mesh_phase(slam, settings, frames, n_frames, est) -> dict:
 
 
 def slice_phase(device, name, settings, frames, n_frames, ate_limit_cm,
-                launched, not_launched, mesh=False, setup=None, after=None):
+                launched, not_launched, mesh=False, setup=None, after=None,
+                engine_mesh=None):
     """``initialize``, ``process_frame`` over frames 1..n_frames-1 and
     ``global_refine(rounds=2)``; the kernels in ``launched`` must have been
     launched in the run and those in ``not_launched`` not. ``mesh``: then
     the slice's mesh (:func:`mesh_phase`). ``setup(slam)`` runs before the
     slice, ``after(slam)`` after its checks (after the launch counts are
-    read), its dict joining the slice's stats."""
+    read), its dict joining the slice's stats. ``engine_mesh``: the
+    ``SlamSystem``'s (dp, mp) mesh (``parallel/engine.py``)."""
     import torch
 
     from proudslam_tpu_torch.utils.metrics import ate_rmse, rpe_rmse
 
     poses = frames[1]
-    slam = _new_slam(device, settings, frames)
+    slam = _new_slam(device, settings, frames, mesh=engine_mesh)
     if setup is not None:
         setup(slam)
     pn0 = None
@@ -1659,6 +1689,162 @@ def cli_embed_phase(device):
                          ate_limit_cm=None, config=path)
 
 
+def _schur_problem(device):
+    """``tests/test_schur.py``'s problem, drawn with torch: a 7x7 wall of
+    points at z = 1.05, D = 8 embeddings ~ 0.05 N(0, 1), a 32-wide decoder,
+    3 poses ~ 0.01 N(0, 1) with slot 0 anchored, 64 rays each."""
+    import torch
+
+    from proudslam_tpu_torch.config import (DecoderSettings, MapSettings,
+                                            RenderSettings, SystemSettings)
+    from proudslam_tpu_torch.models.decoder import init_decoder
+    from proudslam_tpu_torch.ops import voxel_hash as vh
+
+    settings = SystemSettings(
+        render=RenderSettings(voxel_size=0.2, step_size=0.02, max_hits=8,
+                              max_samples=40),
+        map=MapSettings(voxel_size=0.2, num_embeddings=256, embed_dim=8,
+                        voxel_capacity=256, frame_voxel_capacity=128),
+        decoder=DecoderSettings(width=32, sdf_dim=16, in_dim=8))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    state = vh.init_map_state(settings.map, gen, device)
+    xs, ys = np.meshgrid(np.arange(-3, 4), np.arange(-3, 4))
+    pts = np.stack([xs.ravel() * 0.2 + 0.1, ys.ravel() * 0.2 + 0.1,
+                    np.full(xs.size, 1.05)], axis=-1)
+    state = vh.insert_points(
+        state, torch.as_tensor(pts, dtype=torch.float32, device=device),
+        torch.ones((len(pts),), dtype=torch.bool, device=device),
+        settings.map)
+    state = state._replace(embeddings=0.05 * torch.randn(
+        state.embeddings.shape, generator=gen, device=device))
+    params = init_decoder(gen, settings.decoder, device)
+    K, N = 3, 64
+    SJ = settings.render.max_samples - settings.render.max_hits
+    dirs = torch.cat([0.3 * torch.randn((K, N, 2), generator=gen,
+                                        device=device),
+                      torch.ones((K, N, 1), device=device)], dim=-1)
+    gt_d = 1.0 + 0.1 * torch.rand((K, N), generator=gen, device=device)
+    noise = torch.rand((K, N, SJ), generator=gen, device=device)
+    poses = 0.01 * torch.randn((K, 6), generator=gen, device=device)
+    anchor = torch.tensor([True, False, False], device=device)
+    return settings, state, params, (poses, dirs, gt_d, noise, anchor)
+
+
+def parallel_forms(device) -> dict:
+    """``dryrun_multichip(1)`` (the engine on a mesh against the plain
+    engine, the sharded, spatial and Schur BA steps, the map stored over
+    the ranks; each with its own assertions) and the Schur step against
+    its dense joint solve on ``tests/test_schur.py``'s problem."""
+    import torch
+
+    from proudslam_tpu_torch.parallel.dryrun import dryrun_multichip
+    from proudslam_tpu_torch.parallel.schur import (dense_gn_reference,
+                                                    make_schur_gn_step)
+    from proudslam_tpu_torch.parallel.spatial import make_joint_mesh
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        dryrun_multichip(1, device=device)
+    st = {"dryrun_s": time.perf_counter() - t0}
+    settings, state, params, (poses, dirs, gt_d, noise, anchor) = \
+        _schur_problem(device)
+    t0 = time.perf_counter()
+    res = make_schur_gn_step(make_joint_mesh(1, device=device), settings,
+                             damping=SCHUR_DAMPING)(
+        state, params, poses, dirs, gt_d, noise, anchor)
+    torch.cuda.synchronize()
+    st["schur_s"] = time.perf_counter() - t0
+    d_emb, d_poses, r_norm = dense_gn_reference(
+        state, params, poses, dirs, gt_d, noise, settings, anchor,
+        damping=SCHUR_DAMPING)
+    got_emb, got_poses = res.d_emb.cpu().numpy(), res.d_poses.cpu().numpy()
+    st.update(
+        schur_r_norm=float(res.r_norm), dense_r_norm=r_norm,
+        schur_pose_err=float(np.abs(got_poses - d_poses).max()),
+        schur_emb_err=float(np.abs(got_emb - d_emb).max()),
+        dense_pose_max=float(np.abs(d_poses).max()),
+        dense_emb_max=float(np.abs(d_emb).max()))
+    log("parallel forms: " + json.dumps(st) + f" (Schur against the dense "
+        f"solve: |r| rtol {SCHUR_RTOL}, updates atol {SCHUR_ATOL})")
+    if not (np.isfinite(got_emb).all() and np.isfinite(got_poses).all()):
+        raise AssertionError("parallel: non-finite Schur step")
+    if not (abs(st["schur_r_norm"] - r_norm) <= SCHUR_RTOL * r_norm
+            and st["schur_pose_err"] <= SCHUR_ATOL
+            and st["schur_emb_err"] <= SCHUR_ATOL):
+        raise AssertionError(f"parallel: the Schur step disagrees with its "
+                             f"dense solve: {st}")
+    if not (st["dense_pose_max"] > 1e-6 and st["dense_emb_max"] > 1e-6
+            and np.allclose(got_poses[0], 0.0)):
+        raise AssertionError(f"parallel: trivial or unanchored step: {st}")
+    return st
+
+
+def parallel_phase(device, settings, frames) -> dict:
+    """The vox configuration's ``SlamSystem`` on a (1, 1) engine mesh over
+    a real NCCL process group of one rank (the card is one device, and
+    NCCL takes one rank per device), on the first PARALLEL_FRAMES frames
+    and ``global_refine(rounds=2)``: K1 and K3 launched on this path, the
+    unaligned ATE under 3 cm, the trajectory held against the plain
+    engine's on the same frames; then :func:`parallel_forms`. The process
+    group is destroyed before the phase returns."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from proudslam_tpu_torch.parallel import distributed
+    from proudslam_tpu_torch.parallel.engine import make_engine_mesh
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    log("parallel: world size 1 on cuda:0 over NCCL: one card is one rank "
+        "(NCCL refuses two ranks on one device); the semantics across 2 and "
+        "4 ranks are held on the CPU by tests/test_torch_parallel_*.py")
+    plain = _new_slam(device, settings, frames)
+    plain_init_s = _timed(lambda: _initialize(plain, frames))
+    plain_loop_s = _timed(lambda: _process(plain, frames, 1, PARALLEL_FRAMES))
+    plain.global_refine(rounds=2)
+    plain_est = plain.get_trajectory()
+    del plain
+    distributed.initialize(f"tcp://127.0.0.1:{port}", world_size=1, rank=0,
+                           device=device)
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"parallel: backend {dist.get_backend()}")
+        mesh = make_engine_mesh(1, mp=1)
+
+        def after(slam):
+            est = slam.get_trajectory()
+            dt = np.linalg.norm(est[:, :3, 3] - plain_est[:, :3, 3], axis=-1)
+            st = {"backend": dist.get_backend(), "world_size":
+                  dist.get_world_size(), "mesh": mesh.shape,
+                  "plain_init_s": plain_init_s,
+                  "plain_fps": (PARALLEL_FRAMES - 1) / plain_loop_s,
+                  "traj_max_diff_m": float(dt.max()),
+                  "traj_bitwise_equal": bool(np.array_equal(est, plain_est))}
+            log("parallel against the plain engine: " + json.dumps(st)
+                + f" (tolerance {PARALLEL_TRAJ_TOL_M} m)")
+            if not dt.max() <= PARALLEL_TRAJ_TOL_M:
+                raise AssertionError(f"parallel: trajectory {dt.max()} m "
+                                     "from the plain engine's")
+            st["forms"] = parallel_forms(device)
+            return st
+
+        return slice_phase(
+            device, "parallel", settings, frames, PARALLEL_FRAMES,
+            ATE_LIMIT_CM, launched=("fused_render_forward",
+                                    "decoder_backward"),
+            not_launched=("decoder_forward", "decoder_forward_f32",
+                          "decoder_backward_f32"),
+            after=after, engine_mesh=mesh)
+    finally:
+        torch.cuda.synchronize()
+        dist.destroy_process_group()
+
+
 def profile_phase(device, settings, frames, start=PROFILE_START,
                   count=PROFILE_FRAMES):
     """Where the vox slice's device time goes: ``torch.profiler`` over
@@ -1743,6 +1929,7 @@ def profile_phase(device, settings, frames, start=PROFILE_START,
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     sys.path.insert(0, ROOT)
     smi = device_phase()
     import torch
@@ -1821,6 +2008,8 @@ def main() -> None:
                             "--no-mesh"),
         launched=f32_kernels, mesh=False, ate_limit_cm=None)
     stats["cli-embed"] = cli_embed_phase(device)
+    # last: the NCCL process group lives only inside this phase
+    stats["parallel"] = parallel_phase(device, vox, frames)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     mlp = "proudslam_tpu/ops/pallas/mlp_kernel.py"
@@ -1854,8 +2043,10 @@ def main() -> None:
     unlaunched = [k["name"] for k in record["kernels"] if k["launches"] <= 0]
     if unlaunched:
         raise AssertionError(f"kernels launched on no path: {unlaunched}")
+    total_s = time.perf_counter() - t_start
+    log(f"chip_smoke: {total_s:.1f} s in all")
     print(json.dumps({"slices": stats, "kernel_phase": kern["extra"],
-                      "vox_profile": profile}))
+                      "vox_profile": profile, "total_s": total_s}))
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {

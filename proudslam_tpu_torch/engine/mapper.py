@@ -14,6 +14,15 @@ rows whose gauge flag is 0 (the anchor), are masked from updates;
 pcd branch the PointNet params ride in the decoder dict (and its Adam); the
 embeddings are not rendered from and get zero gradients, as in the JAX
 package.
+
+With ``mesh`` (``parallel/engine.EngineMesh``) each rank renders its dp
+block of every window frame's rays (axis 1 of the (Wsel, N) batch); the
+ranks of an mp group render the same rays. The gradients (the full
+embedding table's, the decoder's, the window poses') are all-reduced over
+the dp group in one collective, and every rank takes the same decoder and
+pose steps. Under mp a rank keeps only its rows of the embedding table and
+of its Adam moments: it steps its rows, and the table is all-gathered
+inside the mp group before the next iteration.
 """
 
 from __future__ import annotations
@@ -30,6 +39,10 @@ from proudslam_tpu_torch.geometry import se3
 from proudslam_tpu_torch.models.decoder import tree_leaves, tree_unflatten
 from proudslam_tpu_torch.ops.intersect import build_occupancy
 from proudslam_tpu_torch.ops.sampling import frame_pixels
+from proudslam_tpu_torch.parallel.engine import (all_reduce_flat,
+                                                 gather_embeddings,
+                                                 shard_embeddings,
+                                                 shard_ray_batch)
 from proudslam_tpu_torch.render.losses import compute_loss
 from proudslam_tpu_torch.render.renderer import (intersect_and_sample,
                                                  render_rays)
@@ -81,7 +94,7 @@ def map_step(map_state, decoder_params, store: KeyframeStore,
              sel_valid: List[bool], settings: SystemSettings,
              draws: Tuple[torch.Tensor, torch.Tensor],
              point_store=None, update_pose: bool = True,
-             update_decoder: bool = True) -> MapStepResult:
+             update_decoder: bool = True, mesh=None) -> MapStepResult:
     """One mapping round (one reference ``do_mapping`` call).
 
     Args:
@@ -93,10 +106,14 @@ def map_step(map_state, decoder_params, store: KeyframeStore,
       point_store: the pcd branch's ``VoxelPointStore``.
       update_pose/update_decoder: False freezes the window's poses (no pose
         gradient is taken) / the decoder (no decoder gradient is taken).
+      mesh: optional ``EngineMesh``: ``draws`` are the whole batch's, of
+        which this rank renders its dp block; ``map_state`` is the full
+        map, and under mp ``opt.embed`` holds this rank's rows of the
+        moments.
 
     The window's refined poses and pose-Adam moments are written back into
-    ``store`` in place; the new embeddings, decoder and optimizer state are
-    returned.
+    ``store`` in place; the new embeddings (under mp, this rank's rows),
+    decoder and optimizer state are returned.
     """
     mpr = settings.mapper
     rnd = settings.render
@@ -107,7 +124,9 @@ def map_step(map_state, decoder_params, store: KeyframeStore,
     sel = torch.as_tensor(sel_idx, dtype=torch.long, device=dev)
     valid = torch.as_tensor(sel_valid, dtype=torch.bool, device=dev)
     pix, noise = draws
-    pix = pix.long()
+    pix, noise = shard_ray_batch(mesh, 1 if mpr.fixed_sample_batch else 2,
+                                 pix.long(), noise)
+    group = None if mesh is None else mesh.dp_group
     dirs_flat = rays_dir.reshape(H * W, 3)
 
     with torch.no_grad():
@@ -150,17 +169,20 @@ def map_step(map_state, decoder_params, store: KeyframeStore,
             noise=noise_i.reshape(-1, SJ), point_store=point_store,
             precomputed=fixed, occupancy=occupancy)
         loss, _ = compute_loss(outputs, gt_c, gt_d, settings.loss,
-                               weight_depth_loss=False)
+                               weight_depth_loss=False, group=group)
         return loss
 
-    embeddings = map_state.embeddings.detach()
+    table = map_state.embeddings.detach()
+    embeddings = shard_embeddings(mesh, table)
     dec_leaves = [t.detach() for t in tree_leaves(decoder_params)]
     poses = poses0.clone()
     pm, pv, pt = store.adam_m[sel], store.adam_v[sel], store.adam_t[sel]
     embed_opt, dec_opt = opt.embed, opt.decoder
     loss = None
     for i in range(mpr.num_iterations):
-        wrt = [embeddings.requires_grad_(True)]
+        if i > 0:
+            table = gather_embeddings(mesh, embeddings)
+        wrt = [table.requires_grad_(True)]
         if update_pose:
             wrt.append(poses.requires_grad_(True))
         if update_decoder:
@@ -169,15 +191,17 @@ def map_step(map_state, decoder_params, store: KeyframeStore,
             it_batch, it_noise = f_batch, noise
         else:
             it_batch, it_noise = batch(pix[i]), noise[i]
-        loss = loss_fn(embeddings, tree_unflatten(decoder_params, dec_leaves),
+        loss = loss_fn(table, tree_unflatten(decoder_params, dec_leaves),
                        poses, *it_batch, it_noise)
         # unused inputs (the embeddings in the pcd branch) get zeros
         grads = list(torch.autograd.grad(loss, wrt, allow_unused=pcd,
                                          materialize_grads=pcd))
+        if mesh is not None:
+            grads = all_reduce_flat(grads, group)
         with torch.no_grad():
             (embeddings,), embed_opt = adam_update(
-                [embeddings.detach()], [grads.pop(0)], embed_opt,
-                mpr.embed_lr)
+                [embeddings.detach()], [shard_embeddings(mesh, grads.pop(0))],
+                embed_opt, mpr.embed_lr)
             if update_pose:
                 poses, pm, pv, pt = adam_update_rows(
                     poses.detach(), grads.pop(0), pm, pv, pt,
@@ -194,7 +218,10 @@ def map_step(map_state, decoder_params, store: KeyframeStore,
         store.adam_v[rows] = pv[valid]
         store.adam_t[rows] = pt[valid]
     dec_out = tree_unflatten(decoder_params, [t.detach() for t in dec_leaves])
+    loss = loss.detach()
+    if mesh is not None:
+        (loss,) = all_reduce_flat([loss], group)
     return MapStepResult(embeddings=embeddings.detach(),
                          decoder_params=dec_out,
                          opt=MapOptState(embed=embed_opt, decoder=dec_opt),
-                         loss=loss.detach())
+                         loss=loss)

@@ -27,6 +27,17 @@ frozen), ``global_refine`` (pose-updating BA sweeps over every keyframe,
 optionally anchored to slot 0) and ``rebake_map`` (embeddings re-drawn and
 re-trained at the refined poses). Frames that fail ``validate_frame`` are
 recorded by ``skip_frame``, which keeps the trajectory index-aligned.
+
+With ``mesh`` (``parallel/engine.EngineMesh``) every rank runs this
+controller on its own device: ray batches split over dp, and under mp
+each rank stores its row blocks of the map tables and of the embedding
+moments (``map_state`` holds them; ``gathered_map_state`` is the full
+map). Every rank draws the whole batch from the same seeded generator and
+renders its block, inserts each frame into the gathered full map and
+keeps its rows, and holds the same keyframe store, trajectory and host
+logic. Unlike the JAX engine, which swaps its single-device Pallas decoder
+for XLA under a mesh, the kernels stay on: a rank is a single-device
+program.
 """
 
 from __future__ import annotations
@@ -50,6 +61,9 @@ from proudslam_tpu_torch.geometry import camera, se3
 from proudslam_tpu_torch.models.decoder import init_decoder
 from proudslam_tpu_torch.models.pointnet import init_pointnet
 from proudslam_tpu_torch.ops import voxel_hash as vh
+from proudslam_tpu_torch.parallel.engine import (gather_map_state,
+                                                 place_map_state,
+                                                 shard_embeddings)
 from proudslam_tpu_torch.render.pcd_features import (init_point_store,
                                                      insert_frame_points)
 
@@ -93,19 +107,31 @@ class SlamSystem:
                  intrinsics: Tuple[float, float, float, float],
                  image_hw: Tuple[int, int], seed: int = 0,
                  point_stride: int = 1, device="cuda",
-                 draw_source: Optional[Callable] = None):
+                 draw_source: Optional[Callable] = None, mesh=None):
         """``draw_source(kind, wsel)``: optional provider of the random
         draws, for runs that must consume externally chosen draws: for
         ``kind`` "track" or "map" it returns ``(pix, noise)`` in the shapes
         of ``track_draws`` / ``map_draws`` (with a leading iteration axis
         under ``fixed_sample_batch=False``), for "rebake" the (E, D)
         standard normal draw that ``rebake_map`` scales by 0.01. By default
-        they come from a ``torch.Generator`` seeded with ``seed``."""
+        they come from a ``torch.Generator`` seeded with ``seed``.
+
+        ``mesh``: an ``EngineMesh`` on this rank's ``device``; the voxel
+        and embedding capacities must divide by its mp extent."""
         if settings.map.coord_bits != 10:
             raise ValueError("the render stack assumes coord_bits == 10")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("SlamSystem(device='cuda'): no CUDA device")
+        if mesh is not None:
+            if mesh.device.type != self.device.type:
+                raise ValueError(f"mesh on {mesh.device}, SlamSystem on "
+                                 f"{self.device}")
+            for name in ("voxel_capacity", "num_embeddings"):
+                if getattr(settings.map, name) % mesh.mp:
+                    raise ValueError(f"map.{name} does not divide by "
+                                     f"mp={mesh.mp}")
+        self.mesh = mesh
         self.settings = settings
         self.height, self.width = image_hw
         fx, fy, cx, cy = intrinsics
@@ -129,6 +155,9 @@ class SlamSystem:
                     self.generator, settings.decoder.in_dim, self.device)
             self.point_store = init_point_store(
                 settings.map, settings.map.points_per_voxel, self.device)
+        # under mp the map is stored row-sharded, the embedding moments
+        # with it
+        self.map_state = place_map_state(mesh, self.map_state)
         self.opt = init_map_opt(self.map_state.embeddings,
                                 self.decoder_params)
         self.store = kfstate.init_keyframe_store(
@@ -174,9 +203,16 @@ class SlamSystem:
         if kind == "track":
             return track_draws(self.generator, self.settings, npix)
         if kind == "rebake":
-            return torch.randn(self.map_state.embeddings.shape,
-                               generator=self.generator, device=self.device)
+            E, D = self.map_state.embeddings.shape
+            mp = 1 if self.mesh is None else self.mesh.mp
+            return torch.randn((E * mp, D), generator=self.generator,
+                               device=self.device)
         return map_draws(self.generator, self.settings, wsel, npix)
+
+    def gathered_map_state(self) -> vh.MapState:
+        """The full map (under mp, all-gathered from every rank's row
+        blocks: a collective, called by every rank of the mp group)."""
+        return gather_map_state(self.mesh, self.map_state)
 
     def _render_view(self) -> vh.MapState:
         """The voxel table sliced to the live voxels (what the renderer
@@ -186,7 +222,7 @@ class SlamSystem:
         The slice gives the same hits: the occupancy grid holds live slots
         only, and the DDA path's clamp of a slot to the table's last row
         reaches only invalid slots, whose results are masked."""
-        ms = self.map_state
+        ms = self.gathered_map_state()
         nv = ms.num_voxels
         return ms._replace(voxel_keys=ms.voxel_keys[:nv],
                            voxel_vertex_ids=ms.voxel_vertex_ids[:nv])
@@ -203,13 +239,14 @@ class SlamSystem:
             valid = (d > 0).reshape(-1)
             R = se3.exp_rotation(pose6[3:6])
             pts = camera.transform_points(pts_cam, R, pose6[0:3])
-            self.map_state = vh.insert_points(
-                self.map_state, pts, valid, self.settings.map,
+            full = vh.insert_points(
+                self.gathered_map_state(), pts, valid, self.settings.map,
                 frame_capacity=None if big else self._steady_cap)
             if self._use_pcd:
                 self.point_store = insert_frame_points(
-                    self.point_store, self.map_state, pts,
+                    self.point_store, full, pts,
                     rgb[::st, ::st].reshape(-1, 3), valid, self.settings.map)
+            self.map_state = place_map_state(self.mesh, full)
         self._nv_hist.append(self.map_state.num_voxels)
         self._check_capacity()
 
@@ -261,7 +298,7 @@ class SlamSystem:
                            self.settings, self._draws("map", len(sel)),
                            point_store=self.point_store,
                            update_pose=update_pose,
-                           update_decoder=update_decoder)
+                           update_decoder=update_decoder, mesh=self.mesh)
         self.map_state = self.map_state._replace(embeddings=res.embeddings)
         self.decoder_params = res.decoder_params
         self.opt = res.opt
@@ -369,7 +406,8 @@ class SlamSystem:
                                  prior, self.rays_dir, rgb_d, depth_d, s,
                                  self._draws("track"),
                                  fresh_thresh=self._fresh_thresh(),
-                                 point_store=self.point_store)
+                                 point_store=self.point_store,
+                                 mesh=self.mesh)
         self._track_losses.append(result.loss)
         self._hit_ratios.append(result.hit_ratio)
 
@@ -479,7 +517,7 @@ class SlamSystem:
         decoder is kept and trained)."""
         if self.num_kf < 1:
             return
-        emb = 0.01 * self._draws("rebake")
+        emb = shard_embeddings(self.mesh, 0.01 * self._draws("rebake"))
         self.map_state = self.map_state._replace(embeddings=emb)
         self.opt = self.opt._replace(embed=init_adam([emb]))
         w0 = min(self.num_kf + 1, self.settings.mapper.window_size + 1)

@@ -14,6 +14,12 @@ hoists the per-sample corner features and voxel centers
 weights inside. With ``fixed_sample_batch=False`` (the reference's
 semantics) every iteration takes its own pixel batch and stratification
 noise and intersects and samples it at the current pose.
+
+With ``mesh`` (``parallel/engine.EngineMesh``) each rank renders its dp
+block of the frame's rays, the loss's statistics and the pose gradient
+are all-reduced over the dp group, and every rank takes the same Adam
+step, so the pose stays replicated; the loss and hit ratio returned are
+the whole batch's.
 """
 
 from __future__ import annotations
@@ -30,6 +36,8 @@ from proudslam_tpu_torch.ops.interp import corner_view, precompute_f8
 from proudslam_tpu_torch.ops.intersect import build_occupancy
 from proudslam_tpu_torch.ops.kernels.mlp_kernel import fused_applicable
 from proudslam_tpu_torch.ops.sampling import frame_pixels
+from proudslam_tpu_torch.parallel.engine import (all_reduce, all_reduce_flat,
+                                                 shard_ray_batch)
 from proudslam_tpu_torch.render.losses import compute_loss
 from proudslam_tpu_torch.render.renderer import (intersect_and_sample,
                                                  render_rays)
@@ -67,7 +75,7 @@ def track_frame(map_state, decoder_params, prev_pose: torch.Tensor,
                 depth: torch.Tensor, settings: SystemSettings,
                 draws: Tuple[torch.Tensor, torch.Tensor],
                 fresh_thresh: Optional[int] = None,
-                point_store=None) -> TrackResult:
+                point_store=None, mesh=None) -> TrackResult:
     """Track one RGB-D frame starting from ``prev_pose``.
 
     Args:
@@ -77,13 +85,18 @@ def track_frame(map_state, decoder_params, prev_pose: torch.Tensor,
       draws: ``(pix, noise)`` from :func:`track_draws` (or injected).
       fresh_thresh: voxel-slot freshness threshold (fresh_window_frames).
       point_store: the pcd branch's ``VoxelPointStore``.
+      mesh: optional ``EngineMesh``: ``draws`` are the whole batch's, of
+        which this rank renders its dp block; ``map_state`` is the full
+        map.
     """
     trk = settings.tracker
     rnd = settings.render
     if rnd.fresh_window_frames <= 0:
         fresh_thresh = None
     pix, noise = draws
-    pix = pix.long()
+    pix, noise = shard_ray_batch(mesh, 0 if trk.fixed_sample_batch else 1,
+                                 pix.long(), noise)
+    group = None if mesh is None else mesh.dp_group
     pcd = rnd.feature_mode == "pcd"
     dirs_flat = rays_dir.reshape(-1, 3)
     rgb_flat = rgb.reshape(-1, 3)
@@ -127,7 +140,7 @@ def track_frame(map_state, decoder_params, prev_pose: torch.Tensor,
             ray_w = 1.0 - (1.0 - trk.fresh_ray_floor) * outputs.fresh_frac
         loss, _ = compute_loss(outputs, gt_c, gt_d, settings.loss,
                                weight_depth_loss=trk.depth_variance,
-                               ray_weights=ray_w)
+                               ray_weights=ray_w, group=group)
         return loss, outputs.hit_mask.float().mean()
 
     N = trk.num_iterations
@@ -144,9 +157,13 @@ def track_frame(map_state, decoder_params, prev_pose: torch.Tensor,
         else:
             loss, hit_ratio = loss_fn(pose6, *batch(pix[i]), noise[i])
         (grad,) = torch.autograd.grad(loss, pose6)
+        if mesh is not None:
+            grad = all_reduce(grad, group)
         with torch.no_grad():
             (pose6,), opt = adam_update([pose6.detach()], [grad], opt,
                                         float(lrs[i]))
+    loss, hit_ratio = loss.detach(), hit_ratio.detach()
+    if mesh is not None:
+        loss, hit_ratio = all_reduce_flat([loss, hit_ratio / mesh.dp], group)
     return TrackResult(pose=pose6, adam_m=opt.m[0], adam_v=opt.v[0],
-                       adam_t=opt.t,
-                       loss=loss.detach(), hit_ratio=hit_ratio.detach())
+                       adam_t=opt.t, loss=loss, hit_ratio=hit_ratio)

@@ -103,7 +103,7 @@ def render_rays(rays_o, rays_d, map_state, embeddings, decoder_params,
                 decoder_settings: DecoderSettings, settings: RenderSettings,
                 noise=None, point_store=None, corner_feats=None, fresh_thresh=None,
                 precomputed=None, f8_center=None,
-                occupancy=None) -> RenderOutputs:
+                occupancy=None, decode=None) -> RenderOutputs:
     """Render a batch of rays against the current map.
 
     Args:
@@ -125,10 +125,15 @@ def render_rays(rays_o, rays_d, map_state, embeddings, decoder_params,
       occupancy: optional ``ops.intersect.build_occupancy`` grid for
         ``intersect_mode="dda"`` (loop-invariant across an optimizer's
         iterations: callers that iterate build it once).
+      decode: optional ``decode(params, decoder_settings, feats) -> (N, 4)``
+        in place of ``models/decoder.decoder_values`` where the plain
+        decoder runs (the tensor-parallel decoder of
+        ``parallel/sharded.py``).
     """
     pcd = settings.feature_mode == "pcd"
     # K1 and K2/K3 take the same architectures (as in the JAX package)
     fused = fused_applicable(decoder_settings)
+    decode = decode or decoder_values
     if precomputed is not None:
         inter, samples = precomputed
     else:
@@ -152,7 +157,7 @@ def render_rays(rays_o, rays_d, map_state, embeddings, decoder_params,
             out = decoder_values_fused(decoder_params, decoder_settings,
                                        feats)
         else:
-            out = decoder_values(decoder_params, decoder_settings, feats)
+            out = decode(decoder_params, decoder_settings, feats)
     elif not fused:
         # invalid samples -> bin H: zero features, zero cotangents
         S_bins = torch.where(valid, samples.bin, H)
@@ -160,7 +165,7 @@ def render_rays(rays_o, rays_d, map_state, embeddings, decoder_params,
             sampled_xyz, S_bins, inter.voxel_idx, map_state.voxel_keys,
             map_state.voxel_vertex_ids, embeddings, settings.voxel_size,
             EV=corner_feats, f8_center=f8_center).reshape(R * S, -1)
-        out = decoder_values(decoder_params, decoder_settings, feats)
+        out = decode(decoder_params, decoder_settings, feats)
     else:
         vidx = inter.voxel_idx.clamp_min(0)
         EV = corner_feats

@@ -27,7 +27,9 @@ checkpoint written by either package resumes in the other:
 
 Like the JAX package's, a checkpoint holds no pcd point store, no
 previous pose (the velocity prior restarts from the last pose) and no
-host RNG or insert history.
+host RNG or insert history. Under an mp mesh the file holds the whole map
+and embedding moments (gathered; every rank of the mp group saves), and a
+load keeps the rank's rows.
 """
 
 from __future__ import annotations
@@ -43,6 +45,9 @@ from proudslam_tpu_torch.engine.mapper import MapOptState
 from proudslam_tpu_torch.engine.state import KeyframeStore
 from proudslam_tpu_torch.models.decoder import tree_leaves, tree_unflatten
 from proudslam_tpu_torch.ops.voxel_hash import MapState
+from proudslam_tpu_torch.parallel.engine import (gather_embeddings,
+                                                 place_map_state,
+                                                 shard_embeddings)
 
 if TYPE_CHECKING:
     from proudslam_tpu_torch.engine.slam import SlamSystem
@@ -58,7 +63,11 @@ def _leaves(slam: "SlamSystem") -> List[np.ndarray]:
     """The state's leaves in the table's order, as host arrays."""
     last = (slam.last_pose6 if slam.last_pose6 is not None
             else np.zeros((6,), np.float32))
-    ms, opt, st = slam.map_state, slam.opt, slam.store
+    # under an mp mesh: the full map and moments, gathered from the ranks
+    ms, opt, st = slam.gathered_map_state(), slam.opt, slam.store
+    opt = opt._replace(embed=opt.embed._replace(
+        m=[gather_embeddings(slam.mesh, t) for t in opt.embed.m],
+        v=[gather_embeddings(slam.mesh, t) for t in opt.embed.v]))
     i32 = np.int32
     leaves = list(tree_leaves(slam.decoder_params)) + [last]
     leaves += [ms.cell_keys, ms.cell_ids, ms.cell_vslot, i32(ms.num_cells),
@@ -110,11 +119,12 @@ def load_checkpoint(path: str, slam: "SlamSystem") -> "SlamSystem":
     slam.decoder_params = tree_unflatten(slam.decoder_params, take(n_dec))
     slam.last_pose6 = take()
     ck, ci, cv, nc, vk, vv, nv, emb, inv = take(9)
-    slam.map_state = MapState(
+    slam.map_state = place_map_state(slam.mesh, MapState(
         cell_keys=ck, cell_ids=ci, cell_vslot=cv, num_cells=int(nc),
         voxel_keys=vk, voxel_vertex_ids=vv, num_voxels=int(nv),
-        embeddings=emb, inv_map=inv)
+        embeddings=emb, inv_map=inv))
     em, ev, et = take(3)
+    em, ev = shard_embeddings(slam.mesh, em), shard_embeddings(slam.mesh, ev)
     dm, dv, dt = take(n_dec), take(n_dec), take()
     slam.opt = MapOptState(embed=AdamState(m=[em], v=[ev], t=int(et)),
                            decoder=AdamState(m=dm, v=dv, t=int(dt)))
