@@ -8,13 +8,16 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. device: require CUDA; print the card's name and power limit
    (``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``);
 2. build: compile the CUDA kernels from ``proudslam_tpu_torch/csrc`` (one
-   ``nvcc`` per source, all started together);
+   ``nvcc`` per source and decoder size, all started together): the three
+   sources at the bench decoder's (in_dim, width, sdf_dim) = (16, 128,
+   128), and ``render_stream.cu`` and ``mlp_stream.cu`` (the streamed
+   plan) at each of the nine other sizes of ``mlp_kernel.BF16_SIZES``;
    each library's ``-Xptxas -v`` report (registers, spills, wgmma
    warnings) and its count of tensor-core instructions (HGMMA, HMMA) and
    FFMA in ``cuobjdump -sass`` are logged; K1, K2 and K3 must each hold
-   HGMMA, no HMMA, and no spills; K2-f32 and K3-f32 (f32 operands, 3xTF32
-   on ``mma.sync``; K3-f32's forward recompute FFMA) HMMA, no HGMMA, and
-   no spills;
+   HGMMA, no HMMA, and no spills at every size; K2-f32 and K3-f32 (f32
+   operands, 3xTF32 on ``mma.sync``; K3-f32's forward recompute FFMA)
+   HMMA, no HGMMA, and no spills;
 3. kernels: run each kernel at the slices' mapping and tracking shapes
    (1024 rays, 65,536 rows) on inputs from the real pipeline and hold it
    against its plain PyTorch version (stated tolerances; K3 full and
@@ -34,7 +37,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    512 rays; and ``decoder_values`` with the Gaussian embedder (f32
    operands, 65,536 rows) on the card against the CPU (1e-5 of the largest
    output: the embedding's ``x @ B`` in true f32, TF32 off; the same call
-   with TF32 on is logged as the control);
+   with TF32 on is logged as the control). Then the same holds of K1, K2
+   and K3 at each other size of ``mlp_kernel.BF16_SIZES`` (``size_phase``:
+   the K1 inputs above, that size's ``init_decoder`` params; K3's dx there
+   held on the rows away from a ReLU kink, ``MARGIN_FLIP``), with times,
+   bounds and shares;
+4b. vox-w256 slice: the vox slice's configuration with the reference's
+   wider decoder (16, 256, 128) over the first 10 frames: K1 and K3 (their
+   streamed plan) launched, K2 and the f32 forms not, the poses finite and
+   the unaligned ATE under 3 cm; then ``run_slam.check_config`` for the
+   card must refuse the fused pcd path at f32 operands at that size
+   (K2-f32 and K3-f32 are built only at (16, 128, 128)) with no launch,
+   and accept it at bf16 operands;
 4. vox slice: the bench configuration with the fused render path on
    (``config.bench_settings``): ``SlamSystem.initialize`` (200 mapping
    iterations), 39 ``process_frame`` calls over the first 40 frames of the
@@ -190,6 +204,19 @@ RENDER_RAYS = 512
 # output's largest magnitude, at the mapping and tracking shapes (full and
 # dx-only) and at ragged row counts (a masked last tile).
 TOL_GRAD_REL = 1e-2
+# K3 at the streamed plan's sizes (every size but (16, 128, 128)): one
+# flipped bf16 rounding of an upstream activation moves a hidden
+# pre-activation by ~|h| |w| 2^-8 (~1e-4 at these weights), so a row whose
+# smallest |pre-activation| is under MARGIN_FLIP can take another ReLU mask
+# than the plain version and its dx differs by a whole term: on an H100, up
+# to 3.6e-2 of dx's largest magnitude at (16, 256, 128) over all rows, 3.5e-3
+# over the rows at or above 1e-4, 1e-6 over those above 1e-3. So there dx is
+# held at TOL_GRAD_REL on the rows at or above MARGIN_FLIP, and the rows
+# whose dx misses TOL_GRAD_REL may be at most TOL_FLIP_SHARE of all (a kernel
+# that reads the wrong row or column misses it on most rows); every weight
+# and bias gradient is held at TOL_GRAD_REL as at (16, 128, 128).
+MARGIN_FLIP = 1e-4
+TOL_FLIP_SHARE = 1e-2
 K3_RAGGED = 37            # rows cut from the mapping shape for the ragged check
 # small ragged row counts, where the masked last tile carries all (27) or
 # a third (91 = 64 + 27) of each weight and bias gradient's sum
@@ -227,6 +254,11 @@ RESAMPLE_FRAMES = 10
 CLI_RENDER_FREQ = 20      # the cli phase's panels: frames 19 and 39
 PANEL_WH = (3 * 200, 2 * 160)   # room.yaml's default 200x160 preview
 PCD_CLI_FRAMES = 5
+# the vox-w256 slice: the bench configuration with the reference's wider
+# decoder (SURVEY.md: decoder_specs at width 256, sdf_dim 128), which runs
+# the streamed plan of K1 and K3
+W256_SIZE = (16, 256, 128)
+W256_FRAMES = 10
 PROFILE_START, PROFILE_FRAMES = 5, 4   # the vox profile: frames 5-8
 WIDTH, HEIGHT = 320, 240
 # the dda slice's intersection check, on its final map (tests/test_intersect
@@ -284,6 +316,18 @@ PEAK_BYTES = 3.35e12
 # the color head 2*128*3
 DEC_FLOPS = 2 * (16 * 128 + 128 * 128 + 128 * 129 + 128 * 128 + 16 * 128
                  + 128 * 3)
+
+
+def dec_flops(size) -> int:
+    """DEC_FLOPS at a decoder size (in_dim, width, sdf_dim): d-w-w-(sd+1)
+    -w-3 with the color head's x part."""
+    d, w, sd = size
+    return 2 * (d * w + w * w + w * (sd + 1) + sd * w + d * w + w * 3)
+
+
+# K1's blend per sample on the FP32 units: 8 corners x 16 dims x (mul, add)
+# plus the 8 weights
+K1_BLEND_FLOPS = 2 * 8 * 16 + 8 * 2
 # (library, kernel function): each must hold HGMMA (wgmma), no HMMA and no
 # spills
 KERNEL_FUNCTIONS = (("render_kernel", "render_forward_kernel"),
@@ -294,6 +338,11 @@ KERNEL_FUNCTIONS = (("render_kernel", "render_forward_kernel"),
 F32_FUNCTIONS = (("mlp_kernel_f32", "decoder_forward_f32_kernel"),
                  ("mlp_kernel_f32", "decoder_backward_f32_kernel"))
 LIBRARIES = ("render_kernel", "mlp_kernel", "mlp_kernel_f32")
+# the bf16 kernels' sources at every other decoder size of
+# mlp_kernel.BF16_SIZES (the streamed plan), one library per size; their
+# kernel functions carry KERNEL_FUNCTIONS' names
+STREAM_LIBRARIES = {"render_kernel": "render_stream",
+                    "mlp_kernel": "mlp_stream"}
 # the kernels' launch counters, by the name of the kernels JSON line
 KERNELS = ("fused_render_forward", "decoder_forward", "decoder_backward",
            "decoder_forward_f32", "decoder_backward_f32")
@@ -365,50 +414,76 @@ def ptxas_resources(log_text: str) -> dict:
     return res
 
 
-def build_phase():
-    """Build the libraries (one nvcc each, in parallel); log the ptxas
-    report and the instruction counts -> (seconds, {kernel function: its
-    SASS counts and ptxas resources})."""
-    from proudslam_tpu_torch.ops.kernels import build
+def _size_tag(size) -> str:
+    return "x".join(str(v) for v in size)
 
-    names = LIBRARIES
+
+def build_phase():
+    """Build the libraries (one nvcc each, all started together): the three
+    sources at the bench decoder's size (16, 128, 128) and the streamed
+    sources at every other size of ``mlp_kernel.BF16_SIZES``; log the
+    ptxas report and the instruction counts -> (seconds, {kernel function:
+    its SASS counts and ptxas resources at (16, 128, 128)}, {size tag:
+    {kernel function: the same}} for the other sizes)."""
+    from proudslam_tpu_torch.ops.kernels import build
+    from proudslam_tpu_torch.ops.kernels.mlp_kernel import BF16_SIZES
+
+    jobs = [(name, build.DEFAULT_SIZE) for name in LIBRARIES]
+    jobs += [(name, size) for size in BF16_SIZES
+             if size != build.DEFAULT_SIZE
+             for name in STREAM_LIBRARIES.values()]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(names)) as pool:
-        for f in [pool.submit(build.build, name) for name in names]:
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        for f in [pool.submit(build.build, name, size)
+                  for name, size in jobs]:
             f.result()
     seconds = time.perf_counter() - t0
     sass, ptxas = {}, {}
-    for name in names:
-        text = build.build_log(name)
-        for line in text.splitlines():
-            if any(k in line for k in ("registers", "spill", "smem", "wgmma",
-                                       "Performance", "Compiling entry")):
-                log(f"ptxas {name}: {line.strip()}")
-        sass[name] = sass_counts(build.library_path(name))
-        ptxas[name] = ptxas_resources(text)
-        log(f"sass {name}: {json.dumps(sass[name])}")
+    for name, size in jobs:
+        text = build.build_log(name, size)
+        if size == build.DEFAULT_SIZE:
+            for line in text.splitlines():
+                if any(k in line for k in ("registers", "spill", "smem",
+                                           "wgmma", "Performance",
+                                           "Compiling entry")):
+                    log(f"ptxas {name}: {line.strip()}")
+        sass[name, size] = sass_counts(build.library_path(name, size=size))
+        ptxas[name, size] = ptxas_resources(text)
+        if size == build.DEFAULT_SIZE:
+            log(f"sass {name}: {json.dumps(sass[name, size])}")
     # the bf16 kernels run their products on the tensor cores through
     # wgmma, the f32 ones through mma.sync (3xTF32); none spills
-    found = {}
-    for lib, fn in KERNEL_FUNCTIONS + F32_FUNCTIONS:
-        counts = [c for f, c in sass[lib].items() if fn in f]
-        res = [r for f, r in ptxas[lib].items() if fn in f and r]
+    checks = [(lib, build.DEFAULT_SIZE, fn)
+              for lib, fn in KERNEL_FUNCTIONS + F32_FUNCTIONS]
+    checks += [(STREAM_LIBRARIES[lib], size, fn)
+               for name, size in jobs if name == "mlp_stream"
+               for lib, fn in KERNEL_FUNCTIONS]
+    found, by_size = {}, {}
+    for lib, size, fn in checks:
+        counts = [c for f, c in sass[lib, size].items() if fn in f]
+        res = [r for f, r in ptxas[lib, size].items() if fn in f and r]
         if len(counts) != 1 or len(res) != 1:
             raise AssertionError(f"{fn}: {len(counts)} functions in the "
                                  f"SASS and {len(res)} in the ptxas report "
-                                 f"of {lib}")
-        found[fn] = {**counts[0], **res[0]}
-        log(f"{fn}: {json.dumps(found[fn])}")
+                                 f"of {lib} at {size}")
+        entry = {**counts[0], **res[0]}
+        if size == build.DEFAULT_SIZE:
+            found[fn] = entry
+            log(f"{fn}: {json.dumps(entry)}")
+        else:
+            by_size.setdefault(_size_tag(size), {})[fn] = entry
+            log(f"{fn} ({lib} at {size}): {json.dumps(entry)}")
         if (lib, fn) in F32_FUNCTIONS:
             if not (counts[0]["HMMA"] > 0 and counts[0]["HGMMA"] == 0):
                 raise AssertionError(f"{fn}: instructions {counts[0]}, "
                                      "expected HMMA > 0, HGMMA 0")
         elif not (counts[0]["HGMMA"] > 0 and counts[0]["HMMA"] == 0):
-            raise AssertionError(f"{fn}: tensor-core instructions "
+            raise AssertionError(f"{fn} at {size}: tensor-core instructions "
                                  f"{counts[0]}, expected HGMMA > 0, HMMA 0")
         if res[0].get("spill_stores", 1) or res[0].get("spill_loads", 1):
-            raise AssertionError(f"{fn}: spills in the ptxas report {res[0]}")
-    return seconds, found
+            raise AssertionError(f"{fn} at {size}: spills in the ptxas "
+                                 f"report {res[0]}")
+    return seconds, found, by_size
 
 
 def _nbytes(*tensors) -> int:
@@ -567,19 +642,24 @@ def _matmul_chain(fp, dtype=None):
     return fwd, list(w.values())
 
 
-def _dx_err_by_margin(mk, x, fp, dx_k, dx_p, bf16=True) -> dict:
-    """K3's dx error against its plain version's, over dx's largest
-    magnitude, binned by each row's margin: its smallest |hidden
-    pre-activation| (h1, h2, hc) in the plain forward. Where the margin is
-    within the kernel's rounding-level difference, the two can take
-    different ReLU masks -> {bin: [rows, max error]}."""
+def _margins(mk, x, fp, bf16=True):
+    """Each row's margin: its smallest |hidden pre-activation| (h1, h2, hc)
+    in the plain forward."""
     import torch
 
     dot = mk._make_dot(bf16)
     h1, _, feat, _, _, _ = mk.decoder_fwd_plain(x, fp, bf16)
     pre = (dot(x, fp.w1) + fp.b1, dot(h1, fp.w2) + fp.b2,
            dot(feat, fp.wc_f) + dot(x, fp.wc_x) + fp.bc)
-    margin = torch.stack([p.abs().amin(1) for p in pre]).amin(0)
+    return torch.stack([p.abs().amin(1) for p in pre]).amin(0)
+
+
+def _dx_err_by_margin(mk, x, fp, dx_k, dx_p, bf16=True) -> dict:
+    """K3's dx error against its plain version's, over dx's largest
+    magnitude, binned by each row's margin (:func:`_margins`). Where the
+    margin is within the kernel's rounding-level difference, the two can
+    take different ReLU masks -> {bin: [rows, max error]}."""
+    margin = _margins(mk, x, fp, bf16)
     err = (dx_k - dx_p).abs().amax(1) / dx_p.abs().max().clamp_min(1e-30)
     edges = (0.0, 1e-6, 1e-5, 1e-4, 1e-3, float("inf"))
     bins = {}
@@ -820,7 +900,7 @@ def kernel_phase(device):
         st["ms"] = _event_ms(lambda: rk.fused_render_forward(*a))
         st["plain_ms"] = _event_ms(lambda: rk.fused_render_forward_plain(*a))
         st["bound_ms"], st["bound_by"] = _bound(
-            DEC_FLOPS * st["rows"], (2 * 8 * 16 + 8 * 2) * st["rows"],
+            DEC_FLOPS * st["rows"], K1_BLEND_FLOPS * st["rows"],
             _nbytes(*a[:6], *inp["fp"]) + st["rows"] * (4 + 16) * 4)
         st["share"] = st["bound_ms"] / st["ms"]
 
@@ -997,20 +1077,26 @@ def kernel_phase(device):
     f32 = f32_kernel_phase(x2, g, fp, min(TR, N2))
     render_errs = pcd_render_check(inp["render"], inp["rays_o"],
                                    inp["rays_d"], device)
+    by_size = {_size_tag(size): size_phase(device, inp, size)
+               for size in mk.BF16_SIZES if mk.streamed(size)}
 
     m1, m2, m3 = k1["mapping"], k2["mapping"], k3["mapping"]
+    sizes = {k: {tag: st[k] for tag, st in by_size.items()}
+             for k in ("fused_render_forward", "decoder_forward",
+                       "decoder_backward")}
     return {
         "fused_render_forward": dict(
             _entry(max(err_feats, err_out), m1["ms"], m1["plain_ms"],
-                   (m1["bound_ms"], m1["bound_by"])), shapes=k1),
+                   (m1["bound_ms"], m1["bound_by"])), shapes=k1,
+            sizes=sizes["fused_render_forward"]),
         "decoder_forward": dict(
             _entry(err2, m2["ms"], m2["plain_ms"],
                    (m2["bound_ms"], m2["bound_by"]), m2["matmul_chain_ms"]),
-            shapes=k2),
+            shapes=k2, sizes=sizes["decoder_forward"]),
         "decoder_backward": dict(
             _entry(worst_abs, m3["ms"], m3["plain_ms"],
                    (m3["bound_ms"], m3["bound_by"]), chain_bwd_ms),
-            shapes=k3),
+            shapes=k3, sizes=sizes["decoder_backward"]),
         **f32,
         "extra": dict(pcd_gather_ms=gather_ms,
                       pcd_gather_fwd_bwd_ms=gather_bwd_ms,
@@ -1018,6 +1104,169 @@ def kernel_phase(device):
                       k1_shift_err=shift1, k2_inputs=k2_inputs,
                       pcd_render=render_errs),
     }
+
+
+def size_phase(device, inp, size) -> dict:
+    """K1, K2 and K3 at another decoder size of ``mlp_kernel.BF16_SIZES``
+    (the streamed plan), on the kernel phase's K1 inputs with that size's
+    ``init_decoder`` params: K1 against its plain version at the mapping,
+    tracking and ragged shapes, K2 on K1's features bit for bit against
+    K1's outputs, K3 (full and dx-only) against its plain version at the
+    mapping and tracking shapes, a ragged mapping shape and the small ragged
+    counts, K3's repeatability, and CUDA-event times of each kernel and its
+    plain version at both shapes with the bound and its share -> {kernel:
+    entry}."""
+    import torch
+
+    from proudslam_tpu_torch.config import bench_settings
+    from proudslam_tpu_torch.models.decoder import init_decoder
+    from proudslam_tpu_torch.ops.kernels import mlp_kernel as mk
+    from proudslam_tpu_torch.ops.kernels import render_kernel as rk
+
+    d, w, sd = size
+    dec = dataclasses.replace(bench_settings().decoder, in_dim=d, width=w,
+                              sdf_dim=sd)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2)
+    fp = mk.pack_params(init_decoder(gen, dec, device), dec)
+    fp = type(fp)(*[t.contiguous() for t in fp])
+    flops = dec_flops(size)
+    base = (inp["rb"], inp["keys_rb"], inp["bins"], inp["z"], inp["rays_o"],
+            inp["rays_d"])
+    R, S = inp["bins"].shape
+    nr, ns = K1_RAGGED
+    k1_args = {
+        "mapping": base + (fp, inp["voxel"]),
+        "tracking": tuple(a[:TRACK_RAYS].contiguous() for a in base)
+        + (fp, inp["voxel"]),
+        "ragged": tuple(a[:nr, :ns].contiguous()
+                        if a.dim() == 2 and a.shape[1] == S
+                        else a[:nr].contiguous() for a in base)
+        + (fp, inp["voxel"])}
+    err1 = 0.0
+    for shape, a in k1_args.items():
+        out_k, feats_k = rk.fused_render_forward(*a)
+        out_p, feats_p = rk.fused_render_forward_plain(*a)
+        out_2 = mk.decoder_fwd(feats_k, fp)
+        torch.cuda.synchronize()
+        ef = (feats_k - feats_p).abs().max().item()
+        eo = (out_k - out_p).abs().amax(0)
+        same = torch.equal(out_2, out_k)
+        log(f"K1 at {size}, the {shape} shape: feats max_abs_err {ef:.3e} "
+            f"(tol {TOL_FEATS}), out max_abs_err per column "
+            f"{[float(f'{v:.3e}') for v in eo.tolist()]} (tol "
+            f"{TOL_K1_OUT}); K2 on K1's feats "
+            + ("bitwise equal to K1's out" if same else
+               f"differs in {int((out_2 != out_k).sum())} values"))
+        if not (ef <= TOL_FEATS and eo.max().item() <= TOL_K1_OUT):
+            raise AssertionError(f"K1 at {size} disagrees with "
+                                 f"fused_render_forward_plain at the {shape} "
+                                 "shape")
+        if not same:
+            raise AssertionError(f"K2 on K1's feats differs from K1's out at "
+                                 f"{size}, the {shape} shape")
+        err1 = max(err1, ef, eo.max().item())
+        if shape == "mapping":
+            x = feats_p
+            shift = (out_p[1:] - out_p[:-1]).abs().max().item()
+    if not shift > SHIFT_MARGIN * TOL_K1_OUT:
+        raise AssertionError(f"the K1 check at {size} cannot tell "
+                             "neighbouring rows")
+
+    N = x.shape[0]
+    TRR = min(TRACK_RAYS * S, N)
+    g = 1e-2 * torch.randn((N, 4), generator=gen, device=device)
+    nz = (x.abs().sum(1) > 0).nonzero().flatten()
+    cases = [("mapping", x, g, True), ("mapping", x, g, False),
+             ("ragged", x[:N - K3_RAGGED], g[:N - K3_RAGGED], True),
+             ("tracking", x[:TRR], g[:TRR], True),
+             ("tracking", x[:TRR], g[:TRR], False)]
+    cases += [("small ragged", x[nz[:n]], g[nz[:n]], True) for n in K3_SMALL]
+    err3 = 0.0
+    for label, xn, gn, wgrad in cases:
+        xn, gn = xn.contiguous(), gn.contiguous()
+        dx_k, gr_k = mk.decoder_bwd(xn, gn, fp, want_wgrad=wgrad)
+        dx_p, gr_p = mk.decoder_bwd_plain(xn, gn, fp, want_wgrad=wgrad)
+        torch.cuda.synchronize()
+        rels = {}
+        for name, a, b in [("dx", dx_k, dx_p)] + (list(
+                zip(mk.FusedParams._fields, gr_k, gr_p)) if wgrad else []):
+            e = (a - b).abs().max().item()
+            rels[name] = float(f"{e / max(b.abs().max().item(), 1e-30):.3e}")
+            err3 = max(err3, e)
+        row_err = ((dx_k - dx_p).abs().amax(1)
+                   / dx_p.abs().max().clamp_min(1e-30))
+        safe = _margins(mk, xn, fp) >= MARGIN_FLIP
+        dx_safe = float(row_err[safe].max()) if bool(safe.any()) else 0.0
+        flips = float((row_err > TOL_GRAD_REL).float().mean())
+        log(f"K3 at {size}, the {label} shape, N={xn.shape[0]}, "
+            f"{'full' if wgrad else 'dx-only'}: max_abs_err over each "
+            f"output's largest magnitude {json.dumps(rels)}; dx on the "
+            f"{int(safe.sum())} rows of margin >= {MARGIN_FLIP} "
+            f"{dx_safe:.3e} (tol {TOL_GRAD_REL}); share of rows whose dx "
+            f"misses {TOL_GRAD_REL}: {flips:.2e} (tol {TOL_FLIP_SHARE})")
+        if label == "mapping" and wgrad:
+            log(f"K3 at {size}: dx error at the mapping shape by the row's "
+                "smallest |hidden pre-activation|, {bin: [rows, max_abs_err "
+                "over dx's largest magnitude]}: "
+                + json.dumps(_dx_err_by_margin(mk, xn, fp, dx_k, dx_p)))
+        grads = [v for k, v in rels.items() if k != "dx"]
+        if not (max(grads, default=0.0) <= TOL_GRAD_REL
+                and dx_safe <= TOL_GRAD_REL and flips <= TOL_FLIP_SHARE):
+            raise AssertionError(f"K3 at {size} disagrees with "
+                                 f"decoder_bwd_plain at the {label} shape, "
+                                 f"N={xn.shape[0]}")
+    dx_k, gr_k = mk.decoder_bwd(x, g, fp)
+    dx_k2, gr_k2 = mk.decoder_bwd(x, g, fp)
+    dx_only, _ = mk.decoder_bwd(x, g, fp, want_wgrad=False)
+    if not (torch.equal(dx_k, dx_k2) and torch.equal(dx_k, dx_only)
+            and all(torch.equal(a, b) for a, b in zip(gr_k, gr_k2))):
+        raise AssertionError(f"K3 at {size} is not bitwise repeatable")
+
+    shapes = {"mapping": N, "tracking": TRR}
+    k1, k2, k3 = {}, {}, {}
+    for shape, rows in shapes.items():
+        a = k1_args[shape]
+        xn, gn = x[:rows].contiguous(), g[:rows].contiguous()
+        st = k1[shape] = dict(rows=rows)
+        st["ms"] = _event_ms(lambda: rk.fused_render_forward(*a))
+        st["plain_ms"] = _event_ms(lambda: rk.fused_render_forward_plain(*a))
+        st["bound_ms"], st["bound_by"] = _bound(
+            flops * rows, K1_BLEND_FLOPS * rows,
+            _nbytes(*a[:6], *fp) + rows * (4 + d) * 4)
+        st = k2[shape] = dict(rows=rows)
+        st["ms"] = _event_ms(lambda: mk.decoder_fwd(xn, fp))
+        st["plain_ms"] = _event_ms(lambda: mk.decoder_fwd_plain(xn, fp))
+        st["bound_ms"], st["bound_by"] = _bound(
+            flops * rows, 0, _nbytes(xn, *fp) + rows * 4 * 4)
+        st = k3[shape] = dict(rows=rows)
+        st["ms"] = _event_ms(lambda: mk.decoder_bwd(xn, gn, fp))
+        st["plain_ms"] = _event_ms(lambda: mk.decoder_bwd_plain(xn, gn, fp))
+        st["dx_only_ms"] = _event_ms(
+            lambda: mk.decoder_bwd(xn, gn, fp, want_wgrad=False))
+        st["dx_only_plain_ms"] = _event_ms(
+            lambda: mk.decoder_bwd_plain(xn, gn, fp, want_wgrad=False))
+        st["bound_ms"], st["bound_by"] = _bound(
+            3 * flops * rows, 0, _nbytes(xn, gn, *fp, xn, *gr_k))
+        st["dx_only_bound_ms"], _ = _bound(2 * flops * rows, 0,
+                                           _nbytes(xn, gn, *fp, xn))
+        st["dx_only_share"] = st["dx_only_bound_ms"] / st["dx_only_ms"]
+        for e in (k1, k2, k3):
+            e[shape]["share"] = e[shape]["bound_ms"] / e[shape]["ms"]
+        a1, a2, a3 = k1[shape], k2[shape], k3[shape]
+        log(f"{shape} shape at {size}: K1 {a1['ms']:.3f} ms (plain "
+            f"{a1['plain_ms']:.3f} ms, bound {a1['bound_ms']:.4f} ms by "
+            f"{a1['bound_by']}, share {a1['share']:.3f}); K2 {a2['ms']:.3f} "
+            f"ms (plain {a2['plain_ms']:.3f} ms, bound {a2['bound_ms']:.4f} "
+            f"ms, share {a2['share']:.3f}); K3 {a3['ms']:.3f} ms (plain "
+            f"{a3['plain_ms']:.3f} ms, bound {a3['bound_ms']:.4f} ms, share "
+            f"{a3['share']:.3f}); K3 dx-only {a3['dx_only_ms']:.3f} ms "
+            f"(plain {a3['dx_only_plain_ms']:.3f} ms, bound "
+            f"{a3['dx_only_bound_ms']:.4f} ms, share "
+            f"{a3['dx_only_share']:.3f}); {rows} rows")
+    return {"fused_render_forward": dict(max_abs_err=err1, shapes=k1),
+            "decoder_forward": dict(max_abs_err=err1, shapes=k2),
+            "decoder_backward": dict(max_abs_err=err3, shapes=k3)}
 
 
 def gaussian_check(device):
@@ -1130,6 +1379,39 @@ def pcd_render_check(r, rays_o, rays_d, device):
     if not (err_out <= TOL_RENDER_OUT and err_grad <= TOL_RENDER_GRAD_REL):
         raise AssertionError("pcd render_rays on the card disagrees with "
                              "the CPU")
+    return st
+
+
+def refusal_check() -> dict:
+    """``run_slam.check_config`` for the card refuses the fused pcd path at
+    f32 operands at width 256 (K2-f32 and K3-f32 are built only at
+    (16, 128, 128)) with a ``ValueError`` naming the form, before any data
+    loads and with no kernel launched; the same configuration at bf16
+    operands (K2 and K3 at (16, 256, 128)) is accepted."""
+    from proudslam_tpu_torch.config import load_config
+    from proudslam_tpu_torch.run_slam import check_config
+
+    over = {"tpu_specs.feature_mode": "pcd", "tpu_specs.fused_mlp": True,
+            "tpu_specs.matmul_dtype": "f32",
+            "decoder_specs.width": W256_SIZE[1],
+            "decoder_specs.sdf_dim": W256_SIZE[2]}
+    path = os.path.join(ROOT, CLI_CONFIG)
+    before = _launches()
+    try:
+        check_config(load_config(path, dict(over)), "cuda")
+    except ValueError as e:
+        msg = str(e)
+    else:
+        raise AssertionError("check_config accepted the fused pcd path at "
+                             f"f32 operands at {W256_SIZE}")
+    if "K2-f32" not in msg:
+        raise AssertionError(f"the refusal names no f32 form: {msg}")
+    settings = check_config(load_config(
+        path, {**over, "tpu_specs.matmul_dtype": "bf16"}), "cuda")
+    if _launches() != before:
+        raise AssertionError("a kernel launched in check_config")
+    st = {"refused": msg, "accepted_bf16_width": settings.decoder.width}
+    log("refusal: " + json.dumps(st))
     return st
 
 
@@ -1942,7 +2224,7 @@ def main() -> None:
 
     device = torch.device("cuda", 0)
     log(f"device: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
-    build_s, built = build_phase()
+    build_s, built, built_by_size = build_phase()
     log(f"build: {build_s:.1f} s")
     kern = kernel_phase(device)
     kern["extra"]["gaussian_embedder"] = gaussian_check(device)
@@ -1955,6 +2237,14 @@ def main() -> None:
         device, "vox", vox, frames, N_FRAMES, ATE_LIMIT_CM,
         launched=("fused_render_forward", "decoder_backward"),
         not_launched=("decoder_forward",) + f32_kernels, mesh=True)}
+    w256 = dataclasses.replace(vox, decoder=dataclasses.replace(
+        vox.decoder, in_dim=W256_SIZE[0], width=W256_SIZE[1],
+        sdf_dim=W256_SIZE[2]))
+    stats["vox-w256"] = slice_phase(
+        device, "vox-w256", w256, frames, W256_FRAMES, ATE_LIMIT_CM,
+        launched=("fused_render_forward", "decoder_backward"),
+        not_launched=("decoder_forward",) + f32_kernels)
+    kern["extra"]["refusal"] = refusal_check()
     pcd = dataclasses.replace(
         vox, render=dataclasses.replace(vox.render, feature_mode="pcd"),
         map=dataclasses.replace(vox.map, points_per_voxel=8))
@@ -2038,6 +2328,8 @@ def main() -> None:
          "launches_by_path": {p: st["launches"][name]
                               for p, st in stats.items()},
          "build": built[fn],
+         "build_by_size": {tag: fns[fn] for tag, fns in built_by_size.items()
+                           if fn in fns},
          **kern[name]}
         for name, (src, rep, form, fn) in meta.items()]}
     unlaunched = [k["name"] for k in record["kernels"] if k["launches"] <= 0]

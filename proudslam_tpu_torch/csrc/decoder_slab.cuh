@@ -5,8 +5,8 @@
 // There are no float atomics, so the gradients are bitwise repeatable.
 //
 // A slab holds the gradients in FusedParams order, except that ws is stored
-// as its W x W feature part (row stride W) then its sdf column, and wc_f
-// comes before bs: so the three W x W blocks start at even offsets and can
+// as its W x SD feature part (row stride SD) then its sdf column, and wc_f
+// comes before bs: so the three large blocks start at even offsets and can
 // be read and written as float pairs. The reduce pass maps back.
 #pragma once
 
@@ -14,9 +14,9 @@
 
 namespace dec {
 
-constexpr int S_WS_SDF = OFF_WS + W * W;
+constexpr int S_WS_SDF = OFF_WS + W * SD;
 constexpr int S_WCF = OFF_BS;
-constexpr int S_BS = OFF_BS + W * W;
+constexpr int S_BS = OFF_BS + SD * W;
 static_assert(OFF_W2 % 2 == 0 && OFF_WS % 2 == 0 && S_WCF % 2 == 0,
               "float-pair slab blocks");
 static_assert(S_BS + SO == OFF_WCX, "the slab has FusedParams' size");
@@ -29,7 +29,7 @@ __global__ void reduce_partials_kernel(const float* __restrict__ partial,
   int src = e;
   if (e >= OFF_WS && e < OFF_BS) {
     const int m = (e - OFF_WS) / SO, n = (e - OFF_WS) - m * SO;
-    src = n < W ? OFF_WS + m * W + n : S_WS_SDF + m;
+    src = n < SD ? OFF_WS + m * SD + n : S_WS_SDF + m;
   } else if (e >= OFF_BS && e < OFF_WCF) {
     src = S_BS + (e - OFF_BS);
   } else if (e >= OFF_WCF && e < OFF_WCX) {

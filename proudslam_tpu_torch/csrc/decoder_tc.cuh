@@ -1,9 +1,10 @@
-// Tensor-core pieces of the decoder kernels K1 (render_kernel.cu), K2 and
-// K3 (mlp_kernel.cu): the weights in shared memory as bf16 in the layout
-// that Hopper's warpgroup matrix multiply (`wgmma`) reads, shared-memory
-// matrix descriptors, and the `wgmma.mma_async` shapes the kernels issue
-// (m64nNk16, bf16 operands, f32 sums). The forward that K1 and K2 share is
-// in decoder_chain.cuh.
+// Tensor-core pieces of the decoder kernels K1 (render_kernel.cu,
+// render_stream.cu), K2 and K3 (mlp_kernel.cu, mlp_stream.cu): the weights
+// in shared memory as bf16 in the layout that Hopper's warpgroup matrix
+// multiply (`wgmma`) reads, shared-memory matrix descriptors, and the
+// `wgmma.mma_async` shapes the kernels issue (m64nNk16, bf16 operands, f32
+// sums). The forward that K1 and K2 share is in decoder_chain.cuh (the
+// resident plan, (16, 128, 128)) and decoder_stream.cuh (every other size).
 //
 // Tile layout. A bf16 matrix of `rows` x `cols` (cols is its inner
 // dimension, a multiple of 8) is stored as 8x8 core matrices of 128
@@ -44,6 +45,7 @@ namespace tc {
 
 using dec::bf16;
 using dec::D;
+using dec::SD;
 using dec::SO;
 using dec::W;
 
@@ -124,23 +126,39 @@ __device__ __forceinline__ float2 unpack_bf16x2(uint32_t v) {
 // The odd widths (the sdf column of ws, wo) run on the FMA units and are
 // kept as f32 holding their bf16-rounded values; biases are f32.
 struct TcWeights {
-  bf16 *w1, *w2, *ws, *wc_f, *wc_x;   // (W, D), (W, W), (W, W), (W, W), (W, D)
-  float *ws_sdf;                      // (W): ws[:, W]
+  bf16 *w1, *w2, *ws, *wc_f, *wc_x;   // (W, D), (W, W), (SD, W), (W, SD), (W, D)
+  float *ws_sdf;                      // (W): ws[:, SD]
   float *wo;                          // (W, 4): wo, rows padded to 4
   float *b1, *b2, *bs, *bc, *bo;
 };
 
+// the small ones: w1 and wc_x as bf16 tiles, the f32 vectors
+constexpr int TC_SMALL_SMEM =
+    2 * dec::pad16(W * D * 2) + dec::pad16(W * 4) + dec::pad16(W * 4 * 4)
+    + 3 * dec::pad16(W * 4) + dec::pad16(SO * 4) + dec::pad16(3 * 4);
 constexpr int TC_WEIGHT_SMEM =
-    2 * dec::pad16(W * D * 2) + 3 * dec::pad16(W * W * 2) + dec::pad16(W * 4)
-    + dec::pad16(W * 4 * 4) + 3 * dec::pad16(W * 4) + dec::pad16(SO * 4)
-    + dec::pad16(3 * 4);
+    TC_SMALL_SMEM + dec::pad16(W * W * 2) + 2 * dec::pad16(W * SD * 2);
+
+// carves the small weights only (w2, ws and wc_f stay null)
+__device__ inline void carve_small(dec::Arena& ar, TcWeights& w) {
+  w.w1 = ar.take<bf16>(W * D);
+  w.wc_x = ar.take<bf16>(W * D);
+  w.w2 = w.ws = w.wc_f = nullptr;
+  w.ws_sdf = ar.take<float>(W);
+  w.wo = ar.take<float>(W * 4);
+  w.b1 = ar.take<float>(W);
+  w.b2 = ar.take<float>(W);
+  w.bc = ar.take<float>(W);
+  w.bs = ar.take<float>(SO);
+  w.bo = ar.take<float>(3);
+}
 
 __device__ inline void carve_weights(dec::Arena& ar, TcWeights& w) {
   w.w1 = ar.take<bf16>(W * D);
   w.wc_x = ar.take<bf16>(W * D);
   w.w2 = ar.take<bf16>(W * W);
-  w.ws = ar.take<bf16>(W * W);
-  w.wc_f = ar.take<bf16>(W * W);
+  w.ws = ar.take<bf16>(SD * W);
+  w.wc_f = ar.take<bf16>(W * SD);
   w.ws_sdf = ar.take<float>(W);
   w.wo = ar.take<float>(W * 4);
   w.b1 = ar.take<float>(W);
@@ -160,16 +178,19 @@ __device__ inline void load_wtile(bf16* dst, const float* src, int a, int b,
   }
 }
 
-// global f32 FusedParams -> shared memory; ends with the proxy fence and a
-// barrier, so the first wgmma may read the tiles
+// global f32 FusedParams -> shared memory (the large three only where
+// carved); ends with the proxy fence and a barrier, so the first wgmma may
+// read the tiles
 __device__ inline void load_weights(const TcWeights& w, const dec::Params& p) {
   load_wtile(w.w1, p.w1, D, W, W);
   load_wtile(w.wc_x, p.wc_x, D, W, W);
-  load_wtile(w.w2, p.w2, W, W, W);
-  load_wtile(w.ws, p.ws, W, W, SO);
-  load_wtile(w.wc_f, p.wc_f, W, W, W);
+  if (w.w2 != nullptr) {
+    load_wtile(w.w2, p.w2, W, W, W);
+    load_wtile(w.ws, p.ws, W, SD, SO);
+    load_wtile(w.wc_f, p.wc_f, SD, W, W);
+  }
   for (int i = threadIdx.x; i < W; i += blockDim.x) {
-    w.ws_sdf[i] = rbf(p.ws[i * SO + W]);
+    w.ws_sdf[i] = rbf(p.ws[i * SO + SD]);
     w.b1[i] = p.b1[i];
     w.b2[i] = p.b2[i];
     w.bc[i] = p.bc[i];
@@ -216,6 +237,32 @@ __device__ __forceinline__ void mma_m64n128(float (&d)[64], uint64_t da,
 }
 
 template <int TA, int TB>
+__device__ __forceinline__ void mma_m64n96(float (&d)[48], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, "
+      "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "
+      "%46, %47"
+      "}, %48, %49, p, 1, 1, %51, %52;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
 __device__ __forceinline__ void mma_m64n64(float (&d)[32], uint64_t da,
                                           uint64_t db, int scale_d) {
   asm volatile(
@@ -233,6 +280,23 @@ __device__ __forceinline__ void mma_m64n64(float (&d)[32], uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void mma_m64n32(float (&d)[16], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+      "%13, %14, %15"
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
@@ -261,6 +325,20 @@ __device__ __forceinline__ void mma_m64n8(float (&d)[4], uint64_t da,
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// m64nNk16 with A and B in shared memory, for the N the kernels issue
+template <int N, int TA, int TB>
+__device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t da,
+                                       uint64_t db, int scale_d) {
+  static_assert(N == 8 || N == 16 || N == 32 || N == 64 || N == 96
+                || N == 128, "an issued wgmma shape");
+  if constexpr (N == 128) mma_m64n128<TA, TB>(d, da, db, scale_d);
+  else if constexpr (N == 96) mma_m64n96<TA, TB>(d, da, db, scale_d);
+  else if constexpr (N == 64) mma_m64n64<TA, TB>(d, da, db, scale_d);
+  else if constexpr (N == 32) mma_m64n32<TA, TB>(d, da, db, scale_d);
+  else if constexpr (N == 16) mma_m64n16<TA, TB>(d, da, db, scale_d);
+  else mma_m64n8<TA, TB>(d, da, db, scale_d);
 }
 
 template <int TB>

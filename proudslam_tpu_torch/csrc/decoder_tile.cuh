@@ -1,19 +1,27 @@
 // The decoder's parameter layout and sizes, shared by the decoder kernels
-// (K1 render_kernel.cu, K2 and K3 mlp_kernel.cu, K2-f32 and K3-f32
-// mlp_kernel_f32.cu): the widths, the 64-row tile, the 11 parameter
-// pointers in FusedParams order, the offsets of each parameter's gradient
-// in a flat slab, and a shared-memory bump allocator. In K1, K2 and K3
-// every matrix product takes bf16-rounded operands (round to nearest even)
-// and accumulates their exact products in f32; bias add, ReLU and sigmoid
-// run in f32. This is the arithmetic of the TPU kernels' `_dot` with
-// bf16=True (preferred_element_type=f32), run on the tensor cores
-// (decoder_tc.cuh, decoder_chain.cuh). K2-f32 and K3-f32 are the
-// bf16=False form: f32 operands, products as three TF32 products on the
-// tensor cores (tf32x3.cuh), K3-f32's forward recompute as FFMA.
+// (K1 render_kernel.cu and render_stream.cu, K2 and K3 mlp_kernel.cu and
+// mlp_stream.cu, K2-f32 and K3-f32 mlp_kernel_f32.cu): the widths, the
+// 64-row tile, the 11 parameter pointers in FusedParams order, the offsets
+// of each parameter's gradient in a flat slab, and a shared-memory bump
+// allocator. In K1, K2 and K3 every matrix product takes bf16-rounded
+// operands (round to nearest even) and accumulates their exact products in
+// f32; bias add, ReLU and sigmoid run in f32. This is the arithmetic of the
+// TPU kernels' `_dot` with bf16=True (preferred_element_type=f32), run on
+// the tensor cores (decoder_tc.cuh, decoder_chain.cuh, decoder_stream.cuh).
+// K2-f32 and K3-f32 are the bf16=False form: f32 operands, products as
+// three TF32 products on the tensor cores (tf32x3.cuh), K3-f32's forward
+// recompute as FFMA.
+//
+// The sizes are set per build: -DDEC_D (in_dim), -DDEC_W (the hidden
+// width) and -DDEC_SD (sdf_dim, the sdf head's feature width), by default
+// the bench decoder's 16, 128, 128; each size is its own library
+// (ops/kernels/build.py). At (16, 128, 128) the weights stay in shared
+// memory for a block's life (render_kernel.cu, mlp_kernel.cu); every other
+// size streams the large ones through it (decoder_stream.cuh).
 //
 // Layout (the JAX package's `FusedParams`, all f32 row-major in global
-// memory): w1 (D,W) b1 (W) w2 (W,W) b2 (W) ws (W,W+1) [feat cols | sdf col
-// last] bs (W+1) wc_f (W,W) wc_x (D,W) bc (W) wo (W,3) bo (3).
+// memory): w1 (D,W) b1 (W) w2 (W,W) b2 (W) ws (W,SD+1) [feat cols | sdf col
+// last] bs (SD+1) wc_f (SD,W) wc_x (D,W) bc (W) wo (W,3) bo (3).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -22,12 +30,26 @@
 
 namespace dec {
 
-constexpr int D = 16;              // decoder input (embedding) width
-constexpr int W = 128;             // hidden width == sdf feature width
-constexpr int SO = W + 1;          // sdf head outputs: [feat | sdf]
+#ifndef DEC_D
+#define DEC_D 16
+#endif
+#ifndef DEC_W
+#define DEC_W 128
+#endif
+#ifndef DEC_SD
+#define DEC_SD 128
+#endif
+
+constexpr int D = DEC_D;           // decoder input (embedding) width
+constexpr int W = DEC_W;           // hidden width
+constexpr int SD = DEC_SD;         // sdf feature width
+constexpr int SO = SD + 1;         // sdf head outputs: [feat | sdf]
 constexpr int TR = 64;             // rows per tile
-constexpr int NPARAM = D * W + W + W * W + W + W * SO + SO + W * W + D * W
-                       + W + W * 3 + 3;    // 54,276 floats
+constexpr int NPARAM = D * W + W + W * W + W + W * SO + SO + SD * W + D * W
+                       + W + W * 3 + 3;    // 54,276 floats at (16, 128, 128)
+static_assert(D == 16, "the kernels read a row's inputs as 16 floats");
+static_assert(W % 64 == 0 && SD % 64 == 0 && SD <= W && W <= 256,
+              "widths are multiples of 64, sdf_dim <= width <= 256");
 
 typedef __nv_bfloat16 bf16;
 
@@ -55,7 +77,7 @@ constexpr int OFF_B2 = OFF_W2 + W * W;
 constexpr int OFF_WS = OFF_B2 + W;
 constexpr int OFF_BS = OFF_WS + W * SO;
 constexpr int OFF_WCF = OFF_BS + SO;
-constexpr int OFF_WCX = OFF_WCF + W * W;
+constexpr int OFF_WCX = OFF_WCF + SD * W;
 constexpr int OFF_BC = OFF_WCX + D * W;
 constexpr int OFF_WO = OFF_BC + W;
 constexpr int OFF_BO = OFF_WO + W * 3;

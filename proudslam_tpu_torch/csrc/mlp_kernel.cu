@@ -64,6 +64,11 @@ using namespace dec;
 
 namespace {
 
+// the resident plan; every other size builds the streamed sources
+// (render_stream.cu, mlp_stream.cu)
+static_assert(D == 16 && dec::W == 128 && dec::SD == 128,
+              "this plan holds the (16, 128, 128) decoder's weights");
+
 // ---- K3: the decoder backward on the tensor cores ----
 
 constexpr int K3_THREADS = 2 * tc::WG;

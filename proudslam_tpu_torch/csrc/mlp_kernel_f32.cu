@@ -72,7 +72,8 @@ constexpr int XT = D * AP;        // the input tile (D, TR)
 constexpr int STAGE = (W + D) * WP;   // w2 | ws (W x SO) | [wc_f; wc_x]
 constexpr int W1S = D * WP;       // w1, resident
 static_assert(SO <= WP, "ws fits a staged row");
-static_assert(THREADS == 8 * 32 && TR == 64 && W == 128 && D == 16,
+static_assert(THREADS == 8 * 32 && TR == 64 && W == 128 && SD == 128
+                  && D == 16,
               "the warp tilings below");
 
 // what the stage buffer holds

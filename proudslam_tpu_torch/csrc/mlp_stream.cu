@@ -1,0 +1,511 @@
+// Fused decoder forward (kernel K2) and backward (kernel K3) at every decoder
+// size other than (16, 128, 128): the streamed plan (decoder_stream.cuh).
+//
+// K2 replaces the TPU kernel `_fwd_kernel` and K3 `_bwd_kernel` of
+// proudslam_tpu/ops/pallas/mlp_kernel.py (`_run_fwd`, `_run_bwd`,
+// bf16=True), which take any decoder size; mlp_kernel.cu is the same pair at
+// (16, 128, 128), where the weights fit in shared memory. The functions and
+// rounding points are mlp_kernel.cu's: K2 maps x (N, D) f32 to out (N, 4)
+// [sigmoid(rgb), sdf]; K3 recomputes the forward per tile and returns dx
+// (N, D) and, unless dx-only, the 11 parameter gradients summed over all
+// rows, every product operand (cotangents included) rounded to bf16, bias
+// gradients f32 sums of the unrounded cotangents, ReLU masks from the
+// forward activations.
+//
+// What bounds them on an H100: arithmetic (at (16, 256, 128) ~2 * 140k
+// flops per row forward, 3x that for the full backward, against 80 bytes of
+// input and output), then the large weights' traffic from L2 (one read per
+// 64-row tile forward, two backward). Design:
+//   - K2 is K1's block without the blend: persistent blocks of two
+//     warpgroups on one tile at a time (tile = block, stride grid), x staged
+//     for the next tile with cp.async during this one's decoder, and the
+//     decoder is decoder_stream.cuh's `decode`, K1's, so K2 on K1's features
+//     gives K1's outputs bit for bit;
+//   - K3: each of P blocks (<= the SM count) walks a contiguous run of tiles
+//     and adds each tile's weight gradients into its own f32 slab, and
+//     reduce_partials_kernel (decoder_slab.cuh) sums the slabs in a fixed
+//     order: no float atomics, bitwise repeatable. Per tile it recomputes
+//     h1, h2, feat and hc into shared-memory tiles (hc in the tile that then
+//     holds dhc), then the backward chain, each streamed product giving 64
+//     finished columns per chunk, written in place over the forward tile
+//     whose ReLU mask it takes once that tile's weight gradient is done
+//     (dso over feat, dh2 over h2, dh1 over h1). The weight gradients
+//     (act^T cot, K = the tile's 64 rows) are split into 64 x 64 pieces
+//     over the two warpgroups; the bias gradients' per-warp column
+//     sums are folded into the slab in a fixed order after each product, so
+//     one 4 x W buffer serves all four. Four bf16 tiles of width W or SD
+//     beside the ring fit a block up to (16, 256, 256).
+// A ragged last tile is masked: its missing rows carry zero inputs and zero
+// cotangents (they add nothing to any gradient) and write no output.
+
+#include "decoder_slab.cuh"
+#include "decoder_stream.cuh"
+
+using namespace dec;
+using st::HALF;
+using st::Lane;
+
+namespace {
+
+// ---- K2 ----
+
+constexpr int K2_SMEM = tc::TC_SMALL_SMEM + st::RING_SMEM
+                        + 2 * pad16(tc::TR * W * 2) + pad16(tc::TR * D * 2)
+                        + pad16(tc::TR * D * 4) + st::PART_SMEM;
+static_assert(K2_SMEM <= 232448, "one block's shared memory");
+
+// Thread (row, q) = (t / 4, t % 4) copies x[row, 4q:4q + 4] of `tile` into
+// the staging buffer, if the row exists.
+__device__ __forceinline__ void stage_x(const float* __restrict__ x,
+                                        long long N, long long tile,
+                                        float* stage) {
+  const int row = threadIdx.x >> 2, q = threadIdx.x & 3;
+  const long long n = tile * tc::TR + row;
+  if (n < N) tc::cp_async16(stage + row * D + 4 * q, x + n * D + 4 * q);
+  tc::cp_async_commit();
+}
+
+__global__ void __launch_bounds__(st::THREADS, 1)
+decoder_forward_kernel(const float* __restrict__ x, Params prm,
+                       const bf16* wpack, float* __restrict__ out,
+                       long long N) {
+  extern __shared__ __align__(16) char smem[];
+  Arena arena{smem};
+  tc::TcWeights w;
+  tc::carve_small(arena, w);
+  st::Ring ring = st::ring_init(arena, wpack, st::NFWD);
+  bf16* hA = arena.take<bf16>(tc::TR * W);
+  bf16* hB = arena.take<bf16>(tc::TR * W);
+  bf16* xs = arena.take<bf16>(tc::TR * D);
+  float* stage = arena.take<float>(tc::TR * D);
+  float* part = arena.take<float>(2 * tc::TR * 4);
+  tc::load_weights(w, prm);                 // ends with a barrier
+
+  const int row = threadIdx.x >> 2, q = threadIdx.x & 3;
+  const long long ntiles = (N + tc::TR - 1) / tc::TR;
+  long long tile = blockIdx.x;
+  if (tile < ntiles) {
+    st::ring_start(ring);
+    stage_x(x, N, tile, stage);
+  }
+  for (; tile < ntiles; tile += gridDim.x) {
+    const bool more = tile + gridDim.x < ntiles;
+    tc::cp_async_wait_all();
+    // every thread's copy has landed; the barrier also keeps x's tile until
+    // the previous tile's products have finished
+    __syncthreads();
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (tile * tc::TR + row < N)
+      v = *reinterpret_cast<const float4*>(stage + row * D + 4 * q);
+    *reinterpret_cast<uint2*>(xs + tc::tofs(row, 4 * q, D)) =
+        make_uint2(tc::pack_bf16x2(v.x, v.y), tc::pack_bf16x2(v.z, v.w));
+    tc::fence_proxy_async();
+    __syncthreads();                  // x is in place; the stage is free
+    if (more) stage_x(x, N, tile + gridDim.x, stage);
+    st::decode(w, xs, hA, hB, part, ring, more, out, N, tile);
+  }
+}
+
+// ---- K3 ----
+
+constexpr int K3_SMEM = tc::TC_SMALL_SMEM + st::RING_SMEM
+                        + pad16(tc::TR * D * 2) + 3 * pad16(tc::TR * W * 2)
+                        + pad16(tc::TR * SD * 2) + pad16(tc::TR * 4 * 4)
+                        + pad16(4 * W * 4);
+static_assert(K3_SMEM <= 232448, "one block's shared memory");
+
+__device__ __forceinline__ void put(float* p, float v, bool first) {
+  *p = first ? v : *p + v;
+}
+
+// Column sums of acc (this warpgroup's columns from col0) over each warp's
+// 16 rows, unrounded f32, into cs[warp of the warpgroup][column]
+template <int NA>
+__device__ __forceinline__ void col_sums(const float (&acc)[NA], float* cs,
+                                         int col0) {
+  const int l = threadIdx.x & 31, wq = (threadIdx.x % tc::WG) >> 5;
+#pragma unroll
+  for (int i = 0; i < NA / 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float s = acc[4 * i + e] + acc[4 * i + 2 + e];
+      s += __shfl_xor_sync(0xffffffffu, s, 4);
+      s += __shfl_xor_sync(0xffffffffu, s, 8);
+      s += __shfl_xor_sync(0xffffffffu, s, 16);
+      if (l < 4) cs[wq * W + col0 + 8 * i + 2 * l + e] = s;
+    }
+}
+
+// dst[0:len] (+)= the four warps' column sums, added in a fixed order
+__device__ __forceinline__ void fold(const float* cs, float* dst, int len,
+                                     bool first) {
+  const int c = threadIdx.x;
+  if (c < len)
+    put(dst + c, ((cs[c] + cs[W + c]) + cs[2 * W + c]) + cs[3 * W + c],
+        first);
+}
+
+// dst (M x N, row-major) += act^T cot over the tile's rows, act (TR, M) and
+// cot (TR, N) tiles: pieces of 64 x 64, alternating between the
+// warpgroups. The slab's old values are loaded while the products run. (A
+// piece of 64 x 128, as in mlp_kernel.cu, takes 128 registers a thread for
+// its sums and old values: at width 256 the kernel then spills.)
+template <int M, int N>
+__device__ inline void wgrad(const bf16* act, const bf16* cot,
+                             float* __restrict__ dst, bool first,
+                             const Lane& ln) {
+  constexpr int NB = 64;
+  constexpr int JOBS = (M / 64) * (N / NB);
+  const int wg = threadIdx.x / tc::WG;
+#pragma unroll 1
+  for (int job = wg; job < JOBS; job += 2) {
+    const int mb = job / (N / NB) * 64, nb = job % (N / NB) * NB;
+    float acc[NB / 2];
+    float2 old[NB / 4];
+    const uint64_t da = tc::desc_mn(act + tc::tofs(0, mb, M), M);
+    const uint64_t db = tc::desc_mn(cot + tc::tofs(0, nb, N), N);
+    tc::fence_regs(acc);
+    tc::wg_fence();
+#pragma unroll
+    for (int j = 0; j < tc::TR / 16; ++j)
+      tc::mma_ss<NB, 1, 1>(acc, da + j * tc::kstep_mn(M),
+                           db + j * tc::kstep_mn(N), j > 0);
+    tc::wg_commit();
+    // entries 2i, 2i + 1: row mb + r0 + 8 (i % 2), columns nb + 8 (i / 2)
+    // + c2 + {0, 1}
+    float2* o = reinterpret_cast<float2*>(dst + (mb + ln.r0) * N + nb + ln.c2);
+#pragma unroll
+    for (int i = 0; i < NB / 4; ++i)
+      old[i] = first ? make_float2(0.f, 0.f) : o[(i & 1) * 4 * N + 4 * (i >> 1)];
+    tc::wg_wait_all();
+    tc::fence_regs(acc);
+#pragma unroll
+    for (int i = 0; i < NB / 4; ++i)
+      o[(i & 1) * 4 * N + 4 * (i >> 1)] =
+          make_float2(old[i].x + acc[2 * i], old[i].y + acc[2 * i + 1]);
+  }
+}
+
+// The 16-wide weight gradient dst (D, N) += x^T cot, computed transposed
+// (cot[:, mb:mb+64]^T x: M = 64 of cot's columns, N = D) and stored
+// transposed; the 64-column pieces alternate between the warpgroups.
+template <int N>
+__device__ inline void wgrad_x(const bf16* cot, const bf16* xs,
+                               float* __restrict__ dst, bool first,
+                               const Lane& ln) {
+  const int wg = threadIdx.x / tc::WG;
+#pragma unroll 1
+  for (int mb = 64 * wg; mb < N; mb += 128) {
+    float acc[8], old[8];
+    const uint64_t da = tc::desc_mn(cot + tc::tofs(0, mb, N), N);
+    const uint64_t db = tc::desc_mn(xs, D);
+    tc::fence_regs(acc);
+    tc::wg_fence();
+#pragma unroll
+    for (int j = 0; j < tc::TR / 16; ++j)
+      tc::mma_m64n16<1, 1>(acc, da + j * tc::kstep_mn(N),
+                           db + j * tc::kstep_mn(D), j > 0);
+    tc::wg_commit();
+    // entry 4i + e: column m = mb + r0 + 8 (e / 2) of cot, row k of x
+    float* o = dst + ln.c2 * N + mb + ln.r0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      old[i] = first ? 0.f : o[(8 * (i >> 2) + (i & 1)) * N + 8 * ((i >> 1) & 1)];
+    tc::wg_wait_all();
+    tc::fence_regs(acc);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      o[(8 * (i >> 2) + (i & 1)) * N + 8 * ((i >> 1) & 1)] = old[i] + acc[i];
+  }
+}
+
+__global__ void __launch_bounds__(st::THREADS, 1)
+decoder_backward_kernel(const float* __restrict__ x,
+                        const float* __restrict__ g, Params prm,
+                        const bf16* wpack, float* __restrict__ dx,
+                        float* __restrict__ partial, long long N,
+                        int tiles_per_block, int want_wgrad) {
+  extern __shared__ __align__(16) char smem[];
+  Arena arena{smem};
+  tc::TcWeights w;
+  tc::carve_small(arena, w);
+  st::Ring ring = st::ring_init(arena, wpack, 2 * st::NFWD);
+  bf16* xs = arena.take<bf16>(tc::TR * D);
+  bf16* h1 = arena.take<bf16>(tc::TR * W);    // later dh1
+  bf16* h2 = arena.take<bf16>(tc::TR * W);    // later dh2
+  bf16* dhc = arena.take<bf16>(tc::TR * W);   // hc, then dhc
+  bf16* feat = arena.take<bf16>(tc::TR * SD); // later dso[:, :SD]
+  float* rowv = arena.take<float>(tc::TR * 4);   // [dzo (3) | g_sdf]
+  float* cs = arena.take<float>(4 * W);
+  tc::load_weights(w, prm);                 // ends with a barrier
+
+  const int tid = threadIdx.x, wg = tid / tc::WG;
+  const Lane ln = st::lane();
+  const int c0 = HALF * wg;
+  float* slab = partial + static_cast<long long>(blockIdx.x) * NPARAM;
+  const long long ntiles = (N + tc::TR - 1) / tc::TR;
+  const long long tile0 = static_cast<long long>(blockIdx.x) * tiles_per_block;
+  const long long tile1 = min(ntiles, tile0 + tiles_per_block);
+  float acc[W / 4];
+  float accs[SD / 4];
+  float a16[16];
+  if (tile0 < tile1) st::ring_start(ring);
+
+  for (long long tile = tile0; tile < tile1; ++tile) {
+    const bool first = tile == tile0, more = tile + 1 < tile1;
+    const long long row0 = tile * tc::TR;
+    const int nvalid = static_cast<int>(min(static_cast<long long>(tc::TR), N - row0));
+
+    // inputs: thread (r, q) = (tid / 4, tid % 4) takes x[r, 4q:4q+4] (bf16)
+    // and keeps g[r, q]; missing rows are zeros
+    const int r = tid >> 2, q = tid & 3;
+    float gv = 0.f;
+    {
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r < nvalid) {
+        v = *reinterpret_cast<const float4*>(x + (row0 + r) * D + 4 * q);
+        gv = g[(row0 + r) * 4 + q];
+      }
+      *reinterpret_cast<uint2*>(xs + tc::tofs(r, 4 * q, D)) =
+          make_uint2(tc::pack_bf16x2(v.x, v.y), tc::pack_bf16x2(v.z, v.w));
+    }
+    tc::fence_proxy_async();
+    __syncthreads();
+
+    // forward recompute: h1, h2, feat, hc (bf16, shared memory)
+    st::product<HALF, 0, 0>(acc, tc::desc_k(xs, D), tc::KSTEP_K,
+                            tc::desc_k(w.w1 + tc::tofs(c0, 0, D), D),
+                            tc::KSTEP_K, D / 16, false);
+    st::store_tile(h1, W, acc, w.b1, true, c0, ln);
+    tc::fence_proxy_async();
+    st::fwd_stream<W, W>(acc, h1, ring, more, false);
+    st::store_tile(h2, W, acc, w.b2, true, c0, ln);
+    tc::fence_proxy_async();
+    st::fwd_stream<SD, W>(accs, h2, ring, more, false);
+    st::store_tile(feat, SD, accs, w.bs, false, SD / 2 * wg, ln);
+    tc::fence_proxy_async();
+    st::product<HALF, 0, 0>(acc, tc::desc_k(xs, D), tc::KSTEP_K,
+                            tc::desc_k(w.wc_x + tc::tofs(c0, 0, D), D),
+                            tc::KSTEP_K, D / 16, false);
+    st::fwd_stream<W, SD>(acc, feat, ring, more, true);
+    st::store_tile(dhc, W, acc, w.bc, true, c0, ln);    // hc
+    __syncthreads();
+
+    // color head and dzo = g_rgb * rgb * (1 - rgb): thread (r, q) sums
+    // hc[r, q W/4 : (q + 1) W/4] . wo, the four quarters are summed across
+    // lanes; rowv[r] = [dzo (3) | g_sdf] in f32
+    {
+      float p[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+      for (int m = 0; m < W / 32; ++m) {
+        const int k0 = q * (W / 4) + 8 * m;
+        const uint4 v = *reinterpret_cast<const uint4*>(dhc + tc::tofs(r, k0, W));
+        const uint32_t u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float2 h = tc::unpack_bf16x2(u[k]);
+          const float* wo = w.wo + 4 * (k0 + 2 * k);
+#pragma unroll
+          for (int c = 0; c < 3; ++c)
+            p[c] = fmaf(h.y, wo[4 + c], fmaf(h.x, wo[c], p[c]));
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        p[c] += __shfl_xor_sync(0xffffffffu, p[c], 1);
+        p[c] += __shfl_xor_sync(0xffffffffu, p[c], 2);
+      }
+      if (q < 3) {
+        const float s = q == 0 ? p[0] : (q == 1 ? p[1] : p[2]);
+        const float rgb = 1.f / (1.f + expf(-(s + w.bo[q])));
+        rowv[r * 4 + q] = gv * rgb * (1.f - rgb);
+      } else {
+        rowv[r * 4 + 3] = gv;
+      }
+    }
+    __syncthreads();
+
+    // dhc = (dzo wo^T) * (hc > 0), on the FMA units
+    {
+      float dz[2][3];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int c = 0; c < 3; ++c)
+          dz[h][c] = tc::rbf(rowv[(ln.r0 + 8 * h) * 4 + c]);
+#pragma unroll
+      for (int i = 0; i < W / 16; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float* wo = w.wo + 4 * (c0 + 8 * i + ln.c2 + (e & 1));
+          const float* d = dz[e >> 1];
+          acc[4 * i + e] = fmaf(d[2], wo[2], fmaf(d[1], wo[1], d[0] * wo[0]));
+        }
+    }
+    st::relu_mask(acc, dhc, W, c0, ln);
+    if (want_wgrad) {
+      col_sums(acc, cs, c0);                              // dbc
+      // dwo[k][c] = sum_r hc[r][k] dzo[r][c]; dbo[c] = sum_r dzo[r][c]
+      for (int e = tid; e < W * 3; e += st::THREADS) {
+        const int k = e / 3, c = e - 3 * k;
+        float s = 0.f;
+        for (int rr = 0; rr < tc::TR; ++rr)
+          s = fmaf(__bfloat162float(dhc[tc::tofs(rr, k, W)]),
+                   tc::rbf(rowv[rr * 4 + c]), s);
+        put(slab + OFF_WO + e, s, first);
+      }
+      if (tid < 3) {
+        float s = 0.f;
+        for (int rr = 0; rr < tc::TR; ++rr) s += rowv[rr * 4 + tid];
+        put(slab + OFF_BO + tid, s, first);
+      }
+    }
+    __syncthreads();                  // hc's readers are done
+    if (want_wgrad) fold(cs, slab + OFF_BC, W, first);
+    st::store_tile(dhc, W, acc, nullptr, false, c0, ln);
+    tc::fence_proxy_async();
+    __syncthreads();                  // dhc is in place; cs is free
+
+    if (want_wgrad) {
+      wgrad<SD, W>(feat, dhc, slab + S_WCF, first, ln);   // feat^T dhc
+      wgrad_x<W>(dhc, xs, slab + OFF_WCX, first, ln);     // x^T dhc
+      if (tid == 0) {
+        float s = 0.f;
+        for (int rr = 0; rr < tc::TR; ++rr) s += rowv[rr * 4 + 3];
+        put(slab + S_BS + SD, s, first);
+      }
+    }
+
+    // dso[:, :SD] = dfeat = dhc wc_f^T, over feat (its readers are done at
+    // the first chunk's barrier)
+#pragma unroll 1
+    for (int c = 0; c < st::NWC; ++c) {
+      const bf16* wc = st::acquire(ring, more);
+      st::bwd_chunk<W>(a16, dhc, wc);
+      const int col0 = st::CR * c + 32 * wg;
+      if (want_wgrad) col_sums(a16, cs, col0);           // dbs[:SD]
+      st::store_tile(feat, SD, a16, nullptr, false, col0, ln);
+    }
+    tc::fence_proxy_async();
+    __syncthreads();                  // dso is in place
+    if (want_wgrad) {
+      fold(cs, slab + S_BS, SD, first);
+      wgrad<W, SD>(h2, feat, slab + OFF_WS, first, ln);   // h2^T dso[:, :SD]
+      if (tid < W) {                                      // h2^T g_sdf
+        float s = 0.f;
+        for (int rr = 0; rr < tc::TR; ++rr)
+          s = fmaf(__bfloat162float(h2[tc::tofs(rr, tid, W)]),
+                   tc::rbf(rowv[rr * 4 + 3]), s);
+        put(slab + S_WS_SDF + tid, s, first);
+      }
+    }
+
+    // dh2 = (dso ws^T) * (h2 > 0), over h2: the SD feature columns on the
+    // tensor cores, the sdf column's rank-1 term g_sdf ws[:, SD]^T on the
+    // FMA units
+    const float gs[2] = {tc::rbf(rowv[ln.r0 * 4 + 3]),
+                         tc::rbf(rowv[(ln.r0 + 8) * 4 + 3])};
+#pragma unroll 1
+    for (int c = 0; c < st::NWS; ++c) {
+      const bf16* ws = st::acquire(ring, more);
+      st::bwd_chunk<SD>(a16, feat, ws);
+      const int col0 = st::CR * c + 32 * wg;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          a16[4 * i + e] = fmaf(gs[e >> 1],
+                                w.ws_sdf[col0 + 8 * i + ln.c2 + (e & 1)],
+                                a16[4 * i + e]);
+      st::relu_mask(a16, h2, W, col0, ln);
+      if (want_wgrad) col_sums(a16, cs, col0);           // db2
+      st::store_tile(h2, W, a16, nullptr, false, col0, ln);
+    }
+    tc::fence_proxy_async();
+    __syncthreads();                  // dh2 is in place
+    if (want_wgrad) {
+      fold(cs, slab + OFF_B2, W, first);
+      wgrad<W, W>(h1, h2, slab + OFF_W2, first, ln);      // h1^T dh2
+    }
+
+    // dh1 = (dh2 w2^T) * (h1 > 0), over h1
+#pragma unroll 1
+    for (int c = 0; c < st::NW2; ++c) {
+      const bf16* w2 = st::acquire(ring, more);
+      st::bwd_chunk<W>(a16, h2, w2);
+      const int col0 = st::CR * c + 32 * wg;
+      st::relu_mask(a16, h1, W, col0, ln);
+      if (want_wgrad) col_sums(a16, cs, col0);           // db1
+      st::store_tile(h1, W, a16, nullptr, false, col0, ln);
+    }
+    tc::fence_proxy_async();
+    __syncthreads();                  // dh1 is in place
+    if (want_wgrad) fold(cs, slab + OFF_B1, W, first);
+
+    // dx = dh1 w1^T + dhc wc_x^T: warpgroup wg takes columns 8wg..8wg+7
+    {
+      float d8[4];
+      st::product<8, 0, 1>(d8, tc::desc_k(h1, W), tc::KSTEP_K,
+                           tc::desc_mn(w.w1 + tc::tofs(0, 8 * wg, D), D),
+                           tc::kstep_mn(D), W / 16, false);
+      st::product<8, 0, 1>(d8, tc::desc_k(dhc, W), tc::KSTEP_K,
+                           tc::desc_mn(w.wc_x + tc::tofs(0, 8 * wg, D), D),
+                           tc::kstep_mn(D), W / 16, true);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int rr = ln.r0 + 8 * h;
+        if (rr < nvalid)
+          *reinterpret_cast<float2*>(dx + (row0 + rr) * D + 8 * wg + ln.c2) =
+              make_float2(d8[2 * h], d8[2 * h + 1]);
+      }
+    }
+    if (want_wgrad) wgrad_x<W>(h1, xs, slab + OFF_W1, first, ln);   // x^T dh1
+    __syncthreads();
+  }
+}
+
+}  // namespace
+
+// K2: out (N, 4) from x (N, D); `blocks` persistent blocks of two
+// warpgroups (<= tiles). wpack: scratch of st::PACKED bf16.
+// Returns cudaGetLastError() after the launches (0 = launched).
+extern "C" int decoder_forward(const float* x, const void* const* params,
+                               void* wpack, float* out, long long N,
+                               int blocks, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      decoder_forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      K2_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Params prm = params_from(params);
+  err = st::pack_weights(prm, static_cast<bf16*>(wpack), stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  decoder_forward_kernel<<<blocks, st::THREADS, K2_SMEM, stream>>>(
+      x, prm, static_cast<const bf16*>(wpack), out, N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K3: dx (N, D); dparams (NPARAM,) in FusedParams order when want_wgrad;
+// partial: (P, NPARAM) scratch; wpack: scratch of st::PACKED bf16. P blocks
+// each take tiles_per_block tiles.
+// Returns cudaGetLastError() after the launches (0 = launched).
+extern "C" int decoder_backward(const float* x, const float* g,
+                                const void* const* params, void* wpack,
+                                float* dx, float* dparams, float* partial,
+                                long long N, int P, int tiles_per_block,
+                                int want_wgrad, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      decoder_backward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      K3_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Params prm = params_from(params);
+  err = st::pack_weights(prm, static_cast<bf16*>(wpack), stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  decoder_backward_kernel<<<P, st::THREADS, K3_SMEM, stream>>>(
+      x, g, prm, static_cast<const bf16*>(wpack), dx, partial, N,
+      tiles_per_block, want_wgrad);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !want_wgrad) return static_cast<int>(err);
+  reduce_partials_kernel<<<(NPARAM + 255) / 256, 256, 0, stream>>>(
+      partial, dparams, P);
+  return static_cast<int>(cudaGetLastError());
+}

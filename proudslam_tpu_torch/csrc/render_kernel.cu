@@ -35,6 +35,11 @@ namespace {
 using tc::bf16;
 using dec::D;
 
+// the resident plan; every other size builds the streamed sources
+// (render_stream.cu, mlp_stream.cu)
+static_assert(D == 16 && dec::W == 128 && dec::SD == 128,
+              "this plan holds the (16, 128, 128) decoder's weights");
+
 constexpr int THREADS = 2 * tc::WG;          // two warpgroups, own tiles each
 constexpr int KS = 8 * D;                    // corner values of a hit slot
 constexpr int GROW = KS * 4 + 16;            // gather-buffer row, bytes (padded)

@@ -61,6 +61,7 @@ from proudslam_tpu_torch.geometry import camera, se3
 from proudslam_tpu_torch.models.decoder import init_decoder
 from proudslam_tpu_torch.models.pointnet import init_pointnet
 from proudslam_tpu_torch.ops import voxel_hash as vh
+from proudslam_tpu_torch.ops.kernels.mlp_kernel import check_kernel_sizes
 from proudslam_tpu_torch.parallel.engine import (gather_map_state,
                                                  place_map_state,
                                                  shard_embeddings)
@@ -121,8 +122,11 @@ class SlamSystem:
         if settings.map.coord_bits != 10:
             raise ValueError("the render stack assumes coord_bits == 10")
         self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("SlamSystem(device='cuda'): no CUDA device")
+        if self.device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError("SlamSystem(device='cuda'): no CUDA device")
+            # a fused decoder of a size its kernels are not built for
+            check_kernel_sizes(settings.decoder, settings.render.feature_mode)
         if mesh is not None:
             if mesh.device.type != self.device.type:
                 raise ValueError(f"mesh on {mesh.device}, SlamSystem on "

@@ -11,11 +11,15 @@ Ports of ``_run_fwd``/``_fwd_kernel`` and ``_run_bwd``/``_bwd_kernel`` in
 tensors and run :func:`decoder_fwd_plain` / :func:`decoder_bwd_plain` for
 CPU tensors; any other device raises. Both operand types of the Pallas
 kernels' ``_make_dot`` have a kernel: ``bf16=True`` launches
-``csrc/mlp_kernel.cu`` (bf16 operands on the tensor cores), ``bf16=False``
+``csrc/mlp_kernel.cu`` at the decoder size (16, 128, 128) and
+``csrc/mlp_stream.cu`` at the other sizes of :data:`BF16_SIZES`
+(bf16 operands on the tensor cores), ``bf16=False``
 ``csrc/mlp_kernel_f32.cu`` (f32 operands: the products on the tensor cores
 as three TF32 products with f32 sums, "3xTF32", within f32 tolerance of
 the true f32 product, except K3-f32's forward recompute, true f32 FMAs
-for its ReLU masks; the plain versions compute true f32).
+for its ReLU masks; the plain versions compute true f32) at
+:data:`F32_SIZES`. A size outside a form's set raises
+(:func:`check_kernel_sizes` refuses a configuration before it runs).
 Each form counts its own launches (``decoder_fwd.launches`` and
 ``decoder_fwd_f32.launches``, ``decoder_bwd.launches`` and
 ``decoder_bwd_f32.launches``). With bf16 operands the
@@ -28,6 +32,7 @@ cotangents, so it is not this function.)
 
 from __future__ import annotations
 
+import functools
 from types import SimpleNamespace
 from typing import NamedTuple, Optional, Tuple
 
@@ -38,6 +43,20 @@ from proudslam_tpu_torch.ops.kernels import build
 
 # rows of the kernels' tiles
 TILE_ROWS = 64
+
+# The decoder sizes (in_dim, width, sdf_dim) each CUDA kernel form is built
+# for, one library per size (``build.size_flags``); chip_smoke.py's kernel
+# phase holds every one against its plain version on the card. K1, K2 and
+# K3 (bf16 operands): in_dim 16, width and sdf_dim multiples of 64 up to
+# 256 with sdf_dim <= width. At (16, 128, 128) their weights stay in shared
+# memory (render_kernel.cu, mlp_kernel.cu); every other size streams the
+# large ones from L2 (render_stream.cu, mlp_stream.cu). K2-f32 and K3-f32
+# (f32 operands): (16, 128, 128) only, their shared memory being full there.
+BF16_SIZES = tuple((16, w, sd) for w in (64, 128, 192, 256)
+                   for sd in (64, 128, 192, 256) if sd <= w)
+F32_SIZES = (build.DEFAULT_SIZE,)
+KERNEL_SIZES = {"K1": BF16_SIZES, "K2": BF16_SIZES, "K3": BF16_SIZES,
+                "K2-f32": F32_SIZES, "K3-f32": F32_SIZES}
 
 
 class FusedParams(NamedTuple):
@@ -133,12 +152,42 @@ def decoder_bwd_plain(x: torch.Tensor, g: torch.Tensor, fp: FusedParams,
         return dx, grads
 
 
-def _check_kernel_inputs(x, g, fp):
+@functools.lru_cache(maxsize=16)
+def param_shapes(size: Tuple[int, int, int]) -> FusedParams:
+    """The 11 packed params' shapes at a decoder size."""
+    d, w, sd = size
+    return FusedParams(w1=(d, w), b1=(1, w), w2=(w, w), b2=(1, w),
+                       ws=(w, sd + 1), bs=(1, sd + 1), wc_f=(sd, w),
+                       wc_x=(d, w), bc=(1, w), wo=(w, 3), bo=(1, 3))
+
+
+def params_size(fp: FusedParams) -> Tuple[int, int, int]:
+    """The decoder size (in_dim, width, sdf_dim) of packed params; raises
+    if the 11 shapes do not agree on one."""
+    d, w = fp.w1.shape
+    size = (d, w, fp.ws.shape[1] - 1)
+    if tuple(t.shape for t in fp) != param_shapes(size):
+        raise ValueError(f"decoder params of shapes "
+                         f"{[tuple(t.shape) for t in fp]}: expected "
+                         f"{list(param_shapes(size))}")
+    return size
+
+
+def check_size(size: Tuple[int, int, int], form: str) -> None:
+    """Raises ``ValueError`` unless the CUDA kernel ``form`` ("K1", "K2",
+    "K3", "K2-f32" or "K3-f32") is built for the decoder ``size``."""
+    if tuple(size) not in KERNEL_SIZES[form]:
+        raise ValueError(
+            f"decoder size (in_dim, width, sdf_dim) = {tuple(size)}: the CUDA "
+            f"kernel {form} takes only {list(KERNEL_SIZES[form])}")
+
+
+def _check_kernel_inputs(x, g, fp, form) -> Tuple[int, int, int]:
+    size = params_size(fp)
+    check_size(size, form)
     N, D = x.shape
-    if D != 16 or fp.w2.shape != (128, 128) or fp.ws.shape != (128, 129):
-        raise ValueError("the CUDA decoder kernels take in_dim 16, width "
-                         f"128, sdf_dim 128; got x {tuple(x.shape)}, "
-                         f"w2 {tuple(fp.w2.shape)}, ws {tuple(fp.ws.shape)}")
+    if D != size[0]:
+        raise ValueError(f"x {tuple(x.shape)}: in_dim {size[0]} expected")
     if g is not None and g.shape != (N, 4):
         raise ValueError(f"g shape {tuple(g.shape)} != ({N}, 4)")
     for t in (x, *([] if g is None else [g]), *fp):
@@ -150,23 +199,50 @@ def _check_kernel_inputs(x, g, fp):
         if t.data_ptr() % 16:
             raise ValueError("decoder kernel rows are read as float4: x and "
                              "g must start 16-byte aligned")
+    return size
 
 
-def forward_grid(n_rows: int, sms: int) -> int:
+def streamed(size: Tuple[int, int, int]) -> bool:
+    """True where the bf16 kernels stream the large weights (every size but
+    (16, 128, 128)): render_stream.cu and mlp_stream.cu, which take a scratch
+    buffer for the packed weights and one 64-row tile per block at a time."""
+    return tuple(size) != build.DEFAULT_SIZE
+
+
+def packed_weights(size: Tuple[int, int, int], device) -> torch.Tensor:
+    """Scratch for the streamed kernels' bf16 copy of w2, ws and wc_f."""
+    _, w, sd = size
+    return torch.empty((w * w + 2 * w * sd,), dtype=torch.bfloat16,
+                       device=device)
+
+
+def _bf16_library(size, device):
+    """K2's and K3's library at ``size`` and its scratch tensors, passed as
+    pointers after the params: the streamed plan's packed weights, none for
+    the resident plan."""
+    if streamed(size):
+        return (build.load("mlp_stream", _bind_stream, size),
+                [packed_weights(size, device)])
+    return build.load("mlp_kernel", _bind), []
+
+
+def forward_grid(n_rows: int, sms: int, tiles_at_once: int = 2) -> int:
     """Blocks of K2 (and K1, which has the same block shape) for ``n_rows``
     rows: a persistent block of two warpgroups, each walking its own 64-row
     tiles (tile = 2 * block + warpgroup, stride 2 * blocks), so
     ``min(ceil(tiles / 2), sms)``: at most one block per SM and none
-    without a tile. No rows: 0, nothing to launch."""
+    without a tile. ``tiles_at_once=1``: the streamed plan's blocks, whose
+    two warpgroups share one tile (tile = block, stride blocks). No rows:
+    0, nothing to launch."""
     ntiles = -(-n_rows // TILE_ROWS)
-    return min(-(-ntiles // 2), sms)
+    return min(-(-ntiles // tiles_at_once), sms)
 
 
 def forward_f32_grid(n_rows: int, sms: int) -> int:
     """Blocks of K2-f32 for ``n_rows`` rows: persistent blocks of 256
     threads, block b taking the 64-row tiles b, b + blocks, ..., so
     ``min(tiles, sms)``. No rows: 0, nothing to launch."""
-    return min(-(-n_rows // TILE_ROWS), sms)
+    return forward_grid(n_rows, sms, 1)
 
 
 def backward_partition(n_rows: int, sms: int) -> Tuple[int, int]:
@@ -203,7 +279,7 @@ def decoder_fwd(x: torch.Tensor, fp: FusedParams,
         return torch.cat([rgb, sdf], dim=1)
     fp = FusedParams(*[t.detach().contiguous() for t in fp])
     x = x.detach().contiguous()
-    _check_kernel_inputs(x, None, fp)
+    size = _check_kernel_inputs(x, None, fp, "K2" if bf16 else "K2-f32")
     N = x.shape[0]
     out = torch.empty((N, 4), dtype=torch.float32, device=x.device)
     if N > 0:
@@ -211,8 +287,10 @@ def decoder_fwd(x: torch.Tensor, fp: FusedParams,
         args = (x.data_ptr(), build.pointer_array(fp), out.data_ptr(), N)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         if bf16:
-            err = build.load("mlp_kernel", _bind).decoder_forward(
-                *args, forward_grid(N, sms), stream)
+            lib, scratch = _bf16_library(size, x.device)
+            err = lib.decoder_forward(
+                *args[:2], *[t.data_ptr() for t in scratch], *args[2:],
+                forward_grid(N, sms, 1 if scratch else 2), stream)
             build.check(err, "decoder_forward")
             decoder_fwd.launches += 1
         else:
@@ -241,7 +319,7 @@ def decoder_bwd(x: torch.Tensor, g: torch.Tensor, fp: FusedParams,
         return decoder_bwd_plain(x, g, fp, want_wgrad, bf16)
     fp = FusedParams(*[t.detach().contiguous() for t in fp])
     x, g = x.detach().contiguous(), g.detach().contiguous()
-    _check_kernel_inputs(x, g, fp)
+    size = _check_kernel_inputs(x, g, fp, "K3" if bf16 else "K3-f32")
     N = x.shape[0]
     nparam = sum(t.numel() for t in fp)
     dx = torch.empty_like(x)
@@ -256,7 +334,9 @@ def decoder_bwd(x: torch.Tensor, g: torch.Tensor, fp: FusedParams,
                 blocks, per_block, int(want_wgrad),
                 torch.cuda.current_stream(x.device).cuda_stream)
         if bf16:
-            err = build.load("mlp_kernel", _bind).decoder_backward(*args)
+            lib, scratch = _bf16_library(size, x.device)
+            err = lib.decoder_backward(
+                *args[:3], *[t.data_ptr() for t in scratch], *args[3:])
             build.check(err, "decoder_backward")
             decoder_bwd.launches += 1
         else:
@@ -278,17 +358,22 @@ decoder_bwd.launches = 0
 decoder_bwd_f32 = SimpleNamespace(launches=0)
 
 
-def _argtypes(lib, fwd: str, bwd: str) -> None:
+def _argtypes(lib, fwd: str, bwd: str, wpack: bool = False) -> None:
     import ctypes
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    getattr(lib, fwd).argtypes = [p, p, p, ll, i, p]
+    w = [p] if wpack else []
+    getattr(lib, fwd).argtypes = [p, p, *w, p, ll, i, p]
     getattr(lib, fwd).restype = i
-    getattr(lib, bwd).argtypes = [p, p, p, p, p, p, ll, i, i, i, p]
+    getattr(lib, bwd).argtypes = [p, p, p, *w, p, p, p, ll, i, i, i, p]
     getattr(lib, bwd).restype = i
 
 
 def _bind(lib) -> None:
     _argtypes(lib, "decoder_forward", "decoder_backward")
+
+
+def _bind_stream(lib) -> None:
+    _argtypes(lib, "decoder_forward", "decoder_backward", wpack=True)
 
 
 def _bind_f32(lib) -> None:
@@ -323,6 +408,28 @@ def fused_applicable(dec: DecoderSettings) -> bool:
     of the tensors then chooses kernel or plain version)."""
     return (dec.use_fused_mlp and dec.depth == 2 and not dec.skips
             and dec.embedder == "none")
+
+
+def kernel_forms(dec: DecoderSettings, feature_mode: str) -> Tuple[str, ...]:
+    """The CUDA kernel forms a configuration launches on the card: none
+    unfused; K1 and K3 on the fused vox path (whatever ``matmul_dtype``
+    says, as the TPU kernels); K2 and K3 on the fused pcd path, K2-f32 and
+    K3-f32 there at f32 operands."""
+    if not fused_applicable(dec):
+        return ()
+    if feature_mode != "pcd":
+        return ("K1", "K3")
+    return ("K2", "K3") if dec.matmul_dtype == "bf16" else ("K2-f32",
+                                                            "K3-f32")
+
+
+def check_kernel_sizes(dec: DecoderSettings, feature_mode: str) -> None:
+    """Raises ``ValueError`` naming the size and the kernel form if a kernel
+    the configuration launches on the card is not built for its decoder
+    size. There is no fallback: a refused size is refused, not run
+    without the kernel."""
+    for form in kernel_forms(dec, feature_mode):
+        check_size((dec.in_dim, dec.width, dec.sdf_dim), form)
 
 
 def decoder_values_fused(params: dict, dec: DecoderSettings,

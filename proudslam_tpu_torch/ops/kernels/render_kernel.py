@@ -9,8 +9,10 @@ slot's packed voxel key, blend the slot's 8 corner embeddings trilinearly,
 and decode with bf16 operands and f32 sums (always bf16, like the TPU
 kernel, whatever ``matmul_dtype`` says).
 
-:func:`fused_render_forward` launches ``csrc/render_kernel.cu`` for CUDA
-tensors and runs :func:`fused_render_forward_plain` for CPU tensors.
+:func:`fused_render_forward` launches ``csrc/render_kernel.cu`` (decoder
+size (16, 128, 128)) or ``csrc/render_stream.cu`` (the other sizes of
+``mlp_kernel.BF16_SIZES``) for CUDA tensors and runs
+:func:`fused_render_forward_plain` for CPU tensors.
 :class:`FusedFeatsDecode` is the backward of ``_ffd_bwd``: kernel K3 for
 the decoder, then plain tensor code for the sample -> hit slot -> corner
 view fold and the trilinear derivative (plain XLA in the JAX package too).
@@ -27,7 +29,8 @@ from proudslam_tpu_torch.ops.interp import (CORNER_BITS, corner_bits,
                                             segment_sum_rows)
 from proudslam_tpu_torch.ops.kernels import build
 from proudslam_tpu_torch.ops.kernels.mlp_kernel import (
-    FusedParams, decoder_bwd, decoder_fwd_plain, forward_grid, pack_params)
+    FusedParams, check_size, decoder_bwd, decoder_fwd_plain, forward_grid,
+    pack_params, packed_weights, params_size, streamed)
 from proudslam_tpu_torch.ops.voxel_hash import unpack_key
 
 
@@ -82,9 +85,11 @@ def fused_render_forward(rb, keys_rb, bins, z, rays_o, rays_d,
                                               rays_d)]
     fp = FusedParams(*[t.detach().contiguous() for t in fp])
     rb, keys_rb, bins, z, rays_o, rays_d = args
-    if (D != 16 or fp.w2.shape != (128, 128) or fp.ws.shape != (128, 129)):
-        raise ValueError("the CUDA render kernel takes D=16 and width/"
-                         "sdf_dim 128")
+    size = params_size(fp)
+    check_size(size, "K1")
+    if D != size[0]:
+        raise ValueError(f"rb {tuple(rb.shape)}: 8 x in_dim {size[0]} "
+                         "corner values expected")
     shapes = {"keys_rb": (keys_rb, (R, H), torch.int32),
               "bins": (bins, (R, S), torch.int32),
               "z": (z, (R, S), torch.float32),
@@ -103,13 +108,19 @@ def fused_render_forward(rb, keys_rb, bins, z, rays_o, rays_d,
     feats = torch.empty((R * S, D), dtype=torch.float32, device=rb.device)
     if R * S == 0:
         return out, feats
-    lib = build.load("render_kernel", _bind)
+    scratch = []
+    if streamed(size):
+        lib = build.load("render_stream", _bind_stream, size)
+        scratch.append(packed_weights(size, rb.device))
+    else:
+        lib = build.load("render_kernel", _bind)
     sms = torch.cuda.get_device_properties(rb.device).multi_processor_count
     err = lib.fused_render_forward(
         rb.data_ptr(), keys_rb.data_ptr(), bins.data_ptr(), z.data_ptr(),
         rays_o.data_ptr(), rays_d.data_ptr(), build.pointer_array(fp),
-        out.data_ptr(), feats.data_ptr(), R, H, S, float(voxel_size),
-        forward_grid(R * S, sms),
+        *[t.data_ptr() for t in scratch], out.data_ptr(), feats.data_ptr(),
+        R, H, S, float(voxel_size),
+        forward_grid(R * S, sms, 1 if scratch else 2),
         torch.cuda.current_stream(rb.device).cuda_stream)
     build.check(err, "fused_render_forward")
     fused_render_forward.launches += 1
@@ -119,12 +130,17 @@ def fused_render_forward(rb, keys_rb, bins, z, rays_o, rays_d,
 fused_render_forward.launches = 0
 
 
-def _bind(lib) -> None:
+def _bind(lib, wpack: bool = False) -> None:
     import ctypes
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.fused_render_forward.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i,
-                                         f, i, p]
+    lib.fused_render_forward.argtypes = [p, p, p, p, p, p, p,
+                                         *([p] if wpack else []), p, p, i, i,
+                                         i, f, i, p]
     lib.fused_render_forward.restype = i
+
+
+def _bind_stream(lib) -> None:
+    _bind(lib, wpack=True)
 
 
 class FusedFeatsDecode(torch.autograd.Function):

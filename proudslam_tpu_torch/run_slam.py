@@ -117,15 +117,21 @@ def preview_targets(rgb, depth, width: int, height: int):
             resize_bicubic(np.asarray(depth, np.float32), width, height))
 
 
-def check_config(cfg):
+def check_config(cfg, device="cuda"):
     """The run's ``SystemSettings``, with the checks the CLI makes before
     it loads any data: raises ``ValueError`` on a setting the engine cannot
-    run, so that a run is refused at once rather than at its first frame."""
+    run, so that a run is refused at once rather than at its first frame.
+    On a CUDA ``device`` that includes a fused decoder whose size a CUDA
+    kernel it launches is not built for (the CPU runs the kernels' plain
+    versions, which take any size)."""
     from proudslam_tpu_torch.config import settings_from_config
     from proudslam_tpu_torch.models.decoder import embedded_size
+    from proudslam_tpu_torch.ops.kernels.mlp_kernel import check_kernel_sizes
 
     s = settings_from_config(cfg)
     embedded_size(s.decoder)          # raises on an unknown embedder
+    if torch.device(device).type == "cuda":
+        check_kernel_sizes(s.decoder, s.render.feature_mode)
     if s.render.pixel_sampler not in ("uniform", "gumbel"):
         raise ValueError(f"unknown pixel_sampler {s.render.pixel_sampler!r}")
     dbg = cfg.get("debug_args", {})
@@ -168,7 +174,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     from proudslam_tpu_torch.utils.metrics import ate_rmse
 
     cfg = load_config(args.config, parse_overrides(extra))
-    settings = check_config(cfg)
+    settings = check_config(cfg, args.device)
     device = torch.device(args.device)
     dataset = get_dataset(cfg)
 

@@ -1,5 +1,6 @@
 """The CUDA build's content hash: a built library is reused only while the
-flags, its source and every header under ``csrc/`` are unchanged. And the
+flags, its source and every header under ``csrc/`` are unchanged; each
+decoder size of a source is its own library. And the
 ``extern "C"`` entries of each source against the ``ctypes`` signatures its
 wrapper declares (names, argument count, and pointer against integer
 arguments), since a mismatch shows only on the card.
@@ -31,9 +32,10 @@ def csrc(tmp_path):
 
 
 def test_sources_and_headers_found():
-    assert {"render_kernel", "mlp_kernel", "mlp_kernel_f32"} <= set(SOURCES)
+    assert {"render_kernel", "mlp_kernel", "mlp_kernel_f32", "render_stream",
+            "mlp_stream"} <= set(SOURCES)
     assert {"decoder_tile.cuh", "decoder_tc.cuh", "decoder_chain.cuh",
-            "decoder_slab.cuh"} <= set(HEADERS)
+            "decoder_slab.cuh", "decoder_stream.cuh"} <= set(HEADERS)
 
 
 def _extern_c(source: str) -> dict:
@@ -59,7 +61,8 @@ class _Lib:
 
 @pytest.mark.parametrize("source,bind", [
     ("render_kernel", rk._bind), ("mlp_kernel", mk._bind),
-    ("mlp_kernel_f32", mk._bind_f32)])
+    ("mlp_kernel_f32", mk._bind_f32), ("render_stream", rk._bind_stream),
+    ("mlp_stream", mk._bind_stream)])
 def test_extern_c_entries_match_bindings(source, bind):
     lib = _Lib()
     bind(lib)
@@ -73,6 +76,22 @@ def test_extern_c_entries_match_bindings(source, bind):
 def test_copy_hashes_like_the_package(csrc):
     for name in SOURCES:
         assert build.library_path(name, csrc) == build.library_path(name)
+
+
+@pytest.mark.parametrize("name", SOURCES)
+def test_each_size_its_own_library(name):
+    """Two decoder sizes of one source give two libraries, each named by
+    its size, and a size's path is the same from call to call (and the
+    default size's is the path without a size)."""
+    a = build.library_path(name, size=(16, 64, 64))
+    b = build.library_path(name, size=(16, 256, 128))
+    assert a != b and a.parent == b.parent == build.BUILD_DIR
+    assert "_16x64x64_" in a.name and "_16x256x128_" in b.name
+    assert build.library_path(name, size=(16, 64, 64)) == a
+    assert (build.library_path(name, size=build.DEFAULT_SIZE)
+            == build.library_path(name))
+    assert build.size_flags((16, 256, 128)) == [
+        "-DDEC_D=16", "-DDEC_W=256", "-DDEC_SD=128"]
 
 
 @pytest.mark.parametrize("header", HEADERS)

@@ -167,7 +167,12 @@ def test_every_yaml_passes_the_checks(path):
 def test_check_config_refusals():
     """A setting the engine cannot run is refused before any data loads;
     the engine modes once refused (DDA, covisibility windows, the NeRF and
-    Gaussian embedders) give the JAX package's settings."""
+    Gaussian embedders) give the JAX package's settings. For the card (the
+    CLI's default device), a fused decoder of a size a CUDA kernel it
+    launches is not built for is refused naming the form: the f32 pcd
+    forms at widths 64 and 256, in_dim 32, a width that is no multiple of
+    64; the bf16 forms at the reference's (16, 256, 128) are accepted, and
+    the CPU (the kernels' plain versions) takes any size."""
     cfg = lambda *kv: load_config(CONFIG, dict(kv))  # noqa: E731
     for kv in ((("tpu_specs.intersect_mode", "dda"),),
                (("tpu_specs.covis_angle_deg", 30.0),),
@@ -187,6 +192,26 @@ def test_check_config_refusals():
         run_slam.check_config(cfg(("debug_args.render_freq", 5),
                                   ("debug_args.render_res", "640x480")))
     run_slam.check_config(cfg(("tpu_specs.feature_mode", "pcd")))
+    fused = (("tpu_specs.fused_mlp", True),)
+    pcd_f32 = fused + (("tpu_specs.feature_mode", "pcd"),
+                       ("tpu_specs.matmul_dtype", "f32"))
+    for kv, form in (
+            (pcd_f32 + (("decoder_specs.width", 64),
+                        ("decoder_specs.sdf_dim", 64)), "K2-f32"),
+            (pcd_f32 + (("decoder_specs.width", 256),), "K2-f32"),
+            (fused + (("decoder_specs.in_dim", 32),), "K1"),
+            (fused + (("decoder_specs.width", 96),
+                      ("decoder_specs.sdf_dim", 64)), "K1")):
+        with pytest.raises(ValueError, match=form):
+            run_slam.check_config(cfg(*kv))
+        run_slam.check_config(cfg(*kv), "cpu")
+    w256 = fused + (("decoder_specs.width", 256),
+                    ("tpu_specs.matmul_dtype", "bf16"))
+    for mode in ("vox", "pcd"):
+        s = run_slam.check_config(cfg(*w256, ("tpu_specs.feature_mode",
+                                              mode)))
+        assert (s.decoder.in_dim, s.decoder.width, s.decoder.sdf_dim) == (
+            16, 256, 128)
 
 
 @pytest.fixture

@@ -10,11 +10,16 @@ interpret=True)`` with both operand types, and ``decoder_values_fused``
 with its gradients (``FusedDecoder``: K2 forward, K3 backward) against
 ``jax.grad`` through the JAX package's ``decoder_values_fused(...,
 interpret=True)`` at a row count that is no multiple of its 2048-row tile:
-bf16 1e-3 and f32 1e-5 of each output's largest magnitude. Also: the weight
+bf16 1e-3 and f32 1e-5 of each output's largest magnitude. Those three
+run at two decoder sizes (in_dim, width, sdf_dim): (16, 64, 64) and the
+reference's wider (16, 256, 128), which the CUDA kernels take through
+their streamed plan. Also: the weight
 bridge round trip (exact) and ``decoder_values`` in f32 (1e-5) and bf16
 (1e-3: f32 accumulation order against XLA's, through bf16-rounded
 operands). On CPU tensors neither operand type launches a kernel: the f32
-forms' launch counters stay at 0 as the bf16 forms' do.
+forms' launch counters stay at 0 as the bf16 forms' do. And the size
+predicate: which kernel forms a configuration launches, the sizes each
+takes, and the refusal of the rest.
 """
 
 import dataclasses
@@ -34,7 +39,7 @@ from proudslam_tpu_torch.models.decoder import (decoder_values,
                                                 tree_leaves)
 from proudslam_tpu_torch.ops.kernels import mlp_kernel as tmk
 
-from torch_parity import DEC, assert_close_scaled, n, port, t
+from torch_parity import SIZED_DEC, DEC, assert_close_scaled, n, port, t
 
 FWD_TOL = {"bf16": 1e-3, "f32": 1e-5}
 
@@ -42,6 +47,13 @@ FWD_TOL = {"bf16": 1e-3, "f32": 1e-5}
 @pytest.fixture(scope="module")
 def params():
     return j_init(jax.random.PRNGKey(0), DEC)
+
+
+@pytest.fixture(scope="module", params=list(SIZED_DEC))
+def sized(request):
+    """(decoder settings, JAX params) at each decoder size of SIZED_DEC."""
+    dec = SIZED_DEC[request.param]
+    return dec, j_init(jax.random.PRNGKey(0), dec)
 
 
 def test_weight_bridge_roundtrip(params):
@@ -75,15 +87,16 @@ def test_pack_unpack_roundtrip(params):
 
 
 @pytest.mark.parametrize("seed", [2, 3])
-def test_decoder_bwd_plain_matches_pallas(params, seed):
+def test_decoder_bwd_plain_matches_pallas(sized, seed):
+    dec, params = sized
     rng = np.random.default_rng(seed)
     N = jmk.TILE
     x = rng.standard_normal((N, 16)).astype(np.float32)
     g = rng.standard_normal((N, 4)).astype(np.float32)
-    jfp = jmk.pack_params(params, DEC)
+    jfp = jmk.pack_params(params, dec)
     outs = jmk._run_bwd(jnp.asarray(x), jnp.asarray(g), jfp, interpret=True,
                         bf16=True)
-    fp = tmk.pack_params(params_from_jax(params, device="cpu"), port(DEC))
+    fp = tmk.pack_params(params_from_jax(params, device="cpu"), port(dec))
     dx, grads = tmk.decoder_bwd_plain(t(x), t(g), fp)
     assert_close_scaled(dx, outs[0], 1e-3, "dx")
     for name, a, b in zip(jmk.FusedParams._fields, grads, outs[1:]):
@@ -141,13 +154,14 @@ def test_f32_dispatch_cpu(params):
 
 
 @pytest.mark.parametrize("dtype", ["bf16", "f32"])
-def test_decoder_fwd_plain_matches_pallas(params, dtype):
+def test_decoder_fwd_plain_matches_pallas(sized, dtype):
+    dec, params = sized
     bf16 = dtype == "bf16"
     x = np.random.default_rng(5).standard_normal(
         (jmk.TILE, 16)).astype(np.float32)
-    a = jmk._run_fwd(jnp.asarray(x), jmk.pack_params(params, DEC),
+    a = jmk._run_fwd(jnp.asarray(x), jmk.pack_params(params, dec),
                      interpret=True, bf16=bf16)
-    fp = tmk.pack_params(params_from_jax(params, device="cpu"), port(DEC))
+    fp = tmk.pack_params(params_from_jax(params, device="cpu"), port(dec))
     before = tmk.decoder_fwd.launches
     b = tmk.decoder_fwd(t(x), fp, bf16=bf16)
     assert tmk.decoder_fwd.launches == before      # no kernel on the CPU
@@ -156,8 +170,9 @@ def test_decoder_fwd_plain_matches_pallas(params, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["bf16", "f32"])
-def test_decoder_values_fused_and_grads_match(params, dtype):
-    dec = dataclasses.replace(DEC, matmul_dtype=dtype)
+def test_decoder_values_fused_and_grads_match(sized, dtype):
+    dec, params = sized
+    dec = dataclasses.replace(dec, matmul_dtype=dtype)
     rng = np.random.default_rng(6)
     N = 1000                                  # no multiple of jmk.TILE
     x = rng.standard_normal((N, 16)).astype(np.float32)
@@ -259,3 +274,52 @@ def test_fused_decoder_skips_weight_grads(params):
     with pytest.raises(ValueError):
         tmk.decoder_fwd(x.detach().to("meta"),
                         tmk.FusedParams(*[p.to("meta") for p in fp]))
+
+
+@pytest.mark.parametrize("mode,dtype,forms", [
+    ("vox", "bf16", ("K1", "K3")), ("vox", "f32", ("K1", "K3")),
+    ("pcd", "bf16", ("K2", "K3")), ("pcd", "f32", ("K2-f32", "K3-f32"))])
+def test_kernel_forms(mode, dtype, forms):
+    """The kernel forms a fused configuration launches on the card (the vox
+    path's are bf16 whatever ``matmul_dtype`` says); none unfused."""
+    dec = dataclasses.replace(port(DEC), matmul_dtype=dtype)
+    assert tmk.kernel_forms(dec, mode) == forms
+    assert tmk.kernel_forms(dataclasses.replace(dec, use_fused_mlp=False),
+                            mode) == ()
+
+
+def test_kernel_sizes_refused():
+    """The bf16 forms take every width and sdf_dim in 64..256 (multiples of
+    64, sdf_dim <= width) at in_dim 16, the f32 forms (16, 128, 128) only;
+    ``check_kernel_sizes`` refuses the rest naming size and form, and the
+    wrappers' check refuses params whose shapes disagree on a size."""
+    assert len(tmk.BF16_SIZES) == 10
+    for size in ((16, 64, 64), (16, 128, 128), (16, 256, 128)):
+        assert size in tmk.BF16_SIZES
+    base = port(DEC)
+    for w, sd in ((64, 64), (128, 64), (192, 192), (256, 128), (256, 256)):
+        tmk.check_kernel_sizes(
+            dataclasses.replace(base, width=w, sdf_dim=sd), "vox")
+    for kw, mode, form in (
+            (dict(width=96, sdf_dim=64), "vox", "K1"),
+            (dict(width=320, sdf_dim=128), "pcd", "K2"),
+            (dict(width=128, sdf_dim=192), "vox", "K1"),
+            (dict(in_dim=32), "vox", "K1"),
+            (dict(width=256, sdf_dim=128, matmul_dtype="f32"), "pcd",
+             "K2-f32"),
+            (dict(width=64, sdf_dim=64, matmul_dtype="f32"), "pcd",
+             "K2-f32")):
+        with pytest.raises(ValueError, match=form):
+            tmk.check_kernel_sizes(dataclasses.replace(base, **kw), mode)
+    tmk.check_kernel_sizes(dataclasses.replace(
+        base, width=128, sdf_dim=128, matmul_dtype="f32"), "pcd")
+    fp = tmk.pack_params(params_from_jax(j_init(jax.random.PRNGKey(0), DEC),
+                                         device="cpu"), port(DEC))
+    assert tmk.params_size(fp) == (16, 64, 64)
+    bad = fp._replace(wc_f=fp.wc_f[:32])
+    with pytest.raises(ValueError, match="shapes"):
+        tmk.params_size(bad)
+    x = torch.zeros((64, 16))
+    assert tmk._check_kernel_inputs(x, None, fp, "K2") == (16, 64, 64)
+    with pytest.raises(ValueError, match="K2-f32"):
+        tmk._check_kernel_inputs(x, None, fp, "K2-f32")

@@ -3,7 +3,9 @@ against the JAX package's with its fused Pallas branches forced on
 (interpret mode, as ``tests/test_fused_render.py`` does), on the same map,
 rays and noise. Outputs and the gradients the SLAM loops consume
 (embeddings for mapping, ray origins/directions for tracking, decoder
-params) are compared, for the vox branch (kernel K1), the unfused vox
+params) are compared, for the vox branch (kernel K1; also at the
+reference's wider decoder, (in_dim, width, sdf_dim) = (16, 256, 128),
+which the CUDA kernels take through their streamed plan), the unfused vox
 branch (``use_fused_mlp=False``: ``gather_ray_features`` + the plain
 decoder, at f32 and bf16 decoder operands) and the pcd branch (PointNet
 features, kernels K2/K3; there the PointNet params' gradients too). The JAX pcd branch reaches K2 only on a TPU backend, so
@@ -42,8 +44,8 @@ from proudslam_tpu_torch.models.decoder import (map_state_from_numpy,
 from proudslam_tpu_torch.render import losses as tl
 from proudslam_tpu_torch.render import renderer as tr
 
-from torch_parity import (DEC, MAP, RENDER, assert_close_scaled, map_coords,
-                          n, port, ray_batch, t)
+from torch_parity import (DEC, MAP, RENDER, SIZED_DEC, assert_close_scaled,
+                          map_coords, n, port, ray_batch, t)
 from torch_parity import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -75,9 +77,12 @@ UNFUSED_TOL = {"f32": (1e-4, 1e-5, 1e-4), "bf16": (2e-3, 1e-3, 5e-3)}
     (False, DEC), (True, DEC),
     (True, dataclasses.replace(DEC, use_fused_mlp=False,
                                matmul_dtype="f32")),
-    (True, dataclasses.replace(DEC, use_fused_mlp=False))],
-    ids=["False", "True", "unfused-f32", "unfused-bf16"])
+    (True, dataclasses.replace(DEC, use_fused_mlp=False)),
+    (True, SIZED_DEC["16x256x128"])],
+    ids=["False", "True", "unfused-f32", "unfused-bf16", "fused-16x256x128"])
 def test_render_and_loss_match(case, depth_variance, dec):
+    if (dec.width, dec.sdf_dim) != (DEC.width, DEC.sdf_dim):
+        case = case[:1] + (j_init(jax.random.PRNGKey(1), dec),) + case[2:]
     _check_render_and_loss(case, depth_variance, dec, RENDER)
 
 

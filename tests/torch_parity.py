@@ -15,6 +15,12 @@ RENDER = RenderSettings(voxel_size=0.2, step_size=0.05, max_hits=6,
                         max_samples=24)
 DEC = DecoderSettings(depth=2, width=64, in_dim=16, sdf_dim=64,
                       matmul_dtype="bf16", use_fused_mlp=True)
+# the decoder sizes (in_dim, width, sdf_dim) of the kernel parity cases:
+# the small default and the reference's wider decoder (width 256)
+SIZED_DEC = {"16x64x64": DEC,
+             "16x256x128": DecoderSettings(
+                 depth=2, width=256, in_dim=16, sdf_dim=128,
+                 matmul_dtype="bf16", use_fused_mlp=True)}
 
 
 def port(settings):
