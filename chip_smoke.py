@@ -10,14 +10,15 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build: compile the CUDA kernels from ``proudslam_tpu_torch/csrc`` (one
    ``nvcc`` per source and decoder size, all started together): the three
    sources at the bench decoder's (in_dim, width, sdf_dim) = (16, 128,
-   128), and ``render_stream.cu`` and ``mlp_stream.cu`` (the streamed
-   plan) at each of the nine other sizes of ``mlp_kernel.BF16_SIZES``;
+   128), and ``render_stream.cu``, ``mlp_stream.cu`` and
+   ``mlp_stream_f32.cu`` (the streamed plans) at each of the nine other
+   sizes of ``mlp_kernel.BF16_SIZES`` (= ``F32_SIZES``);
    each library's ``-Xptxas -v`` report (registers, spills, wgmma
    warnings) and its count of tensor-core instructions (HGMMA, HMMA) and
    FFMA in ``cuobjdump -sass`` are logged; K1, K2 and K3 must each hold
    HGMMA, no HMMA, and no spills at every size; K2-f32 and K3-f32 (f32
    operands, 3xTF32 on ``mma.sync``; K3-f32's forward recompute FFMA)
-   HMMA, no HGMMA, and no spills;
+   HMMA, no HGMMA, and no spills at every size;
 3. kernels: run each kernel at the slices' mapping and tracking shapes
    (1024 rays, 65,536 rows) on inputs from the real pipeline and hold it
    against its plain PyTorch version (stated tolerances; K3 full and
@@ -41,14 +42,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    and K3 at each other size of ``mlp_kernel.BF16_SIZES`` (``size_phase``:
    the K1 inputs above, that size's ``init_decoder`` params; K3's dx there
    held on the rows away from a ReLU kink, ``MARGIN_FLIP``), with times,
-   bounds and shares;
+   bounds and shares; and of K2-f32 and K3-f32 (full and dx-only) at each
+   other size of ``mlp_kernel.F32_SIZES`` (``f32_size_phase``: the pcd
+   features above at the mapping, tracking and a ragged row count, that
+   size's params, the f32 tolerances, K3-f32's dx held on the rows of
+   margin >= ``MARGIN_FLIP_F32``), with times against the f32 matmul
+   chain, the 3xTF32 bound and its share. Then every form at the decoder
+   sizes of ``PAD_SIZES``, which the kernels take zero-padded to a built
+   size (``pad_phase``: in_dim 8, a width no multiple of 64, sdf_dim >
+   width, a size landing on a streamed one), at the tracking shape
+   against its plain version at the unpadded size with each form's
+   tolerance, and every padded gradient entry exactly 0;
 4b. vox-w256 slice: the vox slice's configuration with the reference's
    wider decoder (16, 256, 128) over the first 10 frames: K1 and K3 (their
    streamed plan) launched, K2 and the f32 forms not, the poses finite and
    the unaligned ATE under 3 cm; then ``run_slam.check_config`` for the
-   card must refuse the fused pcd path at f32 operands at that size
-   (K2-f32 and K3-f32 are built only at (16, 128, 128)) with no launch,
-   and accept it at bf16 operands;
+   card must accept the fused pcd path at f32 operands at that size and
+   at a padded size, and refuse in_dim 32 and width 320 (no built size
+   covers them) naming the size and the form, with no launch;
 4. vox slice: the bench configuration with the fused render path on
    (``config.bench_settings``): ``SlamSystem.initialize`` (200 mapping
    iterations), 39 ``process_frame`` calls over the first 40 frames of the
@@ -76,7 +87,12 @@ Phases, in order; any failure raises and the script exits non-zero:
 5b. pcd-f32 slice: the pcd slice with ``matmul_dtype="f32"`` (the
    configs' default operand type): K2-f32 and K3-f32 must have been
    launched and K1, K2 and K3 not, the poses finite and the unaligned ATE
-   under the pcd slice's 60 cm;
+   under the pcd slice's 60 cm; then pcd-f32-w256, the same at the
+   reference's wider decoder (16, 256, 128), which runs the streamed f32
+   plan: K2-f32 and K3-f32 launched and no other kernel, the poses finite,
+   and K2-f32 and K3-f32 on the decoder the slice trained held against
+   their plain versions (f32 tolerances); its ATE is logged without a
+   bound (the note at PCD_ATE_LIMIT_CM says why);
 5c. resample run: the vox configuration with ``fixed_sample_batch=False``
    in the tracker and the mapper (a fresh pixel batch per Adam iteration,
    intersected at the current pose) and the Gumbel pixel sampler, over the
@@ -236,6 +252,28 @@ K3_SMALL = (27, 91)
 # such rows.
 TOL_F32_FWD = 1e-5
 TOL_F32_BWD = 1e-4
+# K3-f32 at the streamed f32 plan's sizes (mlp_stream_f32.cu): its FFMA
+# forward recompute sums each output in sequence, the plain version's f32
+# matmuls (cuBLAS) in their own order, so where a hidden pre-activation is
+# within ~1e-6 of 0 the two can take different ReLU masks and that row's dx
+# differs by a whole term (on an H100, on rows of margin < 1e-6: up to
+# 5.3e-3 of dx's largest magnitude at (16, 256, 128) on N(0, 0.09) inputs,
+# 8.9e-3 at (16, 128, 64) on the pcd features; every row of margin >= 1e-6
+# within 4.1e-6). A weight gradient sums its rows' terms, which the random
+# cotangents make a random walk, so one flipped row moves it by ~1/sqrt(N)
+# of its largest magnitude: 5.1e-4 in wc_f, wc_x and bc at (16, 128, 64).
+# So there dx is held at TOL_F32_BWD on the rows at or above
+# MARGIN_FLIP_F32, the rows whose dx misses it may be at most
+# TOL_FLIP_SHARE of all (as the bf16 forms' dx at MARGIN_FLIP), and every
+# weight and bias gradient is held at TOL_F32_BWD on a second launch over
+# the rows at or above MARGIN_FLIP_F32 (the gradients over all rows are
+# logged).
+MARGIN_FLIP_F32 = 1e-6
+# decoder sizes no kernel is built for, which the kernels take zero-padded
+# to mlp_kernel.built_size: in_dim 8, a width that is no multiple of 64
+# (on the resident (16, 128, 128) kernels), sdf_dim > width, and a size
+# that lands on the streamed (16, 256, 256)
+PAD_SIZES = ((8, 40, 24), (16, 100, 72), (16, 128, 192), (12, 200, 256))
 K1_RAGGED = (1001, 40)    # rays x samples of K1's ragged check (40,040 rows)
 TRACK_RAYS = 1024         # the tracking shape: 1024 rays x S samples
 ATE_LIMIT_CM = 3.0
@@ -248,6 +286,15 @@ MESH_RES = 8
 CLI_ATE_LIMIT_CM = max(3.0, 1.5 * 0.666)
 CLI_CONFIG = os.path.join("configs", "synthetic", "room.yaml")
 PCD_ATE_LIMIT_CM = 60.0
+# pcd-f32-w256 (the pcd slice at (16, 256, 128), f32 operands) has no ATE
+# bound: the branch's drift there spreads over 21-73 cm in 5 frames among
+# runs whose decoders agree to 1e-5 per call (H100, 700 W: 72.9 cm with
+# K2-f32 / K3-f32, 58.9 with their plain versions, 69.4 with the bf16
+# kernels, 41.3 unfused; on the CPU 21.4 the port's plain versions, 30.2
+# the JAX engine, tests/test_torch_pcd_slam.py "bench f32 256"), so the
+# 60 cm of the width-128 slices cannot tell a broken kernel from a
+# drifting trajectory there. The slice holds the kernels on its trained
+# decoder instead (trained_decoder_check) and logs its ATE, as cli-pcd.
 N_FRAMES = 40
 PCD_FRAMES = 5
 RESAMPLE_FRAMES = 10
@@ -338,11 +385,12 @@ KERNEL_FUNCTIONS = (("render_kernel", "render_forward_kernel"),
 F32_FUNCTIONS = (("mlp_kernel_f32", "decoder_forward_f32_kernel"),
                  ("mlp_kernel_f32", "decoder_backward_f32_kernel"))
 LIBRARIES = ("render_kernel", "mlp_kernel", "mlp_kernel_f32")
-# the bf16 kernels' sources at every other decoder size of
-# mlp_kernel.BF16_SIZES (the streamed plan), one library per size; their
-# kernel functions carry KERNEL_FUNCTIONS' names
+# the kernels' sources at every other decoder size of mlp_kernel.BF16_SIZES
+# (= F32_SIZES: the streamed plans), one library per size; their kernel
+# functions carry KERNEL_FUNCTIONS' and F32_FUNCTIONS' names
 STREAM_LIBRARIES = {"render_kernel": "render_stream",
-                    "mlp_kernel": "mlp_stream"}
+                    "mlp_kernel": "mlp_stream",
+                    "mlp_kernel_f32": "mlp_stream_f32"}
 # the kernels' launch counters, by the name of the kernels JSON line
 KERNELS = ("fused_render_forward", "decoder_forward", "decoder_backward",
            "decoder_forward_f32", "decoder_backward_f32")
@@ -420,11 +468,11 @@ def _size_tag(size) -> str:
 
 def build_phase():
     """Build the libraries (one nvcc each, all started together): the three
-    sources at the bench decoder's size (16, 128, 128) and the streamed
-    sources at every other size of ``mlp_kernel.BF16_SIZES``; log the
-    ptxas report and the instruction counts -> (seconds, {kernel function:
-    its SASS counts and ptxas resources at (16, 128, 128)}, {size tag:
-    {kernel function: the same}} for the other sizes)."""
+    sources at the bench decoder's size (16, 128, 128) and the three
+    streamed sources at every other size of ``mlp_kernel.BF16_SIZES``; log
+    the ptxas report and the instruction counts -> (seconds, {kernel
+    function: its SASS counts and ptxas resources at (16, 128, 128)},
+    {size tag: {kernel function: the same}} at all ten sizes)."""
     from proudslam_tpu_torch.ops.kernels import build
     from proudslam_tpu_torch.ops.kernels.mlp_kernel import BF16_SIZES
 
@@ -457,7 +505,8 @@ def build_phase():
               for lib, fn in KERNEL_FUNCTIONS + F32_FUNCTIONS]
     checks += [(STREAM_LIBRARIES[lib], size, fn)
                for name, size in jobs if name == "mlp_stream"
-               for lib, fn in KERNEL_FUNCTIONS]
+               for lib, fn in KERNEL_FUNCTIONS + F32_FUNCTIONS]
+    f32_fns = {fn for _, fn in F32_FUNCTIONS}
     found, by_size = {}, {}
     for lib, size, fn in checks:
         counts = [c for f, c in sass[lib, size].items() if fn in f]
@@ -467,16 +516,17 @@ def build_phase():
                                  f"SASS and {len(res)} in the ptxas report "
                                  f"of {lib} at {size}")
         entry = {**counts[0], **res[0]}
+        by_size.setdefault(_size_tag(size), {})[fn] = entry
         if size == build.DEFAULT_SIZE:
             found[fn] = entry
             log(f"{fn}: {json.dumps(entry)}")
         else:
-            by_size.setdefault(_size_tag(size), {})[fn] = entry
             log(f"{fn} ({lib} at {size}): {json.dumps(entry)}")
-        if (lib, fn) in F32_FUNCTIONS:
+        if fn in f32_fns:
             if not (counts[0]["HMMA"] > 0 and counts[0]["HGMMA"] == 0):
-                raise AssertionError(f"{fn}: instructions {counts[0]}, "
-                                     "expected HMMA > 0, HGMMA 0")
+                raise AssertionError(f"{fn} at {size}: instructions "
+                                     f"{counts[0]}, expected HMMA > 0, "
+                                     "HGMMA 0")
         elif not (counts[0]["HGMMA"] > 0 and counts[0]["HMMA"] == 0):
             raise AssertionError(f"{fn} at {size}: tensor-core instructions "
                                  f"{counts[0]}, expected HGMMA > 0, HMMA 0")
@@ -668,6 +718,69 @@ def _dx_err_by_margin(mk, x, fp, dx_k, dx_p, bf16=True) -> dict:
         bins[f"[{lo:g}, {hi:g})"] = [
             int(sel.sum()), float(err[sel].max()) if bool(sel.any()) else 0.0]
     return bins
+
+
+def _k3_check(what, xn, gn, fp, wgrad, bf16, log_bins=False):
+    """K3 (``bf16``) or K3-f32 on ``xn``, ``gn`` against its plain version
+    at the decoder size of ``fp`` (a size no kernel is built for runs
+    padded): every weight and bias gradient within the form's tolerance
+    (TOL_GRAD_REL or TOL_F32_BWD) of its largest magnitude, dx within it on
+    the rows whose margin (smallest |hidden pre-activation|) is at least
+    MARGIN_FLIP (MARGIN_FLIP_F32), and the rows whose dx misses it at most
+    TOL_FLIP_SHARE of all (ReLU-mask flips). K3-f32's weight and bias
+    gradients are held on a second launch over the rows at or above
+    MARGIN_FLIP_F32 when any row is below it (the note at
+    MARGIN_FLIP_F32 says why) -> (largest absolute error, {output: error
+    over its largest magnitude}). Raises on a miss."""
+    import torch
+
+    from proudslam_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    tol, margin = ((TOL_GRAD_REL, MARGIN_FLIP) if bf16
+                   else (TOL_F32_BWD, MARGIN_FLIP_F32))
+
+    def run(x, g):
+        dx_k, gr_k = mk.decoder_bwd(x, g, fp, want_wgrad=wgrad, bf16=bf16)
+        dx_p, gr_p = mk.decoder_bwd_plain(x, g, fp, want_wgrad=wgrad,
+                                          bf16=bf16)
+        torch.cuda.synchronize()
+        rels, worst = {}, 0.0
+        for name, a, b in [("dx", dx_k, dx_p)] + (list(
+                zip(mk.FusedParams._fields, gr_k, gr_p)) if wgrad else []):
+            e = (a - b).abs().max().item()
+            rels[name] = float(f"{e / max(b.abs().max().item(), 1e-30):.3e}")
+            worst = max(worst, e)
+        return dx_k, dx_p, rels, worst
+
+    dx_k, dx_p, rels, worst = run(xn, gn)
+    row_err = ((dx_k - dx_p).abs().amax(1)
+               / dx_p.abs().max().clamp_min(1e-30))
+    safe = _margins(mk, xn, fp, bf16) >= margin
+    dx_safe = float(row_err[safe].max()) if bool(safe.any()) else 0.0
+    flips = float((row_err > tol).float().mean())
+    log(f"{what}, N={xn.shape[0]}, {'full' if wgrad else 'dx-only'}: "
+        f"max_abs_err over each output's largest magnitude "
+        f"{json.dumps(rels)}; dx on the {int(safe.sum())} rows of margin >= "
+        f"{margin} {dx_safe:.3e} (tol {tol}); share of rows whose dx misses "
+        f"{tol}: {flips:.2e} (tol {TOL_FLIP_SHARE})")
+    if log_bins:
+        log(f"{what}: dx error by the row's smallest |hidden "
+            "pre-activation|, {bin: [rows, max_abs_err over dx's largest "
+            "magnitude]}: "
+            + json.dumps(_dx_err_by_margin(mk, xn, fp, dx_k, dx_p, bf16)))
+    if wgrad and not bf16 and not bool(safe.all()):
+        _, _, safe_rels, e = run(xn[safe].contiguous(), gn[safe].contiguous())
+        worst = max(worst, e)
+        log(f"{what}, full, on the {int(safe.sum())} rows of margin >= "
+            f"{margin}: max_abs_err over each output's largest magnitude "
+            f"{json.dumps(safe_rels)} (tol {tol})")
+        rels = {**safe_rels, "dx": rels["dx"]}
+    grads = [v for k, v in rels.items() if k != "dx"]
+    if not (max(grads, default=0.0) <= tol and dx_safe <= tol
+            and flips <= TOL_FLIP_SHARE):
+        raise AssertionError(f"{what} disagrees with decoder_bwd_plain, "
+                             f"N={xn.shape[0]}")
+    return worst, rels
 
 
 def _entry(err, ms, plain_ms, bound, chain_ms=None):
@@ -1079,6 +1192,13 @@ def kernel_phase(device):
                                    inp["rays_d"], device)
     by_size = {_size_tag(size): size_phase(device, inp, size)
                for size in mk.BF16_SIZES if mk.streamed(size)}
+    f32_by_size = {_size_tag(size): f32_size_phase(device, x2, g, size,
+                                                   min(TR, N2))
+                   for size in mk.F32_SIZES if mk.streamed(size)}
+    for name in ("decoder_forward_f32", "decoder_backward_f32"):
+        f32[name]["sizes"] = {tag: st[name]
+                              for tag, st in f32_by_size.items()}
+    padded = pad_phase(device, inp, x2, g)
 
     m1, m2, m3 = k1["mapping"], k2["mapping"], k3["mapping"]
     sizes = {k: {tag: st[k] for tag, st in by_size.items()}
@@ -1102,7 +1222,7 @@ def kernel_phase(device):
                       pcd_gather_fwd_bwd_ms=gather_bwd_ms,
                       pcd_gather_peak_gb=gather_peak_gb,
                       k1_shift_err=shift1, k2_inputs=k2_inputs,
-                      pcd_render=render_errs),
+                      pcd_render=render_errs, pad=padded),
     }
 
 
@@ -1184,38 +1304,10 @@ def size_phase(device, inp, size) -> dict:
     cases += [("small ragged", x[nz[:n]], g[nz[:n]], True) for n in K3_SMALL]
     err3 = 0.0
     for label, xn, gn, wgrad in cases:
-        xn, gn = xn.contiguous(), gn.contiguous()
-        dx_k, gr_k = mk.decoder_bwd(xn, gn, fp, want_wgrad=wgrad)
-        dx_p, gr_p = mk.decoder_bwd_plain(xn, gn, fp, want_wgrad=wgrad)
-        torch.cuda.synchronize()
-        rels = {}
-        for name, a, b in [("dx", dx_k, dx_p)] + (list(
-                zip(mk.FusedParams._fields, gr_k, gr_p)) if wgrad else []):
-            e = (a - b).abs().max().item()
-            rels[name] = float(f"{e / max(b.abs().max().item(), 1e-30):.3e}")
-            err3 = max(err3, e)
-        row_err = ((dx_k - dx_p).abs().amax(1)
-                   / dx_p.abs().max().clamp_min(1e-30))
-        safe = _margins(mk, xn, fp) >= MARGIN_FLIP
-        dx_safe = float(row_err[safe].max()) if bool(safe.any()) else 0.0
-        flips = float((row_err > TOL_GRAD_REL).float().mean())
-        log(f"K3 at {size}, the {label} shape, N={xn.shape[0]}, "
-            f"{'full' if wgrad else 'dx-only'}: max_abs_err over each "
-            f"output's largest magnitude {json.dumps(rels)}; dx on the "
-            f"{int(safe.sum())} rows of margin >= {MARGIN_FLIP} "
-            f"{dx_safe:.3e} (tol {TOL_GRAD_REL}); share of rows whose dx "
-            f"misses {TOL_GRAD_REL}: {flips:.2e} (tol {TOL_FLIP_SHARE})")
-        if label == "mapping" and wgrad:
-            log(f"K3 at {size}: dx error at the mapping shape by the row's "
-                "smallest |hidden pre-activation|, {bin: [rows, max_abs_err "
-                "over dx's largest magnitude]}: "
-                + json.dumps(_dx_err_by_margin(mk, xn, fp, dx_k, dx_p)))
-        grads = [v for k, v in rels.items() if k != "dx"]
-        if not (max(grads, default=0.0) <= TOL_GRAD_REL
-                and dx_safe <= TOL_GRAD_REL and flips <= TOL_FLIP_SHARE):
-            raise AssertionError(f"K3 at {size} disagrees with "
-                                 f"decoder_bwd_plain at the {label} shape, "
-                                 f"N={xn.shape[0]}")
+        e, _ = _k3_check(f"K3 at {size}, the {label} shape", xn.contiguous(),
+                         gn.contiguous(), fp, wgrad, True,
+                         log_bins=label == "mapping" and wgrad)
+        err3 = max(err3, e)
     dx_k, gr_k = mk.decoder_bwd(x, g, fp)
     dx_k2, gr_k2 = mk.decoder_bwd(x, g, fp)
     dx_only, _ = mk.decoder_bwd(x, g, fp, want_wgrad=False)
@@ -1267,6 +1359,198 @@ def size_phase(device, inp, size) -> dict:
     return {"fused_render_forward": dict(max_abs_err=err1, shapes=k1),
             "decoder_forward": dict(max_abs_err=err1, shapes=k2),
             "decoder_backward": dict(max_abs_err=err3, shapes=k3)}
+
+
+def _decoder_at(device, size, seed):
+    """Packed ``init_decoder`` params of the bench decoder at ``size``."""
+    import torch
+
+    from proudslam_tpu_torch.config import bench_settings
+    from proudslam_tpu_torch.models.decoder import init_decoder
+    from proudslam_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    d, w, sd = size
+    dec = dataclasses.replace(bench_settings().decoder, in_dim=d, width=w,
+                              sdf_dim=sd)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    fp = mk.pack_params(init_decoder(gen, dec, device), dec)
+    return type(fp)(*[t.contiguous() for t in fp])
+
+
+def _k2_check(what, xn, fp, bf16, tol, size=None):
+    """K2 (``bf16``) or K2-f32 on ``xn`` against its plain version, each
+    output column within ``tol`` of its largest magnitude, and bitwise
+    repeatable -> (largest absolute error, the kernel's output)."""
+    import torch
+
+    from proudslam_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    out_k = mk.decoder_fwd(xn, fp, bf16=bf16)
+    _, _, _, sdf_p, _, rgb_p = mk.decoder_fwd_plain(xn, fp, bf16)
+    out_p = torch.cat([rgb_p, sdf_p], dim=1)
+    out_k2 = mk.decoder_fwd(xn, fp, bf16=bf16)
+    torch.cuda.synchronize()
+    scale = out_p.abs().amax(0).clamp_min(1e-30)
+    rel = ((out_k - out_p).abs().amax(0) / scale).tolist()
+    log(f"{what}, N={xn.shape[0]}: max_abs_err over each column's largest "
+        f"magnitude {[float(f'{v:.3e}') for v in rel]} (tol {tol})")
+    if not max(rel) <= tol:
+        raise AssertionError(f"{what} disagrees with decoder_fwd_plain")
+    if not torch.equal(out_k, out_k2):
+        raise AssertionError(f"{what} is not bitwise repeatable")
+    return (out_k - out_p).abs().max().item(), out_k
+
+
+def f32_size_phase(device, x, g, size, track_rows) -> dict:
+    """K2-f32 and K3-f32 at another size of ``mlp_kernel.F32_SIZES`` (the
+    streamed f32 plan, ``mlp_stream_f32.cu``) on the pcd features ``x``
+    with the cotangents ``g`` and that size's ``init_decoder`` params:
+    K2-f32 at the mapping, tracking and ragged shapes (each column within
+    TOL_F32_FWD of its largest magnitude), K3-f32 full and dx-only at the
+    mapping and tracking shapes and full at the ragged one (``_k3_check``:
+    every weight and bias gradient within TOL_F32_BWD, dx on the rows of
+    margin >= MARGIN_FLIP_F32), both bitwise repeatable; CUDA-event times
+    of each kernel, its plain version and the f32 matmul chain at both
+    shapes, with the 3xTF32 bound and its share -> {kernel: entry}. The
+    tracking shape is the first ``track_rows`` rows."""
+    import torch
+
+    from proudslam_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    fp = _decoder_at(device, size, 4)
+    flops = dec_flops(size)
+    N = x.shape[0]
+    shapes = (("mapping", N), ("tracking", track_rows),
+              ("ragged", N - K3_RAGGED))
+    err2 = err3 = 0.0
+    for label, rows in shapes:
+        xn, gn = x[:rows].contiguous(), g[:rows].contiguous()
+        e, _ = _k2_check(f"K2-f32 at {size}, the {label} shape", xn, fp,
+                         False, TOL_F32_FWD)
+        err2 = max(err2, e)
+        for wgrad in ((True, False) if label != "ragged" else (True,)):
+            e, _ = _k3_check(f"K3-f32 at {size}, the {label} shape", xn, gn,
+                             fp, wgrad, False,
+                             log_bins=label == "mapping" and wgrad)
+            err3 = max(err3, e)
+    dx_k, gr_k = mk.decoder_bwd(x, g, fp, bf16=False)
+    dx_k2, gr_k2 = mk.decoder_bwd(x, g, fp, bf16=False)
+    dx_only, _ = mk.decoder_bwd(x, g, fp, want_wgrad=False, bf16=False)
+    if not (torch.equal(dx_k, dx_k2) and torch.equal(dx_k, dx_only)
+            and all(torch.equal(a, b) for a, b in zip(gr_k, gr_k2))):
+        raise AssertionError(f"K3-f32 at {size} is not bitwise repeatable")
+
+    chain, leaves = _matmul_chain(fp, torch.float32)
+    k2, k3 = {}, {}
+    for shape, rows in shapes[:2]:
+        xn, gn = x[:rows].contiguous(), g[:rows].contiguous()
+        st = k2[shape] = dict(rows=rows)
+        st["ms"] = _event_ms(lambda: mk.decoder_fwd(xn, fp, bf16=False))
+        st["plain_ms"] = _event_ms(
+            lambda: mk.decoder_fwd_plain(xn, fp, False), reps=3)
+        with torch.no_grad():
+            st["matmul_chain_ms"] = _event_ms(lambda: chain(xn), reps=3)
+        st["bound_ms"], st["bound_by"] = _bound(
+            0, 0, _nbytes(xn, *fp) + rows * 4 * 4, flops * rows)
+        st = k3[shape] = dict(rows=rows)
+        st["ms"] = _event_ms(lambda: mk.decoder_bwd(xn, gn, fp, bf16=False))
+        st["plain_ms"] = _event_ms(
+            lambda: mk.decoder_bwd_plain(xn, gn, fp, bf16=False), reps=3)
+        st["dx_only_ms"] = _event_ms(lambda: mk.decoder_bwd(
+            xn, gn, fp, want_wgrad=False, bf16=False))
+        xg = xn.detach().clone().requires_grad_(True)
+
+        def chain_fwd_bwd():
+            for t in leaves + [xg]:
+                t.grad = None
+            chain(xg).backward(gn)
+        st["matmul_chain_ms"] = _event_ms(chain_fwd_bwd, reps=3)
+        st["bound_ms"], st["bound_by"] = _bound(
+            0, 0, _nbytes(xn, gn, *fp, xn, *gr_k), 3 * flops * rows)
+        st["dx_only_bound_ms"], _ = _bound(0, 0, _nbytes(xn, gn, *fp, xn),
+                                           2 * flops * rows)
+        st["dx_only_share"] = st["dx_only_bound_ms"] / st["dx_only_ms"]
+        for e in (k2, k3):
+            e[shape]["share"] = e[shape]["bound_ms"] / e[shape]["ms"]
+        a, b = k2[shape], k3[shape]
+        log(f"{shape} shape at {size}, f32 operands: K2-f32 {a['ms']:.3f} ms "
+            f"(plain {a['plain_ms']:.3f} ms, 3xTF32 bound "
+            f"{a['bound_ms']:.4f} ms, share {a['share']:.3f}; f32 "
+            f"torch.matmul chain forward {a['matmul_chain_ms']:.3f} ms); "
+            f"K3-f32 {b['ms']:.3f} ms (plain {b['plain_ms']:.3f} ms, 3xTF32 "
+            f"bound {b['bound_ms']:.4f} ms, share {b['share']:.3f}; chain "
+            f"forward+backward {b['matmul_chain_ms']:.3f} ms); K3-f32 "
+            f"dx-only {b['dx_only_ms']:.3f} ms (3xTF32 bound "
+            f"{b['dx_only_bound_ms']:.4f} ms, share "
+            f"{b['dx_only_share']:.3f}); {rows} rows")
+    return {"decoder_forward_f32": dict(max_abs_err=err2, shapes=k2),
+            "decoder_backward_f32": dict(max_abs_err=err3, shapes=k3)}
+
+
+def pad_phase(device, inp, x2, g) -> dict:
+    """Each kernel form at the decoder sizes of PAD_SIZES, which no kernel
+    is built for and which it runs zero-padded to ``mlp_kernel.built_size``,
+    at the tracking shape against its plain version at the unpadded size,
+    with each form's tolerance: K1 on the kernel phase's K1 inputs (each
+    corner's first in_dim features), K2 on K1's features (equal to K1's
+    outputs), K3 (full and dx-only, ``_k3_check``) on them, K2-f32 and
+    K3-f32 on the pcd features' first in_dim columns. And the kernels at
+    the built size, on inputs and params padded by ``pad_params``, return
+    exactly 0 in every padded entry of dx and of each weight gradient ->
+    {size tag: {form: largest absolute error}}."""
+    import torch
+
+    from proudslam_tpu_torch.ops.kernels import mlp_kernel as mk
+    from proudslam_tpu_torch.ops.kernels import render_kernel as rk
+
+    base = tuple(t[:TRACK_RAYS].contiguous()
+                 for t in (inp["rb"], inp["keys_rb"], inp["bins"], inp["z"],
+                           inp["rays_o"], inp["rays_d"]))
+    R, H, _ = base[0].shape
+    out = {}
+    for size in PAD_SIZES:
+        d = size[0]
+        built = mk.built_size(size)
+        fp = _decoder_at(device, size, 5)
+        rb = base[0].reshape(R, H, 8, -1)[..., :d].reshape(R, H, 8 * d)
+        a = (rb.contiguous(), *base[1:], fp, inp["voxel"])
+        out_k, feats_k = rk.fused_render_forward(*a)
+        out_p, feats_p = rk.fused_render_forward_plain(*a)
+        out_2 = mk.decoder_fwd(feats_k, fp)
+        torch.cuda.synchronize()
+        ef = (feats_k - feats_p).abs().max().item()
+        eo = (out_k - out_p).abs().max().item()
+        same = torch.equal(out_2, out_k)
+        log(f"pad: K1 at {size} (run at {built}): feats max_abs_err {ef:.3e} "
+            f"(tol {TOL_FEATS}), out {eo:.3e} (tol {TOL_K1_OUT}); K2 on K1's "
+            "feats " + ("bitwise equal to K1's out" if same else "differs"))
+        if not (feats_k.shape == feats_p.shape and ef <= TOL_FEATS
+                and eo <= TOL_K1_OUT and same):
+            raise AssertionError(f"K1 or K2 at the padded size {size} "
+                                 "disagrees with its plain version")
+        errs = {"K1": max(ef, eo), "K2": eo}
+        x = feats_p
+        gn = g[:x.shape[0]].contiguous()
+        xf = x2[:x.shape[0], :d].contiguous()
+        errs["K2-f32"], _ = _k2_check(f"pad: K2-f32 at {size}", xf, fp,
+                                      False, TOL_F32_FWD)
+        for bf16, xn, form in ((True, x, "K3"), (False, xf, "K3-f32")):
+            errs[form] = max(_k3_check(f"pad: {form} at {size}", xn, gn, fp,
+                                       wgrad, bf16)[0]
+                             for wgrad in (True, False))
+            dx_b, gr_b = mk.decoder_bwd(mk.pad_rows(xn, built[0]), gn,
+                                        mk.pad_params(fp, built), bf16=bf16)
+            again = mk.pad_params(mk.unpad_params(gr_b, size), built)
+            zeros = (not dx_b[:, d:].any().item()
+                     and all(torch.equal(p, q) for p, q in zip(again, gr_b)))
+            log(f"pad: {form} at {built} on padded inputs: every padded "
+                f"entry of dx and the weight gradients exactly 0: {zeros}")
+            if not zeros:
+                raise AssertionError(f"{form} at {built} gives a padded "
+                                     "gradient entry other than 0")
+        out[_size_tag(size)] = errs
+    return out
 
 
 def gaussian_check(device):
@@ -1383,11 +1667,13 @@ def pcd_render_check(r, rays_o, rays_d, device):
 
 
 def refusal_check() -> dict:
-    """``run_slam.check_config`` for the card refuses the fused pcd path at
-    f32 operands at width 256 (K2-f32 and K3-f32 are built only at
-    (16, 128, 128)) with a ``ValueError`` naming the form, before any data
-    loads and with no kernel launched; the same configuration at bf16
-    operands (K2 and K3 at (16, 256, 128)) is accepted."""
+    """``run_slam.check_config`` for the card accepts the fused pcd path at
+    f32 operands at the reference's (16, 256, 128), where K2-f32 and K3-f32
+    run their streamed plan, and at a padded size, (12, 200, 72); and
+    refuses in_dim 32 and width 320, which no built size covers, with a
+    ``ValueError`` naming the size and the form (K2-f32 on that path, K1 on
+    the fused vox path), before any data loads and with no kernel
+    launched."""
     from proudslam_tpu_torch.config import load_config
     from proudslam_tpu_torch.run_slam import check_config
 
@@ -1395,22 +1681,33 @@ def refusal_check() -> dict:
             "tpu_specs.matmul_dtype": "f32",
             "decoder_specs.width": W256_SIZE[1],
             "decoder_specs.sdf_dim": W256_SIZE[2]}
+    padded = {"decoder_specs.in_dim": 12, "decoder_specs.width": 200,
+              "decoder_specs.sdf_dim": 72}
     path = os.path.join(ROOT, CLI_CONFIG)
     before = _launches()
-    try:
-        check_config(load_config(path, dict(over)), "cuda")
-    except ValueError as e:
-        msg = str(e)
-    else:
-        raise AssertionError("check_config accepted the fused pcd path at "
-                             f"f32 operands at {W256_SIZE}")
-    if "K2-f32" not in msg:
-        raise AssertionError(f"the refusal names no f32 form: {msg}")
-    settings = check_config(load_config(
-        path, {**over, "tpu_specs.matmul_dtype": "bf16"}), "cuda")
+    accepted = []
+    for kv in (over, {**over, **padded}):
+        dec = check_config(load_config(path, dict(kv)), "cuda").decoder
+        accepted.append([dec.in_dim, dec.width, dec.sdf_dim])
+    refused = {}
+    for key, val in (("decoder_specs.in_dim", 32),
+                     ("decoder_specs.width", 320)):
+        for mode, form in (("pcd", "K2-f32"), ("vox", "K1")):
+            kv = {**over, "tpu_specs.feature_mode": mode, key: val}
+            try:
+                check_config(load_config(path, kv), "cuda")
+            except ValueError as e:
+                msg = str(e)
+            else:
+                raise AssertionError(f"check_config accepted {key}={val} on "
+                                     f"the fused {mode} path")
+            if form not in msg or str(val) not in msg:
+                raise AssertionError(f"the refusal names no {form} or size: "
+                                     f"{msg}")
+            refused[f"{mode} {key}={val}"] = msg
     if _launches() != before:
         raise AssertionError("a kernel launched in check_config")
-    st = {"refused": msg, "accepted_bf16_width": settings.decoder.width}
+    st = {"accepted_pcd_f32": accepted, "refused": refused}
     log("refusal: " + json.dumps(st))
     return st
 
@@ -1552,12 +1849,41 @@ def mesh_phase(slam, settings, frames, n_frames, est) -> dict:
     return st
 
 
+def trained_decoder_check(settings):
+    """``slice_phase``'s ``after`` for a fused pcd slice at f32 operands:
+    K2-f32 and K3-f32 (full and dx-only) on the decoder the slice trained,
+    against their plain versions at each form's tolerance (``_k2_check``,
+    ``_k3_check``), on TRACK_RAYS x S rows of features at the pcd branch's
+    scale (0.07 N(0, 1)) with 1e-2 N(0, 1) cotangents: the kernels on the
+    weights the engine reached, which the branch's drift cannot blur."""
+    def after(slam):
+        import torch
+
+        from proudslam_tpu_torch.ops.kernels import mlp_kernel as mk
+
+        fp = mk.pack_params(slam.decoder_params, settings.decoder)
+        fp = type(fp)(*[t.detach().contiguous() for t in fp])
+        gen = torch.Generator(device=slam.device)
+        gen.manual_seed(6)
+        rows = TRACK_RAYS * settings.render.max_samples
+        x = 0.07 * torch.randn((rows, settings.decoder.in_dim), generator=gen,
+                               device=slam.device)
+        g = 1e-2 * torch.randn((rows, 4), generator=gen, device=slam.device)
+        what = "on the slice's trained decoder"
+        e2, _ = _k2_check(f"K2-f32 {what}", x, fp, False, TOL_F32_FWD)
+        e3 = max(_k3_check(f"K3-f32 {what}", x, g, fp, wgrad, False)[0]
+                 for wgrad in (True, False))
+        return {"trained_decoder_max_abs_err": {"K2-f32": e2, "K3-f32": e3}}
+    return after
+
+
 def slice_phase(device, name, settings, frames, n_frames, ate_limit_cm,
                 launched, not_launched, mesh=False, setup=None, after=None,
                 engine_mesh=None):
     """``initialize``, ``process_frame`` over frames 1..n_frames-1 and
     ``global_refine(rounds=2)``; the kernels in ``launched`` must have been
-    launched in the run and those in ``not_launched`` not. ``mesh``: then
+    launched in the run and those in ``not_launched`` not, and the
+    unaligned ATE must be under ``ate_limit_cm`` (None: logged only). ``mesh``: then
     the slice's mesh (:func:`mesh_phase`). ``setup(slam)`` runs before the
     slice, ``after(slam)`` after its checks (after the launch counts are
     read), its dict joining the slice's stats. ``engine_mesh``: the
@@ -1621,7 +1947,7 @@ def slice_phase(device, name, settings, frames, n_frames, ate_limit_cm,
         moved = (slam.decoder_params["pointnet"]["fc"]["w"] - pn0).abs().max()
         if not float(moved) > 0:
             raise AssertionError(f"{name} slice: PointNet was not trained")
-    if not ate < ate_limit_cm:
+    if ate_limit_cm is not None and not ate < ate_limit_cm:
         raise AssertionError(
             f"{name} slice: unaligned ATE {ate:.3f} cm >= {ate_limit_cm}")
     if mesh:
@@ -2257,6 +2583,13 @@ def main() -> None:
     stats["pcd-f32"] = slice_phase(
         device, "pcd-f32", pcd_f32, frames, PCD_FRAMES, PCD_ATE_LIMIT_CM,
         launched=f32_kernels, not_launched=bf16_kernels)
+    pcd_f32_w256 = dataclasses.replace(pcd_f32, decoder=dataclasses.replace(
+        pcd_f32.decoder, in_dim=W256_SIZE[0], width=W256_SIZE[1],
+        sdf_dim=W256_SIZE[2]))
+    stats["pcd-f32-w256"] = slice_phase(
+        device, "pcd-f32-w256", pcd_f32_w256, frames, PCD_FRAMES, None,
+        launched=f32_kernels, not_launched=bf16_kernels,
+        after=trained_decoder_check(pcd_f32_w256))
     resample = dataclasses.replace(
         vox, render=dataclasses.replace(vox.render, pixel_sampler="gumbel"),
         tracker=dataclasses.replace(vox.tracker, fixed_sample_batch=False),
@@ -2303,27 +2636,27 @@ def main() -> None:
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     mlp = "proudslam_tpu/ops/pallas/mlp_kernel.py"
+    csrc = "proudslam_tpu_torch/csrc"
     meta = {
         "fused_render_forward": (
-            "proudslam_tpu_torch/csrc/render_kernel.cu",
-            "proudslam_tpu/ops/pallas/render_kernel.py:63", None,
-            "render_forward_kernel"),
+            "render_kernel", "proudslam_tpu/ops/pallas/render_kernel.py:63",
+            None, "render_forward_kernel"),
         "decoder_forward": (
-            "proudslam_tpu_torch/csrc/mlp_kernel.cu", f"{mlp}:132",
-            "bf16=True", "decoder_forward_kernel"),
+            "mlp_kernel", f"{mlp}:132", "bf16=True", "decoder_forward_kernel"),
         "decoder_backward": (
-            "proudslam_tpu_torch/csrc/mlp_kernel.cu", f"{mlp}:141",
-            "bf16=True", "decoder_backward_kernel"),
+            "mlp_kernel", f"{mlp}:141", "bf16=True",
+            "decoder_backward_kernel"),
         "decoder_forward_f32": (
-            "proudslam_tpu_torch/csrc/mlp_kernel_f32.cu", f"{mlp}:132",
-            "bf16=False", "decoder_forward_f32_kernel"),
+            "mlp_kernel_f32", f"{mlp}:132", "bf16=False",
+            "decoder_forward_f32_kernel"),
         "decoder_backward_f32": (
-            "proudslam_tpu_torch/csrc/mlp_kernel_f32.cu", f"{mlp}:141",
-            "bf16=False", "decoder_backward_f32_kernel"),
+            "mlp_kernel_f32", f"{mlp}:141", "bf16=False",
+            "decoder_backward_f32_kernel"),
     }
     record = {"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "replaces_form": form,
+        {"name": name, "route": "cuda", "source": f"{csrc}/{src}.cu",
+         "stream_source": f"{csrc}/{STREAM_LIBRARIES[src]}.cu",
+         "replaces": rep, "replaces_form": form,
          "launches": sum(st["launches"][name] for st in stats.values()),
          "launches_by_path": {p: st["launches"][name]
                               for p, st in stats.items()},

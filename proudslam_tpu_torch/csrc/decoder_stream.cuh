@@ -40,6 +40,7 @@
 // every product operand bf16 (round to nearest even), f32 sums.
 #pragma once
 
+#include "bulk_copy.cuh"
 #include "decoder_chain.cuh"
 
 namespace st {
@@ -110,45 +111,13 @@ inline cudaError_t pack_weights(const dec::Params& p, bf16* dst,
   return cudaGetLastError();
 }
 
-// ---- the ring: mbarriers and bulk copies ----
+// ---- the ring ----
 
-__device__ __forceinline__ uint32_t saddr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint64_t* b) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(saddr(b)),
-               "r"(1)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_fence_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-// one arrival that also expects `bytes` of bulk copies
-__device__ __forceinline__ void mbar_expect(uint64_t* b, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(saddr(b)), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* b, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(saddr(b)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* b) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(saddr(dst)),
-      "l"(src), "r"(bytes), "r"(saddr(b))
-      : "memory");
-}
+using bulk::bulk_copy;
+using bulk::mbar_expect;
+using bulk::mbar_fence_init;
+using bulk::mbar_init;
+using bulk::mbar_wait;
 
 // The chunks a block consumes, in order: `len` per tile (the forward's
 // NFWD, or K3's 2 NFWD: the forward's, then wc_f, ws and w2 again for the

@@ -1,0 +1,723 @@
+// Fused decoder forward (kernel K2-f32) and backward (kernel K3-f32) with f32
+// operands at every decoder size other than (16, 128, 128): the streamed f32
+// plan.
+//
+// They replace the TPU kernels `_fwd_kernel` and `_bwd_kernel` of
+// proudslam_tpu/ops/pallas/mlp_kernel.py traced with bf16=False (`_run_fwd`,
+// `_run_bwd`), which take any decoder size; mlp_kernel_f32.cu is the same
+// pair at (16, 128, 128), where the f32 weights but w1 fit a stage buffer
+// beside the activation tiles. The functions and the arithmetic are
+// mlp_kernel_f32.cu's: K2-f32 maps x (N, D) to out (N, 4) [sigmoid(rgb),
+// sdf]; K3-f32 recomputes the forward per tile and returns dx (N, D) and,
+// unless dx-only, the 11 parameter gradients summed over all rows. K2-f32's
+// products and K3-f32's backward products run on the tensor cores as three
+// TF32 products with f32 sums (3xTF32, tf32x3.cuh); K3-f32's forward
+// recompute, whose ReLU masks its backward takes, runs as FFMA in the plain
+// version's order (each output a sequential sum over k): 3xTF32 there
+// flipped masks of pre-activations within ~1e-6 of 0 (mlp_kernel_f32.cu);
+// the sdf column and the color logits are FFMA partial dots added in a
+// fixed order; bias add, ReLU, sigmoid, dzo and the column sums are exact
+// f32.
+//
+// What bounds them on an H100: arithmetic (~2 * 140k flops per row forward
+// at (16, 256, 128), 3x that for the full backward, against 80 bytes of
+// input and output), then the f32 weights' traffic from L2 and, for the
+// full backward, the slabs of partial weight gradients. Shared memory is
+// the wall: the f32 weights take 565 KB at (16, 256, 128) and 827 KB at
+// (16, 256, 256), and a 64-row f32 activation tile of width 256 takes 68 KB,
+// so K3-f32's four would not fit a block's 227 KB. So here:
+//   - tiles of RT = 32 rows, feature-major (act[k][row], row stride AP = 36
+//     floats: conflict-free fragment reads, as mlp_kernel_f32.cu's 68):
+//     36,864 bytes each at width 256;
+//   - w1 and wc_x (D x W) stay resident; w2, ws's feature part and wc_f
+//     stream from L2 through a ring of two shared-memory slots, 16 weight
+//     rows (a K-slice of a forward product) at a time, each slot filled by
+//     one bulk copy (bulk_copy.cuh) that completes on the slot's mbarrier,
+//     the next chunk in flight while this one's products run;
+//   - a per-launch pass (pack_weights_kernel) writes the streamed weights
+//     into a scratch buffer in exactly the chunks' layout (row stride WP =
+//     W + 4 floats), in the order a tile takes them: w2, ws's feature part,
+//     wc_f for the forward, then (K3-f32) the transposes wc_f^T, ws^T, w2^T
+//     for the backward, so that each backward product (dy w^T) is again a
+//     sum over K-slices of a row-major weight: the same product, the same
+//     warp tiling, every warp busy;
+//   - the 8 warps split each row x column product by its columns (32 rows
+//     x N / 8 columns a warp); a weight gradient (act^T cot, K = the tile's
+//     32 rows) is cut into 64 x 32 (16 x 32 for w1 and wc_x) warp tiles
+//     that the warps take in turn.
+// K3-f32 keeps mlp_kernel_f32.cu's reduction (decoder_slab.cuh): each block
+// walks a contiguous run of tiles and adds each tile's weight gradients
+// into its own f32 slab, and reduce_partials_kernel sums the slabs in a
+// fixed order: no float atomics, bitwise repeatable. The dx-only form
+// (tracking) writes no slab. A ragged last tile is masked: its missing rows
+// carry zero inputs and zero cotangents (they add nothing to any gradient)
+// and write no output.
+
+#include "bulk_copy.cuh"
+#include "decoder_slab.cuh"
+#include "tf32x3.cuh"
+
+using namespace dec;
+namespace tf = tf32x3;
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int NWARP = THREADS / 32;
+constexpr int RT = 32;              // rows of a tile
+constexpr int AP = RT + 4;          // activation row stride (floats)
+constexpr int CR = 16;              // weight rows of a streamed chunk
+constexpr int WP = W + 4;           // weight row stride (floats)
+constexpr int CHUNK = CR * WP;      // floats of a chunk, and of a ring slot
+constexpr int ACT = W * AP;         // one (W, RT) activation tile
+constexpr int XT = D * AP;          // the input tile
+constexpr int RES = D * WP;         // a resident (D, W) weight
+// chunks of each streamed weight, in the order a tile takes them
+constexpr int N_W2 = W / CR, N_WS = W / CR, N_WC = SD / CR;     // forward
+constexpr int N_WCT = W / CR, N_WST = SD / CR, N_W2T = W / CR;  // backward
+constexpr int NFWD = N_W2 + N_WS + N_WC;
+constexpr int NBWD = N_WCT + N_WST + N_W2T;
+// the packed buffer: NFWD + NBWD chunks, then ws's sdf column (W floats)
+constexpr int SDF_COL = (NFWD + NBWD) * CHUNK;
+constexpr int PACKED = SDF_COL + W;
+static_assert(THREADS == 8 * 32 && D == 16 && W % 64 == 0 && SD % 64 == 0
+                  && SD <= W && W <= 256,
+              "the warp tilings below");
+static_assert(SO <= WP, "a chunk row holds any streamed weight's row");
+
+constexpr int RING_SMEM = 2 * CHUNK * 4 + 16;   // two slots, two mbarriers
+constexpr int PART = 3 * NWARP * RT;   // 8 partial color logits x 3 per row
+constexpr int K2F_SMEM = 4 * (2 * ACT + XT + 2 * RES + NWARP * RT + PART)
+                         + RING_SMEM;
+constexpr int K3F_SMEM = 4 * (4 * ACT + XT + 2 * RES + 4 * RT + PART)
+                         + RING_SMEM;
+static_assert(K3F_SMEM <= 232448, "one block's shared memory");
+static_assert((ACT * 4) % 16 == 0 && (XT * 4) % 16 == 0 && (RES * 4) % 16 == 0
+                  && (CHUNK * 4) % 16 == 0,
+              "16-byte aligned pieces and bulk copies");
+
+__device__ __forceinline__ float ldg(const float* p) { return __ldg(p); }
+
+// f32 FusedParams -> the packed chunks (row stride WP, zeros past a row's
+// end): the first `nchunks` of the sequence and ws's sdf column
+__global__ void pack_weights_kernel(Params p, float* __restrict__ dst,
+                                    int nchunks) {
+  const int n = nchunks * CHUNK;
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < n + W;
+       e += gridDim.x * blockDim.x) {
+    if (e >= n) {
+      const int k = e - n;
+      dst[SDF_COL + k] = p.ws[k * SO + SD];
+      continue;
+    }
+    int i = e / CHUNK;
+    const int q = e - i * CHUNK, r = q / WP, c = q - r * WP;
+    float v = 0.f;
+    if (i < N_W2) {                                  // w2 (W, W)
+      if (c < W) v = p.w2[(i * CR + r) * W + c];
+    } else if ((i -= N_W2) < N_WS) {                 // ws[:, :SD] (W, SD)
+      if (c < SD) v = p.ws[(i * CR + r) * SO + c];
+    } else if ((i -= N_WS) < N_WC) {                 // wc_f (SD, W)
+      if (c < W) v = p.wc_f[(i * CR + r) * W + c];
+    } else if ((i -= N_WC) < N_WCT) {                // wc_f^T (W, SD)
+      if (c < SD) v = p.wc_f[c * W + i * CR + r];
+    } else if ((i -= N_WCT) < N_WST) {               // ws[:, :SD]^T (SD, W)
+      if (c < W) v = p.ws[c * SO + i * CR + r];
+    } else {                                         // w2^T (W, W)
+      i -= N_WST;
+      if (c < W) v = p.w2[c * W + i * CR + r];
+    }
+    dst[e] = v;
+  }
+}
+
+cudaError_t pack_weights(const Params& p, float* dst, int nchunks,
+                         cudaStream_t stream) {
+  pack_weights_kernel<<<(nchunks * CHUNK + W + 255) / 256, 256, 0, stream>>>(
+      p, dst, nchunks);
+  return cudaGetLastError();
+}
+
+// ---- the ring ----
+
+// The chunks a block consumes, in order: `len` per tile (NFWD for K2-f32,
+// NFWD + NBWD for K3-f32), the same sequence for every tile; chunk i of
+// the sequence is chunk i of the packed buffer.
+struct Ring {
+  float* slot;        // two slots of CHUNK floats
+  uint64_t* bar;      // their mbarriers
+  const float* src;   // the packed weights
+  int len;            // chunks per tile
+  int next;           // sequence index of the chunk the next acquire returns
+  int cur;            // its slot
+  uint32_t phase;     // bit s: the parity slot s completes next
+};
+
+// thread 0: the bulk copy of sequence index i into slot s
+__device__ __forceinline__ void issue(const Ring& r, int i, int s) {
+  bulk::mbar_expect(r.bar + s, CHUNK * 4);
+  bulk::bulk_copy(r.slot + s * CHUNK, r.src + static_cast<long long>(i) * CHUNK,
+                  CHUNK * 4, r.bar + s);
+}
+
+__device__ inline Ring ring_init(Arena& ar, const float* src, int len) {
+  Ring r;
+  r.slot = ar.take<float>(2 * CHUNK);
+  r.bar = ar.take<uint64_t>(2);
+  r.src = src;
+  r.len = len;
+  r.next = 0;
+  r.cur = 0;
+  r.phase = 0;
+  if (threadIdx.x == 0) {
+    bulk::mbar_init(r.bar);
+    bulk::mbar_init(r.bar + 1);
+    bulk::mbar_fence_init();
+  }
+  return r;
+}
+
+// The next chunk of the sequence, once it has landed. Every thread of the
+// block calls it at the same point, after its reads of the chunk before
+// (which lies in the other slot) and after its shared-memory writes that
+// the coming products read. It starts the chunk after it into the other
+// slot: the sequence's next, or, after a tile's last chunk, the next
+// tile's first if `more`.
+__device__ __forceinline__ const float* acquire(Ring& r, bool more) {
+  bulk::fence_proxy_async();
+  __syncthreads();
+  const int s = r.cur;
+  int nx = r.next + 1;
+  bool go = true;
+  if (nx == r.len) {
+    nx = 0;
+    go = more;
+  }
+  if (threadIdx.x == 0 && go) issue(r, nx, s ^ 1);
+  bulk::mbar_wait(r.bar + s, (r.phase >> s) & 1u);
+  r.phase ^= 1u << s;
+  r.cur = s ^ 1;
+  r.next = nx;
+  return r.slot + s * CHUNK;
+}
+
+// ---- products ----
+
+// A row x column product on the tensor cores: out(row, n) = sum over
+// K-slices of act[k][row] w[k][n] (act feature-major at stride AP, w
+// row-major at stride WP), N output columns, warp w taking columns
+// [w N / 8, (w + 1) N / 8) of all RT rows (2 x N / 64 tiles of 16 x 8).
+template <int N>
+struct Tc {
+  static constexpr int TN = N / 64;
+  float acc[2][TN][4];
+  __device__ __forceinline__ int n0() const { return (threadIdx.x >> 5) * (N / 8); }
+  __device__ __forceinline__ void zero() { tf::zero(acc); }
+  template <int K>
+  __device__ __forceinline__ void mm(const float* act, const float* w) {
+    tf::mm_fm<2, TN, K, true>(acc, act, AP, w, WP, 0, n0());
+  }
+  // dst[n][row] = act(out + bias[n])
+  __device__ __forceinline__ void store(float* dst,
+                                        const float* __restrict__ bias,
+                                        bool relu) {
+    tf::for_each_acc(acc, 0, n0(), [&](int r, int c, float& v) {
+      const float o = v + ldg(bias + c);
+      dst[c * AP + r] = relu ? fmaxf(o, 0.f) : o;
+    });
+  }
+};
+
+// The same product on the FP32 units, each output a sequential fused
+// multiply-add over k (K3-f32's forward recompute). Thread (ty, l) = (tid /
+// 32, tid % 32) owns rows 4 ty .. 4 ty + 3 and the column pairs 64 j + 2 l,
+// 64 j + 2 l + 1 (j < N / 64).
+template <int N>
+struct Fma {
+  static constexpr int NP = N / 64;
+  float acc[4][2 * NP];
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 2 * NP; ++j) acc[i][j] = 0.f;
+  }
+  template <int K>
+  __device__ __forceinline__ void mm(const float* act, const float* w) {
+    const int ty = threadIdx.x >> 5, l = threadIdx.x & 31;
+#pragma unroll 4
+    for (int r = 0; r < K; ++r) {
+      const float4 a = *reinterpret_cast<const float4*>(act + r * AP + 4 * ty);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+      for (int j = 0; j < NP; ++j) {
+        const float2 b =
+            *reinterpret_cast<const float2*>(w + r * WP + 64 * j + 2 * l);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc[i][2 * j] = fmaf(av[i], b.x, acc[i][2 * j]);
+          acc[i][2 * j + 1] = fmaf(av[i], b.y, acc[i][2 * j + 1]);
+        }
+      }
+    }
+  }
+  __device__ __forceinline__ void store(float* dst,
+                                        const float* __restrict__ bias,
+                                        bool relu) {
+    const int ty = threadIdx.x >> 5, l = threadIdx.x & 31;
+#pragma unroll
+    for (int j = 0; j < 2 * NP; ++j) {
+      const int c = 64 * (j >> 1) + 2 * l + (j & 1);
+      const float b = ldg(bias + c);
+      float v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        v[i] = acc[i][j] + b;
+        if (relu) v[i] = fmaxf(v[i], 0.f);
+      }
+      *reinterpret_cast<float4*>(dst + c * AP + 4 * ty) =
+          make_float4(v[0], v[1], v[2], v[3]);
+    }
+  }
+};
+
+// out = sum over the streamed chunks of act's K-slices times the chunks:
+// the `nchunks` next chunks of the ring, act's rows [CR c, CR c + CR) with
+// chunk c
+template <class P>
+__device__ __forceinline__ void stream_mm(P& f, const float* act, int nchunks,
+                                          Ring& r, bool more) {
+#pragma unroll 1
+  for (int c = 0; c < nchunks; ++c) {
+    const float* w = acquire(r, more);
+    f.template mm<CR>(act + c * CR * AP, w);
+  }
+}
+
+// Weight gradient over the tile's rows, added into the slab: out[m][n] (+)=
+// sum_row act[m][row] cot[n][row] for m < M, n < N, out row-major at
+// stride LDO in global memory; warp tiles of 64 x 32 (16 x 32 for M = D)
+// taken by the warps in turn. All of a warp tile's reads of the slab, then
+// its writes (each entry is one warp's); for M >= 64 a row's two
+// neighbouring entries as one 8-byte access (decoder_slab.cuh keeps those
+// blocks at even offsets).
+template <int M, int N, int LDO>
+__device__ __forceinline__ void wgrad_mm(float* __restrict__ out,
+                                         const float* act, const float* cot,
+                                         bool first) {
+  constexpr int TM = M >= 64 ? 4 : 1, TN = 4;
+  constexpr int MT = M / (16 * TM), NT = N / (8 * TN);
+  static_assert(M % (16 * TM) == 0 && N % (8 * TN) == 0 && LDO % 2 == 0,
+                "warp tiles");
+#pragma unroll 1
+  for (int t = threadIdx.x >> 5; t < MT * NT; t += NWARP) {
+    const int m0 = 16 * TM * (t % MT), n0 = 8 * TN * (t / MT);
+    float acc[TM][TN][4];
+    tf::zero(acc);
+    tf::mm_kk<TM, TN, RT>(acc, act, cot, AP, m0, n0);
+    if (M >= 64) {
+      if (!first)
+        tf::for_each_pair(acc, m0, n0,
+                          [&](int m, int n, float& v0, float& v1) {
+                            const float2 q = *reinterpret_cast<const float2*>(
+                                out + m * LDO + n);
+                            v0 += q.x;
+                            v1 += q.y;
+                          });
+      tf::for_each_pair(acc, m0, n0, [&](int m, int n, float& v0, float& v1) {
+        *reinterpret_cast<float2*>(out + m * LDO + n) = make_float2(v0, v1);
+      });
+    } else {
+      if (!first)
+        tf::for_each_acc(acc, m0, n0,
+                         [&](int m, int n, float& v) { v += out[m * LDO + n]; });
+      tf::for_each_acc(acc, m0, n0,
+                       [&](int m, int n, float& v) { out[m * LDO + n] = v; });
+    }
+  }
+}
+
+// dx's part (RT x D) += cot wt^T: cot feature-major (W, RT), wt a resident
+// (D, W) weight; warps 0..3 hold the 2 x 2 tiles of 16 x 8
+__device__ __forceinline__ void dx_mm(float (&acc)[1][1][4], const float* cot,
+                                      const float* wt) {
+  const int w = threadIdx.x >> 5;
+  if (w < 4)
+    tf::mm_fm<1, 1, W, false>(acc, cot, AP, wt, WP, 16 * (w & 1),
+                              8 * (w >> 1));
+}
+
+// Column sums over the tile's rows of a feature-major tile of NC columns,
+// added into out[col]
+template <int NC>
+__device__ __forceinline__ void col_sum(float* __restrict__ out,
+                                        const float* cot, bool first) {
+  for (int k = threadIdx.x; k < NC; k += THREADS) {
+    float s = 0.f;
+#pragma unroll
+    for (int r = 0; r < RT; r += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(cot + k * AP + r);
+      s += v.x;
+      s += v.y;
+      s += v.z;
+      s += v.w;
+    }
+    out[k] = first ? s : out[k] + s;
+  }
+}
+
+// a (D, W) weight into shared memory at row stride WP
+__device__ __forceinline__ void load_resident(float* dst,
+                                              const float* __restrict__ src) {
+  for (int e = threadIdx.x; e < D * W / 4; e += THREADS) {
+    const int r = e / (W / 4), c = 4 * (e - r * (W / 4));
+    *reinterpret_cast<float4*>(dst + r * WP + c) =
+        __ldg(reinterpret_cast<const float4*>(src + r * W + c));
+  }
+}
+
+// x's tile (zeros past the last row) into xs, feature-major: thread
+// (row, q) = (tid / 4, tid % 4) < (RT, 4) reads x[row, 4q:4q+4]
+__device__ __forceinline__ void load_x(float* xs, const float* __restrict__ x,
+                                       long long row0, int nvalid) {
+  const int r = threadIdx.x >> 2, q = threadIdx.x & 3;
+  if (r >= RT) return;
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (r < nvalid)
+    v = __ldg(reinterpret_cast<const float4*>(x + (row0 + r) * D + 4 * q));
+  xs[(4 * q + 0) * AP + r] = v.x;
+  xs[(4 * q + 1) * AP + r] = v.y;
+  xs[(4 * q + 2) * AP + r] = v.z;
+  xs[(4 * q + 3) * AP + r] = v.w;
+}
+
+// Partial dots of each row with a W-vector: thread (r, q) = (tid % RT,
+// tid / RT) sums act[k][r] v[k] over k in [q W / 8, (q + 1) W / 8) into
+// part[(C q + c) RT + r] for each of the C columns of v (v[C k + c])
+template <int C>
+__device__ __forceinline__ void row_partials(float* part, const float* act,
+                                             const float* __restrict__ v) {
+  const int r = threadIdx.x % RT, q = threadIdx.x / RT;
+  float s[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) s[c] = 0.f;
+#pragma unroll 8
+  for (int k = q * (W / NWARP); k < (q + 1) * (W / NWARP); ++k) {
+    const float h = act[k * AP + r];
+#pragma unroll
+    for (int c = 0; c < C; ++c) s[c] = fmaf(h, ldg(v + C * k + c), s[c]);
+  }
+#pragma unroll
+  for (int c = 0; c < C; ++c) part[(C * q + c) * RT + r] = s[c];
+}
+
+// the sum of row r's NWARP partials of column c, in order, plus b
+template <int C>
+__device__ __forceinline__ float row_sum(const float* part, int r, int c,
+                                         float b) {
+  float z = 0.f;
+#pragma unroll
+  for (int q = 0; q < NWARP; ++q) z += part[(C * q + c) * RT + r];
+  return z + b;
+}
+
+__device__ __forceinline__ float sigmoid(float z) {
+  return 1.f / (1.f + expf(-z));
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+decoder_forward_f32_kernel(const float* __restrict__ x, Params p,
+                           const float* wpack, float* __restrict__ out,
+                           long long N) {
+  extern __shared__ __align__(16) char smem[];
+  Arena ar{smem};
+  float* a = ar.take<float>(ACT);
+  float* b = ar.take<float>(ACT);
+  float* xs = ar.take<float>(XT);
+  float* w1s = ar.take<float>(RES);
+  float* wcx = ar.take<float>(RES);
+  float* sdfp = ar.take<float>(NWARP * RT);   // partial sdf dots
+  float* part = ar.take<float>(PART);         // partial color logits
+  Ring ring = ring_init(ar, wpack, NFWD);
+  const float* ws_sdf = wpack + SDF_COL;
+  load_resident(w1s, p.w1);
+  load_resident(wcx, p.wc_x);
+  __syncthreads();                  // the mbarriers and resident weights
+  const long long ntiles = (N + RT - 1) / RT;
+  if (threadIdx.x == 0 && blockIdx.x < ntiles) issue(ring, 0, 0);
+  Tc<W> f;
+  Tc<SD> fs;
+  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const bool more = tile + gridDim.x < ntiles;
+    const long long row0 = tile * RT;
+    const int nvalid = static_cast<int>(min(static_cast<long long>(RT), N - row0));
+    __syncthreads();                // the last tile's readers
+    load_x(xs, x, row0, nvalid);
+    __syncthreads();
+    // h1 = relu(x w1 + b1) -> a
+    f.zero();
+    f.mm<D>(xs, w1s);
+    f.store(a, p.b1, true);
+    // h2 = relu(h1 w2 + b2) -> b (the first chunk's barrier: h1 in place)
+    f.zero();
+    stream_mm(f, a, N_W2, ring, more);
+    f.store(b, p.b2, true);
+    // feat = h2 ws[:, :SD] + bs[:SD] -> a, and h2's sdf dots
+    fs.zero();
+    stream_mm(fs, b, N_WS, ring, more);
+    row_partials<1>(sdfp, b, ws_sdf);
+    fs.store(a, p.bs, false);
+    // hc = relu(feat wc_f + x wc_x + bc) -> b (h2's last readers are
+    // before the first wc_f chunk's barrier)
+    f.zero();
+    stream_mm(f, a, N_WC, ring, more);
+    f.mm<D>(xs, wcx);
+    f.store(b, p.bc, true);
+    __syncthreads();
+    row_partials<3>(part, b, p.wo);
+    __syncthreads();
+    if (static_cast<int>(threadIdx.x) < nvalid) {
+      const int r = threadIdx.x;
+      *reinterpret_cast<float4*>(out + (row0 + r) * 4) = make_float4(
+          sigmoid(row_sum<3>(part, r, 0, ldg(p.bo))),
+          sigmoid(row_sum<3>(part, r, 1, ldg(p.bo + 1))),
+          sigmoid(row_sum<3>(part, r, 2, ldg(p.bo + 2))),
+          row_sum<1>(sdfp, r, 0, ldg(p.bs + SD)));
+    }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+decoder_backward_f32_kernel(const float* __restrict__ x,
+                            const float* __restrict__ g, Params p,
+                            const float* wpack, float* __restrict__ dx,
+                            float* __restrict__ partial, long long N,
+                            int tiles_per_block, int want_wgrad) {
+  extern __shared__ __align__(16) char smem[];
+  Arena ar{smem};
+  float* B0 = ar.take<float>(ACT);
+  float* B1 = ar.take<float>(ACT);
+  float* B2 = ar.take<float>(ACT);
+  float* B3 = ar.take<float>(ACT);
+  float* xs = ar.take<float>(XT);
+  float* w1s = ar.take<float>(RES);
+  float* wcx = ar.take<float>(RES);
+  float* rowv = ar.take<float>(4 * RT);       // per row [dzo (3) | g_sdf]
+  float* part = ar.take<float>(PART);
+  Ring ring = ring_init(ar, wpack, NFWD + NBWD);
+  const float* ws_sdf = wpack + SDF_COL;
+  load_resident(w1s, p.w1);
+  load_resident(wcx, p.wc_x);
+  __syncthreads();
+  const int tid = threadIdx.x;
+  float* slab = partial + static_cast<long long>(blockIdx.x) * NPARAM;
+  const long long ntiles = (N + RT - 1) / RT;
+  const long long tile0 = static_cast<long long>(blockIdx.x) * tiles_per_block;
+  const long long tile1 = min(ntiles, tile0 + tiles_per_block);
+  if (tid == 0 && tile0 < tile1) issue(ring, 0, 0);
+  Fma<W> f;
+  Fma<SD> fs;
+  Tc<W> u;
+  Tc<SD> us;
+
+  for (long long tile = tile0; tile < tile1; ++tile) {
+    const bool first = tile == tile0, more = tile + 1 < tile1;
+    const long long row0 = tile * RT;
+    const int nvalid = static_cast<int>(min(static_cast<long long>(RT), N - row0));
+    __syncthreads();                // the last tile's readers
+    load_x(xs, x, row0, nvalid);
+    if (tid < RT) {
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (tid < nvalid)
+        v = __ldg(reinterpret_cast<const float4*>(g + (row0 + tid) * 4));
+      *reinterpret_cast<float4*>(rowv + 4 * tid) = v;   // [g_rgb | g_sdf]
+    }
+    __syncthreads();
+
+    // forward recompute on the FP32 units: h1 -> B0, h2 -> B1, feat -> B2,
+    // hc -> B3
+    f.zero();
+    f.mm<D>(xs, w1s);
+    f.store(B0, p.b1, true);
+    f.zero();
+    stream_mm(f, B0, N_W2, ring, more);
+    f.store(B1, p.b2, true);
+    fs.zero();
+    stream_mm(fs, B1, N_WS, ring, more);
+    fs.store(B2, p.bs, false);
+    f.zero();
+    stream_mm(f, B2, N_WC, ring, more);
+    f.mm<D>(xs, wcx);
+    f.store(B3, p.bc, true);
+    __syncthreads();
+
+    // dzo = g_rgb * rgb * (1 - rgb), per row
+    row_partials<3>(part, B3, p.wo);
+    __syncthreads();
+    if (tid < RT) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float rgb = sigmoid(row_sum<3>(part, tid, c, ldg(p.bo + c)));
+        rowv[4 * tid + c] = rowv[4 * tid + c] * rgb * (1.f - rgb);
+      }
+    }
+    __syncthreads();
+    if (want_wgrad) {
+      // dwo[k][c] = sum_r hc[k][r] dzo[r][c]; dbo[c] = sum_r dzo[r][c]
+      for (int k = tid; k < W; k += THREADS) {
+        float s[3] = {0.f, 0.f, 0.f};
+        for (int r = 0; r < RT; ++r) {
+          const float h = B3[k * AP + r];
+#pragma unroll
+          for (int c = 0; c < 3; ++c) s[c] = fmaf(h, rowv[4 * r + c], s[c]);
+        }
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          float* o = slab + OFF_WO + 3 * k + c;
+          *o = first ? s[c] : *o + s[c];
+        }
+      }
+      if (tid < 3) {
+        float s = 0.f;
+        for (int r = 0; r < RT; ++r) s += rowv[4 * r + tid];
+        float* o = slab + OFF_BO + tid;
+        *o = first ? s : *o + s;
+      }
+      __syncthreads();              // hc's readers are done
+    }
+    // dhc = (dzo wo^T) * (hc > 0), in place over hc (B3)
+    for (int e = tid; e < W * (RT / 4); e += THREADS) {
+      const int k = e / (RT / 4), r4 = 4 * (e - k * (RT / 4));
+      const float w0 = ldg(p.wo + 3 * k), w1 = ldg(p.wo + 3 * k + 1),
+                  w2 = ldg(p.wo + 3 * k + 2);
+      float* h = B3 + k * AP + r4;
+      const float4 hv = *reinterpret_cast<const float4*>(h);
+      const float hh[4] = {hv.x, hv.y, hv.z, hv.w};
+      float d[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float* z = rowv + 4 * (r4 + i);
+        const float v = fmaf(z[2], w2, fmaf(z[1], w1, z[0] * w0));
+        d[i] = hh[i] > 0.f ? v : 0.f;
+      }
+      *reinterpret_cast<float4*>(h) = make_float4(d[0], d[1], d[2], d[3]);
+    }
+    __syncthreads();
+
+    // with dhc (B3): dwc_f = feat^T dhc, dwc_x = x^T dhc, dbc; dx's part
+    // dhc wc_x^T; dfeat = dhc wc_f^T (-> B2 after the chunks' barriers,
+    // feat's last readers being before the first)
+    if (want_wgrad) {
+      wgrad_mm<SD, W, W>(slab + S_WCF, B2, B3, first);
+      wgrad_mm<D, W, W>(slab + OFF_WCX, xs, B3, first);
+      col_sum<W>(slab + OFF_BC, B3, first);
+    }
+    float dxa[1][1][4];
+    tf::zero(dxa);
+    dx_mm(dxa, B3, wcx);
+    us.zero();
+    stream_mm(us, B3, N_WCT, ring, more);
+    tf::for_each_acc(us.acc, 0, us.n0(),
+                     [&](int r, int c, float& v) { B2[c * AP + r] = v; });
+    __syncthreads();                // dfeat in place
+
+    // with dso = [dfeat (B2) | g_sdf]: dws = h2^T dso, dbs
+    if (want_wgrad) {
+      wgrad_mm<W, SD, SD>(slab + OFF_WS, B1, B2, first);
+      col_sum<SD>(slab + S_BS, B2, first);
+      for (int k = tid; k < W; k += THREADS) {
+        float s = 0.f;
+        for (int r = 0; r < RT; ++r) s = fmaf(B1[k * AP + r], rowv[4 * r + 3], s);
+        float* o = slab + S_WS_SDF + k;
+        *o = first ? s : *o + s;
+      }
+      if (tid == 0) {
+        float s = 0.f;
+        for (int r = 0; r < RT; ++r) s += rowv[4 * r + 3];
+        float* o = slab + S_BS + SD;
+        *o = first ? s : *o + s;
+      }
+    }
+    // dh2 = (dfeat ws[:, :SD]^T + g_sdf ws[:, SD]^T) * (h2 > 0) -> B3 (dhc's
+    // last readers are before the first chunk's barrier)
+    u.zero();
+    stream_mm(u, B2, N_WST, ring, more);
+    tf::for_each_acc(u.acc, 0, u.n0(), [&](int r, int c, float& v) {
+      const float d = fmaf(rowv[4 * r + 3], ldg(ws_sdf + c), v);
+      B3[c * AP + r] = B1[c * AP + r] > 0.f ? d : 0.f;
+    });
+    __syncthreads();                // dh2 in place
+
+    // dw2 = h1^T dh2, db2; dh1 = (dh2 w2^T) * (h1 > 0) -> B1 (h2's last
+    // readers are before the first chunk's barrier)
+    if (want_wgrad) {
+      wgrad_mm<W, W, W>(slab + OFF_W2, B0, B3, first);
+      col_sum<W>(slab + OFF_B2, B3, first);
+    }
+    u.zero();
+    stream_mm(u, B3, N_W2T, ring, more);
+    tf::for_each_acc(u.acc, 0, u.n0(), [&](int r, int c, float& v) {
+      B1[c * AP + r] = B0[c * AP + r] > 0.f ? v : 0.f;
+    });
+    __syncthreads();                // dh1 in place
+
+    // dw1 = x^T dh1, db1; dx = dhc wc_x^T + dh1 w1^T
+    if (want_wgrad) {
+      wgrad_mm<D, W, W>(slab + OFF_W1, xs, B1, first);
+      col_sum<W>(slab + OFF_B1, B1, first);
+    }
+    dx_mm(dxa, B1, w1s);
+    const int w = tid >> 5;
+    if (w < 4)
+      tf::for_each_acc(dxa, 16 * (w & 1), 8 * (w >> 1),
+                       [&](int r, int c, float& v) {
+                         if (r < nvalid) dx[(row0 + r) * D + c] = v;
+                       });
+  }
+}
+
+}  // namespace
+
+// K2-f32: out (N, D) from x (N, D); wpack: scratch of PACKED floats;
+// `blocks` persistent blocks (<= tiles of RT rows). Returns
+// cudaGetLastError() after the launches (0 = launched).
+extern "C" int decoder_forward_f32(const float* x, const void* const* params,
+                                   void* wpack, float* out, long long N,
+                                   int blocks, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      decoder_forward_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      K2F_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Params prm = params_from(params);
+  err = pack_weights(prm, static_cast<float*>(wpack), NFWD, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  decoder_forward_f32_kernel<<<blocks, THREADS, K2F_SMEM, stream>>>(
+      x, prm, static_cast<const float*>(wpack), out, N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K3-f32: dx (N, D); dparams (NPARAM,) in FusedParams order when
+// want_wgrad; partial: (P, NPARAM) scratch; wpack: scratch of PACKED
+// floats. P blocks each take tiles_per_block tiles of RT rows. Returns
+// cudaGetLastError() after the launches.
+extern "C" int decoder_backward_f32(const float* x, const float* g,
+                                    const void* const* params, void* wpack,
+                                    float* dx, float* dparams, float* partial,
+                                    long long N, int P, int tiles_per_block,
+                                    int want_wgrad, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      decoder_backward_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      K3F_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Params prm = params_from(params);
+  err = pack_weights(prm, static_cast<float*>(wpack), NFWD + NBWD, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  decoder_backward_f32_kernel<<<P, THREADS, K3F_SMEM, stream>>>(
+      x, g, prm, static_cast<const float*>(wpack), dx, partial, N,
+      tiles_per_block, want_wgrad);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !want_wgrad) return static_cast<int>(err);
+  reduce_partials_kernel<<<(NPARAM + 255) / 256, 256, 0, stream>>>(
+      partial, dparams, P);
+  return static_cast<int>(cudaGetLastError());
+}

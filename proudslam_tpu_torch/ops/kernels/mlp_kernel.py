@@ -14,12 +14,17 @@ kernels' ``_make_dot`` have a kernel: ``bf16=True`` launches
 ``csrc/mlp_kernel.cu`` at the decoder size (16, 128, 128) and
 ``csrc/mlp_stream.cu`` at the other sizes of :data:`BF16_SIZES`
 (bf16 operands on the tensor cores), ``bf16=False``
-``csrc/mlp_kernel_f32.cu`` (f32 operands: the products on the tensor cores
-as three TF32 products with f32 sums, "3xTF32", within f32 tolerance of
-the true f32 product, except K3-f32's forward recompute, true f32 FMAs
-for its ReLU masks; the plain versions compute true f32) at
-:data:`F32_SIZES`. A size outside a form's set raises
-(:func:`check_kernel_sizes` refuses a configuration before it runs).
+``csrc/mlp_kernel_f32.cu`` at (16, 128, 128) and ``csrc/mlp_stream_f32.cu``
+at the other sizes of :data:`F32_SIZES` (f32 operands: the products on the
+tensor cores as three TF32 products with f32 sums, "3xTF32", within f32
+tolerance of the true f32 product, except K3-f32's forward recompute,
+true f32 FMAs for its ReLU masks; the plain versions compute true f32).
+Any other size with in_dim <= 16 and width, sdf_dim <= 256 runs the
+kernels at :func:`built_size` on zero-padded inputs and params
+(:func:`pad_params`), and the outputs and gradients are sliced back
+(:func:`unpad_params`): exact, every padded hidden unit being 0. A larger
+size raises (:func:`check_kernel_sizes` refuses a configuration before it
+runs).
 Each form counts its own launches (``decoder_fwd.launches`` and
 ``decoder_fwd_f32.launches``, ``decoder_bwd.launches`` and
 ``decoder_bwd_f32.launches``). With bf16 operands the
@@ -43,20 +48,26 @@ from proudslam_tpu_torch.ops.kernels import build
 
 # rows of the kernels' tiles
 TILE_ROWS = 64
+# rows of the streamed f32 kernels' tiles (mlp_stream_f32.cu), whose four
+# f32 activation tiles of width 256 fit a block only at this height
+STREAM_F32_ROWS = 32
 
 # The decoder sizes (in_dim, width, sdf_dim) each CUDA kernel form is built
 # for, one library per size (``build.size_flags``); chip_smoke.py's kernel
-# phase holds every one against its plain version on the card. K1, K2 and
-# K3 (bf16 operands): in_dim 16, width and sdf_dim multiples of 64 up to
-# 256 with sdf_dim <= width. At (16, 128, 128) their weights stay in shared
-# memory (render_kernel.cu, mlp_kernel.cu); every other size streams the
-# large ones from L2 (render_stream.cu, mlp_stream.cu). K2-f32 and K3-f32
-# (f32 operands): (16, 128, 128) only, their shared memory being full there.
+# phase holds every one against its plain version on the card: in_dim 16,
+# width and sdf_dim multiples of 64 up to 256 with sdf_dim <= width. At
+# (16, 128, 128) the weights stay in shared memory (render_kernel.cu,
+# mlp_kernel.cu; mlp_kernel_f32.cu stages them through one buffer); every
+# other size streams the large ones from L2 (render_stream.cu,
+# mlp_stream.cu, mlp_stream_f32.cu).
 BF16_SIZES = tuple((16, w, sd) for w in (64, 128, 192, 256)
                    for sd in (64, 128, 192, 256) if sd <= w)
-F32_SIZES = (build.DEFAULT_SIZE,)
+F32_SIZES = BF16_SIZES
 KERNEL_SIZES = {"K1": BF16_SIZES, "K2": BF16_SIZES, "K3": BF16_SIZES,
                 "K2-f32": F32_SIZES, "K3-f32": F32_SIZES}
+# the largest in_dim and width (or sdf_dim) a built size covers: every
+# kernel reads a row's inputs as 16 floats, and 256 is wgmma's largest N
+MAX_IN_DIM, MAX_WIDTH = 16, 256
 
 
 class FusedParams(NamedTuple):
@@ -173,13 +184,74 @@ def params_size(fp: FusedParams) -> Tuple[int, int, int]:
     return size
 
 
+def built_size(size: Tuple[int, int, int]) -> Tuple[int, int, int]:
+    """The built size whose kernels run a decoder ``size`` (in_dim <= 16,
+    1 <= width, sdf_dim <= 256) on zero-padded params: (16, W', SD') with
+    SD' = sdf_dim rounded up to a multiple of 64 and W' the larger of
+    width so rounded and SD'."""
+    _, w, sd = size
+    sd_b = -(-sd // 64) * 64
+    return (MAX_IN_DIM, max(-(-w // 64) * 64, sd_b), sd_b)
+
+
 def check_size(size: Tuple[int, int, int], form: str) -> None:
-    """Raises ``ValueError`` unless the CUDA kernel ``form`` ("K1", "K2",
-    "K3", "K2-f32" or "K3-f32") is built for the decoder ``size``."""
-    if tuple(size) not in KERNEL_SIZES[form]:
+    """Raises ``ValueError`` unless a size the CUDA kernel ``form`` ("K1",
+    "K2", "K3", "K2-f32" or "K3-f32") is built for covers the decoder
+    ``size`` (:func:`built_size`)."""
+    d, w, sd = size
+    if not (1 <= d <= MAX_IN_DIM and 1 <= w <= MAX_WIDTH
+            and 1 <= sd <= MAX_WIDTH
+            and built_size(size) in KERNEL_SIZES[form]):
         raise ValueError(
             f"decoder size (in_dim, width, sdf_dim) = {tuple(size)}: the CUDA "
-            f"kernel {form} takes only {list(KERNEL_SIZES[form])}")
+            f"kernel {form} takes in_dim <= {MAX_IN_DIM} and width, sdf_dim "
+            f"<= {MAX_WIDTH} (built at {list(KERNEL_SIZES[form])}, the "
+            "others zero-padded to one of them)")
+
+
+def pad_params(fp: FusedParams, built: Tuple[int, int, int]) -> FusedParams:
+    """Packed params zero-padded to the larger decoder size ``built``: zero
+    rows and columns in w1, b1, w2, b2, wc_f, wc_x, bc and wo, and in ws
+    and bs ([feat | sdf]) zero feature columns before the sdf column. A
+    padded hidden unit then has pre-activation exactly 0 (ReLU output and
+    mask 0), and every padded weight meets a zero operand, so the real
+    outputs and gradients get the same terms plus exact zeros and every
+    padded gradient entry is exactly 0."""
+    _, _, sd = params_size(fp)
+    d_b, w_b, sd_b = built
+
+    def put(t, shape):
+        out = t.new_zeros(shape)
+        out[tuple(slice(0, n) for n in t.shape)] = t
+        return out
+
+    ws = put(fp.ws[:, :sd], (w_b, sd_b + 1))
+    ws[:fp.ws.shape[0], sd_b] = fp.ws[:, sd]
+    bs = put(fp.bs[:, :sd], (1, sd_b + 1))
+    bs[:, sd_b] = fp.bs[:, sd]
+    return FusedParams(
+        w1=put(fp.w1, (d_b, w_b)), b1=put(fp.b1, (1, w_b)),
+        w2=put(fp.w2, (w_b, w_b)), b2=put(fp.b2, (1, w_b)), ws=ws, bs=bs,
+        wc_f=put(fp.wc_f, (sd_b, w_b)), wc_x=put(fp.wc_x, (d_b, w_b)),
+        bc=put(fp.bc, (1, w_b)), wo=put(fp.wo, (w_b, 3)), bo=fp.bo)
+
+
+def unpad_params(fp: FusedParams, size: Tuple[int, int, int]) -> FusedParams:
+    """The inverse of :func:`pad_params`: packed params (or their gradients)
+    of a padded size sliced back to the decoder ``size`` (views)."""
+    d, w, sd = size
+    sd_b = fp.ws.shape[1] - 1
+    return FusedParams(
+        w1=fp.w1[:d, :w], b1=fp.b1[:, :w], w2=fp.w2[:w, :w], b2=fp.b2[:, :w],
+        ws=torch.cat([fp.ws[:w, :sd], fp.ws[:w, sd_b:]], dim=1),
+        bs=torch.cat([fp.bs[:, :sd], fp.bs[:, sd_b:]], dim=1),
+        wc_f=fp.wc_f[:sd, :w], wc_x=fp.wc_x[:d, :w], bc=fp.bc[:, :w],
+        wo=fp.wo[:w], bo=fp.bo)
+
+
+def pad_rows(x: torch.Tensor, d: int) -> torch.Tensor:
+    """Rows of decoder inputs with zero columns up to in_dim ``d``."""
+    return torch.nn.functional.pad(x, (0, d - x.shape[1]))
 
 
 def _check_kernel_inputs(x, g, fp, form) -> Tuple[int, int, int]:
@@ -203,9 +275,10 @@ def _check_kernel_inputs(x, g, fp, form) -> Tuple[int, int, int]:
 
 
 def streamed(size: Tuple[int, int, int]) -> bool:
-    """True where the bf16 kernels stream the large weights (every size but
+    """True where the kernels stream the large weights (every size but
     (16, 128, 128)): render_stream.cu and mlp_stream.cu, which take a scratch
-    buffer for the packed weights and one 64-row tile per block at a time."""
+    buffer for the packed weights and one 64-row tile per block at a time,
+    and mlp_stream_f32.cu (its own scratch, STREAM_F32_ROWS-row tiles)."""
     return tuple(size) != build.DEFAULT_SIZE
 
 
@@ -213,6 +286,15 @@ def packed_weights(size: Tuple[int, int, int], device) -> torch.Tensor:
     """Scratch for the streamed kernels' bf16 copy of w2, ws and wc_f."""
     _, w, sd = size
     return torch.empty((w * w + 2 * w * sd,), dtype=torch.bfloat16,
+                       device=device)
+
+
+def packed_f32_weights(size: Tuple[int, int, int], device) -> torch.Tensor:
+    """Scratch for mlp_stream_f32.cu's packed chunks: w2, ws's feature part
+    and wc_f, then their transposes, 16 rows a chunk at row stride W + 4,
+    and ws's sdf column."""
+    _, w, sd = size
+    return torch.empty((2 * (2 * w + sd) * (w + 4) + w,), dtype=torch.float32,
                        device=device)
 
 
@@ -224,6 +306,16 @@ def _bf16_library(size, device):
         return (build.load("mlp_stream", _bind_stream, size),
                 [packed_weights(size, device)])
     return build.load("mlp_kernel", _bind), []
+
+
+def _f32_library(size, device):
+    """K2-f32's and K3-f32's library at ``size`` and its scratch tensors,
+    passed as pointers after the params: the streamed plan's packed
+    weights, none for the resident plan (mlp_kernel_f32.cu)."""
+    if streamed(size):
+        return (build.load("mlp_stream_f32", _bind_stream_f32, size),
+                [packed_f32_weights(size, device)])
+    return build.load("mlp_kernel_f32", _bind_f32), []
 
 
 def forward_grid(n_rows: int, sms: int, tiles_at_once: int = 2) -> int:
@@ -245,17 +337,34 @@ def forward_f32_grid(n_rows: int, sms: int) -> int:
     return forward_grid(n_rows, sms, 1)
 
 
+def forward_f32_stream_grid(n_rows: int, sms: int) -> int:
+    """Blocks of the streamed K2-f32 (mlp_stream_f32.cu) for ``n_rows``
+    rows: persistent blocks, block b taking the STREAM_F32_ROWS-row tiles
+    b, b + blocks, ..., so ``min(tiles, sms)``. No rows: 0."""
+    return min(-(-n_rows // STREAM_F32_ROWS), sms)
+
+
+def _partition(n_rows: int, sms: int, tile_rows: int) -> Tuple[int, int]:
+    ntiles = -(-n_rows // tile_rows)
+    if ntiles == 0:
+        return 0, 0
+    per_block = -(-ntiles // max(1, min(sms, ntiles)))
+    return -(-ntiles // per_block), per_block
+
+
 def backward_partition(n_rows: int, sms: int) -> Tuple[int, int]:
     """K3's split of ``n_rows`` rows over its blocks -> (blocks,
     tiles_per_block). Block b takes the 64-row tiles [b * tiles_per_block,
     (b + 1) * tiles_per_block) (the last block fewer); each block owns one
     slab of partial weight gradients, so there are at most ``sms`` blocks
     (one per SM) and no empty one. No rows: (0, 0), nothing to launch."""
-    ntiles = -(-n_rows // TILE_ROWS)
-    if ntiles == 0:
-        return 0, 0
-    per_block = -(-ntiles // max(1, min(sms, ntiles)))
-    return -(-ntiles // per_block), per_block
+    return _partition(n_rows, sms, TILE_ROWS)
+
+
+def backward_f32_stream_partition(n_rows: int, sms: int) -> Tuple[int, int]:
+    """:func:`backward_partition` for the streamed K3-f32
+    (mlp_stream_f32.cu), whose tiles have STREAM_F32_ROWS rows."""
+    return _partition(n_rows, sms, STREAM_F32_ROWS)
 
 
 def _kernel_device(x: torch.Tensor, what: str) -> bool:
@@ -280,6 +389,9 @@ def decoder_fwd(x: torch.Tensor, fp: FusedParams,
     fp = FusedParams(*[t.detach().contiguous() for t in fp])
     x = x.detach().contiguous()
     size = _check_kernel_inputs(x, None, fp, "K2" if bf16 else "K2-f32")
+    built = built_size(size)
+    if built != size:
+        return decoder_fwd(pad_rows(x, built[0]), pad_params(fp, built), bf16)
     N = x.shape[0]
     out = torch.empty((N, 4), dtype=torch.float32, device=x.device)
     if N > 0:
@@ -294,8 +406,11 @@ def decoder_fwd(x: torch.Tensor, fp: FusedParams,
             build.check(err, "decoder_forward")
             decoder_fwd.launches += 1
         else:
-            err = build.load("mlp_kernel_f32", _bind_f32).decoder_forward_f32(
-                *args, forward_f32_grid(N, sms), stream)
+            lib, scratch = _f32_library(size, x.device)
+            err = lib.decoder_forward_f32(
+                *args[:2], *[t.data_ptr() for t in scratch], *args[2:],
+                forward_f32_stream_grid(N, sms) if scratch
+                else forward_f32_grid(N, sms), stream)
             build.check(err, "decoder_forward_f32")
             decoder_fwd_f32.launches += 1
     return out
@@ -320,12 +435,20 @@ def decoder_bwd(x: torch.Tensor, g: torch.Tensor, fp: FusedParams,
     fp = FusedParams(*[t.detach().contiguous() for t in fp])
     x, g = x.detach().contiguous(), g.detach().contiguous()
     size = _check_kernel_inputs(x, g, fp, "K3" if bf16 else "K3-f32")
+    built = built_size(size)
+    if built != size:
+        dx, grads = decoder_bwd(pad_rows(x, built[0]), g,
+                                pad_params(fp, built), want_wgrad, bf16)
+        return (dx[:, :size[0]],
+                None if grads is None else unpad_params(grads, size))
     N = x.shape[0]
     nparam = sum(t.numel() for t in fp)
     dx = torch.empty_like(x)
     dflat = torch.zeros((nparam if want_wgrad else 0,), device=x.device)
     if N > 0:
-        blocks, per_block = backward_partition(
+        partition = (backward_f32_stream_partition
+                     if not bf16 and streamed(size) else backward_partition)
+        blocks, per_block = partition(
             N, torch.cuda.get_device_properties(x.device).multi_processor_count)
         partial = torch.empty(((blocks if want_wgrad else 0) * nparam,),
                               device=x.device)
@@ -340,8 +463,9 @@ def decoder_bwd(x: torch.Tensor, g: torch.Tensor, fp: FusedParams,
             build.check(err, "decoder_backward")
             decoder_bwd.launches += 1
         else:
-            err = build.load("mlp_kernel_f32",
-                             _bind_f32).decoder_backward_f32(*args)
+            lib, scratch = _f32_library(size, x.device)
+            err = lib.decoder_backward_f32(
+                *args[:3], *[t.data_ptr() for t in scratch], *args[3:])
             build.check(err, "decoder_backward_f32")
             decoder_bwd_f32.launches += 1
     if not want_wgrad:
@@ -378,6 +502,10 @@ def _bind_stream(lib) -> None:
 
 def _bind_f32(lib) -> None:
     _argtypes(lib, "decoder_forward_f32", "decoder_backward_f32")
+
+
+def _bind_stream_f32(lib) -> None:
+    _argtypes(lib, "decoder_forward_f32", "decoder_backward_f32", wpack=True)
 
 
 class FusedDecoder(torch.autograd.Function):
@@ -425,9 +553,9 @@ def kernel_forms(dec: DecoderSettings, feature_mode: str) -> Tuple[str, ...]:
 
 def check_kernel_sizes(dec: DecoderSettings, feature_mode: str) -> None:
     """Raises ``ValueError`` naming the size and the kernel form if a kernel
-    the configuration launches on the card is not built for its decoder
-    size. There is no fallback: a refused size is refused, not run
-    without the kernel."""
+    the configuration launches on the card takes its decoder size neither
+    as built nor zero-padded to a built size (:func:`check_size`). There is
+    no fallback: a refused size is refused, not run without the kernel."""
     for form in kernel_forms(dec, feature_mode):
         check_size((dec.in_dim, dec.width, dec.sdf_dim), form)
 

@@ -12,7 +12,10 @@ kernel, whatever ``matmul_dtype`` says).
 :func:`fused_render_forward` launches ``csrc/render_kernel.cu`` (decoder
 size (16, 128, 128)) or ``csrc/render_stream.cu`` (the other sizes of
 ``mlp_kernel.BF16_SIZES``) for CUDA tensors and runs
-:func:`fused_render_forward_plain` for CPU tensors.
+:func:`fused_render_forward_plain` for CPU tensors. Any other decoder size
+with in_dim <= 16 and width, sdf_dim <= 256 runs the kernel at
+``mlp_kernel.built_size`` on zero-padded corner features and params, and
+``feats`` is sliced back to in_dim columns.
 :class:`FusedFeatsDecode` is the backward of ``_ffd_bwd``: kernel K3 for
 the decoder, then plain tensor code for the sample -> hit slot -> corner
 view fold and the trilinear derivative (plain XLA in the JAX package too).
@@ -29,8 +32,9 @@ from proudslam_tpu_torch.ops.interp import (CORNER_BITS, corner_bits,
                                             segment_sum_rows)
 from proudslam_tpu_torch.ops.kernels import build
 from proudslam_tpu_torch.ops.kernels.mlp_kernel import (
-    FusedParams, check_size, decoder_bwd, decoder_fwd_plain, forward_grid,
-    pack_params, packed_weights, params_size, streamed)
+    FusedParams, built_size, check_size, decoder_bwd, decoder_fwd_plain,
+    forward_grid, pack_params, packed_weights, pad_params, params_size,
+    streamed)
 from proudslam_tpu_torch.ops.voxel_hash import unpack_key
 
 
@@ -90,6 +94,14 @@ def fused_render_forward(rb, keys_rb, bins, z, rays_o, rays_d,
     if D != size[0]:
         raise ValueError(f"rb {tuple(rb.shape)}: 8 x in_dim {size[0]} "
                          "corner values expected")
+    built = built_size(size)
+    if built != size:
+        rb_b = torch.nn.functional.pad(rb.reshape(R, H, 8, D),
+                                       (0, built[0] - D)).reshape(R, H, -1)
+        out, feats = fused_render_forward(rb_b, keys_rb, bins, z, rays_o,
+                                          rays_d, pad_params(fp, built),
+                                          voxel_size)
+        return out, feats[:, :D]
     shapes = {"keys_rb": (keys_rb, (R, H), torch.int32),
               "bins": (bins, (R, S), torch.int32),
               "z": (z, (R, S), torch.float32),

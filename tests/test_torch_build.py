@@ -33,9 +33,10 @@ def csrc(tmp_path):
 
 def test_sources_and_headers_found():
     assert {"render_kernel", "mlp_kernel", "mlp_kernel_f32", "render_stream",
-            "mlp_stream"} <= set(SOURCES)
+            "mlp_stream", "mlp_stream_f32"} <= set(SOURCES)
     assert {"decoder_tile.cuh", "decoder_tc.cuh", "decoder_chain.cuh",
-            "decoder_slab.cuh", "decoder_stream.cuh"} <= set(HEADERS)
+            "decoder_slab.cuh", "decoder_stream.cuh", "bulk_copy.cuh",
+            "tf32x3.cuh"} <= set(HEADERS)
 
 
 def _extern_c(source: str) -> dict:
@@ -62,7 +63,8 @@ class _Lib:
 @pytest.mark.parametrize("source,bind", [
     ("render_kernel", rk._bind), ("mlp_kernel", mk._bind),
     ("mlp_kernel_f32", mk._bind_f32), ("render_stream", rk._bind_stream),
-    ("mlp_stream", mk._bind_stream)])
+    ("mlp_stream", mk._bind_stream),
+    ("mlp_stream_f32", mk._bind_stream_f32)])
 def test_extern_c_entries_match_bindings(source, bind):
     lib = _Lib()
     bind(lib)

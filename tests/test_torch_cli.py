@@ -168,11 +168,13 @@ def test_check_config_refusals():
     """A setting the engine cannot run is refused before any data loads;
     the engine modes once refused (DDA, covisibility windows, the NeRF and
     Gaussian embedders) give the JAX package's settings. For the card (the
-    CLI's default device), a fused decoder of a size a CUDA kernel it
-    launches is not built for is refused naming the form: the f32 pcd
-    forms at widths 64 and 256, in_dim 32, a width that is no multiple of
-    64; the bf16 forms at the reference's (16, 256, 128) are accepted, and
-    the CPU (the kernels' plain versions) takes any size."""
+    CLI's default device), every fused path takes the decoder sizes its
+    kernels are built for and, zero-padded to one of them, every in_dim
+    <= 16 and width, sdf_dim <= 256: the f32 pcd forms at the reference's
+    (16, 256, 128) and at widths 64 and 100, a width that is no multiple of
+    64, in_dim 12. A size no built size covers (in_dim 32, width 320) is
+    refused naming the form; the CPU (the kernels' plain versions) takes
+    any size."""
     cfg = lambda *kv: load_config(CONFIG, dict(kv))  # noqa: E731
     for kv in ((("tpu_specs.intersect_mode", "dda"),),
                (("tpu_specs.covis_angle_deg", 30.0),),
@@ -195,13 +197,22 @@ def test_check_config_refusals():
     fused = (("tpu_specs.fused_mlp", True),)
     pcd_f32 = fused + (("tpu_specs.feature_mode", "pcd"),
                        ("tpu_specs.matmul_dtype", "f32"))
-    for kv, form in (
+    for kv, size in (
+            (pcd_f32 + (("decoder_specs.width", 256),), (16, 256, 128)),
             (pcd_f32 + (("decoder_specs.width", 64),
-                        ("decoder_specs.sdf_dim", 64)), "K2-f32"),
-            (pcd_f32 + (("decoder_specs.width", 256),), "K2-f32"),
-            (fused + (("decoder_specs.in_dim", 32),), "K1"),
+                        ("decoder_specs.sdf_dim", 64)), (16, 64, 64)),
+            (pcd_f32 + (("decoder_specs.width", 100),
+                        ("decoder_specs.sdf_dim", 72)), (16, 100, 72)),
             (fused + (("decoder_specs.width", 96),
-                      ("decoder_specs.sdf_dim", 64)), "K1")):
+                      ("decoder_specs.sdf_dim", 64)), (16, 96, 64)),
+            (fused + (("decoder_specs.in_dim", 12),), (12, 128, 128))):
+        s = run_slam.check_config(cfg(*kv))
+        assert (s.decoder.in_dim, s.decoder.width, s.decoder.sdf_dim) == size
+    for kv, form in (
+            (pcd_f32 + (("decoder_specs.width", 320),), "K2-f32"),
+            (pcd_f32 + (("decoder_specs.in_dim", 32),), "K2-f32"),
+            (fused + (("decoder_specs.in_dim", 32),), "K1"),
+            (fused + (("decoder_specs.sdf_dim", 320),), "K1")):
         with pytest.raises(ValueError, match=form):
             run_slam.check_config(cfg(*kv))
         run_slam.check_config(cfg(*kv), "cpu")

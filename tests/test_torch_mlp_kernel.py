@@ -19,7 +19,8 @@ bridge round trip (exact) and ``decoder_values`` in f32 (1e-5) and bf16
 operands). On CPU tensors neither operand type launches a kernel: the f32
 forms' launch counters stay at 0 as the bf16 forms' do. And the size
 predicate: which kernel forms a configuration launches, the sizes each
-takes, and the refusal of the rest.
+takes (built, or zero-padded to a built size: ``built_size``), the
+refusal of the rest, and the streamed f32 kernels' 32-row partitions.
 """
 
 import dataclasses
@@ -289,30 +290,43 @@ def test_kernel_forms(mode, dtype, forms):
 
 
 def test_kernel_sizes_refused():
-    """The bf16 forms take every width and sdf_dim in 64..256 (multiples of
-    64, sdf_dim <= width) at in_dim 16, the f32 forms (16, 128, 128) only;
+    """Every form is built at the ten sizes (in_dim 16, width and sdf_dim
+    multiples of 64 up to 256, sdf_dim <= width) and takes every other size
+    with in_dim <= 16 and width, sdf_dim <= 256 zero-padded to one of them;
     ``check_kernel_sizes`` refuses the rest naming size and form, and the
     wrappers' check refuses params whose shapes disagree on a size."""
     assert len(tmk.BF16_SIZES) == 10
     for size in ((16, 64, 64), (16, 128, 128), (16, 256, 128)):
         assert size in tmk.BF16_SIZES
+    assert tmk.F32_SIZES == tmk.BF16_SIZES
+    for form in ("K1", "K2", "K3", "K2-f32", "K3-f32"):
+        assert tmk.KERNEL_SIZES[form] == tmk.BF16_SIZES
     base = port(DEC)
-    for w, sd in ((64, 64), (128, 64), (192, 192), (256, 128), (256, 256)):
-        tmk.check_kernel_sizes(
-            dataclasses.replace(base, width=w, sdf_dim=sd), "vox")
+    accepted = [dict(width=w, sdf_dim=sd) for w, sd in (
+        (64, 64), (128, 64), (192, 192), (256, 128), (256, 256))]
+    # padded: a width no multiple of 64, sdf_dim > width, in_dim < 16
+    accepted += [dict(width=96, sdf_dim=64), dict(width=128, sdf_dim=192),
+                 dict(in_dim=8), dict(in_dim=12, width=200, sdf_dim=256),
+                 dict(width=1, sdf_dim=1)]
+    for kw in accepted:
+        for mode, dtype in (("vox", "bf16"), ("pcd", "bf16"), ("pcd", "f32")):
+            tmk.check_kernel_sizes(dataclasses.replace(
+                base, matmul_dtype=dtype, **kw), mode)
     for kw, mode, form in (
-            (dict(width=96, sdf_dim=64), "vox", "K1"),
             (dict(width=320, sdf_dim=128), "pcd", "K2"),
-            (dict(width=128, sdf_dim=192), "vox", "K1"),
+            (dict(width=256, sdf_dim=320), "vox", "K1"),
             (dict(in_dim=32), "vox", "K1"),
-            (dict(width=256, sdf_dim=128, matmul_dtype="f32"), "pcd",
+            (dict(in_dim=32, matmul_dtype="f32"), "pcd", "K2-f32"),
+            (dict(width=320, sdf_dim=128, matmul_dtype="f32"), "pcd",
              "K2-f32"),
-            (dict(width=64, sdf_dim=64, matmul_dtype="f32"), "pcd",
-             "K2-f32")):
+            (dict(width=0), "pcd", "K2")):
         with pytest.raises(ValueError, match=form):
             tmk.check_kernel_sizes(dataclasses.replace(base, **kw), mode)
-    tmk.check_kernel_sizes(dataclasses.replace(
-        base, width=128, sdf_dim=128, matmul_dtype="f32"), "pcd")
+    for size in ((32, 64, 64), (16, 320, 64), (16, 64, 320), (0, 64, 64),
+                 (16, 64, 0)):
+        for form in tmk.KERNEL_SIZES:
+            with pytest.raises(ValueError, match=f"{form}.*in_dim <= 16"):
+                tmk.check_size(size, form)
     fp = tmk.pack_params(params_from_jax(j_init(jax.random.PRNGKey(0), DEC),
                                          device="cpu"), port(DEC))
     assert tmk.params_size(fp) == (16, 64, 64)
@@ -321,5 +335,47 @@ def test_kernel_sizes_refused():
         tmk.params_size(bad)
     x = torch.zeros((64, 16))
     assert tmk._check_kernel_inputs(x, None, fp, "K2") == (16, 64, 64)
-    with pytest.raises(ValueError, match="K2-f32"):
-        tmk._check_kernel_inputs(x, None, fp, "K2-f32")
+    assert tmk._check_kernel_inputs(x, None, fp, "K2-f32") == (16, 64, 64)
+    with pytest.raises(ValueError, match="in_dim 16 expected"):
+        tmk._check_kernel_inputs(torch.zeros((64, 8)), None, fp, "K2-f32")
+
+
+@pytest.mark.parametrize("size,built", [
+    ((16, 64, 64), (16, 64, 64)), ((16, 256, 128), (16, 256, 128)),
+    ((8, 40, 24), (16, 64, 64)), ((16, 100, 72), (16, 128, 128)),
+    ((12, 64, 192), (16, 192, 192)), ((16, 200, 256), (16, 256, 256)),
+    ((1, 1, 1), (16, 64, 64)), ((16, 129, 64), (16, 192, 64)),
+    ((16, 65, 130), (16, 192, 192)), ((16, 256, 256), (16, 256, 256))])
+def test_built_size(size, built):
+    """(16, W', SD'): SD' = sdf_dim up to a multiple of 64, W' = the larger
+    of width so rounded and SD'; a built size maps to itself, and the
+    result is always built."""
+    assert tmk.built_size(size) == built
+    assert built in tmk.F32_SIZES
+
+
+@pytest.mark.parametrize("sms", [132, 7, 1])
+@pytest.mark.parametrize("n_rows", [0, 1, 31, 32, 33, 64, 7 * 32, 132 * 32,
+                                    132 * 32 + 1, 65536, 327643, 327680])
+def test_f32_stream_partitions(n_rows, sms):
+    """The streamed K2-f32's persistent blocks and K3-f32's runs count
+    tiles of STREAM_F32_ROWS (32) rows: at most one block per SM, none
+    without a tile, every tile once, the last (ragged) one included."""
+    rows = tmk.STREAM_F32_ROWS
+    assert rows == 32
+    ntiles = -(-n_rows // rows)
+    blocks = tmk.forward_f32_stream_grid(n_rows, sms)
+    assert blocks == min(ntiles, sms)
+    walked = sorted(t for b in range(blocks)
+                    for t in range(b, ntiles, blocks))
+    assert walked == list(range(ntiles))
+    P, per_block = tmk.backward_f32_stream_partition(n_rows, sms)
+    if n_rows == 0:
+        assert (P, per_block) == (0, 0)
+        return
+    assert 1 <= P <= min(sms, ntiles)
+    runs = [range(b * per_block, min(ntiles, (b + 1) * per_block))
+            for b in range(P)]
+    assert all(len(r) > 0 for r in runs)
+    assert [t for r in runs for t in r] == list(range(ntiles))
+    assert n_rows - (ntiles - 1) * rows in range(1, rows + 1)

@@ -253,11 +253,13 @@ def drift(n_frames: int) -> None:
               " cm")
 
 
-def bench_drift(matmul_dtype: str, n_frames: int = 5) -> None:
+def bench_drift(matmul_dtype: str, n_frames: int = 5,
+                width: int = 128) -> None:
     """The JAX engine alone at the bench pcd configuration of
     ``chip_smoke.py``'s pcd slices (``bench.py``'s ``bench_settings()``
     with ``feature_mode="pcd"`` and 8 points per voxel; its XLA decoder at
-    ``matmul_dtype``): the first ``n_frames`` frames of the 480-frame
+    ``matmul_dtype`` and ``width``, 256 for ``pcd-f32-w256``): the first
+    ``n_frames`` frames of the 480-frame
     ``scan`` orbit at 320x240, quantized as the slices quantize them,
     ``point_stride`` 2, then ``global_refine(rounds=2)``. Prints the
     per-frame position error and the unaligned ATE."""
@@ -270,7 +272,8 @@ def bench_drift(matmul_dtype: str, n_frames: int = 5) -> None:
     s = dataclasses.replace(
         s, render=dataclasses.replace(s.render, feature_mode="pcd"),
         map=dataclasses.replace(s.map, points_per_voxel=8),
-        decoder=dataclasses.replace(s.decoder, matmul_dtype=matmul_dtype))
+        decoder=dataclasses.replace(s.decoder, matmul_dtype=matmul_dtype,
+                                    width=width))
     poses = orbit_poses(480, radius=1.6, total_yaw=np.pi, yaw_wobble=1.0,
                         yaw_cycles=3.0, pitch_wobble=0.22, pitch_cycles=4.0)
     K = (0.9 * W, 0.9 * W, (W - 1) / 2.0, (H - 1) / 2.0)
@@ -290,9 +293,10 @@ def bench_drift(matmul_dtype: str, n_frames: int = 5) -> None:
     est = eng.get_trajectory()
     gt = np.stack(poses[:n_frames])
     err = np.linalg.norm(est[:, :3, 3] - gt[:, :3, 3], axis=1) * 100
-    print(f"jax bench pcd {matmul_dtype}: position error per frame (cm):",
+    tag = f"{matmul_dtype} width {width}"
+    print(f"jax bench pcd {tag}: position error per frame (cm):",
           " ".join(f"{e:.2f}" for e in err))
-    print(f"jax bench pcd {matmul_dtype}: unaligned ATE "
+    print(f"jax bench pcd {tag}: unaligned ATE "
           f"{ate_rmse(est, gt, align=False) * 100:.2f} cm, aligned "
           f"{ate_rmse(est, gt, align=True) * 100:.2f} cm")
 
@@ -300,11 +304,13 @@ def bench_drift(matmul_dtype: str, n_frames: int = 5) -> None:
 if __name__ == "__main__":
     # PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_pcd_slam.py 20
     # PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_pcd_slam.py \
-    #     bench bf16     (or f32: the JAX engine at the bench pcd size)
+    #     bench bf16     (or f32: the JAX engine at the bench pcd size;
+    #     bench f32 256: at decoder width 256)
     import sys
 
     if len(sys.argv) > 2 and sys.argv[1] == "bench":
-        bench_drift(sys.argv[2])
+        bench_drift(sys.argv[2],
+                    width=int(sys.argv[3]) if len(sys.argv) > 3 else 128)
         sys.exit(0)
     jmk.fused_applicable = lambda dec: (dec.use_fused_mlp and dec.depth == 2
                                         and not dec.skips
