@@ -12,10 +12,10 @@ tensors and run :func:`decoder_fwd_plain` / :func:`decoder_bwd_plain` for
 CPU tensors; any other device raises. Both operand types of the Pallas
 kernels' ``_make_dot`` have a kernel: ``bf16=True`` launches
 ``csrc/mlp_kernel.cu`` at the decoder size (16, 128, 128) and
-``csrc/mlp_stream.cu`` at the other sizes of :data:`BF16_SIZES`
+``csrc/mlp_stream.cu`` at the other sizes of :data:`BUILT_SIZES`
 (bf16 operands on the tensor cores), ``bf16=False``
 ``csrc/mlp_kernel_f32.cu`` at (16, 128, 128) and ``csrc/mlp_stream_f32.cu``
-at the other sizes of :data:`F32_SIZES` (f32 operands: the products on the
+at the other sizes of :data:`BUILT_SIZES` (f32 operands: the products on the
 tensor cores as three TF32 products with f32 sums, "3xTF32", within f32
 tolerance of the true f32 product, except K3-f32's forward recompute,
 true f32 FMAs for its ReLU masks; the plain versions compute true f32).
@@ -52,7 +52,7 @@ TILE_ROWS = 64
 # f32 activation tiles of width 256 fit a block only at this height
 STREAM_F32_ROWS = 32
 
-# The decoder sizes (in_dim, width, sdf_dim) each CUDA kernel form is built
+# The decoder sizes (in_dim, width, sdf_dim) every CUDA kernel form is built
 # for, one library per size (``build.size_flags``); chip_smoke.py's kernel
 # phase holds every one against its plain version on the card: in_dim 16,
 # width and sdf_dim multiples of 64 up to 256 with sdf_dim <= width. At
@@ -60,11 +60,10 @@ STREAM_F32_ROWS = 32
 # mlp_kernel.cu; mlp_kernel_f32.cu stages them through one buffer); every
 # other size streams the large ones from L2 (render_stream.cu,
 # mlp_stream.cu, mlp_stream_f32.cu).
-BF16_SIZES = tuple((16, w, sd) for w in (64, 128, 192, 256)
-                   for sd in (64, 128, 192, 256) if sd <= w)
-F32_SIZES = BF16_SIZES
-KERNEL_SIZES = {"K1": BF16_SIZES, "K2": BF16_SIZES, "K3": BF16_SIZES,
-                "K2-f32": F32_SIZES, "K3-f32": F32_SIZES}
+BUILT_SIZES = tuple((16, w, sd) for w in (64, 128, 192, 256)
+                    for sd in (64, 128, 192, 256) if sd <= w)
+# the CUDA kernel forms, as check_size names them
+FORMS = ("K1", "K2", "K3", "K2-f32", "K3-f32")
 # the largest in_dim and width (or sdf_dim) a built size covers: every
 # kernel reads a row's inputs as 16 floats, and 256 is wgmma's largest N
 MAX_IN_DIM, MAX_WIDTH = 16, 256
@@ -195,18 +194,20 @@ def built_size(size: Tuple[int, int, int]) -> Tuple[int, int, int]:
 
 
 def check_size(size: Tuple[int, int, int], form: str) -> None:
-    """Raises ``ValueError`` unless a size the CUDA kernel ``form`` ("K1",
-    "K2", "K3", "K2-f32" or "K3-f32") is built for covers the decoder
-    ``size`` (:func:`built_size`)."""
+    """Raises ``ValueError`` unless a built size covers the decoder ``size``
+    (:func:`built_size`): in_dim <= 16 and width, sdf_dim <= 256, each at
+    least 1. Every form is built at :data:`BUILT_SIZES`; ``form`` (one of
+    :data:`FORMS`) is named in the error."""
+    if form not in FORMS:
+        raise ValueError(f"unknown CUDA kernel form {form!r}")
     d, w, sd = size
     if not (1 <= d <= MAX_IN_DIM and 1 <= w <= MAX_WIDTH
-            and 1 <= sd <= MAX_WIDTH
-            and built_size(size) in KERNEL_SIZES[form]):
+            and 1 <= sd <= MAX_WIDTH):
         raise ValueError(
             f"decoder size (in_dim, width, sdf_dim) = {tuple(size)}: the CUDA "
             f"kernel {form} takes in_dim <= {MAX_IN_DIM} and width, sdf_dim "
-            f"<= {MAX_WIDTH} (built at {list(KERNEL_SIZES[form])}, the "
-            "others zero-padded to one of them)")
+            f"<= {MAX_WIDTH} (built at {list(BUILT_SIZES)}, the others "
+            "zero-padded to one of them)")
 
 
 def pad_params(fp: FusedParams, built: Tuple[int, int, int]) -> FusedParams:

@@ -11,7 +11,7 @@ kernel, whatever ``matmul_dtype`` says).
 
 :func:`fused_render_forward` launches ``csrc/render_kernel.cu`` (decoder
 size (16, 128, 128)) or ``csrc/render_stream.cu`` (the other sizes of
-``mlp_kernel.BF16_SIZES``) for CUDA tensors and runs
+``mlp_kernel.BUILT_SIZES``) for CUDA tensors and runs
 :func:`fused_render_forward_plain` for CPU tensors. Any other decoder size
 with in_dim <= 16 and width, sdf_dim <= 256 runs the kernel at
 ``mlp_kernel.built_size`` on zero-padded corner features and params, and

@@ -19,6 +19,11 @@ weight gradients' slab stores dropped (``nostore``), their tensor-core
 products dropped (``nomm``), the weight-gradient loop skipped
 (``nowgrad``), each beside the dx-only form. Logs to standard error.
 Needs one card.
+
+A one-off diagnostic, kept for the K3-f32 times PERF.md cites from it:
+its variants are text edits of ``mlp_stream_f32.cu`` that raise when the
+source no longer holds the text they replace, and most of them compute
+wrong results by design. ``chip_smoke.py`` is what checks the kernel.
 """
 
 import ctypes

@@ -1,0 +1,155 @@
+"""The float64 witness of ``chip_smoke.py``'s K3-f32 check on the CPU.
+
+Where a hidden pre-activation is within f32 rounding of 0, K3-f32 and its
+plain version (cuBLAS on the card) may take different ReLU masks, and that
+row's dx differs by a whole term. ``chip_smoke._k3_check`` accepts such a
+row only when ``_f64_mask_witness`` explains it: the kernel's dx and
+gradients there equal the exact float64 ones under masks that differ from
+the true ones only on units inside ``_f32_rounding_bounds``. Here stand-in
+"kernels" (the plain version with one mask flipped, or with a wrong term)
+take the wrapper's place on CPU tensors, at a small decoder size.
+"""
+
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+import chip_smoke as cs  # noqa: E402
+from proudslam_tpu_torch.ops.kernels import mlp_kernel as mk  # noqa: E402
+
+SIZE = (16, 64, 64)
+ROWS = 4096
+NEAR = 5          # the row given a hidden pre-activation near 0
+UNIT = 3          # its h1 unit
+
+
+def _inputs():
+    rng = np.random.default_rng(0)
+    fp = cs._decoder_at(torch.device("cpu"), SIZE, 4)
+    x = torch.as_tensor(0.3 * rng.standard_normal((ROWS, SIZE[0])),
+                        dtype=torch.float32)
+    g = torch.as_tensor(1e-2 * rng.standard_normal((ROWS, 4)),
+                        dtype=torch.float32)
+    # row NEAR's h1 pre-activation of unit UNIT to ~0 by its last input
+    w1 = fp.w1.double()
+    rest = (x[NEAR, :-1].double() @ w1[:-1, UNIT]) + fp.b1[0, UNIT].double()
+    x[NEAR, -1] = float(-rest / w1[-1, UNIT])
+    return x, g, fp
+
+
+def _bwd_flipped(flip=True, extra=0.0):
+    """The plain f32 backward with h1's mask of (NEAR, UNIT) flipped (a
+    rounding-level flip) and ``extra`` of dx's largest magnitude added to
+    row NEAR's dx (a fault no mask explains)."""
+    def bwd(x, g, fp, want_wgrad=True, bf16=True):
+        near = (x == x_near).all(1)
+        h1, h2, feat, _, hc, rgb = mk.decoder_fwd_plain(x, fp, False)
+        pre1 = x @ fp.w1 + fp.b1
+        m1 = (h1 > 0).float()
+        if flip:
+            m1[near, UNIT] = 1.0 - m1[near, UNIT]
+        h1 = m1 * pre1
+        dzo = g[:, 0:3] * rgb * (1.0 - rgb)
+        dhc = (dzo @ fp.wo.T) * (hc > 0)
+        dso = torch.cat([dhc @ fp.wc_f.T, g[:, 3:4]], dim=1)
+        dh2 = (dso @ fp.ws.T) * (h2 > 0)
+        dh1 = (dh2 @ fp.w2.T) * m1
+        dx = dh1 @ fp.w1.T + dhc @ fp.wc_x.T
+        dx[near] += extra * dx_max
+        if not want_wgrad:
+            return dx, None
+        col = lambda t: t.sum(dim=0, keepdim=True)  # noqa: E731
+        return dx, mk.FusedParams(
+            w1=x.T @ dh1, b1=col(dh1), w2=h1.T @ dh2, b2=col(dh2),
+            ws=h2.T @ dso, bs=col(dso), wc_f=feat.T @ dhc, wc_x=x.T @ dhc,
+            bc=col(dhc), wo=hc.T @ dzo, bo=col(dzo))
+    x, g, fp = _inputs()
+    x_near = x[NEAR].clone()
+    dx_max = mk.decoder_bwd_plain(x, g, fp, False, False)[0].abs().max()
+    return bwd
+
+
+@pytest.fixture
+def on_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(cs, "log", lambda msg: None)
+    return monkeypatch
+
+
+def test_f64_decoder_matches_plain_version():
+    """With every mask the sign of its pre-activation, the float64 decoder
+    is the plain f32 backward (per-row gradients summed) within f32
+    rounding."""
+    x, g, fp = _inputs()
+    f64 = mk.FusedParams(*[t.double() for t in fp])
+    _, dx64, gr64 = cs._f64_decoder(x.double(), g.double(), f64)
+    dx, grads = mk.decoder_bwd_plain(x, g, fp, True, False)
+    assert (dx64 - dx.double()).abs().max() <= 1e-5 * dx.abs().max()
+    for name, a, b in zip(mk.FusedParams._fields, gr64, grads):
+        assert a.sum(0).shape == b.shape, name
+        assert ((a.sum(0) - b.double()).abs().max()
+                <= 1e-5 * b.abs().max()), name
+
+
+def test_rounding_bounds_hold():
+    """Every f32 pre-activation, in the plain version's order and summed
+    one term at a time, lies within its bound of the exact value; the
+    constructed row's unit is within its bound of 0."""
+    x, g, fp = _inputs()
+    f64 = mk.FusedParams(*[t.double() for t in fp])
+    pre, _, _ = cs._f64_decoder(x.double(), g.double(), f64)
+    bounds = cs._f32_rounding_bounds(x.double(), f64, pre)
+    h1, h2, feat, _, _, _ = mk.decoder_fwd_plain(x, fp, False)
+    f32 = (x @ fp.w1 + fp.b1, h1 @ fp.w2 + fp.b2,
+           feat @ fp.wc_f + x @ fp.wc_x + fp.bc)
+    for p32, p64, e in zip(f32, pre, bounds):
+        assert bool(((p32.double() - p64).abs() <= e).all())
+    seq = torch.zeros_like(f32[0])
+    for k in range(SIZE[0]):
+        seq = seq + x[:, k:k + 1] * fp.w1[k]
+    seq = seq + fp.b1
+    assert bool(((seq.double() - pre[0]).abs() <= bounds[0]).all())
+    assert abs(float(pre[0][NEAR, UNIT])) <= float(bounds[0][NEAR, UNIT])
+
+
+@pytest.mark.parametrize("wgrad", [True, False])
+def test_witness_takes_a_rounding_level_flip(on_cpu, wgrad):
+    """A row whose dx misses by a mask flip inside the rounding bound
+    passes: the witness finds the masks, and the gradients over all rows
+    are held at the tolerance plus that row's terms."""
+    x, g, fp = _inputs()
+    on_cpu.setattr(mk, "decoder_bwd", _bwd_flipped())
+    dx_k, _ = mk.decoder_bwd(x, g, fp, wgrad, False)
+    dx_p, _ = mk.decoder_bwd_plain(x, g, fp, False, False)
+    row_err = (dx_k - dx_p).abs().amax(1) / dx_p.abs().max()
+    assert row_err[NEAR] > cs.TOL_F32_BWD        # the flip shows in dx
+    assert int((row_err > cs.TOL_F32_BWD).sum()) == 1
+    moved, records = cs._f64_mask_witness(
+        "test", x, g, fp, torch.tensor([NEAR]), dx_k, dx_p, wgrad,
+        cs.TOL_F32_BWD)
+    assert records[0]["ambiguous"][0][:2] == [0, UNIT]
+    # the flipped unit's column of w1 and b1 move by that row's whole
+    # term; w2 and wo only by the unit's ~0 value carried forward
+    assert moved["b1"] > 0
+    assert moved["w1"] > 1e3 * max(moved["w2"], moved["wo"])
+    assert not records[0]["kernel_true_masks"]
+    assert records[0]["plain_true_masks"]
+    cs._k3_check("test", x, g, fp, wgrad, False)
+
+
+@pytest.mark.parametrize("wgrad", [True, False])
+def test_witness_refuses_a_wrong_term(on_cpu, wgrad):
+    """A row whose dx is off by a term no mask explains fails the check,
+    though it is one row of 4,096 (under the 1% share) and its margin is
+    under MARGIN_FLIP_F32."""
+    x, g, fp = _inputs()
+    on_cpu.setattr(mk, "decoder_bwd", _bwd_flipped(flip=False, extra=0.01))
+    assert float(cs._margins(mk, x, fp, False)[NEAR]) < cs.MARGIN_FLIP_F32
+    with pytest.raises(AssertionError, match="no rounding-level mask flip"):
+        cs._k3_check("test", x, g, fp, wgrad, False)

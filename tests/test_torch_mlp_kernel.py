@@ -295,12 +295,10 @@ def test_kernel_sizes_refused():
     with in_dim <= 16 and width, sdf_dim <= 256 zero-padded to one of them;
     ``check_kernel_sizes`` refuses the rest naming size and form, and the
     wrappers' check refuses params whose shapes disagree on a size."""
-    assert len(tmk.BF16_SIZES) == 10
+    assert len(tmk.BUILT_SIZES) == 10
     for size in ((16, 64, 64), (16, 128, 128), (16, 256, 128)):
-        assert size in tmk.BF16_SIZES
-    assert tmk.F32_SIZES == tmk.BF16_SIZES
-    for form in ("K1", "K2", "K3", "K2-f32", "K3-f32"):
-        assert tmk.KERNEL_SIZES[form] == tmk.BF16_SIZES
+        assert size in tmk.BUILT_SIZES
+    assert tmk.FORMS == ("K1", "K2", "K3", "K2-f32", "K3-f32")
     base = port(DEC)
     accepted = [dict(width=w, sdf_dim=sd) for w, sd in (
         (64, 64), (128, 64), (192, 192), (256, 128), (256, 256))]
@@ -324,7 +322,7 @@ def test_kernel_sizes_refused():
             tmk.check_kernel_sizes(dataclasses.replace(base, **kw), mode)
     for size in ((32, 64, 64), (16, 320, 64), (16, 64, 320), (0, 64, 64),
                  (16, 64, 0)):
-        for form in tmk.KERNEL_SIZES:
+        for form in tmk.FORMS:
             with pytest.raises(ValueError, match=f"{form}.*in_dim <= 16"):
                 tmk.check_size(size, form)
     fp = tmk.pack_params(params_from_jax(j_init(jax.random.PRNGKey(0), DEC),
@@ -351,7 +349,7 @@ def test_built_size(size, built):
     of width so rounded and SD'; a built size maps to itself, and the
     result is always built."""
     assert tmk.built_size(size) == built
-    assert built in tmk.F32_SIZES
+    assert built in tmk.BUILT_SIZES
 
 
 @pytest.mark.parametrize("sms", [132, 7, 1])
