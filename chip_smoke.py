@@ -11,8 +11,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``nvcc`` per source and decoder size, all started together): the three
    sources at the bench decoder's (in_dim, width, sdf_dim) = (16, 128,
    128), and ``render_stream.cu``, ``mlp_stream.cu`` and
-   ``mlp_stream_f32.cu`` (the streamed plans) at each of the nine other
-   sizes of ``mlp_kernel.BUILT_SIZES``;
+   ``mlp_stream_f32.cu`` (the streamed plans) at each of the nineteen other
+   sizes of ``mlp_kernel.BUILT_SIZES`` (in_dim 16 and 32): 60 libraries;
    each library's ``-Xptxas -v`` report (registers, spills, wgmma
    warnings) and its count of tensor-core instructions (HGMMA, HMMA) and
    FFMA in ``cuobjdump -sass`` are logged; K1, K2 and K3 must each hold
@@ -40,28 +40,36 @@ Phases, in order; any failure raises and the script exits non-zero:
    output: the embedding's ``x @ B`` in true f32, TF32 off; the same call
    with TF32 on is logged as the control). Then the same holds of K1, K2
    and K3 at each other size of ``mlp_kernel.BUILT_SIZES`` (``size_phase``:
-   the K1 inputs above, that size's ``init_decoder`` params; K3's dx there
+   the K1 inputs above, with corner embeddings of 32 values from a seed at
+   the in_dim-32 sizes, that size's ``init_decoder`` params; K3's dx there
    held on the rows away from a ReLU kink, ``MARGIN_FLIP``), with times,
-   bounds and shares; and of K2-f32 and K3-f32 (full and dx-only) at each
-   other size of ``mlp_kernel.BUILT_SIZES`` (``f32_size_phase``: the pcd
-   features above at the mapping, tracking and a ragged row count, that
-   size's params, the f32 tolerances, K3-f32's dx held on the rows of
+   bounds and shares and the bf16 matmul chain's times; and of K2-f32 and
+   K3-f32 (full and dx-only) at each other size of
+   ``mlp_kernel.BUILT_SIZES`` (``f32_size_phase``: the pcd features above,
+   from a PointNet of output width 32 at the in_dim-32 sizes, at the
+   mapping, tracking and a ragged row count, that size's params, the f32
+   tolerances, K3-f32's dx held on the rows of
    margin >= ``MARGIN_FLIP_F32``, each row whose dx misses a witnessed
    mask flip and the gradients over all rows held at the tolerance plus
    those rows' terms), with times against the f32 matmul
    chain, the 3xTF32 bound and its share. Then every form at the decoder
    sizes of ``PAD_SIZES``, which the kernels take zero-padded to a built
    size (``pad_phase``: in_dim 8, a width no multiple of 64, sdf_dim >
-   width, a size landing on a streamed one), at the tracking shape
-   against its plain version at the unpadded size with each form's
-   tolerance, and every padded gradient entry exactly 0;
+   width, a size landing on a streamed one, in_dim 24 and 20 padded to
+   32), at the tracking shape against its plain version at the unpadded
+   size with each form's tolerance, and every padded gradient entry
+   exactly 0. A ``size table`` line per kernel and streamed size joins its
+   times, shares, plain and chain times, error and build;
 4b. vox-w256 slice: the vox slice's configuration with the reference's
    wider decoder (16, 256, 128) over the first 10 frames: K1 and K3 (their
    streamed plan) launched, K2 and the f32 forms not, the poses finite and
-   the unaligned ATE under 3 cm; then ``run_slam.check_config`` for the
-   card must accept the fused pcd path at f32 operands at that size and
-   at a padded size, and refuse in_dim 32 and width 320 (no built size
-   covers them) naming the size and the form, with no launch;
+   the unaligned ATE under 3 cm; then vox-d32, the same at (32, 256,
+   128) with embeddings of 32 values (the feature width of NICE-SLAM's
+   and ESLAM's ``c_dim``), the same launches and bound; then
+   ``run_slam.check_config`` for the card must accept the fused pcd path
+   at f32 operands at (16, 256, 128), at a padded size and at (32, 256,
+   128), and refuse in_dim 33 and width 320 (no built size covers them)
+   naming the size and the form, with no launch;
 4. vox slice: the bench configuration with the fused render path on
    (``config.bench_settings``): ``SlamSystem.initialize`` (200 mapping
    iterations), 39 ``process_frame`` calls over the first 40 frames of the
@@ -94,7 +102,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    plan: K2-f32 and K3-f32 launched and no other kernel, the poses finite,
    the unaligned ATE under 100 cm (the note at PCD_W256_ATE_LIMIT_CM says
    why not 60), and K2-f32 and K3-f32 on the decoder the slice trained held
-   against their plain versions (f32 tolerances);
+   against their plain versions (f32 tolerances); then pcd-f32-d32, the
+   same at (32, 256, 128) (PointNet's output width follows in_dim): only
+   K2-f32 and K3-f32 launched, the same bounds and checks;
 5c. resample run: the vox configuration with ``fixed_sample_batch=False``
    in the tracker and the mapper (a fresh pixel batch per Adam iteration,
    intersected at the current pose) and the Gumbel pixel sampler, over the
@@ -285,9 +295,11 @@ WITNESS_UNITS = 8
 WITNESS_ROWS = 64
 # decoder sizes no kernel is built for, which the kernels take zero-padded
 # to mlp_kernel.built_size: in_dim 8, a width that is no multiple of 64
-# (on the resident (16, 128, 128) kernels), sdf_dim > width, and a size
-# that lands on the streamed (16, 256, 256)
-PAD_SIZES = ((8, 40, 24), (16, 100, 72), (16, 128, 192), (12, 200, 256))
+# (on the resident (16, 128, 128) kernels), sdf_dim > width, a size that
+# lands on the streamed (16, 256, 256), and in_dim 24 and 20, padded to 32
+# on a streamed width-256 size and on the smallest, (32, 64, 64)
+PAD_SIZES = ((8, 40, 24), (16, 100, 72), (16, 128, 192), (12, 200, 256),
+             (24, 200, 72), (20, 64, 64))
 K1_RAGGED = (1001, 40)    # rays x samples of K1's ragged check (40,040 rows)
 TRACK_RAYS = 1024         # the tracking shape: 1024 rays x S samples
 ATE_LIMIT_CM = 3.0
@@ -324,6 +336,11 @@ PCD_CLI_FRAMES = 5
 # the streamed plan of K1 and K3
 W256_SIZE = (16, 256, 128)
 W256_FRAMES = 10
+# the vox-d32 and pcd-f32-d32 slices: the reference's wider decoder at the
+# per-point feature width of voxel- and plane-feature SLAM systems
+# (NICE-SLAM's and ESLAM's c_dim 32), embeddings of as many values
+D32_SIZE = (32, 256, 128)
+D32_FRAMES = 10
 PROFILE_START, PROFILE_FRAMES = 5, 4   # the vox profile: frames 5-8
 WIDTH, HEIGHT = 320, 240
 # the dda slice's intersection check, on its final map (tests/test_intersect
@@ -390,9 +407,10 @@ def dec_flops(size) -> int:
     return 2 * (d * w + w * w + w * (sd + 1) + sd * w + d * w + w * 3)
 
 
-# K1's blend per sample on the FP32 units: 8 corners x 16 dims x (mul, add)
-# plus the 8 weights
-K1_BLEND_FLOPS = 2 * 8 * 16 + 8 * 2
+def k1_blend_flops(d: int) -> int:
+    """K1's blend per sample on the FP32 units at in_dim d: 8 corners x d
+    dims x (mul, add) plus the 8 weights."""
+    return 2 * 8 * d + 8 * 2
 # (library, kernel function): each must hold HGMMA (wgmma), no HMMA and no
 # spills
 KERNEL_FUNCTIONS = (("render_kernel", "render_forward_kernel"),
@@ -607,11 +625,15 @@ def _scene():
     return AnalyticScene(), poses, (fx, fy, cx, cy)
 
 
-def kernel_inputs(device):
+def kernel_inputs(device, dims=None):
     """Mapping-shaped inputs of all three kernels from the real pipeline:
     frame 0 of the scan inserted into a bench-capacity map (and its points
     into a point store), 5x1024 rays of that frame intersected and sampled
-    (S=64, H=12)."""
+    (S=64, H=12). ``rb_by_dim[d]``: the hit slots' corner features at each
+    in_dim d of ``dims`` (default ``mlp_kernel.BUILT_IN_DIMS``; embeddings
+    of d columns from a seed on the same map and samples; ``rb`` is in_dim
+    16's), ``pcd_args_by_dim[d]``: the pcd gather's arguments with a
+    PointNet of output width d."""
     import torch
 
     from proudslam_tpu_torch.config import bench_settings
@@ -661,6 +683,7 @@ def kernel_inputs(device):
                             device=device)
     vidx = inter.voxel_idx.clamp_min(0).long()
     rb = corner_view(emb, view.voxel_vertex_ids)[vidx].contiguous()
+    rb_by_dim = {s.decoder.in_dim: rb}
     keys_rb = view.voxel_keys[vidx].contiguous()
     valid = samples.voxel_idx >= 0
     bins = torch.where(valid, samples.bin, s.render.max_hits).to(torch.int32)
@@ -675,11 +698,30 @@ def kernel_inputs(device):
     sampled_xyz = ro[:, None, :] + rd[:, None, :] * samples.depth[..., None]
     pcd_args = (sampled_xyz, samples.bin, inter.voxel_idx, store, pn,
                 s.render.voxel_size)
+    pcd_args_by_dim = {s.decoder.in_dim: pcd_args}
+    # the other built in_dims: embeddings and a PointNet of that width from
+    # a seed of their own (``gen`` goes on to draw the kernel phase's
+    # cotangents), on the same map, rays and samples
+    if dims is None:
+        from proudslam_tpu_torch.ops.kernels.mlp_kernel import BUILT_IN_DIMS
+        dims = BUILT_IN_DIMS
+    gen_d = torch.Generator(device=device)
+    gen_d.manual_seed(7)
+    for dim in dims:
+        if dim in rb_by_dim:
+            continue
+        emb_d = 0.5 * torch.randn((ms.embeddings.shape[0], dim),
+                                  generator=gen_d, device=device)
+        rb_by_dim[dim] = corner_view(emb_d, view.voxel_vertex_ids)[vidx]
+        pn_d = init_pointnet(gen_d, dim, device)
+        pn_d["fc"] = {k: v * 50.0 for k, v in pn_d["fc"].items()}
+        pcd_args_by_dim[dim] = pcd_args[:4] + (pn_d,) + pcd_args[5:]
     gt_c = torch.as_tensor(rgb, device=device).reshape(-1, 3)[pix]
     return dict(rb=rb, keys_rb=keys_rb, bins=bins.contiguous(),
                 z=samples.depth.contiguous(), rays_o=ro, rays_d=rd.contiguous(),
                 fp=fp, voxel=s.render.voxel_size, valid=valid, nv=nv,
-                gen=gen, pcd_args=pcd_args,
+                gen=gen, pcd_args=pcd_args, rb_by_dim=rb_by_dim,
+                pcd_args_by_dim=pcd_args_by_dim,
                 points=int(store.counts.sum()),
                 render=dict(settings=s, view=view, store=store, dec=dec, pn=pn,
                             precomputed=(inter, samples), gt_c=gt_c,
@@ -1228,7 +1270,7 @@ def kernel_phase(device):
         st["ms"] = _event_ms(lambda: rk.fused_render_forward(*a))
         st["plain_ms"] = _event_ms(lambda: rk.fused_render_forward_plain(*a))
         st["bound_ms"], st["bound_by"] = _bound(
-            DEC_FLOPS * st["rows"], K1_BLEND_FLOPS * st["rows"],
+            DEC_FLOPS * st["rows"], k1_blend_flops(16) * st["rows"],
             _nbytes(*a[:6], *inp["fp"]) + st["rows"] * (4 + 16) * 4)
         st["share"] = st["bound_ms"] / st["ms"]
 
@@ -1405,15 +1447,22 @@ def kernel_phase(device):
     f32 = f32_kernel_phase(x2, g, fp, min(TR, N2))
     render_errs = pcd_render_check(inp["render"], inp["rays_o"],
                                    inp["rays_d"], device)
+    # the pcd features at every built in_dim (PointNet of that output width)
+    x2_by_dim = {16: x2}
+    for d, a in inp["pcd_args_by_dim"].items():
+        if d not in x2_by_dim:
+            with torch.no_grad():
+                xd = gather_pcd_features(*a)
+            x2_by_dim[d] = xd.reshape(-1, d).contiguous()
     by_size = {_size_tag(size): size_phase(device, inp, size)
                for size in mk.BUILT_SIZES if mk.streamed(size)}
-    f32_by_size = {_size_tag(size): f32_size_phase(device, x2, g, size,
-                                                   min(TR, N2))
-                   for size in mk.BUILT_SIZES if mk.streamed(size)}
+    f32_by_size = {_size_tag(size): f32_size_phase(
+        device, x2_by_dim[size[0]], g, size, min(TR, N2))
+        for size in mk.BUILT_SIZES if mk.streamed(size)}
     for name in ("decoder_forward_f32", "decoder_backward_f32"):
         f32[name]["sizes"] = {tag: st[name]
                               for tag, st in f32_by_size.items()}
-    padded = pad_phase(device, inp, x2, g)
+    padded = pad_phase(device, inp, x2_by_dim, g)
 
     m1, m2, m3 = k1["mapping"], k2["mapping"], k3["mapping"]
     sizes = {k: {tag: st[k] for tag, st in by_size.items()}
@@ -1466,8 +1515,8 @@ def size_phase(device, inp, size) -> dict:
     fp = mk.pack_params(init_decoder(gen, dec, device), dec)
     fp = type(fp)(*[t.contiguous() for t in fp])
     flops = dec_flops(size)
-    base = (inp["rb"], inp["keys_rb"], inp["bins"], inp["z"], inp["rays_o"],
-            inp["rays_d"])
+    base = (inp["rb_by_dim"][d], inp["keys_rb"], inp["bins"], inp["z"],
+            inp["rays_o"], inp["rays_d"])
     R, S = inp["bins"].shape
     nr, ns = K1_RAGGED
     k1_args = {
@@ -1532,23 +1581,35 @@ def size_phase(device, inp, size) -> dict:
 
     shapes = {"mapping": N, "tracking": TRR}
     k1, k2, k3 = {}, {}, {}
+    chain, leaves = _matmul_chain(fp)
     for shape, rows in shapes.items():
         a = k1_args[shape]
         xn, gn = x[:rows].contiguous(), g[:rows].contiguous()
+        xb = xn.to(torch.bfloat16)
+        xg = xb.detach().clone().requires_grad_(True)
+        gb = gn.to(torch.bfloat16)
+
+        def chain_fwd_bwd():
+            for t in leaves + [xg]:
+                t.grad = None
+            chain(xg).backward(gb)
         st = k1[shape] = dict(rows=rows)
         st["ms"] = _event_ms(lambda: rk.fused_render_forward(*a))
         st["plain_ms"] = _event_ms(lambda: rk.fused_render_forward_plain(*a))
         st["bound_ms"], st["bound_by"] = _bound(
-            flops * rows, K1_BLEND_FLOPS * rows,
+            flops * rows, k1_blend_flops(d) * rows,
             _nbytes(*a[:6], *fp) + rows * (4 + d) * 4)
         st = k2[shape] = dict(rows=rows)
         st["ms"] = _event_ms(lambda: mk.decoder_fwd(xn, fp))
         st["plain_ms"] = _event_ms(lambda: mk.decoder_fwd_plain(xn, fp))
+        with torch.no_grad():
+            st["matmul_chain_ms"] = _event_ms(lambda: chain(xb), reps=3)
         st["bound_ms"], st["bound_by"] = _bound(
             flops * rows, 0, _nbytes(xn, *fp) + rows * 4 * 4)
         st = k3[shape] = dict(rows=rows)
         st["ms"] = _event_ms(lambda: mk.decoder_bwd(xn, gn, fp))
         st["plain_ms"] = _event_ms(lambda: mk.decoder_bwd_plain(xn, gn, fp))
+        st["matmul_chain_ms"] = _event_ms(chain_fwd_bwd, reps=3)
         st["dx_only_ms"] = _event_ms(
             lambda: mk.decoder_bwd(xn, gn, fp, want_wgrad=False))
         st["dx_only_plain_ms"] = _event_ms(
@@ -1565,9 +1626,12 @@ def size_phase(device, inp, size) -> dict:
             f"{a1['plain_ms']:.3f} ms, bound {a1['bound_ms']:.4f} ms by "
             f"{a1['bound_by']}, share {a1['share']:.3f}); K2 {a2['ms']:.3f} "
             f"ms (plain {a2['plain_ms']:.3f} ms, bound {a2['bound_ms']:.4f} "
-            f"ms, share {a2['share']:.3f}); K3 {a3['ms']:.3f} ms (plain "
+            f"ms, share {a2['share']:.3f}; bf16 torch.matmul chain forward "
+            f"{a2['matmul_chain_ms']:.3f} ms); K3 {a3['ms']:.3f} ms (plain "
             f"{a3['plain_ms']:.3f} ms, bound {a3['bound_ms']:.4f} ms, share "
-            f"{a3['share']:.3f}); K3 dx-only {a3['dx_only_ms']:.3f} ms "
+            f"{a3['share']:.3f}; chain forward+backward "
+            f"{a3['matmul_chain_ms']:.3f} ms); K3 dx-only "
+            f"{a3['dx_only_ms']:.3f} ms "
             f"(plain {a3['dx_only_plain_ms']:.3f} ms, bound "
             f"{a3['dx_only_bound_ms']:.4f} ms, share "
             f"{a3['dx_only_share']:.3f}); {rows} rows")
@@ -1703,33 +1767,36 @@ def f32_size_phase(device, x, g, size, track_rows) -> dict:
             "decoder_backward_f32": dict(max_abs_err=err3, shapes=k3)}
 
 
-def pad_phase(device, inp, x2, g) -> dict:
+def pad_phase(device, inp, x2_by_dim, g) -> dict:
     """Each kernel form at the decoder sizes of PAD_SIZES, which no kernel
     is built for and which it runs zero-padded to ``mlp_kernel.built_size``,
     at the tracking shape against its plain version at the unpadded size,
-    with each form's tolerance: K1 on the kernel phase's K1 inputs (each
-    corner's first in_dim features), K2 on K1's features (equal to K1's
-    outputs), K3 (full and dx-only, ``_k3_check``) on them, K2-f32 and
-    K3-f32 on the pcd features' first in_dim columns. And the kernels at
-    the built size, on inputs and params padded by ``pad_params``, return
-    exactly 0 in every padded entry of dx and of each weight gradient ->
-    {size tag: {form: largest absolute error}}."""
+    with each form's tolerance: K1 on the kernel phase's K1 inputs at the
+    built in_dim (each corner's first in_dim features), K2 on K1's features
+    (equal to K1's outputs), K3 (full and dx-only, ``_k3_check``) on them,
+    K2-f32 and K3-f32 on the first in_dim columns of the pcd features at
+    the built in_dim. And the kernels at the built size, on inputs and
+    params padded by ``pad_params``, return exactly 0 in every padded entry
+    of dx and of each weight gradient -> {size tag: {form: largest absolute
+    error}}."""
     import torch
 
     from proudslam_tpu_torch.ops.kernels import mlp_kernel as mk
     from proudslam_tpu_torch.ops.kernels import render_kernel as rk
 
     base = tuple(t[:TRACK_RAYS].contiguous()
-                 for t in (inp["rb"], inp["keys_rb"], inp["bins"], inp["z"],
+                 for t in (inp["keys_rb"], inp["bins"], inp["z"],
                            inp["rays_o"], inp["rays_d"]))
-    R, H, _ = base[0].shape
+    R, H = base[0].shape
     out = {}
     for size in PAD_SIZES:
         d = size[0]
         built = mk.built_size(size)
         fp = _decoder_at(device, size, 5)
-        rb = base[0].reshape(R, H, 8, -1)[..., :d].reshape(R, H, 8 * d)
-        a = (rb.contiguous(), *base[1:], fp, inp["voxel"])
+        rb = inp["rb_by_dim"][built[0]][:TRACK_RAYS]
+        rb = rb.reshape(R, H, 8, -1)[..., :d].reshape(R, H, 8 * d)
+        a = (rb.contiguous(), *base, fp, inp["voxel"])
+        x2 = x2_by_dim[built[0]]
         out_k, feats_k = rk.fused_render_forward(*a)
         out_p, feats_p = rk.fused_render_forward_plain(*a)
         out_2 = mk.decoder_fwd(feats_k, fp)
@@ -1884,11 +1951,11 @@ def pcd_render_check(r, rays_o, rays_d, device):
 def refusal_check() -> dict:
     """``run_slam.check_config`` for the card accepts the fused pcd path at
     f32 operands at the reference's (16, 256, 128), where K2-f32 and K3-f32
-    run their streamed plan, and at a padded size, (12, 200, 72); and
-    refuses in_dim 32 and width 320, which no built size covers, with a
-    ``ValueError`` naming the size and the form (K2-f32 on that path, K1 on
-    the fused vox path), before any data loads and with no kernel
-    launched."""
+    run their streamed plan, at a padded size, (12, 200, 72), and at in_dim
+    32, (32, 256, 128); and refuses in_dim 33 and width 320, which no built
+    size covers, with a ``ValueError`` naming the size and the form (K2-f32
+    on that path, K1 on the fused vox path), before any data loads and with
+    no kernel launched."""
     from proudslam_tpu_torch.config import load_config
     from proudslam_tpu_torch.run_slam import check_config
 
@@ -1901,11 +1968,12 @@ def refusal_check() -> dict:
     path = os.path.join(ROOT, CLI_CONFIG)
     before = _launches()
     accepted = []
-    for kv in (over, {**over, **padded}):
+    for kv in (over, {**over, **padded},
+               {**over, "decoder_specs.in_dim": D32_SIZE[0]}):
         dec = check_config(load_config(path, dict(kv)), "cuda").decoder
         accepted.append([dec.in_dim, dec.width, dec.sdf_dim])
     refused = {}
-    for key, val in (("decoder_specs.in_dim", 32),
+    for key, val in (("decoder_specs.in_dim", D32_SIZE[0] + 1),
                      ("decoder_specs.width", 320)):
         for mode, form in (("pcd", "K2-f32"), ("vox", "K1")):
             kv = {**over, "tpu_specs.feature_mode": mode, key: val}
@@ -2090,6 +2158,16 @@ def trained_decoder_check(settings):
                  for wgrad in (True, False))
         return {"trained_decoder_max_abs_err": {"K2-f32": e2, "K3-f32": e3}}
     return after
+
+
+def at_size(settings, size):
+    """``settings`` with the decoder size (in_dim, width, sdf_dim), the map's
+    embeddings of in_dim values (as ``settings_from_config`` sets them)."""
+    d, w, sd = size
+    return dataclasses.replace(
+        settings, map=dataclasses.replace(settings.map, embed_dim=d),
+        decoder=dataclasses.replace(settings.decoder, in_dim=d, width=w,
+                                    sdf_dim=sd))
 
 
 def slice_phase(device, name, settings, frames, n_frames, ate_limit_cm,
@@ -2752,6 +2830,24 @@ def profile_phase(device, settings, frames, start=PROFILE_START,
     return st
 
 
+def size_table(record) -> None:
+    """One log line per kernel and streamed decoder size: its times at the
+    mapping and tracking shapes with the bound's share, the plain version's
+    and the matmul chain's times, its error against the plain version, and
+    its build (registers, spills, HGMMA / HMMA / FFMA counts)."""
+    for k in record["kernels"]:
+        for tag, st in k.get("sizes", {}).items():
+            b = k["build_by_size"].get(tag, {})
+            row = {"max_abs_err": st["max_abs_err"], **{
+                key: b.get(key) for key in ("registers", "spill_stores",
+                                            "HGMMA", "HMMA", "FFMA")}}
+            for shape, sh in st["shapes"].items():
+                row[shape] = {key: sh.get(key) for key in (
+                    "ms", "share", "bound_ms", "plain_ms", "matmul_chain_ms",
+                    "dx_only_ms")}
+            log(f"size table: {k['name']} at {tag}: {json.dumps(row)}")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     sys.path.insert(0, ROOT)
@@ -2779,12 +2875,13 @@ def main() -> None:
         device, "vox", vox, frames, N_FRAMES, ATE_LIMIT_CM,
         launched=("fused_render_forward", "decoder_backward"),
         not_launched=("decoder_forward",) + f32_kernels, mesh=True)}
-    w256 = dataclasses.replace(vox, decoder=dataclasses.replace(
-        vox.decoder, in_dim=W256_SIZE[0], width=W256_SIZE[1],
-        sdf_dim=W256_SIZE[2]))
     stats["vox-w256"] = slice_phase(
-        device, "vox-w256", w256, frames, W256_FRAMES, ATE_LIMIT_CM,
-        launched=("fused_render_forward", "decoder_backward"),
+        device, "vox-w256", at_size(vox, W256_SIZE), frames, W256_FRAMES,
+        ATE_LIMIT_CM, launched=("fused_render_forward", "decoder_backward"),
+        not_launched=("decoder_forward",) + f32_kernels)
+    stats["vox-d32"] = slice_phase(
+        device, "vox-d32", at_size(vox, D32_SIZE), frames, D32_FRAMES,
+        ATE_LIMIT_CM, launched=("fused_render_forward", "decoder_backward"),
         not_launched=("decoder_forward",) + f32_kernels)
     kern["extra"]["refusal"] = refusal_check()
     pcd = dataclasses.replace(
@@ -2799,13 +2896,16 @@ def main() -> None:
     stats["pcd-f32"] = slice_phase(
         device, "pcd-f32", pcd_f32, frames, PCD_FRAMES, PCD_ATE_LIMIT_CM,
         launched=f32_kernels, not_launched=bf16_kernels)
-    pcd_f32_w256 = dataclasses.replace(pcd_f32, decoder=dataclasses.replace(
-        pcd_f32.decoder, in_dim=W256_SIZE[0], width=W256_SIZE[1],
-        sdf_dim=W256_SIZE[2]))
+    pcd_f32_w256 = at_size(pcd_f32, W256_SIZE)
     stats["pcd-f32-w256"] = slice_phase(
         device, "pcd-f32-w256", pcd_f32_w256, frames, PCD_FRAMES,
         PCD_W256_ATE_LIMIT_CM, launched=f32_kernels,
         not_launched=bf16_kernels, after=trained_decoder_check(pcd_f32_w256))
+    pcd_f32_d32 = at_size(pcd_f32, D32_SIZE)
+    stats["pcd-f32-d32"] = slice_phase(
+        device, "pcd-f32-d32", pcd_f32_d32, frames, PCD_FRAMES,
+        PCD_W256_ATE_LIMIT_CM, launched=f32_kernels,
+        not_launched=bf16_kernels, after=trained_decoder_check(pcd_f32_d32))
     resample = dataclasses.replace(
         vox, render=dataclasses.replace(vox.render, pixel_sampler="gumbel"),
         tracker=dataclasses.replace(vox.tracker, fixed_sample_batch=False),
@@ -2881,6 +2981,7 @@ def main() -> None:
                            if fn in fns},
          **kern[name]}
         for name, (src, rep, form, fn) in meta.items()]}
+    size_table(record)
     unlaunched = [k["name"] for k in record["kernels"] if k["launches"] <= 0]
     if unlaunched:
         raise AssertionError(f"kernels launched on no path: {unlaunched}")

@@ -9,13 +9,18 @@
 // accumulator takes 128 registers a thread before the next layer's operand.
 // So here:
 //   - the small weights stay resident (w1 and wc_x as bf16 tiles, the f32
-//     vectors: ~25 KB at width 256), and the three large ones (w2, ws's
-//     feature part, wc_f) stream from L2 through a ring of two shared-memory
-//     slots, one chunk of CR = 64 input rows at a time (<= 32 KB), each a
-//     single bulk copy (`cp.async.bulk`, the Tensor Memory Accelerator)
-//     that completes on the slot's mbarrier. The next chunk is in flight
-//     while this one's products run; the chunk after the last of a tile is
-//     the next tile's first. Per 64-row tile that is one read of the large
+//     vectors: ~25 KB at (16, 256, *), ~41 KB at (32, 256, *)), and the
+//     three large ones (w2, ws's feature part, wc_f) stream from L2 through
+//     a ring of two shared-memory slots, one chunk of CR input rows at a
+//     time (CR = 64 at in_dim 16, <= 32 KB; CR = 32 at in_dim 32, <= 16 KB,
+//     which leaves room for the doubled w1, wc_x and x tile and K1's
+//     doubled gather buffer: at (32, 256, 256) 64-row chunks would take
+//     K1's block to 245,808 bytes and K3's to 247,856, over the 232,448 a
+//     block may use), each a single bulk copy (`cp.async.bulk`, the Tensor
+//     Memory Accelerator) that completes on the slot's mbarrier. The next
+//     chunk is in flight while this one's products run; the chunk after the
+//     last of a tile is the next tile's first. Per 64-row tile that is one
+//     read of the large
 //     weights (K1, K2: 256 KB at (16, 256, 128)) or two (K3, forward and
 //     backward), from L2: 1.3 GB per K1 launch at the mapping shape, which
 //     L2 serves at several TB/s;
@@ -27,10 +32,11 @@
 //     accumulator registers a thread at width 256), so the activations go
 //     through shared memory as bf16 tiles (decoder_tc.cuh's layout), read
 //     K-major as the next product's A and MN-major as a weight-gradient
-//     operand. A chunk of weight rows [64c, 64c + 64) gives the forward
+//     operand. A chunk of weight rows [CR c, CR c + CR) gives the forward
 //     product a K-slice (summed over the chunks) and the backward product
-//     with the transposed weight 64 finished output columns (32 per
-//     warpgroup);
+//     with the transposed weight CR finished output columns (CR / 2 per
+//     warpgroup). Each output is the same sum over the same k16 steps
+//     whatever CR is;
 //   - the odd widths run on the FMA units as in the resident plan: the sdf
 //     column and the 3-wide color head as per-row partial dots, one per
 //     warpgroup's columns, added in a fixed order.
@@ -55,7 +61,7 @@ using tc::TR;
 using tc::WG;
 
 constexpr int THREADS = 2 * WG;            // two warpgroups on one tile
-constexpr int CR = 64;                     // weight rows in a chunk
+constexpr int CR = D == 16 ? 64 : 32;      // weight rows in a chunk
 constexpr int NW2 = W / CR, NWS = W / CR, NWC = SD / CR;   // chunks of each
 constexpr int NFWD = NW2 + NWS + NWC;      // chunks of one forward
 // the packed large weights (bf16): [w2 chunks | ws chunks | wc_f chunks]
@@ -65,10 +71,11 @@ constexpr int SLOT = CR * W;               // bf16 elements of a ring slot
 constexpr int RING_SMEM = 2 * SLOT * 2 + 16;   // two slots, two mbarriers
 constexpr int HALF = W / 2;                // a warpgroup's columns of W
 
-// Chunk `id` of the packed weights: rows [64c, 64c + 64) of w2 (id < NW2),
-// of ws's feature part, or of wc_f, stored as the tile (decoder_tc.cuh) of
-// the chunk's transpose: rows = the weight's outputs, cols = the chunk's 64
-// inputs. -> its first element and size in the packed buffer.
+// Chunk `id` of the packed weights: rows [CR c, CR c + CR) of w2 (id <
+// NW2), of ws's feature part, or of wc_f, stored as the tile
+// (decoder_tc.cuh) of the chunk's transpose: rows = the weight's outputs,
+// cols = the chunk's CR inputs. -> its first element and size in the
+// packed buffer.
 __device__ __forceinline__ void chunk_of(int id, int& off, int& n) {
   if (id < NW2) {
     off = id * CR * W;
@@ -239,16 +246,17 @@ __device__ inline void fwd_stream(float (&acc)[N / 4], const bf16* a,
   }
 }
 
-// Backward product with chunk w (the rows [64c, 64c + 64) of a weight of K
-// outputs): acc = dy w[64c + 32 wg .. + 32, :]^T, this warpgroup's 32 of the
-// chunk's 64 output columns, with dy the (TR, K) cotangent tile
+// Backward product with chunk w (the rows [CR c, CR c + CR) of a weight of
+// K outputs): acc = dy w[CR c + CR / 2 wg .. + CR / 2, :]^T, this
+// warpgroup's CR / 2 of the chunk's CR output columns, with dy the (TR, K)
+// cotangent tile
 template <int K>
-__device__ __forceinline__ void bwd_chunk(float (&acc)[16], const bf16* dy,
-                                          const bf16* w) {
+__device__ __forceinline__ void bwd_chunk(float (&acc)[CR / 4],
+                                          const bf16* dy, const bf16* w) {
   const int wg = threadIdx.x / WG;
-  product<32, 0, 1>(acc, tc::desc_k(dy, K), tc::KSTEP_K,
-                    tc::desc_mn(w + tc::tofs(0, 32 * wg, CR), CR),
-                    tc::kstep_mn(CR), K / 16, false);
+  product<CR / 2, 0, 1>(acc, tc::desc_k(dy, K), tc::KSTEP_K,
+                        tc::desc_mn(w + tc::tofs(0, CR / 2 * wg, CR), CR),
+                        tc::kstep_mn(CR), K / 16, false);
 }
 
 // dst (tile layout, LD columns) <- bf16(act(acc + bias)) at this

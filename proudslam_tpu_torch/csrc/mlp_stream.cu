@@ -34,7 +34,13 @@
 //     over the two warpgroups; the bias gradients' per-warp column
 //     sums are folded into the slab in a fixed order after each product, so
 //     one 4 x W buffer serves all four. Four bf16 tiles of width W or SD
-//     beside the ring fit a block up to (16, 256, 256).
+//     beside the ring fit a block up to (16, 256, 256) (229,424 bytes) and,
+//     with the ring's 32-row chunks of in_dim 32, up to (32, 256, 256)
+//     (215,088 bytes).
+// At in_dim 32 a row's inputs are two chunks of 16 floats (each thread
+// loads and rounds one 4-float piece of each), the x-side products take
+// two k16 steps, and dx's and the x-side weight gradients' products are 16
+// columns wider; every other product is the in_dim-16 one.
 // A ragged last tile is masked: its missing rows carry zero inputs and zero
 // cotangents (they add nothing to any gradient) and write no output.
 
@@ -54,14 +60,19 @@ constexpr int K2_SMEM = tc::TC_SMALL_SMEM + st::RING_SMEM
                         + pad16(tc::TR * D * 4) + st::PART_SMEM;
 static_assert(K2_SMEM <= 232448, "one block's shared memory");
 
-// Thread (row, q) = (t / 4, t % 4) copies x[row, 4q:4q + 4] of `tile` into
-// the staging buffer, if the row exists.
+// Thread (row, q) = (t / 4, t % 4) copies x[row, 16k + 4q : 16k + 4q + 4]
+// (k < D / 16) of `tile` into the staging buffer, if the row exists.
 __device__ __forceinline__ void stage_x(const float* __restrict__ x,
                                         long long N, long long tile,
                                         float* stage) {
   const int row = threadIdx.x >> 2, q = threadIdx.x & 3;
   const long long n = tile * tc::TR + row;
-  if (n < N) tc::cp_async16(stage + row * D + 4 * q, x + n * D + 4 * q);
+  if (n < N) {
+#pragma unroll
+    for (int k = 0; k < D / 16; ++k)
+      tc::cp_async16(stage + row * D + 16 * k + 4 * q,
+                     x + n * D + 16 * k + 4 * q);
+  }
   tc::cp_async_commit();
 }
 
@@ -94,11 +105,15 @@ decoder_forward_kernel(const float* __restrict__ x, Params prm,
     // every thread's copy has landed; the barrier also keeps x's tile until
     // the previous tile's products have finished
     __syncthreads();
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (tile * tc::TR + row < N)
-      v = *reinterpret_cast<const float4*>(stage + row * D + 4 * q);
-    *reinterpret_cast<uint2*>(xs + tc::tofs(row, 4 * q, D)) =
-        make_uint2(tc::pack_bf16x2(v.x, v.y), tc::pack_bf16x2(v.z, v.w));
+#pragma unroll
+    for (int k = 0; k < D / 16; ++k) {
+      const int c = 16 * k + 4 * q;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (tile * tc::TR + row < N)
+        v = *reinterpret_cast<const float4*>(stage + row * D + c);
+      *reinterpret_cast<uint2*>(xs + tc::tofs(row, c, D)) =
+          make_uint2(tc::pack_bf16x2(v.x, v.y), tc::pack_bf16x2(v.z, v.w));
+    }
     tc::fence_proxy_async();
     __syncthreads();                  // x is in place; the stage is free
     if (more) stage_x(x, N, tile + gridDim.x, stage);
@@ -186,7 +201,7 @@ __device__ inline void wgrad(const bf16* act, const bf16* cot,
   }
 }
 
-// The 16-wide weight gradient dst (D, N) += x^T cot, computed transposed
+// The D-wide weight gradient dst (D, N) += x^T cot, computed transposed
 // (cot[:, mb:mb+64]^T x: M = 64 of cot's columns, N = D) and stored
 // transposed; the 64-column pieces alternate between the warpgroups.
 template <int N>
@@ -196,25 +211,26 @@ __device__ inline void wgrad_x(const bf16* cot, const bf16* xs,
   const int wg = threadIdx.x / tc::WG;
 #pragma unroll 1
   for (int mb = 64 * wg; mb < N; mb += 128) {
-    float acc[8], old[8];
+    float acc[D / 2], old[D / 2];
     const uint64_t da = tc::desc_mn(cot + tc::tofs(0, mb, N), N);
     const uint64_t db = tc::desc_mn(xs, D);
     tc::fence_regs(acc);
     tc::wg_fence();
 #pragma unroll
     for (int j = 0; j < tc::TR / 16; ++j)
-      tc::mma_m64n16<1, 1>(acc, da + j * tc::kstep_mn(N),
-                           db + j * tc::kstep_mn(D), j > 0);
+      tc::mma_ss<D, 1, 1>(acc, da + j * tc::kstep_mn(N),
+                          db + j * tc::kstep_mn(D), j > 0);
     tc::wg_commit();
-    // entry 4i + e: column m = mb + r0 + 8 (e / 2) of cot, row k of x
+    // entry 4i + e: column m = mb + r0 + 8 (e / 2) of cot, row k = 8i + c2
+    // + e % 2 of x
     float* o = dst + ln.c2 * N + mb + ln.r0;
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < D / 2; ++i)
       old[i] = first ? 0.f : o[(8 * (i >> 2) + (i & 1)) * N + 8 * ((i >> 1) & 1)];
     tc::wg_wait_all();
     tc::fence_regs(acc);
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < D / 2; ++i)
       o[(8 * (i >> 2) + (i & 1)) * N + 8 * ((i >> 1) & 1)] = old[i] + acc[i];
   }
 }
@@ -248,7 +264,7 @@ decoder_backward_kernel(const float* __restrict__ x,
   const long long tile1 = min(ntiles, tile0 + tiles_per_block);
   float acc[W / 4];
   float accs[SD / 4];
-  float a16[16];
+  float ac[st::CR / 4];               // a chunk's columns of a cotangent
   if (tile0 < tile1) st::ring_start(ring);
 
   for (long long tile = tile0; tile < tile1; ++tile) {
@@ -256,17 +272,20 @@ decoder_backward_kernel(const float* __restrict__ x,
     const long long row0 = tile * tc::TR;
     const int nvalid = static_cast<int>(min(static_cast<long long>(tc::TR), N - row0));
 
-    // inputs: thread (r, q) = (tid / 4, tid % 4) takes x[r, 4q:4q+4] (bf16)
-    // and keeps g[r, q]; missing rows are zeros
+    // inputs: thread (r, q) = (tid / 4, tid % 4) takes x[r, 16k + 4q :
+    // 16k + 4q + 4] (k < D / 16, bf16) and keeps g[r, q]; missing rows are
+    // zeros
     const int r = tid >> 2, q = tid & 3;
     float gv = 0.f;
-    {
+#pragma unroll
+    for (int k = 0; k < D / 16; ++k) {
+      const int c = 16 * k + 4 * q;
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
       if (r < nvalid) {
-        v = *reinterpret_cast<const float4*>(x + (row0 + r) * D + 4 * q);
-        gv = g[(row0 + r) * 4 + q];
+        v = *reinterpret_cast<const float4*>(x + (row0 + r) * D + c);
+        if (k == 0) gv = g[(row0 + r) * 4 + q];
       }
-      *reinterpret_cast<uint2*>(xs + tc::tofs(r, 4 * q, D)) =
+      *reinterpret_cast<uint2*>(xs + tc::tofs(r, c, D)) =
           make_uint2(tc::pack_bf16x2(v.x, v.y), tc::pack_bf16x2(v.z, v.w));
     }
     tc::fence_proxy_async();
@@ -381,10 +400,10 @@ decoder_backward_kernel(const float* __restrict__ x,
 #pragma unroll 1
     for (int c = 0; c < st::NWC; ++c) {
       const bf16* wc = st::acquire(ring, more);
-      st::bwd_chunk<W>(a16, dhc, wc);
-      const int col0 = st::CR * c + 32 * wg;
-      if (want_wgrad) col_sums(a16, cs, col0);           // dbs[:SD]
-      st::store_tile(feat, SD, a16, nullptr, false, col0, ln);
+      st::bwd_chunk<W>(ac, dhc, wc);
+      const int col0 = st::CR * c + st::CR / 2 * wg;
+      if (want_wgrad) col_sums(ac, cs, col0);            // dbs[:SD]
+      st::store_tile(feat, SD, ac, nullptr, false, col0, ln);
     }
     tc::fence_proxy_async();
     __syncthreads();                  // dso is in place
@@ -408,18 +427,18 @@ decoder_backward_kernel(const float* __restrict__ x,
 #pragma unroll 1
     for (int c = 0; c < st::NWS; ++c) {
       const bf16* ws = st::acquire(ring, more);
-      st::bwd_chunk<SD>(a16, feat, ws);
-      const int col0 = st::CR * c + 32 * wg;
+      st::bwd_chunk<SD>(ac, feat, ws);
+      const int col0 = st::CR * c + st::CR / 2 * wg;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < st::CR / 16; ++i)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          a16[4 * i + e] = fmaf(gs[e >> 1],
-                                w.ws_sdf[col0 + 8 * i + ln.c2 + (e & 1)],
-                                a16[4 * i + e]);
-      st::relu_mask(a16, h2, W, col0, ln);
-      if (want_wgrad) col_sums(a16, cs, col0);           // db2
-      st::store_tile(h2, W, a16, nullptr, false, col0, ln);
+          ac[4 * i + e] = fmaf(gs[e >> 1],
+                               w.ws_sdf[col0 + 8 * i + ln.c2 + (e & 1)],
+                               ac[4 * i + e]);
+      st::relu_mask(ac, h2, W, col0, ln);
+      if (want_wgrad) col_sums(ac, cs, col0);            // db2
+      st::store_tile(h2, W, ac, nullptr, false, col0, ln);
     }
     tc::fence_proxy_async();
     __syncthreads();                  // dh2 is in place
@@ -432,32 +451,37 @@ decoder_backward_kernel(const float* __restrict__ x,
 #pragma unroll 1
     for (int c = 0; c < st::NW2; ++c) {
       const bf16* w2 = st::acquire(ring, more);
-      st::bwd_chunk<W>(a16, h2, w2);
-      const int col0 = st::CR * c + 32 * wg;
-      st::relu_mask(a16, h1, W, col0, ln);
-      if (want_wgrad) col_sums(a16, cs, col0);           // db1
-      st::store_tile(h1, W, a16, nullptr, false, col0, ln);
+      st::bwd_chunk<W>(ac, h2, w2);
+      const int col0 = st::CR * c + st::CR / 2 * wg;
+      st::relu_mask(ac, h1, W, col0, ln);
+      if (want_wgrad) col_sums(ac, cs, col0);            // db1
+      st::store_tile(h1, W, ac, nullptr, false, col0, ln);
     }
     tc::fence_proxy_async();
     __syncthreads();                  // dh1 is in place
     if (want_wgrad) fold(cs, slab + OFF_B1, W, first);
 
-    // dx = dh1 w1^T + dhc wc_x^T: warpgroup wg takes columns 8wg..8wg+7
+    // dx = dh1 w1^T + dhc wc_x^T: warpgroup wg takes columns [D / 2 wg,
+    // D / 2 (wg + 1))
     {
-      float d8[4];
-      st::product<8, 0, 1>(d8, tc::desc_k(h1, W), tc::KSTEP_K,
-                           tc::desc_mn(w.w1 + tc::tofs(0, 8 * wg, D), D),
-                           tc::kstep_mn(D), W / 16, false);
-      st::product<8, 0, 1>(d8, tc::desc_k(dhc, W), tc::KSTEP_K,
-                           tc::desc_mn(w.wc_x + tc::tofs(0, 8 * wg, D), D),
-                           tc::kstep_mn(D), W / 16, true);
+      float dd[D / 4];
+      const int n0 = D / 2 * wg;
+      st::product<D / 2, 0, 1>(dd, tc::desc_k(h1, W), tc::KSTEP_K,
+                               tc::desc_mn(w.w1 + tc::tofs(0, n0, D), D),
+                               tc::kstep_mn(D), W / 16, false);
+      st::product<D / 2, 0, 1>(dd, tc::desc_k(dhc, W), tc::KSTEP_K,
+                               tc::desc_mn(w.wc_x + tc::tofs(0, n0, D), D),
+                               tc::kstep_mn(D), W / 16, true);
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int rr = ln.r0 + 8 * h;
-        if (rr < nvalid)
-          *reinterpret_cast<float2*>(dx + (row0 + rr) * D + 8 * wg + ln.c2) =
-              make_float2(d8[2 * h], d8[2 * h + 1]);
-      }
+      for (int i = 0; i < D / 16; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int rr = ln.r0 + 8 * h;
+          if (rr < nvalid)
+            *reinterpret_cast<float2*>(dx + (row0 + rr) * D + n0 + 8 * i
+                                       + ln.c2) =
+                make_float2(dd[4 * i + 2 * h], dd[4 * i + 2 * h + 1]);
+        }
     }
     if (want_wgrad) wgrad_x<W>(h1, xs, slab + OFF_W1, first, ln);   // x^T dh1
     __syncthreads();

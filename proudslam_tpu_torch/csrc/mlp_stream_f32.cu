@@ -29,18 +29,26 @@
 //   - tiles of RT = 32 rows, feature-major (act[k][row], row stride AP = 36
 //     floats: conflict-free fragment reads, as mlp_kernel_f32.cu's 68):
 //     36,864 bytes each at width 256;
-//   - w1 and wc_x (D x W) stay resident; w2, ws's feature part and wc_f
-//     stream from L2 through a ring of two shared-memory slots, 16 weight
-//     rows (a K-slice of a forward product) at a time, each slot filled by
-//     one bulk copy (bulk_copy.cuh) that completes on the slot's mbarrier,
-//     the next chunk in flight while this one's products run;
+//   - at in_dim 16, w1 and wc_x (D x W) stay resident; w2, ws's feature
+//     part and wc_f stream from L2 through a ring of two shared-memory
+//     slots, 16 weight rows (a K-slice of a forward product) at a time, each
+//     slot filled by one bulk copy (bulk_copy.cuh) that completes on the
+//     slot's mbarrier, the next chunk in flight while this one's products
+//     run;
+//   - at in_dim 32 the resident w1 and wc_x would take K3-f32's block to
+//     255,504 bytes at width 256 (219,920 at in_dim 16), over the 232,448 a
+//     block may use, so there they stream through the ring too, D / 16
+//     chunks each (188,944 bytes at (32, 256, 256)): w1 before the forward's
+//     first product, wc_x after wc_f for hc's x part, and K3-f32's dx reads
+//     each again as D / 16 chunks, each giving 16 finished columns of dx.
+//     The products' sums are the resident plan's, term for term;
 //   - a per-launch pass (pack_weights_kernel) writes the streamed weights
 //     into a scratch buffer in exactly the chunks' layout (row stride WP =
-//     W + 4 floats), in the order a tile takes them: w2, ws's feature part,
-//     wc_f for the forward, then (K3-f32) the transposes wc_f^T, ws^T, w2^T
-//     for the backward, so that each backward product (dy w^T) is again a
-//     sum over K-slices of a row-major weight: the same product, the same
-//     warp tiling, every warp busy;
+//     W + 4 floats), in the order a tile takes them: (w1,) w2, ws's feature
+//     part, wc_f (, wc_x) for the forward, then (K3-f32) (wc_x,) the
+//     transposes wc_f^T, ws^T, w2^T (, w1) for the backward, so that each
+//     backward product (dy w^T) is again a sum over K-slices of a row-major
+//     weight: the same product, the same warp tiling, every warp busy;
 //   - the 8 warps split each row x column product by its columns (32 rows
 //     x N / 8 columns a warp); a weight gradient (act^T cot, K = the tile's
 //     32 rows) is cut into 64 x 32 (16 x 32 for w1 and wc_x) warp tiles
@@ -71,17 +79,22 @@ constexpr int WP = W + 4;           // weight row stride (floats)
 constexpr int CHUNK = CR * WP;      // floats of a chunk, and of a ring slot
 constexpr int ACT = W * AP;         // one (W, RT) activation tile
 constexpr int XT = D * AP;          // the input tile
-constexpr int RES = D * WP;         // a resident (D, W) weight
+// in_dim 32: w1 and wc_x stream through the ring (XS chunks each) rather
+// than stay resident (RES floats each)
+constexpr bool XSTREAM = D > 16;
+constexpr int XS = XSTREAM ? D / CR : 0;
+constexpr int RES = XSTREAM ? 0 : D * WP;
 // chunks of each streamed weight, in the order a tile takes them
 constexpr int N_W2 = W / CR, N_WS = W / CR, N_WC = SD / CR;     // forward
 constexpr int N_WCT = W / CR, N_WST = SD / CR, N_W2T = W / CR;  // backward
-constexpr int NFWD = N_W2 + N_WS + N_WC;
-constexpr int NBWD = N_WCT + N_WST + N_W2T;
+// forward: w1, w2, ws, wc_f, wc_x; backward: wc_x, wc_f^T, ws^T, w2^T, w1
+constexpr int NFWD = XS + N_W2 + N_WS + N_WC + XS;
+constexpr int NBWD = XS + N_WCT + N_WST + N_W2T + XS;
 // the packed buffer: NFWD + NBWD chunks, then ws's sdf column (W floats)
 constexpr int SDF_COL = (NFWD + NBWD) * CHUNK;
 constexpr int PACKED = SDF_COL + W;
-static_assert(THREADS == 8 * 32 && D == 16 && W % 64 == 0 && SD % 64 == 0
-                  && SD <= W && W <= 256,
+static_assert(THREADS == 8 * 32 && (D == 16 || D == 32) && W % 64 == 0
+                  && SD % 64 == 0 && SD <= W && W <= 256,
               "the warp tilings below");
 static_assert(SO <= WP, "a chunk row holds any streamed weight's row");
 
@@ -113,19 +126,26 @@ __global__ void pack_weights_kernel(Params p, float* __restrict__ dst,
     int i = e / CHUNK;
     const int q = e - i * CHUNK, r = q / WP, c = q - r * WP;
     float v = 0.f;
-    if (i < N_W2) {                                  // w2 (W, W)
+    if (i < XS) {                                    // w1 (D, W)
+      if (c < W) v = p.w1[(i * CR + r) * W + c];
+    } else if ((i -= XS) < N_W2) {                   // w2 (W, W)
       if (c < W) v = p.w2[(i * CR + r) * W + c];
     } else if ((i -= N_W2) < N_WS) {                 // ws[:, :SD] (W, SD)
       if (c < SD) v = p.ws[(i * CR + r) * SO + c];
     } else if ((i -= N_WS) < N_WC) {                 // wc_f (SD, W)
       if (c < W) v = p.wc_f[(i * CR + r) * W + c];
-    } else if ((i -= N_WC) < N_WCT) {                // wc_f^T (W, SD)
+    } else if ((i -= N_WC) < 2 * XS) {               // wc_x (D, W), twice
+      if (i >= XS) i -= XS;
+      if (c < W) v = p.wc_x[(i * CR + r) * W + c];
+    } else if ((i -= 2 * XS) < N_WCT) {              // wc_f^T (W, SD)
       if (c < SD) v = p.wc_f[c * W + i * CR + r];
     } else if ((i -= N_WCT) < N_WST) {               // ws[:, :SD]^T (SD, W)
       if (c < W) v = p.ws[c * SO + i * CR + r];
-    } else {                                         // w2^T (W, W)
-      i -= N_WST;
+    } else if ((i -= N_WST) < N_W2T) {               // w2^T (W, W)
       if (c < W) v = p.w2[c * W + i * CR + r];
+    } else {                                         // w1 (D, W)
+      i -= N_W2T;
+      if (c < W) v = p.w1[(i * CR + r) * W + c];
     }
     dst[e] = v;
   }
@@ -337,14 +357,40 @@ __device__ __forceinline__ void wgrad_mm(float* __restrict__ out,
   }
 }
 
-// dx's part (RT x D) += cot wt^T: cot feature-major (W, RT), wt a resident
-// (D, W) weight; warps 0..3 hold the 2 x 2 tiles of 16 x 8
+// dx's part (RT x D) += cot wt^T on dx's columns [n_lo, n_lo + ROWS): cot
+// feature-major (W, RT), wt those rows of a (D, W) weight at stride WP
+// (all D of them resident, or a chunk of the ring); warp w < D / 4 holds
+// dx's 16 x 8 tile at (16 (w & 1), 8 (w >> 1))
+template <int ROWS>
 __device__ __forceinline__ void dx_mm(float (&acc)[1][1][4], const float* cot,
-                                      const float* wt) {
-  const int w = threadIdx.x >> 5;
-  if (w < 4)
-    tf::mm_fm<1, 1, W, false>(acc, cot, AP, wt, WP, 16 * (w & 1),
-                              8 * (w >> 1));
+                                      const float* wt, int n_lo) {
+  const int w = threadIdx.x >> 5, n0 = 8 * (w >> 1);
+  if (w < D / 4 && n0 >= n_lo && n0 < n_lo + ROWS)
+    tf::mm_fm<1, 1, W, false>(acc, cot, AP, wt, WP, 16 * (w & 1), n0 - n_lo);
+}
+
+// the forward's x-side product f (+)= x w with w = w1 or wc_x: resident, or
+// its XS chunks from the ring
+template <class P>
+__device__ __forceinline__ void x_mm(P& f, const float* xs, const float* res,
+                                     Ring& r, bool more) {
+  if constexpr (XSTREAM)
+    stream_mm(f, xs, XS, r, more);
+  else
+    f.template mm<D>(xs, res);
+}
+
+// dx's part += cot w^T with w = wc_x or w1: resident, or its XS chunks from
+// the ring (chunk c: dx's columns [CR c, CR c + CR))
+__device__ __forceinline__ void dx_part(float (&acc)[1][1][4],
+                                        const float* cot, const float* res,
+                                        Ring& r, bool more) {
+  if constexpr (XSTREAM) {
+#pragma unroll 1
+    for (int c = 0; c < XS; ++c) dx_mm<CR>(acc, cot, acquire(r, more), CR * c);
+  } else {
+    dx_mm<D>(acc, cot, res, 0);
+  }
 }
 
 // Column sums over the tile's rows of a feature-major tile of NC columns,
@@ -377,18 +423,23 @@ __device__ __forceinline__ void load_resident(float* dst,
 }
 
 // x's tile (zeros past the last row) into xs, feature-major: thread
-// (row, q) = (tid / 4, tid % 4) < (RT, 4) reads x[row, 4q:4q+4]
+// (row, q) = (tid / 4, tid % 4) < (RT, 4) reads x[row, 16k + 4q : 16k +
+// 4q + 4] for k < D / 16
 __device__ __forceinline__ void load_x(float* xs, const float* __restrict__ x,
                                        long long row0, int nvalid) {
   const int r = threadIdx.x >> 2, q = threadIdx.x & 3;
   if (r >= RT) return;
-  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (r < nvalid)
-    v = __ldg(reinterpret_cast<const float4*>(x + (row0 + r) * D + 4 * q));
-  xs[(4 * q + 0) * AP + r] = v.x;
-  xs[(4 * q + 1) * AP + r] = v.y;
-  xs[(4 * q + 2) * AP + r] = v.z;
-  xs[(4 * q + 3) * AP + r] = v.w;
+#pragma unroll
+  for (int k = 0; k < D / 16; ++k) {
+    const int c = 16 * k + 4 * q;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < nvalid)
+      v = __ldg(reinterpret_cast<const float4*>(x + (row0 + r) * D + c));
+    xs[(c + 0) * AP + r] = v.x;
+    xs[(c + 1) * AP + r] = v.y;
+    xs[(c + 2) * AP + r] = v.z;
+    xs[(c + 3) * AP + r] = v.w;
+  }
 }
 
 // Partial dots of each row with a W-vector: thread (r, q) = (tid % RT,
@@ -440,8 +491,10 @@ decoder_forward_f32_kernel(const float* __restrict__ x, Params p,
   float* part = ar.take<float>(PART);         // partial color logits
   Ring ring = ring_init(ar, wpack, NFWD);
   const float* ws_sdf = wpack + SDF_COL;
-  load_resident(w1s, p.w1);
-  load_resident(wcx, p.wc_x);
+  if constexpr (!XSTREAM) {
+    load_resident(w1s, p.w1);
+    load_resident(wcx, p.wc_x);
+  }
   __syncthreads();                  // the mbarriers and resident weights
   const long long ntiles = (N + RT - 1) / RT;
   if (threadIdx.x == 0 && blockIdx.x < ntiles) issue(ring, 0, 0);
@@ -456,7 +509,7 @@ decoder_forward_f32_kernel(const float* __restrict__ x, Params p,
     __syncthreads();
     // h1 = relu(x w1 + b1) -> a
     f.zero();
-    f.mm<D>(xs, w1s);
+    x_mm(f, xs, w1s, ring, more);
     f.store(a, p.b1, true);
     // h2 = relu(h1 w2 + b2) -> b (the first chunk's barrier: h1 in place)
     f.zero();
@@ -471,7 +524,7 @@ decoder_forward_f32_kernel(const float* __restrict__ x, Params p,
     // before the first wc_f chunk's barrier)
     f.zero();
     stream_mm(f, a, N_WC, ring, more);
-    f.mm<D>(xs, wcx);
+    x_mm(f, xs, wcx, ring, more);
     f.store(b, p.bc, true);
     __syncthreads();
     row_partials<3>(part, b, p.wo);
@@ -506,8 +559,10 @@ decoder_backward_f32_kernel(const float* __restrict__ x,
   float* part = ar.take<float>(PART);
   Ring ring = ring_init(ar, wpack, NFWD + NBWD);
   const float* ws_sdf = wpack + SDF_COL;
-  load_resident(w1s, p.w1);
-  load_resident(wcx, p.wc_x);
+  if constexpr (!XSTREAM) {
+    load_resident(w1s, p.w1);
+    load_resident(wcx, p.wc_x);
+  }
   __syncthreads();
   const int tid = threadIdx.x;
   float* slab = partial + static_cast<long long>(blockIdx.x) * NPARAM;
@@ -537,7 +592,7 @@ decoder_backward_f32_kernel(const float* __restrict__ x,
     // forward recompute on the FP32 units: h1 -> B0, h2 -> B1, feat -> B2,
     // hc -> B3
     f.zero();
-    f.mm<D>(xs, w1s);
+    x_mm(f, xs, w1s, ring, more);
     f.store(B0, p.b1, true);
     f.zero();
     stream_mm(f, B0, N_W2, ring, more);
@@ -547,7 +602,7 @@ decoder_backward_f32_kernel(const float* __restrict__ x,
     fs.store(B2, p.bs, false);
     f.zero();
     stream_mm(f, B2, N_WC, ring, more);
-    f.mm<D>(xs, wcx);
+    x_mm(f, xs, wcx, ring, more);
     f.store(B3, p.bc, true);
     __syncthreads();
 
@@ -614,7 +669,7 @@ decoder_backward_f32_kernel(const float* __restrict__ x,
     }
     float dxa[1][1][4];
     tf::zero(dxa);
-    dx_mm(dxa, B3, wcx);
+    dx_part(dxa, B3, wcx, ring, more);
     us.zero();
     stream_mm(us, B3, N_WCT, ring, more);
     tf::for_each_acc(us.acc, 0, us.n0(),
@@ -666,9 +721,9 @@ decoder_backward_f32_kernel(const float* __restrict__ x,
       wgrad_mm<D, W, W>(slab + OFF_W1, xs, B1, first);
       col_sum<W>(slab + OFF_B1, B1, first);
     }
-    dx_mm(dxa, B1, w1s);
+    dx_part(dxa, B1, w1s, ring, more);
     const int w = tid >> 5;
-    if (w < 4)
+    if (w < D / 4)
       tf::for_each_acc(dxa, 16 * (w & 1), 8 * (w >> 1),
                        [&](int r, int c, float& v) {
                          if (r < nvalid) dx[(row0 + r) * D + c] = v;

@@ -8,9 +8,9 @@
 // pick its hit slot h = bins[r, s] (h == H: invalid, zero features), form
 // p = (o + d*z)/voxel - corner with the corner unpacked from the slot's
 // 10-bit packed voxel key, blend the slot's 8 corner embeddings trilinearly
-// into D = 16 features, then run the decoder (16 -> W -> W -> SD+1 -> W ->
-// 3) with bf16 operands and f32 sums. Outputs: out (R*S, 4) [r, g, b, sdf]
-// and feats (R*S, D).
+// into D = 16 or 32 features, then run the decoder (D -> W -> W -> SD+1 ->
+// W -> 3) with bf16 operands and f32 sums. Outputs: out (R*S, 4) [r, g, b,
+// sdf] and feats (R*S, D).
 //
 // What bounds it on an H100: arithmetic, ~2 * 140k flops per sample at
 // (16, 256, 128) against 64 B of feature reads and 80 B of writes. Design
@@ -18,11 +18,14 @@
 // tile at a time (tile = block, stride grid), both warpgroups splitting each
 // product's output columns; the large weights stream from L2 through a
 // two-slot ring of bulk copies, the next chunk in flight during this one's
-// products; the gather of the next tile (each sample's own slot, 8 x 16 f32
+// products; the gather of the next tile (each sample's own slot, 8 x D f32
 // selected by bins, so 16-byte cp.async rather than a tensor copy) is issued
 // right after this tile's blend and lands during its decoder. Thread
-// (row = t % 64, quarter = t / 64) gathers and blends dims [4q, 4q + 4) of
-// its sample in the plain version's exact f32 order, as render_kernel.cu.
+// (row = t % 64, quarter = t / 64) gathers and blends dims [16k + 4q,
+// 16k + 4q + 4) (k < D / 16) of its sample in the plain version's exact f32
+// order, as render_kernel.cu. At in_dim 32 the gather buffer doubles
+// (66,560 bytes), which fits beside the ring's 32-row chunks of that
+// in_dim (decoder_stream.cuh): 213,040 bytes at (32, 256, 256).
 
 #include "decoder_stream.cuh"
 
@@ -56,7 +59,8 @@ struct Sample {
 };
 
 // Gather of a tile: thread (row, q) loads its sample's scalars and issues
-// the cp.async copies of dims [4q, 4q + 4) of the slot's 8 corners.
+// the cp.async copies of dims [16k + 4q, 16k + 4q + 4) (k < D / 16) of the
+// slot's 8 corners; corner j's D floats start at byte 4 D j of the row.
 __device__ inline void issue(const Inputs& in, long long tile, int row, int q,
                              char* gbuf, Sample& s) {
   const long long n = tile * tc::TR + row;
@@ -76,47 +80,54 @@ __device__ inline void issue(const Inputs& in, long long tile, int row, int q,
       const float* src = in.rb + (ray * in.H + h) * KS + 4 * q;
       char* dst = gbuf + row * GROW + 16 * q;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) tc::cp_async16(dst + 64 * j, src + j * D);
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int k = 0; k < D / 16; ++k)
+          tc::cp_async16(dst + 4 * D * j + 64 * k, src + j * D + 16 * k);
     }
   }
   tc::cp_async_commit();
 }
 
-// The trilinear blend of this thread's 4 features: to feats (f32) and,
-// rounded to bf16, to the tile's input x.
+// The trilinear blend of this thread's D / 4 features: to feats (f32) and,
+// rounded to bf16, to the tile's input x, 4 features at a time.
 __device__ inline void blend(const Inputs& in, long long tile, int row, int q,
                              const char* gbuf, const Sample& s, bf16* xs) {
   const long long n = tile * tc::TR + row;
-  float f[4] = {0.f, 0.f, 0.f, 0.f};
-  if (s.slot) {
-    const float cx = static_cast<float>(((s.key >> 20) & 1023) - 512);
-    const float cy = static_cast<float>(((s.key >> 10) & 1023) - 512);
-    const float cz = static_cast<float>((s.key & 1023) - 512);
-    const float px = __fdiv_rn(__fadd_rn(s.o[0], __fmul_rn(s.d[0], s.z)),
-                               in.voxel) - cx;
-    const float py = __fdiv_rn(__fadd_rn(s.o[1], __fmul_rn(s.d[1], s.z)),
-                               in.voxel) - cy;
-    const float pz = __fdiv_rn(__fadd_rn(s.o[2], __fmul_rn(s.d[2], s.z)),
-                               in.voxel) - cz;
-    const float* src = reinterpret_cast<const float*>(gbuf + row * GROW) + 4 * q;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float wx = (j & 4) ? px : 1.f - px;
-      const float wy = (j & 2) ? py : 1.f - py;
-      const float wz = (j & 1) ? pz : 1.f - pz;
-      const float wj = __fmul_rn(__fmul_rn(wx, wy), wz);
-      const float4 e = *reinterpret_cast<const float4*>(src + j * D);
-      f[0] = __fadd_rn(f[0], __fmul_rn(wj, e.x));
-      f[1] = __fadd_rn(f[1], __fmul_rn(wj, e.y));
-      f[2] = __fadd_rn(f[2], __fmul_rn(wj, e.z));
-      f[3] = __fadd_rn(f[3], __fmul_rn(wj, e.w));
+  for (int k = 0; k < D / 16; ++k) {
+    const int c = 16 * k + 4 * q;
+    float f[4] = {0.f, 0.f, 0.f, 0.f};
+    if (s.slot) {
+      const float cx = static_cast<float>(((s.key >> 20) & 1023) - 512);
+      const float cy = static_cast<float>(((s.key >> 10) & 1023) - 512);
+      const float cz = static_cast<float>((s.key & 1023) - 512);
+      const float px = __fdiv_rn(__fadd_rn(s.o[0], __fmul_rn(s.d[0], s.z)),
+                                 in.voxel) - cx;
+      const float py = __fdiv_rn(__fadd_rn(s.o[1], __fmul_rn(s.d[1], s.z)),
+                                 in.voxel) - cy;
+      const float pz = __fdiv_rn(__fadd_rn(s.o[2], __fmul_rn(s.d[2], s.z)),
+                                 in.voxel) - cz;
+      const float* src = reinterpret_cast<const float*>(gbuf + row * GROW) + c;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float wx = (j & 4) ? px : 1.f - px;
+        const float wy = (j & 2) ? py : 1.f - py;
+        const float wz = (j & 1) ? pz : 1.f - pz;
+        const float wj = __fmul_rn(__fmul_rn(wx, wy), wz);
+        const float4 e = *reinterpret_cast<const float4*>(src + j * D);
+        f[0] = __fadd_rn(f[0], __fmul_rn(wj, e.x));
+        f[1] = __fadd_rn(f[1], __fmul_rn(wj, e.y));
+        f[2] = __fadd_rn(f[2], __fmul_rn(wj, e.z));
+        f[3] = __fadd_rn(f[3], __fmul_rn(wj, e.w));
+      }
     }
+    if (n < in.N)
+      *reinterpret_cast<float4*>(in.feats + n * D + c) =
+          make_float4(f[0], f[1], f[2], f[3]);
+    *reinterpret_cast<uint2*>(xs + tc::tofs(row, c, D)) =
+        make_uint2(tc::pack_bf16x2(f[0], f[1]), tc::pack_bf16x2(f[2], f[3]));
   }
-  if (n < in.N)
-    *reinterpret_cast<float4*>(in.feats + n * D + 4 * q) =
-        make_float4(f[0], f[1], f[2], f[3]);
-  *reinterpret_cast<uint2*>(xs + tc::tofs(row, 4 * q, D)) =
-      make_uint2(tc::pack_bf16x2(f[0], f[1]), tc::pack_bf16x2(f[2], f[3]));
 }
 
 __global__ void __launch_bounds__(st::THREADS, 1)

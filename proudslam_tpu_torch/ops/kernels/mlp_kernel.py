@@ -19,7 +19,7 @@ at the other sizes of :data:`BUILT_SIZES` (f32 operands: the products on the
 tensor cores as three TF32 products with f32 sums, "3xTF32", within f32
 tolerance of the true f32 product, except K3-f32's forward recompute,
 true f32 FMAs for its ReLU masks; the plain versions compute true f32).
-Any other size with in_dim <= 16 and width, sdf_dim <= 256 runs the
+Any other size with in_dim <= 32 and width, sdf_dim <= 256 runs the
 kernels at :func:`built_size` on zero-padded inputs and params
 (:func:`pad_params`), and the outputs and gradients are sliced back
 (:func:`unpad_params`): exact, every padded hidden unit being 0. A larger
@@ -54,19 +54,22 @@ STREAM_F32_ROWS = 32
 
 # The decoder sizes (in_dim, width, sdf_dim) every CUDA kernel form is built
 # for, one library per size (``build.size_flags``); chip_smoke.py's kernel
-# phase holds every one against its plain version on the card: in_dim 16,
-# width and sdf_dim multiples of 64 up to 256 with sdf_dim <= width. At
-# (16, 128, 128) the weights stay in shared memory (render_kernel.cu,
+# phase holds every one against its plain version on the card: in_dim 16
+# and 32, width and sdf_dim multiples of 64 up to 256 with sdf_dim <= width.
+# At (16, 128, 128) the weights stay in shared memory (render_kernel.cu,
 # mlp_kernel.cu; mlp_kernel_f32.cu stages them through one buffer); every
 # other size streams the large ones from L2 (render_stream.cu,
 # mlp_stream.cu, mlp_stream_f32.cu).
-BUILT_SIZES = tuple((16, w, sd) for w in (64, 128, 192, 256)
+BUILT_IN_DIMS = (16, 32)
+BUILT_SIZES = tuple((d, w, sd) for d in BUILT_IN_DIMS
+                    for w in (64, 128, 192, 256)
                     for sd in (64, 128, 192, 256) if sd <= w)
 # the CUDA kernel forms, as check_size names them
 FORMS = ("K1", "K2", "K3", "K2-f32", "K3-f32")
 # the largest in_dim and width (or sdf_dim) a built size covers: every
-# kernel reads a row's inputs as 16 floats, and 256 is wgmma's largest N
-MAX_IN_DIM, MAX_WIDTH = 16, 256
+# kernel reads a row's inputs as in_dim / 16 chunks of 16 floats, and 256
+# is wgmma's largest N
+MAX_IN_DIM, MAX_WIDTH = BUILT_IN_DIMS[-1], 256
 
 
 class FusedParams(NamedTuple):
@@ -184,18 +187,19 @@ def params_size(fp: FusedParams) -> Tuple[int, int, int]:
 
 
 def built_size(size: Tuple[int, int, int]) -> Tuple[int, int, int]:
-    """The built size whose kernels run a decoder ``size`` (in_dim <= 16,
-    1 <= width, sdf_dim <= 256) on zero-padded params: (16, W', SD') with
-    SD' = sdf_dim rounded up to a multiple of 64 and W' the larger of
-    width so rounded and SD'."""
-    _, w, sd = size
+    """The built size whose kernels run a decoder ``size`` (in_dim <= 32,
+    1 <= width, sdf_dim <= 256) on zero-padded params: (D', W', SD') with
+    D' = 16 for in_dim <= 16 and 32 above, SD' = sdf_dim rounded up to a
+    multiple of 64 and W' the larger of width so rounded and SD'."""
+    d, w, sd = size
+    d_b = next(b for b in BUILT_IN_DIMS if d <= b)
     sd_b = -(-sd // 64) * 64
-    return (MAX_IN_DIM, max(-(-w // 64) * 64, sd_b), sd_b)
+    return (d_b, max(-(-w // 64) * 64, sd_b), sd_b)
 
 
 def check_size(size: Tuple[int, int, int], form: str) -> None:
     """Raises ``ValueError`` unless a built size covers the decoder ``size``
-    (:func:`built_size`): in_dim <= 16 and width, sdf_dim <= 256, each at
+    (:func:`built_size`): in_dim <= 32 and width, sdf_dim <= 256, each at
     least 1. Every form is built at :data:`BUILT_SIZES`; ``form`` (one of
     :data:`FORMS`) is named in the error."""
     if form not in FORMS:
@@ -293,9 +297,11 @@ def packed_weights(size: Tuple[int, int, int], device) -> torch.Tensor:
 def packed_f32_weights(size: Tuple[int, int, int], device) -> torch.Tensor:
     """Scratch for mlp_stream_f32.cu's packed chunks: w2, ws's feature part
     and wc_f, then their transposes, 16 rows a chunk at row stride W + 4,
-    and ws's sdf column."""
-    _, w, sd = size
-    return torch.empty((2 * (2 * w + sd) * (w + 4) + w,), dtype=torch.float32,
+    and ws's sdf column; at in_dim 32 also w1 and wc_x, twice each (the
+    forward's x-side products and dx)."""
+    d, w, sd = size
+    rows = 2 * (2 * w + sd) + (4 * d if d > BUILT_IN_DIMS[0] else 0)
+    return torch.empty((rows * (w + 4) + w,), dtype=torch.float32,
                        device=device)
 
 

@@ -1,0 +1,92 @@
+#!/usr/bin/env python3
+"""The machine code of the decoder kernels of two checkouts, compared.
+
+    python3 scripts/torch_sass_diff.py OLD_TREE NEW_TREE
+
+For each tree, one process imports that tree's ``proudslam_tpu_torch`` and
+builds (one ``nvcc`` each, all started together) its kernel libraries at
+the ten in_dim-16 decoder sizes: ``render_kernel``, ``mlp_kernel`` and
+``mlp_kernel_f32`` at (16, 128, 128), their streamed sources at the other
+nine. Then, per library and kernel function, the SASS of ``cuobjdump
+-sass`` and the ptxas registers are compared: equal SASS is the same
+machine code, whatever the source text. Needs ``nvcc`` and ``cuobjdump``
+(the machine with the card). Prints one JSON line per library and, last,
+a summary.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+SIZES = [(16, w, sd) for w in (64, 128, 192, 256)
+         for sd in (64, 128, 192, 256) if sd <= w]
+SOURCES = {"render_kernel": "render_stream", "mlp_kernel": "mlp_stream",
+           "mlp_kernel_f32": "mlp_stream_f32"}
+
+
+def build_tree(tree: str) -> None:
+    """Child: build the tree's libraries; print {name@size: path}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    sys.path.insert(0, os.path.abspath(tree))
+    from proudslam_tpu_torch.ops.kernels import build
+
+    jobs = [(name if size == build.DEFAULT_SIZE else stream, size)
+            for size in SIZES for name, stream in SOURCES.items()]
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        paths = list(pool.map(lambda job: build.build(*job), jobs))
+    print(json.dumps({f"{name}@{'x'.join(map(str, size))}": str(path)
+                      for (name, size), path in zip(jobs, paths)}))
+
+
+def sass(lib: str) -> dict:
+    """{kernel function: its SASS lines} of a library. A function in an
+    anonymous namespace carries a hash of its source file in its mangled
+    name; that hash is dropped, so one function of two trees has one key."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", lib], capture_output=True,
+                         text=True, check=True).stdout
+    funcs, fn = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            fn = re.sub(r"(_GLOBAL__N__|_cu_)[0-9a-f]{8}", r"\1",
+                        line.split("Function :")[1].strip())
+            funcs[fn] = []
+        elif fn is not None and line.strip():
+            funcs[fn].append(line.strip())
+    return funcs
+
+
+def main(old: str, new: str) -> None:
+    libs = []
+    for tree in (old, new):
+        out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--build", tree], capture_output=True,
+                             text=True, check=True).stdout
+        libs.append(json.loads(out.strip().splitlines()[-1]))
+    same_all = True
+    for key in libs[0]:
+        a, b = sass(libs[0][key]), sass(libs[1][key])
+        res = {}
+        for fn in sorted(set(a) | set(b)):
+            la, lb = a.get(fn, []), b.get(fn, [])
+            res[fn[-48:]] = ("equal" if la == lb else
+                             f"differ: {len(la)} / {len(lb)} lines, "
+                             f"{sum(x != y for x, y in zip(la, lb))} "
+                             "differing in place")
+        same = all(v == "equal" for v in res.values())
+        same_all &= same
+        print(json.dumps({"library": key, "same_sass": same, **res}))
+    print(json.dumps({"all_same_sass": same_all, "libraries": len(libs[0])}))
+
+
+if __name__ == "__main__":
+    if sys.argv[1] == "--build":
+        build_tree(sys.argv[2])
+    else:
+        main(sys.argv[1], sys.argv[2])

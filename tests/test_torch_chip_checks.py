@@ -1,4 +1,6 @@
-"""The float64 witness of ``chip_smoke.py``'s K3-f32 check on the CPU.
+"""The float64 witness of ``chip_smoke.py``'s K3-f32 check on the CPU, and
+its helpers for the in_dim-32 sizes (``at_size``, ``k1_blend_flops``,
+``size_table``).
 
 Where a hidden pre-activation is within f32 rounding of 0, K3-f32 and its
 plain version (cuBLAS on the card) may take different ReLU masks, and that
@@ -10,6 +12,7 @@ the true ones only on units inside ``_f32_rounding_bounds``. Here stand-in
 take the wrapper's place on CPU tensors, at a small decoder size.
 """
 
+import json
 import os
 import sys
 
@@ -153,3 +156,47 @@ def test_witness_refuses_a_wrong_term(on_cpu, wgrad):
     assert float(cs._margins(mk, x, fp, False)[NEAR]) < cs.MARGIN_FLIP_F32
     with pytest.raises(AssertionError, match="no rounding-level mask flip"):
         cs._k3_check("test", x, g, fp, wgrad, False)
+
+
+def test_at_size_and_blend_flops():
+    """``at_size`` sets the decoder size and the embeddings' width together
+    (as ``settings_from_config`` reads both from ``decoder_specs.in_dim``)
+    and leaves every other setting; K1's blend flops grow with in_dim."""
+    from proudslam_tpu_torch.config import bench_settings
+
+    base = bench_settings()
+    s = cs.at_size(base, cs.D32_SIZE)
+    assert (s.decoder.in_dim, s.decoder.width, s.decoder.sdf_dim,
+            s.map.embed_dim) == (32, 256, 128, 32)
+    assert s.render == base.render and s.mapper == base.mapper
+    assert s.decoder.matmul_dtype == base.decoder.matmul_dtype
+    assert cs.k1_blend_flops(16) == 272
+    assert cs.k1_blend_flops(32) == 2 * 8 * 32 + 16
+    assert mk.built_size(cs.D32_SIZE) == cs.D32_SIZE
+
+
+def test_size_table(monkeypatch):
+    """One log line per kernel and size, joining its times at both shapes
+    with its build; a kernel without sizes logs nothing."""
+    lines = []
+    monkeypatch.setattr(cs, "log", lines.append)
+    shape = {"ms": 1.5, "share": 0.25, "bound_ms": 0.375, "plain_ms": 9.0,
+             "matmul_chain_ms": 3.0, "dx_only_ms": 1.0, "rows": 64}
+    record = {"kernels": [
+        {"name": "decoder_backward",
+         "sizes": {"32x64x64": {"max_abs_err": 2e-3, "shapes": {
+             "mapping": shape, "tracking": dict(shape, ms=0.5)}}},
+         "build_by_size": {"32x64x64": {
+             "registers": 200, "spill_stores": 0, "spill_loads": 0,
+             "HGMMA": 40, "HMMA": 0, "FFMA": 9}}},
+        {"name": "fused_render_forward", "build_by_size": {}}]}
+    cs.size_table(record)
+    assert len(lines) == 1
+    head, row = lines[0].split(": ", 1)[0], lines[0].split("32x64x64: ")[1]
+    assert head == "size table"
+    row = json.loads(row)
+    assert row["registers"] == 200 and row["HGMMA"] == 40
+    assert row["max_abs_err"] == 2e-3
+    assert row["mapping"]["ms"] == 1.5 and row["tracking"]["ms"] == 0.5
+    assert row["mapping"]["matmul_chain_ms"] == 3.0
+    assert "rows" not in row["mapping"]

@@ -11,9 +11,10 @@ with its gradients (``FusedDecoder``: K2 forward, K3 backward) against
 ``jax.grad`` through the JAX package's ``decoder_values_fused(...,
 interpret=True)`` at a row count that is no multiple of its 2048-row tile:
 bf16 1e-3 and f32 1e-5 of each output's largest magnitude. Those three
-run at two decoder sizes (in_dim, width, sdf_dim): (16, 64, 64) and the
+run at three decoder sizes (in_dim, width, sdf_dim): (16, 64, 64), the
 reference's wider (16, 256, 128), which the CUDA kernels take through
-their streamed plan. Also: the weight
+their streamed plan, and (32, 64, 64), the smallest in_dim-32 size they
+are built for (``-k 32x64x64``). Also: the weight
 bridge round trip (exact) and ``decoder_values`` in f32 (1e-5) and bf16
 (1e-3: f32 accumulation order against XLA's, through bf16-rounded
 operands). On CPU tensors neither operand type launches a kernel: the f32
@@ -92,7 +93,7 @@ def test_decoder_bwd_plain_matches_pallas(sized, seed):
     dec, params = sized
     rng = np.random.default_rng(seed)
     N = jmk.TILE
-    x = rng.standard_normal((N, 16)).astype(np.float32)
+    x = rng.standard_normal((N, dec.in_dim)).astype(np.float32)
     g = rng.standard_normal((N, 4)).astype(np.float32)
     jfp = jmk.pack_params(params, dec)
     outs = jmk._run_bwd(jnp.asarray(x), jnp.asarray(g), jfp, interpret=True,
@@ -159,7 +160,7 @@ def test_decoder_fwd_plain_matches_pallas(sized, dtype):
     dec, params = sized
     bf16 = dtype == "bf16"
     x = np.random.default_rng(5).standard_normal(
-        (jmk.TILE, 16)).astype(np.float32)
+        (jmk.TILE, dec.in_dim)).astype(np.float32)
     a = jmk._run_fwd(jnp.asarray(x), jmk.pack_params(params, dec),
                      interpret=True, bf16=bf16)
     fp = tmk.pack_params(params_from_jax(params, device="cpu"), port(dec))
@@ -176,7 +177,7 @@ def test_decoder_values_fused_and_grads_match(sized, dtype):
     dec = dataclasses.replace(dec, matmul_dtype=dtype)
     rng = np.random.default_rng(6)
     N = 1000                                  # no multiple of jmk.TILE
-    x = rng.standard_normal((N, 16)).astype(np.float32)
+    x = rng.standard_normal((N, dec.in_dim)).astype(np.float32)
     w = rng.standard_normal((N, 4)).astype(np.float32)
 
     def jf(x_, p):
@@ -290,13 +291,15 @@ def test_kernel_forms(mode, dtype, forms):
 
 
 def test_kernel_sizes_refused():
-    """Every form is built at the ten sizes (in_dim 16, width and sdf_dim
-    multiples of 64 up to 256, sdf_dim <= width) and takes every other size
-    with in_dim <= 16 and width, sdf_dim <= 256 zero-padded to one of them;
-    ``check_kernel_sizes`` refuses the rest naming size and form, and the
-    wrappers' check refuses params whose shapes disagree on a size."""
-    assert len(tmk.BUILT_SIZES) == 10
-    for size in ((16, 64, 64), (16, 128, 128), (16, 256, 128)):
+    """Every form is built at the twenty sizes (in_dim 16 and 32, width and
+    sdf_dim multiples of 64 up to 256, sdf_dim <= width) and takes every
+    other size with in_dim <= 32 and width, sdf_dim <= 256 zero-padded to
+    one of them; ``check_kernel_sizes`` refuses the rest naming size and
+    form, and the wrappers' check refuses params whose shapes disagree on a
+    size."""
+    assert len(tmk.BUILT_SIZES) == 20
+    for size in ((16, 64, 64), (16, 128, 128), (16, 256, 128), (32, 64, 64),
+                 (32, 256, 128), (32, 256, 256)):
         assert size in tmk.BUILT_SIZES
     assert tmk.FORMS == ("K1", "K2", "K3", "K2-f32", "K3-f32")
     base = port(DEC)
@@ -306,6 +309,9 @@ def test_kernel_sizes_refused():
     accepted += [dict(width=96, sdf_dim=64), dict(width=128, sdf_dim=192),
                  dict(in_dim=8), dict(in_dim=12, width=200, sdf_dim=256),
                  dict(width=1, sdf_dim=1)]
+    # in_dim 32, and in_dim 17 to 31 padded to it
+    accepted += [dict(in_dim=32), dict(in_dim=32, width=256, sdf_dim=256),
+                 dict(in_dim=24, width=200, sdf_dim=72), dict(in_dim=17)]
     for kw in accepted:
         for mode, dtype in (("vox", "bf16"), ("pcd", "bf16"), ("pcd", "f32")):
             tmk.check_kernel_sizes(dataclasses.replace(
@@ -313,18 +319,22 @@ def test_kernel_sizes_refused():
     for kw, mode, form in (
             (dict(width=320, sdf_dim=128), "pcd", "K2"),
             (dict(width=256, sdf_dim=320), "vox", "K1"),
-            (dict(in_dim=32), "vox", "K1"),
-            (dict(in_dim=32, matmul_dtype="f32"), "pcd", "K2-f32"),
+            (dict(in_dim=33), "vox", "K1"),
+            (dict(in_dim=48), "pcd", "K2"),
+            (dict(in_dim=33, matmul_dtype="f32"), "pcd", "K2-f32"),
             (dict(width=320, sdf_dim=128, matmul_dtype="f32"), "pcd",
              "K2-f32"),
             (dict(width=0), "pcd", "K2")):
         with pytest.raises(ValueError, match=form):
             tmk.check_kernel_sizes(dataclasses.replace(base, **kw), mode)
-    for size in ((32, 64, 64), (16, 320, 64), (16, 64, 320), (0, 64, 64),
-                 (16, 64, 0)):
+    for size in ((33, 64, 64), (48, 64, 64), (16, 320, 64), (16, 64, 320),
+                 (32, 320, 64), (0, 64, 64), (16, 64, 0)):
         for form in tmk.FORMS:
-            with pytest.raises(ValueError, match=f"{form}.*in_dim <= 16"):
+            with pytest.raises(ValueError, match=f"{form}.*in_dim <= 32"):
                 tmk.check_size(size, form)
+    for size in ((32, 64, 64), (17, 1, 1), (32, 256, 256)):
+        for form in tmk.FORMS:
+            tmk.check_size(size, form)
     fp = tmk.pack_params(params_from_jax(j_init(jax.random.PRNGKey(0), DEC),
                                          device="cpu"), port(DEC))
     assert tmk.params_size(fp) == (16, 64, 64)
@@ -343,11 +353,14 @@ def test_kernel_sizes_refused():
     ((8, 40, 24), (16, 64, 64)), ((16, 100, 72), (16, 128, 128)),
     ((12, 64, 192), (16, 192, 192)), ((16, 200, 256), (16, 256, 256)),
     ((1, 1, 1), (16, 64, 64)), ((16, 129, 64), (16, 192, 64)),
-    ((16, 65, 130), (16, 192, 192)), ((16, 256, 256), (16, 256, 256))])
+    ((16, 65, 130), (16, 192, 192)), ((16, 256, 256), (16, 256, 256)),
+    ((32, 64, 64), (32, 64, 64)), ((32, 256, 128), (32, 256, 128)),
+    ((17, 1, 1), (32, 64, 64)), ((24, 200, 72), (32, 256, 128)),
+    ((20, 64, 64), (32, 64, 64)), ((31, 129, 200), (32, 256, 256))])
 def test_built_size(size, built):
-    """(16, W', SD'): SD' = sdf_dim up to a multiple of 64, W' = the larger
-    of width so rounded and SD'; a built size maps to itself, and the
-    result is always built."""
+    """(D', W', SD'): D' = 16 for in_dim <= 16 and 32 above, SD' = sdf_dim
+    up to a multiple of 64, W' = the larger of width so rounded and SD'; a
+    built size maps to itself, and the result is always built."""
     assert tmk.built_size(size) == built
     assert built in tmk.BUILT_SIZES
 

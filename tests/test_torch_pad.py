@@ -1,6 +1,6 @@
 """Decoder sizes the CUDA kernels take by zero padding.
 
-On the card a decoder size that no kernel is built for (in_dim <= 16,
+On the card a decoder size that no kernel is built for (in_dim <= 32,
 width and sdf_dim <= 256) runs the kernels at ``mlp_kernel.built_size`` on
 zero-padded inputs and params (``pad_params``), and the outputs and
 gradients are sliced back (``unpad_params``). Here the plain versions run
@@ -41,7 +41,8 @@ from torch_parity import (MAP, RENDER, assert_close_scaled, map_coords, n,
 FWD_TOL = {"bf16": 1e-3, "f32": 1e-5}
 # (in_dim, width, sdf_dim) -> the built size that runs it
 PADDED = {(8, 40, 24): (16, 64, 64), (16, 100, 72): (16, 128, 128),
-          (12, 64, 192): (16, 192, 192), (16, 200, 256): (16, 256, 256)}
+          (12, 64, 192): (16, 192, 192), (16, 200, 256): (16, 256, 256),
+          (24, 100, 72): (32, 128, 128), (20, 40, 24): (32, 64, 64)}
 
 
 def _tag(size):
@@ -121,9 +122,9 @@ def test_padded_bwd_matches_pallas(padded, dtype):
 
 
 def test_padded_k1_matches_pallas(padded):
-    """K1's plain version on corner features padded from in_dim to 16
-    columns and the padded params, ``feats`` sliced back, against the
-    Pallas ``fused_render_forward`` at the unpadded size."""
+    """K1's plain version on corner features padded from in_dim to the
+    built in_dim (16 or 32) and the padded params, ``feats`` sliced back,
+    against the Pallas ``fused_render_forward`` at the unpadded size."""
     size, built = padded["size"], padded["built"]
     d = size[0]
     mp = dataclasses.replace(MAP, embed_dim=d)

@@ -3,9 +3,10 @@ the CUDA render kernel) against the JAX package's Pallas
 ``fused_render_forward`` in interpret mode, and the gradients of the
 port's ``FusedFeatsDecode`` against ``jax.grad`` of ``fused_feats_decode``.
 
-Both run at two decoder sizes (in_dim, width, sdf_dim): (16, 64, 64) and
+Both run at three decoder sizes (in_dim, width, sdf_dim): (16, 64, 64),
 the reference's wider (16, 256, 128), which the CUDA kernel takes through
-its streamed plan.
+its streamed plan, and (32, 64, 64), on a map whose embeddings hold 32
+values (the case's map, rays and samples are the same at each in_dim).
 
 Tolerances: features 1e-5 (the same f32 blend formula); decoder outputs
 1e-3 (bf16 operands in both; f32 summation order may flip the bf16
@@ -23,6 +24,9 @@ within 1e-4 of 0, so a ReLU mask flips with it. That one flip moves dx by
 features; CPU runs). On the same residuals only summation order differs,
 and the tolerance stays 2e-3.
 """
+
+import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -45,15 +49,21 @@ from torch_parity import (MAP, RENDER, SIZED_DEC, assert_close_scaled,
 
 
 @pytest.fixture(scope="module")
-def case():
-    state = jvh.build_map_state_numpy(map_coords(0), MAP)
+def case(sized):
+    return _case(sized[0].in_dim)
+
+
+@functools.lru_cache(maxsize=None)
+def _case(in_dim):
+    mp = dataclasses.replace(MAP, embed_dim=in_dim)
+    state = jvh.build_map_state_numpy(map_coords(0), mp)
     # trained-map-scale embeddings, so the decoder sees varied features
     emb = (0.5 * np.random.default_rng(5).standard_normal(
         state.embeddings.shape)).astype(np.float32)
     state = state._replace(embeddings=jnp.asarray(emb))
     V = state.voxel_keys.shape[0]
     centers = (jvh.unpack_key(state.voxel_keys).astype(jnp.float32)
-               + 0.5) * MAP.voxel_size
+               + 0.5) * mp.voxel_size
     R = 40
     o, d = ray_batch(R, 2)
     inter = j_intersect(jnp.asarray(o), jnp.asarray(d), centers,

@@ -98,7 +98,21 @@ def test_slam_lockstep(dataset):
     """initialize + 5 frames, keyframes committed every other frame (so
     the window is drawn from the numpy RNG once three are committed):
     per-frame poses to 1e-4, maps and keyframe commits exactly."""
+    _lockstep(dataset, settings(fresh_window_frames=3), N_FRAMES)
+
+
+def test_slam_lockstep_in_dim_32(dataset):
+    """The same lockstep with a decoder of in_dim 32 on embeddings of 32
+    values (the CUDA kernels' second built in_dim), over initialize + 2
+    frames (a keyframe committed at frame 2)."""
     s = settings(fresh_window_frames=3)
+    s = dataclasses.replace(
+        s, map=dataclasses.replace(s.map, embed_dim=32),
+        decoder=dataclasses.replace(s.decoder, in_dim=32))
+    _lockstep(dataset, s, 3)
+
+
+def _lockstep(dataset, s, n_frames):
     s = dataclasses.replace(s, mapper=dataclasses.replace(s.mapper,
                                                           keyframe_gap=1))
     js = JSlam(s, dataset.intrinsics, (dataset.height, dataset.width),
@@ -128,7 +142,7 @@ def test_slam_lockstep(dataset):
     sync_from_jax(ts, js)
     emb0 = n(js.map_state.embeddings).copy()
 
-    frames = [dataset[i] for i in range(len(dataset))]
+    frames = [dataset[i] for i in range(n_frames)]
     _, rgb, depth, _, pose0 = frames[0]
     js.initialize(rgb, depth, pose0, stamp=0)
     ts.initialize(rgb, depth, pose0, stamp=0)
@@ -151,7 +165,9 @@ def test_slam_lockstep(dataset):
         assert_same_map(ts, js, what)
         assert (ts.num_kf, ts.kf_stamps) == (js.num_kf, list(js.kf_stamps))
         sync_from_jax(ts, js)
-    assert ts.num_kf >= 3      # frame 5 drew its window from the RNG
+    # a commit every other frame: at 6 frames, frame 5 drew its window
+    # from the RNG
+    assert ts.num_kf >= 1 + (n_frames - 1) // 2
     np.testing.assert_allclose(ts.get_trajectory(), js.get_trajectory(),
                                atol=POSE_TOL)
     assert used[0] == len(keys)                  # every draw was consumed

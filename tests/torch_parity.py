@@ -16,10 +16,14 @@ RENDER = RenderSettings(voxel_size=0.2, step_size=0.05, max_hits=6,
 DEC = DecoderSettings(depth=2, width=64, in_dim=16, sdf_dim=64,
                       matmul_dtype="bf16", use_fused_mlp=True)
 # the decoder sizes (in_dim, width, sdf_dim) of the kernel parity cases:
-# the small default and the reference's wider decoder (width 256)
+# the small default, the reference's wider decoder (width 256), and the
+# smallest in_dim-32 size the kernels are built for
 SIZED_DEC = {"16x64x64": DEC,
              "16x256x128": DecoderSettings(
                  depth=2, width=256, in_dim=16, sdf_dim=128,
+                 matmul_dtype="bf16", use_fused_mlp=True),
+             "32x64x64": DecoderSettings(
+                 depth=2, width=64, in_dim=32, sdf_dim=64,
                  matmul_dtype="bf16", use_fused_mlp=True)}
 
 
