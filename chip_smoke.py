@@ -12,7 +12,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    sources at the bench decoder's (in_dim, width, sdf_dim) = (16, 128,
    128), and ``render_stream.cu``, ``mlp_stream.cu`` and
    ``mlp_stream_f32.cu`` (the streamed plans) at each of the nineteen other
-   sizes of ``mlp_kernel.BUILT_SIZES`` (in_dim 16 and 32): 60 libraries;
+   sizes of ``mlp_kernel.BUILT_SIZES`` up to width 256, ``render_wide.cu``,
+   ``mlp_wide.cu`` and ``mlp_stream_f32.cu`` at its fourteen wide sizes
+   (width 384 and 512; in_dim 16 and 32): 102 libraries;
    each library's ``-Xptxas -v`` report (registers, spills, wgmma
    warnings) and its count of tensor-core instructions (HGMMA, HMMA) and
    FFMA in ``cuobjdump -sass`` are logged; K1, K2 and K3 must each hold
@@ -51,12 +53,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    tolerances, K3-f32's dx held on the rows of
    margin >= ``MARGIN_FLIP_F32``, each row whose dx misses a witnessed
    mask flip and the gradients over all rows held at the tolerance plus
-   those rows' terms), with times against the f32 matmul
-   chain, the 3xTF32 bound and its share. Then every form at the decoder
+   those rows' terms; at the wide sizes K3's weight gradients are held on
+   a launch over the rows away from a kink too, the note after
+   TOL_FLIP_SHARE,
+   and a K2-f32 column that misses its plain version against the float64
+   forward, TOL_F32_FWD's note), with times against the f32 matmul
+   chain, the 3xTF32 bound and its share. Both run in full (the checks at
+   the mapping, tracking and ragged shapes) at the sizes of FULL_SIZES and
+   reduced elsewhere (``full=False``: the checks at the tracking shape and
+   a ragged count below it, the kernels timed at both shapes, their plain
+   versions and the chains at the tracking shape). Then every form at the decoder
    sizes of ``PAD_SIZES``, which the kernels take zero-padded to a built
    size (``pad_phase``: in_dim 8, a width no multiple of 64, sdf_dim >
    width, a size landing on a streamed one, in_dim 24 and 20 padded to
-   32), at the tracking shape against its plain version at the unpadded
+   32, and three that pad to wide sizes: (16, 300, 200), (24, 450, 500)
+   and (16, 64, 320)), at the tracking shape against its plain version at the unpadded
    size with each form's tolerance, and every padded gradient entry
    exactly 0. A ``size table`` line per kernel and streamed size joins its
    times, shares, plain and chain times, error and build;
@@ -65,11 +76,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    streamed plan) launched, K2 and the f32 forms not, the poses finite and
    the unaligned ATE under 3 cm; then vox-d32, the same at (32, 256,
    128) with embeddings of 32 values (the feature width of NICE-SLAM's
-   and ESLAM's ``c_dim``), the same launches and bound; then
-   ``run_slam.check_config`` for the card must accept the fused pcd path
-   at f32 operands at (16, 256, 128), at a padded size and at (32, 256,
-   128), and refuse in_dim 33 and width 320 (no built size covers them)
-   naming the size and the form, with no launch;
+   and ESLAM's ``c_dim``), the same launches and bound; then vox-w512,
+   the same at (16, 512, 512) (the wide plan of K1 and K3), the same
+   launches and bound; then ``run_slam.check_config`` for the card must
+   accept the fused pcd path at f32 operands at (16, 256, 128), at a
+   padded size, at (32, 256, 128), at (16, 512, 512) and at the padded
+   wide (16, 300, 200), and refuse in_dim 33, width 513 and sdf_dim 513
+   (no built size covers them) naming the size and the form, with no
+   launch;
 4. vox slice: the bench configuration with the fused render path on
    (``config.bench_settings``): ``SlamSystem.initialize`` (200 mapping
    iterations), 39 ``process_frame`` calls over the first 40 frames of the
@@ -104,7 +118,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    why not 60), and K2-f32 and K3-f32 on the decoder the slice trained held
    against their plain versions (f32 tolerances); then pcd-f32-d32, the
    same at (32, 256, 128) (PointNet's output width follows in_dim): only
-   K2-f32 and K3-f32 launched, the same bounds and checks;
+   K2-f32 and K3-f32 launched, the same bounds and checks; then
+   pcd-f32-w512, the same at (16, 512, 256) (the wide f32 plan's 16-row
+   tiles), the same launches, bound and checks;
 5c. resample run: the vox configuration with ``fixed_sample_batch=False``
    in the tracker and the mapper (a fresh pixel batch per Adam iteration,
    intersected at the current pose) and the Gumbel pixel sampler, over the
@@ -245,6 +261,19 @@ TOL_GRAD_REL = 1e-2
 # and bias gradient is held at TOL_GRAD_REL as at (16, 128, 128).
 MARGIN_FLIP = 1e-4
 TOL_FLIP_SHARE = 1e-2
+# K3 at the wide sizes (width 384 and 512): with twice the hidden units and
+# up to 512 + in_dim terms in hc's pre-activation, a bf16 rounding that
+# differs upstream flips hc's ReLU mask on a few of a column's rows, and
+# each flip moves that column of dwc_x, dwc_f and dbc by one row's term
+# (x dhc): on an H100 at (16, 512, 512) dwc_x is 1.6e-2 of its largest
+# magnitude from its plain version over the 65,536 rows of the tracking
+# shape (0.8e-2 over 327,680), and the plain version on the CPU is 0.85e-2
+# from the same plain version on the card (against ~1e-6 at (16, 256,
+# 128)), while dx on the rows of margin >= MARGIN_FLIP is within 5e-4 and
+# no row's dx misses TOL_GRAD_REL. So there, as K3-f32
+# at every streamed size, each weight and bias gradient is held at
+# TOL_GRAD_REL on a second launch over the rows of margin >= MARGIN_FLIP;
+# over all rows it is logged.
 K3_RAGGED = 37            # rows cut from the mapping shape for the ragged check
 # small ragged row counts, where the masked last tile carries all (27) or
 # a third (91 = 64 + 27) of each weight and bias gradient's sum
@@ -264,6 +293,15 @@ K3_SMALL = (27, 91)
 # such rows.
 TOL_F32_FWD = 1e-5
 TOL_F32_BWD = 1e-4
+# K2-f32's sdf column is a dot of W hidden values with ws[:, SD] whose
+# terms can nearly cancel: on an H100 at (32, 512, 384) on the pcd features
+# its largest magnitude is small against the terms', and K2-f32 and its
+# plain version (cuBLAS) each sum them with f32 rounding in their own
+# order, 2.0e-5 of the column's largest magnitude apart. So where K2-f32
+# misses TOL_F32_FWD against its plain version, both are held against the
+# same forward in float64 (the f32 params and inputs, exact sums): the
+# kernel must be within TOL_F32_FWD of each column's largest magnitude
+# there (``_k2_check``).
 # K3-f32 at the streamed f32 plan's sizes (mlp_stream_f32.cu): its FFMA
 # forward recompute sums each output in sequence, the plain version's f32
 # matmuls (cuBLAS) in their own order, so where a hidden pre-activation is
@@ -296,10 +334,13 @@ WITNESS_ROWS = 64
 # decoder sizes no kernel is built for, which the kernels take zero-padded
 # to mlp_kernel.built_size: in_dim 8, a width that is no multiple of 64
 # (on the resident (16, 128, 128) kernels), sdf_dim > width, a size that
-# lands on the streamed (16, 256, 256), and in_dim 24 and 20, padded to 32
-# on a streamed width-256 size and on the smallest, (32, 64, 64)
+# lands on the streamed (16, 256, 256), in_dim 24 and 20, padded to 32
+# on a streamed width-256 size and on the smallest, (32, 64, 64), and the
+# wide plan's: (16, 300, 200) to (16, 384, 256), (24, 450, 500) to (32,
+# 512, 512), and sdf_dim > width, (16, 64, 320) to (16, 384, 384)
 PAD_SIZES = ((8, 40, 24), (16, 100, 72), (16, 128, 192), (12, 200, 256),
-             (24, 200, 72), (20, 64, 64))
+             (24, 200, 72), (20, 64, 64), (16, 300, 200), (24, 450, 500),
+             (16, 64, 320))
 K1_RAGGED = (1001, 40)    # rays x samples of K1's ragged check (40,040 rows)
 TRACK_RAYS = 1024         # the tracking shape: 1024 rays x S samples
 ATE_LIMIT_CM = 3.0
@@ -341,6 +382,29 @@ W256_FRAMES = 10
 # (NICE-SLAM's and ESLAM's c_dim 32), embeddings of as many values
 D32_SIZE = (32, 256, 128)
 D32_FRAMES = 10
+# the vox-w512 slice: the widest built decoder, twice the reference's
+# widest and the width of DeepSDF's SDF MLP (fully connected layers of 512),
+# on the wide plan of K1 and K3; pcd-f32-w512 the f32 forms' wide plan at
+# sdf_dim 256
+W512_SIZE = (16, 512, 512)
+PCD_W512_SIZE = (16, 512, 256)
+W512_FRAMES = 10
+# the sizes whose size_phase and f32_size_phase run in full: the four
+# slice sizes; the others run reduced (checks at the tracking shape and a
+# ragged count, the kernels timed at both shapes, the plain versions and
+# chains at the tracking shape), which keeps the script inside its time
+# budget with 34 sizes
+FULL_SIZES = {W256_SIZE, D32_SIZE, W512_SIZE, PCD_W512_SIZE}
+
+
+# a reduced size's kernels at the mapping shape: the median of 3 event
+# pairs of 5 calls each (the default: 5 of 10)
+REDUCED_REPS = dict(reps=3, calls=5)
+
+
+def full_size(size) -> bool:
+    """True where the size phases run in full (FULL_SIZES' note)."""
+    return tuple(size) in FULL_SIZES
 PROFILE_START, PROFILE_FRAMES = 5, 4   # the vox profile: frames 5-8
 WIDTH, HEIGHT = 320, 240
 # the dda slice's intersection check, on its final map (tests/test_intersect
@@ -422,11 +486,21 @@ F32_FUNCTIONS = (("mlp_kernel_f32", "decoder_forward_f32_kernel"),
                  ("mlp_kernel_f32", "decoder_backward_f32_kernel"))
 LIBRARIES = ("render_kernel", "mlp_kernel", "mlp_kernel_f32")
 # the kernels' sources at every other decoder size of mlp_kernel.BUILT_SIZES
-# (the streamed plans), one library per size; their kernel
+# (the streamed plans up to width 256, the wide ones above; the f32 forms'
+# streamed source takes both), one library per size; their kernel
 # functions carry KERNEL_FUNCTIONS' and F32_FUNCTIONS' names
 STREAM_LIBRARIES = {"render_kernel": "render_stream",
                     "mlp_kernel": "mlp_stream",
                     "mlp_kernel_f32": "mlp_stream_f32"}
+WIDE_LIBRARIES = {"render_kernel": "render_wide", "mlp_kernel": "mlp_wide",
+                  "mlp_kernel_f32": "mlp_stream_f32"}
+
+
+def stream_library(lib: str, size) -> str:
+    """The source that builds ``lib``'s kernels at a streamed ``size``."""
+    from proudslam_tpu_torch.ops.kernels.mlp_kernel import wide
+
+    return (WIDE_LIBRARIES if wide(size) else STREAM_LIBRARIES)[lib]
 # the kernels' launch counters, by the name of the kernels JSON line
 KERNELS = ("fused_render_forward", "decoder_forward", "decoder_backward",
            "decoder_forward_f32", "decoder_backward_f32")
@@ -505,24 +579,32 @@ def _size_tag(size) -> str:
 def build_phase():
     """Build the libraries (one nvcc each, all started together): the three
     sources at the bench decoder's size (16, 128, 128) and the three
-    streamed sources at every other size of ``mlp_kernel.BUILT_SIZES``; log
-    the ptxas report and the instruction counts -> (seconds, {kernel
-    function: its SASS counts and ptxas resources at (16, 128, 128)},
-    {size tag: {kernel function: the same}} at all ten sizes)."""
+    streamed (or wide) sources at every other size of
+    ``mlp_kernel.BUILT_SIZES``; log the ptxas report and the instruction
+    counts -> (seconds, {kernel function: its SASS counts and ptxas
+    resources at (16, 128, 128)}, {size tag: {kernel function: the same}}
+    at all 34 sizes)."""
     from proudslam_tpu_torch.ops.kernels import build
     from proudslam_tpu_torch.ops.kernels.mlp_kernel import BUILT_SIZES
 
+    streamed_sizes = [size for size in BUILT_SIZES
+                      if size != build.DEFAULT_SIZE]
     jobs = [(name, build.DEFAULT_SIZE) for name in LIBRARIES]
-    jobs += [(name, size) for size in BUILT_SIZES
-             if size != build.DEFAULT_SIZE
-             for name in STREAM_LIBRARIES.values()]
+    jobs += [(stream_library(lib, size), size) for size in streamed_sizes
+             for lib in LIBRARIES]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(jobs)) as pool:
         for f in [pool.submit(build.build, name, size)
                   for name, size in jobs]:
             f.result()
     seconds = time.perf_counter() - t0
-    sass, ptxas = {}, {}
+    # cuobjdump on every library, several at once (one at a time took
+    # ~190 s of the script for the 102 libraries)
+    with ThreadPoolExecutor(os.cpu_count() or 8) as pool:
+        sass = dict(zip(jobs, pool.map(
+            lambda job: sass_counts(build.library_path(job[0], size=job[1])),
+            jobs)))
+    ptxas = {}
     for name, size in jobs:
         text = build.build_log(name, size)
         if size == build.DEFAULT_SIZE:
@@ -531,7 +613,6 @@ def build_phase():
                                            "wgmma", "Performance",
                                            "Compiling entry")):
                     log(f"ptxas {name}: {line.strip()}")
-        sass[name, size] = sass_counts(build.library_path(name, size=size))
         ptxas[name, size] = ptxas_resources(text)
         if size == build.DEFAULT_SIZE:
             log(f"sass {name}: {json.dumps(sass[name, size])}")
@@ -539,8 +620,8 @@ def build_phase():
     # wgmma, the f32 ones through mma.sync (3xTF32); none spills
     checks = [(lib, build.DEFAULT_SIZE, fn)
               for lib, fn in KERNEL_FUNCTIONS + F32_FUNCTIONS]
-    checks += [(STREAM_LIBRARIES[lib], size, fn)
-               for name, size in jobs if name == "mlp_stream"
+    checks += [(stream_library(lib, size), size, fn)
+               for size in streamed_sizes
                for lib, fn in KERNEL_FUNCTIONS + F32_FUNCTIONS]
     f32_fns = {fn for _, fn in F32_FUNCTIONS}
     found, by_size = {}, {}
@@ -970,6 +1051,7 @@ def _k3_check(what, xn, gn, fp, wgrad, bf16, log_bins=False):
 
     tol, margin = ((TOL_GRAD_REL, MARGIN_FLIP) if bf16
                    else (TOL_F32_BWD, MARGIN_FLIP_F32))
+    wide_bf16 = bf16 and mk.wide(mk.built_size(mk.params_size(fp)))
 
     def run(x, g):
         dx_k, gr_k = mk.decoder_bwd(x, g, fp, want_wgrad=wgrad, bf16=bf16)
@@ -1031,6 +1113,14 @@ def _k3_check(what, xn, gn, fp, wgrad, bf16, log_bins=False):
             f"{missed.numel() / math.sqrt(xn.shape[0]):.2e})")
         grads_ok = all_ok and max(v for k, v in safe_rels.items()
                                   if k != "dx") <= tol
+    elif wgrad and wide_bf16 and not bool(safe.all()):
+        _, _, safe_errs = run(xn[safe].contiguous(), gn[safe].contiguous())
+        safe_rels = rel(safe_errs)
+        log(f"{what}, full, on the {int(safe.sum())} rows of margin >= "
+            f"{margin}: max_abs_err over each output's largest magnitude "
+            f"{json.dumps(safe_rels)} (tol {tol}; over all rows logged "
+            "above)")
+        grads_ok = max(v for k, v in safe_rels.items() if k != "dx") <= tol
     else:
         grads_ok = max((v for k, v in rels.items() if k != "dx"),
                        default=0.0) <= tol
@@ -1454,10 +1544,12 @@ def kernel_phase(device):
             with torch.no_grad():
                 xd = gather_pcd_features(*a)
             x2_by_dim[d] = xd.reshape(-1, d).contiguous()
-    by_size = {_size_tag(size): size_phase(device, inp, size)
+    by_size = {_size_tag(size): size_phase(device, inp, size,
+                                           full=full_size(size))
                for size in mk.BUILT_SIZES if mk.streamed(size)}
     f32_by_size = {_size_tag(size): f32_size_phase(
-        device, x2_by_dim[size[0]], g, size, min(TR, N2))
+        device, x2_by_dim[size[0]], g, size, min(TR, N2),
+        full=full_size(size))
         for size in mk.BUILT_SIZES if mk.streamed(size)}
     for name in ("decoder_forward_f32", "decoder_backward_f32"):
         f32[name]["sizes"] = {tag: st[name]
@@ -1490,16 +1582,19 @@ def kernel_phase(device):
     }
 
 
-def size_phase(device, inp, size) -> dict:
+def size_phase(device, inp, size, full=True) -> dict:
     """K1, K2 and K3 at another decoder size of ``mlp_kernel.BUILT_SIZES``
-    (the streamed plan), on the kernel phase's K1 inputs with that size's
-    ``init_decoder`` params: K1 against its plain version at the mapping,
-    tracking and ragged shapes, K2 on K1's features bit for bit against
-    K1's outputs, K3 (full and dx-only) against its plain version at the
-    mapping and tracking shapes, a ragged mapping shape and the small ragged
-    counts, K3's repeatability, and CUDA-event times of each kernel and its
-    plain version at both shapes with the bound and its share -> {kernel:
-    entry}."""
+    (the streamed or wide plan), on the kernel phase's K1 inputs with that
+    size's ``init_decoder`` params: K1 against its plain version at the
+    mapping, tracking and ragged shapes, K2 on K1's features bit for bit
+    against K1's outputs, K3 (full and dx-only) against its plain version
+    at the mapping and tracking shapes, a ragged mapping shape and the small
+    ragged counts, K3's repeatability, and CUDA-event times of each kernel
+    and its plain version at both shapes with the bound and its share ->
+    {kernel: entry}. ``full=False``: K1's and K3's checks without the
+    mapping shape (K3's ragged count cut from the tracking shape, its
+    repeatability there), and the plain versions and the chain timed at
+    the tracking shape only (their mapping-shape entries None)."""
     import torch
 
     from proudslam_tpu_torch.config import bench_settings
@@ -1529,6 +1624,8 @@ def size_phase(device, inp, size) -> dict:
         + (fp, inp["voxel"])}
     err1 = 0.0
     for shape, a in k1_args.items():
+        if not full and shape == "mapping":
+            continue
         out_k, feats_k = rk.fused_render_forward(*a)
         out_p, feats_p = rk.fused_render_forward_plain(*a)
         out_2 = mk.decoder_fwd(feats_k, fp)
@@ -1550,31 +1647,37 @@ def size_phase(device, inp, size) -> dict:
             raise AssertionError(f"K2 on K1's feats differs from K1's out at "
                                  f"{size}, the {shape} shape")
         err1 = max(err1, ef, eo.max().item())
-        if shape == "mapping":
-            x = feats_p
+        if shape == ("mapping" if full else "tracking"):
             shift = (out_p[1:] - out_p[:-1]).abs().max().item()
     if not shift > SHIFT_MARGIN * TOL_K1_OUT:
         raise AssertionError(f"the K1 check at {size} cannot tell "
                              "neighbouring rows")
 
+    x = rk.fused_render_forward_plain(*k1_args["mapping"])[1]
     N = x.shape[0]
     TRR = min(TRACK_RAYS * S, N)
     g = 1e-2 * torch.randn((N, 4), generator=gen, device=device)
     nz = (x.abs().sum(1) > 0).nonzero().flatten()
-    cases = [("mapping", x, g, True), ("mapping", x, g, False),
-             ("ragged", x[:N - K3_RAGGED], g[:N - K3_RAGGED], True),
-             ("tracking", x[:TRR], g[:TRR], True),
+    cases = [("tracking", x[:TRR], g[:TRR], True),
              ("tracking", x[:TRR], g[:TRR], False)]
+    if full:
+        cases = [("mapping", x, g, True), ("mapping", x, g, False),
+                 ("ragged", x[:N - K3_RAGGED], g[:N - K3_RAGGED],
+                  True)] + cases
+    else:
+        cases.append(("ragged", x[:TRR - K3_RAGGED], g[:TRR - K3_RAGGED],
+                      True))
     cases += [("small ragged", x[nz[:n]], g[nz[:n]], True) for n in K3_SMALL]
     err3 = 0.0
     for label, xn, gn, wgrad in cases:
         e, _ = _k3_check(f"K3 at {size}, the {label} shape", xn.contiguous(),
                          gn.contiguous(), fp, wgrad, True,
-                         log_bins=label == "mapping" and wgrad)
+                         log_bins=label == cases[0][0] and wgrad)
         err3 = max(err3, e)
-    dx_k, gr_k = mk.decoder_bwd(x, g, fp)
-    dx_k2, gr_k2 = mk.decoder_bwd(x, g, fp)
-    dx_only, _ = mk.decoder_bwd(x, g, fp, want_wgrad=False)
+    xr, gr = (x, g) if full else (x[:TRR].contiguous(), g[:TRR].contiguous())
+    dx_k, gr_k = mk.decoder_bwd(xr, gr, fp)
+    dx_k2, gr_k2 = mk.decoder_bwd(xr, gr, fp)
+    dx_only, _ = mk.decoder_bwd(xr, gr, fp, want_wgrad=False)
     if not (torch.equal(dx_k, dx_k2) and torch.equal(dx_k, dx_only)
             and all(torch.equal(a, b) for a, b in zip(gr_k, gr_k2))):
         raise AssertionError(f"K3 at {size} is not bitwise repeatable")
@@ -1593,29 +1696,38 @@ def size_phase(device, inp, size) -> dict:
             for t in leaves + [xg]:
                 t.grad = None
             chain(xg).backward(gb)
+        yard = full or shape == "tracking"    # plain versions and chains
+        reps = {} if yard else REDUCED_REPS
         st = k1[shape] = dict(rows=rows)
-        st["ms"] = _event_ms(lambda: rk.fused_render_forward(*a))
-        st["plain_ms"] = _event_ms(lambda: rk.fused_render_forward_plain(*a))
+        st["ms"] = _event_ms(lambda: rk.fused_render_forward(*a), **reps)
+        st["plain_ms"] = (_event_ms(lambda: rk.fused_render_forward_plain(*a))
+                          if yard else None)
         st["bound_ms"], st["bound_by"] = _bound(
             flops * rows, k1_blend_flops(d) * rows,
             _nbytes(*a[:6], *fp) + rows * (4 + d) * 4)
         st = k2[shape] = dict(rows=rows)
-        st["ms"] = _event_ms(lambda: mk.decoder_fwd(xn, fp))
-        st["plain_ms"] = _event_ms(lambda: mk.decoder_fwd_plain(xn, fp))
+        st["ms"] = _event_ms(lambda: mk.decoder_fwd(xn, fp), **reps)
+        st["plain_ms"] = (_event_ms(lambda: mk.decoder_fwd_plain(xn, fp))
+                          if yard else None)
         with torch.no_grad():
-            st["matmul_chain_ms"] = _event_ms(lambda: chain(xb), reps=3)
+            st["matmul_chain_ms"] = (_event_ms(lambda: chain(xb), reps=3)
+                                     if yard else None)
         st["bound_ms"], st["bound_by"] = _bound(
             flops * rows, 0, _nbytes(xn, *fp) + rows * 4 * 4)
         st = k3[shape] = dict(rows=rows)
-        st["ms"] = _event_ms(lambda: mk.decoder_bwd(xn, gn, fp))
-        st["plain_ms"] = _event_ms(lambda: mk.decoder_bwd_plain(xn, gn, fp))
-        st["matmul_chain_ms"] = _event_ms(chain_fwd_bwd, reps=3)
+        st["ms"] = _event_ms(lambda: mk.decoder_bwd(xn, gn, fp), **reps)
+        st["plain_ms"] = (_event_ms(lambda: mk.decoder_bwd_plain(xn, gn, fp))
+                          if yard else None)
+        st["matmul_chain_ms"] = (_event_ms(chain_fwd_bwd, reps=3) if yard
+                                 else None)
         st["dx_only_ms"] = _event_ms(
-            lambda: mk.decoder_bwd(xn, gn, fp, want_wgrad=False))
-        st["dx_only_plain_ms"] = _event_ms(
+            lambda: mk.decoder_bwd(xn, gn, fp, want_wgrad=False), **reps)
+        st["dx_only_plain_ms"] = (_event_ms(
             lambda: mk.decoder_bwd_plain(xn, gn, fp, want_wgrad=False))
+            if yard else None)
         st["bound_ms"], st["bound_by"] = _bound(
             3 * flops * rows, 0, _nbytes(xn, gn, *fp, xn, *gr_k))
+        st["slab_gb"] = _slab_gb(fp, rows, mk.TILE_ROWS)
         st["dx_only_bound_ms"], _ = _bound(2 * flops * rows, 0,
                                            _nbytes(xn, gn, *fp, xn))
         st["dx_only_share"] = st["dx_only_bound_ms"] / st["dx_only_ms"]
@@ -1623,21 +1735,36 @@ def size_phase(device, inp, size) -> dict:
             e[shape]["share"] = e[shape]["bound_ms"] / e[shape]["ms"]
         a1, a2, a3 = k1[shape], k2[shape], k3[shape]
         log(f"{shape} shape at {size}: K1 {a1['ms']:.3f} ms (plain "
-            f"{a1['plain_ms']:.3f} ms, bound {a1['bound_ms']:.4f} ms by "
+            f"{_ms(a1['plain_ms'])} ms, bound {a1['bound_ms']:.4f} ms by "
             f"{a1['bound_by']}, share {a1['share']:.3f}); K2 {a2['ms']:.3f} "
-            f"ms (plain {a2['plain_ms']:.3f} ms, bound {a2['bound_ms']:.4f} "
-            f"ms, share {a2['share']:.3f}; bf16 torch.matmul chain forward "
-            f"{a2['matmul_chain_ms']:.3f} ms); K3 {a3['ms']:.3f} ms (plain "
-            f"{a3['plain_ms']:.3f} ms, bound {a3['bound_ms']:.4f} ms, share "
-            f"{a3['share']:.3f}; chain forward+backward "
-            f"{a3['matmul_chain_ms']:.3f} ms); K3 dx-only "
+            f"ms (plain {_ms(a2['plain_ms'])} ms, bound "
+            f"{a2['bound_ms']:.4f} ms, share {a2['share']:.3f}; bf16 "
+            f"torch.matmul chain forward {_ms(a2['matmul_chain_ms'])} ms); "
+            f"K3 {a3['ms']:.3f} ms (plain {_ms(a3['plain_ms'])} ms, bound "
+            f"{a3['bound_ms']:.4f} ms, share {a3['share']:.3f}; chain "
+            f"forward+backward {_ms(a3['matmul_chain_ms'])} ms); K3 dx-only "
             f"{a3['dx_only_ms']:.3f} ms "
-            f"(plain {a3['dx_only_plain_ms']:.3f} ms, bound "
+            f"(plain {_ms(a3['dx_only_plain_ms'])} ms, bound "
             f"{a3['dx_only_bound_ms']:.4f} ms, share "
             f"{a3['dx_only_share']:.3f}); {rows} rows")
     return {"fused_render_forward": dict(max_abs_err=err1, shapes=k1),
             "decoder_forward": dict(max_abs_err=err1, shapes=k2),
             "decoder_backward": dict(max_abs_err=err3, shapes=k3)}
+
+
+def _slab_gb(fp, rows, tile_rows) -> float:
+    """GB a full backward of ``rows`` rows reads and writes in its blocks'
+    slabs of partial weight gradients, by count: each tile of
+    ``tile_rows`` rows reads and rewrites its block's slab (the params'
+    size in f32) once; the first tile of a block only writes it, which
+    this count ignores."""
+    nparam = sum(t.numel() for t in fp)
+    return -(-rows // tile_rows) * 2 * nparam * 4 / 1e9
+
+
+def _ms(v) -> str:
+    """A time for a log line: ms to 3 decimals, or "not timed"."""
+    return "not timed" if v is None else f"{v:.3f}"
 
 
 def _decoder_at(device, size, seed):
@@ -1659,8 +1786,10 @@ def _decoder_at(device, size, seed):
 
 def _k2_check(what, xn, fp, bf16, tol, size=None):
     """K2 (``bf16``) or K2-f32 on ``xn`` against its plain version, each
-    output column within ``tol`` of its largest magnitude, and bitwise
-    repeatable -> (largest absolute error, the kernel's output)."""
+    output column within ``tol`` of its largest magnitude (K2-f32: or
+    within it of the float64 forward, the note at TOL_F32_FWD), and
+    bitwise repeatable -> (largest absolute error, the kernel's
+    output)."""
     import torch
 
     from proudslam_tpu_torch.ops.kernels import mlp_kernel as mk
@@ -1674,6 +1803,20 @@ def _k2_check(what, xn, fp, bf16, tol, size=None):
     rel = ((out_k - out_p).abs().amax(0) / scale).tolist()
     log(f"{what}, N={xn.shape[0]}: max_abs_err over each column's largest "
         f"magnitude {[float(f'{v:.3e}') for v in rel]} (tol {tol})")
+    if not max(rel) <= tol and not bf16:
+        f64 = mk.FusedParams(*[t.double() for t in fp])
+        _, _, _, sdf_e, _, rgb_e = mk.decoder_fwd_plain(xn.double(), f64,
+                                                         False)
+        out_e = torch.cat([rgb_e, sdf_e], dim=1)
+        scale_e = out_e.abs().amax(0).clamp_min(1e-30)
+
+        def rel_e(o):
+            return [float(f"{v:.3e}") for v in
+                    ((o.double() - out_e).abs().amax(0) / scale_e).tolist()]
+        rel = rel_e(out_k)
+        log(f"{what}: against the float64 forward, max_abs_err over each "
+            f"column's largest magnitude {rel} (tol {tol}); the plain "
+            f"version's {rel_e(out_p)}")
     if not max(rel) <= tol:
         raise AssertionError(f"{what} disagrees with decoder_fwd_plain")
     if not torch.equal(out_k, out_k2):
@@ -1681,7 +1824,7 @@ def _k2_check(what, xn, fp, bf16, tol, size=None):
     return (out_k - out_p).abs().max().item(), out_k
 
 
-def f32_size_phase(device, x, g, size, track_rows) -> dict:
+def f32_size_phase(device, x, g, size, track_rows, full=True) -> dict:
     """K2-f32 and K3-f32 at another size of ``mlp_kernel.BUILT_SIZES`` (the
     streamed f32 plan, ``mlp_stream_f32.cu``) on the pcd features ``x``
     with the cotangents ``g`` and that size's ``init_decoder`` params:
@@ -1692,7 +1835,10 @@ def f32_size_phase(device, x, g, size, track_rows) -> dict:
     margin >= MARGIN_FLIP_F32), both bitwise repeatable; CUDA-event times
     of each kernel, its plain version and the f32 matmul chain at both
     shapes, with the 3xTF32 bound and its share -> {kernel: entry}. The
-    tracking shape is the first ``track_rows`` rows."""
+    tracking shape is the first ``track_rows`` rows. ``full=False``: the
+    checks at the tracking shape and a ragged count cut from it, the
+    repeatability there, the plain versions and the chain timed at the
+    tracking shape only (their mapping-shape entries None)."""
     import torch
 
     from proudslam_tpu_torch.ops.kernels import mlp_kernel as mk
@@ -1701,9 +1847,9 @@ def f32_size_phase(device, x, g, size, track_rows) -> dict:
     flops = dec_flops(size)
     N = x.shape[0]
     shapes = (("mapping", N), ("tracking", track_rows),
-              ("ragged", N - K3_RAGGED))
+              ("ragged", (N if full else track_rows) - K3_RAGGED))
     err2 = err3 = 0.0
-    for label, rows in shapes:
+    for label, rows in shapes if full else shapes[1:]:
         xn, gn = x[:rows].contiguous(), g[:rows].contiguous()
         e, _ = _k2_check(f"K2-f32 at {size}, the {label} shape", xn, fp,
                          False, TOL_F32_FWD)
@@ -1711,11 +1857,14 @@ def f32_size_phase(device, x, g, size, track_rows) -> dict:
         for wgrad in ((True, False) if label != "ragged" else (True,)):
             e, _ = _k3_check(f"K3-f32 at {size}, the {label} shape", xn, gn,
                              fp, wgrad, False,
-                             log_bins=label == "mapping" and wgrad)
+                             log_bins=label == ("mapping" if full
+                                                else "tracking") and wgrad)
             err3 = max(err3, e)
-    dx_k, gr_k = mk.decoder_bwd(x, g, fp, bf16=False)
-    dx_k2, gr_k2 = mk.decoder_bwd(x, g, fp, bf16=False)
-    dx_only, _ = mk.decoder_bwd(x, g, fp, want_wgrad=False, bf16=False)
+    xr, gr = ((x, g) if full else (x[:track_rows].contiguous(),
+                                    g[:track_rows].contiguous()))
+    dx_k, gr_k = mk.decoder_bwd(xr, gr, fp, bf16=False)
+    dx_k2, gr_k2 = mk.decoder_bwd(xr, gr, fp, bf16=False)
+    dx_only, _ = mk.decoder_bwd(xr, gr, fp, want_wgrad=False, bf16=False)
     if not (torch.equal(dx_k, dx_k2) and torch.equal(dx_k, dx_only)
             and all(torch.equal(a, b) for a, b in zip(gr_k, gr_k2))):
         raise AssertionError(f"K3-f32 at {size} is not bitwise repeatable")
@@ -1724,29 +1873,38 @@ def f32_size_phase(device, x, g, size, track_rows) -> dict:
     k2, k3 = {}, {}
     for shape, rows in shapes[:2]:
         xn, gn = x[:rows].contiguous(), g[:rows].contiguous()
+        yard = full or shape == "tracking"    # plain versions and chains
+        reps = {} if yard else REDUCED_REPS
         st = k2[shape] = dict(rows=rows)
-        st["ms"] = _event_ms(lambda: mk.decoder_fwd(xn, fp, bf16=False))
-        st["plain_ms"] = _event_ms(
+        st["ms"] = _event_ms(lambda: mk.decoder_fwd(xn, fp, bf16=False),
+                             **reps)
+        st["plain_ms"] = (_event_ms(
             lambda: mk.decoder_fwd_plain(xn, fp, False), reps=3)
+            if yard else None)
         with torch.no_grad():
-            st["matmul_chain_ms"] = _event_ms(lambda: chain(xn), reps=3)
+            st["matmul_chain_ms"] = (_event_ms(lambda: chain(xn), reps=3)
+                                     if yard else None)
         st["bound_ms"], st["bound_by"] = _bound(
             0, 0, _nbytes(xn, *fp) + rows * 4 * 4, flops * rows)
         st = k3[shape] = dict(rows=rows)
-        st["ms"] = _event_ms(lambda: mk.decoder_bwd(xn, gn, fp, bf16=False))
-        st["plain_ms"] = _event_ms(
+        st["ms"] = _event_ms(lambda: mk.decoder_bwd(xn, gn, fp, bf16=False),
+                             **reps)
+        st["plain_ms"] = (_event_ms(
             lambda: mk.decoder_bwd_plain(xn, gn, fp, bf16=False), reps=3)
+            if yard else None)
         st["dx_only_ms"] = _event_ms(lambda: mk.decoder_bwd(
-            xn, gn, fp, want_wgrad=False, bf16=False))
+            xn, gn, fp, want_wgrad=False, bf16=False), **reps)
         xg = xn.detach().clone().requires_grad_(True)
 
         def chain_fwd_bwd():
             for t in leaves + [xg]:
                 t.grad = None
             chain(xg).backward(gn)
-        st["matmul_chain_ms"] = _event_ms(chain_fwd_bwd, reps=3)
+        st["matmul_chain_ms"] = (_event_ms(chain_fwd_bwd, reps=3) if yard
+                                 else None)
         st["bound_ms"], st["bound_by"] = _bound(
             0, 0, _nbytes(xn, gn, *fp, xn, *gr_k), 3 * flops * rows)
+        st["slab_gb"] = _slab_gb(fp, rows, mk.f32_tile_rows(size))
         st["dx_only_bound_ms"], _ = _bound(0, 0, _nbytes(xn, gn, *fp, xn),
                                            2 * flops * rows)
         st["dx_only_share"] = st["dx_only_bound_ms"] / st["dx_only_ms"]
@@ -1754,12 +1912,12 @@ def f32_size_phase(device, x, g, size, track_rows) -> dict:
             e[shape]["share"] = e[shape]["bound_ms"] / e[shape]["ms"]
         a, b = k2[shape], k3[shape]
         log(f"{shape} shape at {size}, f32 operands: K2-f32 {a['ms']:.3f} ms "
-            f"(plain {a['plain_ms']:.3f} ms, 3xTF32 bound "
+            f"(plain {_ms(a['plain_ms'])} ms, 3xTF32 bound "
             f"{a['bound_ms']:.4f} ms, share {a['share']:.3f}; f32 "
-            f"torch.matmul chain forward {a['matmul_chain_ms']:.3f} ms); "
-            f"K3-f32 {b['ms']:.3f} ms (plain {b['plain_ms']:.3f} ms, 3xTF32 "
-            f"bound {b['bound_ms']:.4f} ms, share {b['share']:.3f}; chain "
-            f"forward+backward {b['matmul_chain_ms']:.3f} ms); K3-f32 "
+            f"torch.matmul chain forward {_ms(a['matmul_chain_ms'])} ms); "
+            f"K3-f32 {b['ms']:.3f} ms (plain {_ms(b['plain_ms'])} ms, "
+            f"3xTF32 bound {b['bound_ms']:.4f} ms, share {b['share']:.3f}; "
+            f"chain forward+backward {_ms(b['matmul_chain_ms'])} ms); K3-f32 "
             f"dx-only {b['dx_only_ms']:.3f} ms (3xTF32 bound "
             f"{b['dx_only_bound_ms']:.4f} ms, share "
             f"{b['dx_only_share']:.3f}); {rows} rows")
@@ -1951,11 +2109,12 @@ def pcd_render_check(r, rays_o, rays_d, device):
 def refusal_check() -> dict:
     """``run_slam.check_config`` for the card accepts the fused pcd path at
     f32 operands at the reference's (16, 256, 128), where K2-f32 and K3-f32
-    run their streamed plan, at a padded size, (12, 200, 72), and at in_dim
-    32, (32, 256, 128); and refuses in_dim 33 and width 320, which no built
-    size covers, with a ``ValueError`` naming the size and the form (K2-f32
-    on that path, K1 on the fused vox path), before any data loads and with
-    no kernel launched."""
+    run their streamed plan, at a padded size, (12, 200, 72), at in_dim 32,
+    (32, 256, 128), at the widest built size, (16, 512, 512), and at a
+    padded wide size, (16, 300, 200); and refuses in_dim 33, width 513 and
+    sdf_dim 513, which no built size covers, with a ``ValueError`` naming
+    the size and the form (K2-f32 on that path, K1 on the fused vox path),
+    before any data loads and with no kernel launched."""
     from proudslam_tpu_torch.config import load_config
     from proudslam_tpu_torch.run_slam import check_config
 
@@ -1968,13 +2127,18 @@ def refusal_check() -> dict:
     path = os.path.join(ROOT, CLI_CONFIG)
     before = _launches()
     accepted = []
+    wide = {"decoder_specs.width": W512_SIZE[1],
+            "decoder_specs.sdf_dim": W512_SIZE[2]}
+    padded_wide = {"decoder_specs.width": 300, "decoder_specs.sdf_dim": 200}
     for kv in (over, {**over, **padded},
-               {**over, "decoder_specs.in_dim": D32_SIZE[0]}):
+               {**over, "decoder_specs.in_dim": D32_SIZE[0]},
+               {**over, **wide}, {**over, **padded_wide}):
         dec = check_config(load_config(path, dict(kv)), "cuda").decoder
         accepted.append([dec.in_dim, dec.width, dec.sdf_dim])
     refused = {}
     for key, val in (("decoder_specs.in_dim", D32_SIZE[0] + 1),
-                     ("decoder_specs.width", 320)):
+                     ("decoder_specs.width", W512_SIZE[1] + 1),
+                     ("decoder_specs.sdf_dim", W512_SIZE[2] + 1)):
         for mode, form in (("pcd", "K2-f32"), ("vox", "K1")):
             kv = {**over, "tpu_specs.feature_mode": mode, key: val}
             try:
@@ -2844,7 +3008,7 @@ def size_table(record) -> None:
             for shape, sh in st["shapes"].items():
                 row[shape] = {key: sh.get(key) for key in (
                     "ms", "share", "bound_ms", "plain_ms", "matmul_chain_ms",
-                    "dx_only_ms")}
+                    "dx_only_ms", "slab_gb")}
             log(f"size table: {k['name']} at {tag}: {json.dumps(row)}")
 
 
@@ -2862,11 +3026,21 @@ def main() -> None:
 
     device = torch.device("cuda", 0)
     log(f"device: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
+    phase_s, t_mark = {}, [time.perf_counter()]
+
+    def mark(name):
+        """Seconds since the last mark, kept as phase ``name``."""
+        now = time.perf_counter()
+        phase_s[name] = now - t_mark[0]
+        t_mark[0] = now
     build_s, built, built_by_size = build_phase()
     log(f"build: {build_s:.1f} s")
+    mark("build")
     kern = kernel_phase(device)
     kern["extra"]["gaussian_embedder"] = gaussian_check(device)
+    mark("kernels")
     frames = render_frames()
+    mark("frames")
     vox = bench_settings()
     bf16_kernels = ("fused_render_forward", "decoder_forward",
                     "decoder_backward")
@@ -2883,7 +3057,12 @@ def main() -> None:
         device, "vox-d32", at_size(vox, D32_SIZE), frames, D32_FRAMES,
         ATE_LIMIT_CM, launched=("fused_render_forward", "decoder_backward"),
         not_launched=("decoder_forward",) + f32_kernels)
+    stats["vox-w512"] = slice_phase(
+        device, "vox-w512", at_size(vox, W512_SIZE), frames, W512_FRAMES,
+        ATE_LIMIT_CM, launched=("fused_render_forward", "decoder_backward"),
+        not_launched=("decoder_forward",) + f32_kernels)
     kern["extra"]["refusal"] = refusal_check()
+    mark("vox slices")
     pcd = dataclasses.replace(
         vox, render=dataclasses.replace(vox.render, feature_mode="pcd"),
         map=dataclasses.replace(vox.map, points_per_voxel=8))
@@ -2906,6 +3085,12 @@ def main() -> None:
         device, "pcd-f32-d32", pcd_f32_d32, frames, PCD_FRAMES,
         PCD_W256_ATE_LIMIT_CM, launched=f32_kernels,
         not_launched=bf16_kernels, after=trained_decoder_check(pcd_f32_d32))
+    pcd_f32_w512 = at_size(pcd_f32, PCD_W512_SIZE)
+    stats["pcd-f32-w512"] = slice_phase(
+        device, "pcd-f32-w512", pcd_f32_w512, frames, PCD_FRAMES,
+        PCD_W256_ATE_LIMIT_CM, launched=f32_kernels,
+        not_launched=bf16_kernels, after=trained_decoder_check(pcd_f32_w512))
+    mark("pcd slices")
     resample = dataclasses.replace(
         vox, render=dataclasses.replace(vox.render, pixel_sampler="gumbel"),
         tracker=dataclasses.replace(vox.tracker, fixed_sample_batch=False),
@@ -2936,7 +3121,9 @@ def main() -> None:
         launched=("fused_render_forward", "decoder_backward"),
         not_launched=("decoder_forward",) + f32_kernels, setup=wlog.setup,
         after=wlog.after)
+    mark("resample, dda, window slices")
     profile = profile_phase(device, vox, frames)
+    mark("profile")
     stats["cli"] = cli_phase(
         device, "cli", ("--debug_args.render_freq", str(CLI_RENDER_FREQ)),
         panels=range(CLI_RENDER_FREQ - 1, N_FRAMES, CLI_RENDER_FREQ))
@@ -2947,8 +3134,10 @@ def main() -> None:
                             "--no-mesh"),
         launched=f32_kernels, mesh=False, ate_limit_cm=None)
     stats["cli-embed"] = cli_embed_phase(device)
+    mark("cli")
     # last: the NCCL process group lives only inside this phase
     stats["parallel"] = parallel_phase(device, vox, frames)
+    mark("parallel")
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     mlp = "proudslam_tpu/ops/pallas/mlp_kernel.py"
@@ -2972,6 +3161,7 @@ def main() -> None:
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": f"{csrc}/{src}.cu",
          "stream_source": f"{csrc}/{STREAM_LIBRARIES[src]}.cu",
+         "wide_source": f"{csrc}/{WIDE_LIBRARIES[src]}.cu",
          "replaces": rep, "replaces_form": form,
          "launches": sum(st["launches"][name] for st in stats.values()),
          "launches_by_path": {p: st["launches"][name]
@@ -2986,9 +3176,11 @@ def main() -> None:
     if unlaunched:
         raise AssertionError(f"kernels launched on no path: {unlaunched}")
     total_s = time.perf_counter() - t_start
-    log(f"chip_smoke: {total_s:.1f} s in all")
+    log(f"chip_smoke: {total_s:.1f} s in all; by phase: "
+        + json.dumps({k: round(v, 1) for k, v in phase_s.items()}))
     print(json.dumps({"slices": stats, "kernel_phase": kern["extra"],
-                      "vox_profile": profile, "total_s": total_s}))
+                      "vox_profile": profile, "total_s": total_s,
+                      "phase_s": phase_s}))
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {

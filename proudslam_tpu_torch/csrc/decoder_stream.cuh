@@ -89,6 +89,9 @@ __device__ __forceinline__ void chunk_of(int id, int& off, int& n) {
   }
 }
 
+// (not in the wide plan's builds, which pack their own chunks and run their
+// own decode: decoder_wide.cuh)
+#if DEC_W <= 256
 // f32 FusedParams -> the packed bf16 chunks (round to nearest even)
 __global__ void pack_weights_kernel(dec::Params p, bf16* __restrict__ dst) {
   for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < PACKED;
@@ -117,6 +120,7 @@ inline cudaError_t pack_weights(const dec::Params& p, bf16* dst,
   pack_weights_kernel<<<(PACKED + 255) / 256, 256, 0, stream>>>(p, dst);
   return cudaGetLastError();
 }
+#endif
 
 // ---- the ring ----
 
@@ -302,6 +306,8 @@ __device__ __forceinline__ void relu_mask(float (&acc)[NA], const bf16* act,
 
 // ---- the forward of K1 and K2 ----
 
+#if DEC_W <= 256
+
 // the partial dots of the two warpgroups: part[wg][row] = [rgb logits | sdf]
 constexpr int PART_SMEM = 2 * TR * 4 * 4;
 
@@ -405,5 +411,7 @@ __device__ inline void decode(const tc::TcWeights& w, const bf16* xs,
           (a.w + b.w) + w.bs[SD]);
   }
 }
+
+#endif  // DEC_W <= 256
 
 }  // namespace st

@@ -17,7 +17,9 @@
 // default the bench decoder's 16, 128, 128; each size is its own library
 // (ops/kernels/build.py). At (16, 128, 128) the weights stay in shared
 // memory for a block's life (render_kernel.cu, mlp_kernel.cu); every other
-// size streams the large ones through it (decoder_stream.cuh). A row's
+// size up to width 256 streams the large ones through it
+// (decoder_stream.cuh), and the widths 384 and 512 stream them all
+// (decoder_wide.cuh; mlp_stream_f32.cu for K2-f32 and K3-f32). A row's
 // inputs are read as D / 16 chunks of 16 floats, and a product over the
 // inputs (x w1, x wc_x) takes D / 16 k16 steps.
 //
@@ -51,8 +53,8 @@ constexpr int NPARAM = D * W + W + W * W + W + W * SO + SO + SD * W + D * W
                        + W + W * 3 + 3;    // 54,276 floats at (16, 128, 128)
 static_assert(D == 16 || D == 32,
               "the kernels read a row's inputs as D / 16 chunks of 16 floats");
-static_assert(W % 64 == 0 && SD % 64 == 0 && SD <= W && W <= 256,
-              "widths are multiples of 64, sdf_dim <= width <= 256");
+static_assert(W % 64 == 0 && SD % 64 == 0 && SD <= W && W <= 512,
+              "widths are multiples of 64, sdf_dim <= width <= 512");
 
 typedef __nv_bfloat16 bf16;
 

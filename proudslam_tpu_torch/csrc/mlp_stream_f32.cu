@@ -53,6 +53,22 @@
 //     x N / 8 columns a warp); a weight gradient (act^T cot, K = the tile's
 //     32 rows) is cut into 64 x 32 (16 x 32 for w1 and wc_x) warp tiles
 //     that the warps take in turn.
+// At the wide sizes (width 384 and 512) four (W, 32) tiles alone would take
+// 294,912 bytes at width 512, so there tiles have RT = 16 rows (the
+// `mma.sync` minimum; AP = 20, still conflict-free), w1 and wc_x stream at
+// either in_dim, and the ring's chunks have 8 weight rows (16 rows would
+// take K3-f32's block to 234,512 bytes at (16, 512, *)): 202,768 bytes at
+// (32, 512, 512). Each warp then takes 16 rows x N / 8 columns, the FFMA
+// recompute 2 rows a thread, and a row's partial dots are 16. The slab of
+// partial weight gradients is read and rewritten per tile, so at 16 rows a
+// tile that traffic doubles (~130 GB per full backward of 327,680 rows at
+// (16, 512, 512), by count). And there K2-f32's h1 and h2 products run on
+// the FP32 units too, as K3-f32's recompute: the sdf column is a dot of
+// the W values of h2 whose terms can nearly cancel, and with 3xTF32's
+// h1 and h2 (each product within ~2^-21 of the true one, a few times f32's
+// rounding) K2-f32's sdf was 1.9e-5 of its largest magnitude from the
+// float64 forward at (32, 512, 384) on the pcd features, the f32 plain
+// version 3.6e-6 (an H100, 700 W), against a tolerance of 1e-5.
 // K3-f32 keeps mlp_kernel_f32.cu's reduction (decoder_slab.cuh): each block
 // walks a contiguous run of tiles and adds each tile's weight gradients
 // into its own f32 slab, and reduce_partials_kernel sums the slabs in a
@@ -72,16 +88,19 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int NWARP = THREADS / 32;
-constexpr int RT = 32;              // rows of a tile
+// widths above 256 (the wide sizes): 16-row tiles and 8-row chunks
+constexpr bool WIDE = W > 256;
+constexpr int RT = WIDE ? 16 : 32;  // rows of a tile
 constexpr int AP = RT + 4;          // activation row stride (floats)
-constexpr int CR = 16;              // weight rows of a streamed chunk
+constexpr int CR = WIDE ? 8 : 16;   // weight rows of a streamed chunk
+constexpr int NQ = THREADS / RT;    // partial dots of a row (row_partials)
 constexpr int WP = W + 4;           // weight row stride (floats)
 constexpr int CHUNK = CR * WP;      // floats of a chunk, and of a ring slot
 constexpr int ACT = W * AP;         // one (W, RT) activation tile
 constexpr int XT = D * AP;          // the input tile
-// in_dim 32: w1 and wc_x stream through the ring (XS chunks each) rather
-// than stay resident (RES floats each)
-constexpr bool XSTREAM = D > 16;
+// in_dim 32 and the wide sizes: w1 and wc_x stream through the ring (XS
+// chunks each) rather than stay resident (RES floats each)
+constexpr bool XSTREAM = D > 16 || WIDE;
 constexpr int XS = XSTREAM ? D / CR : 0;
 constexpr int RES = XSTREAM ? 0 : D * WP;
 // chunks of each streamed weight, in the order a tile takes them
@@ -94,13 +113,13 @@ constexpr int NBWD = XS + N_WCT + N_WST + N_W2T + XS;
 constexpr int SDF_COL = (NFWD + NBWD) * CHUNK;
 constexpr int PACKED = SDF_COL + W;
 static_assert(THREADS == 8 * 32 && (D == 16 || D == 32) && W % 64 == 0
-                  && SD % 64 == 0 && SD <= W && W <= 256,
+                  && SD % 64 == 0 && SD <= W && W <= 512,
               "the warp tilings below");
 static_assert(SO <= WP, "a chunk row holds any streamed weight's row");
 
 constexpr int RING_SMEM = 2 * CHUNK * 4 + 16;   // two slots, two mbarriers
-constexpr int PART = 3 * NWARP * RT;   // 8 partial color logits x 3 per row
-constexpr int K2F_SMEM = 4 * (2 * ACT + XT + 2 * RES + NWARP * RT + PART)
+constexpr int PART = 3 * NQ * RT;   // NQ partial color logits x 3 per row
+constexpr int K2F_SMEM = 4 * (2 * ACT + XT + 2 * RES + NQ * RT + PART)
                          + RING_SMEM;
 constexpr int K3F_SMEM = 4 * (4 * ACT + XT + 2 * RES + 4 * RT + PART)
                          + RING_SMEM;
@@ -226,16 +245,17 @@ __device__ __forceinline__ const float* acquire(Ring& r, bool more) {
 // A row x column product on the tensor cores: out(row, n) = sum over
 // K-slices of act[k][row] w[k][n] (act feature-major at stride AP, w
 // row-major at stride WP), N output columns, warp w taking columns
-// [w N / 8, (w + 1) N / 8) of all RT rows (2 x N / 64 tiles of 16 x 8).
+// [w N / 8, (w + 1) N / 8) of all RT rows (RT / 16 x N / 64 tiles of
+// 16 x 8).
 template <int N>
 struct Tc {
-  static constexpr int TN = N / 64;
-  float acc[2][TN][4];
+  static constexpr int TM = RT / 16, TN = N / 64;
+  float acc[TM][TN][4];
   __device__ __forceinline__ int n0() const { return (threadIdx.x >> 5) * (N / 8); }
   __device__ __forceinline__ void zero() { tf::zero(acc); }
   template <int K>
   __device__ __forceinline__ void mm(const float* act, const float* w) {
-    tf::mm_fm<2, TN, K, true>(acc, act, AP, w, WP, 0, n0());
+    tf::mm_fm<TM, TN, K, true>(acc, act, AP, w, WP, 0, n0());
   }
   // dst[n][row] = act(out + bias[n])
   __device__ __forceinline__ void store(float* dst,
@@ -250,15 +270,15 @@ struct Tc {
 
 // The same product on the FP32 units, each output a sequential fused
 // multiply-add over k (K3-f32's forward recompute). Thread (ty, l) = (tid /
-// 32, tid % 32) owns rows 4 ty .. 4 ty + 3 and the column pairs 64 j + 2 l,
-// 64 j + 2 l + 1 (j < N / 64).
+// 32, tid % 32) owns the RR = RT / 8 rows RR ty .. RR ty + RR - 1 and the
+// column pairs 64 j + 2 l, 64 j + 2 l + 1 (j < N / 64).
 template <int N>
 struct Fma {
-  static constexpr int NP = N / 64;
-  float acc[4][2 * NP];
+  static constexpr int NP = N / 64, RR = RT / 8;
+  float acc[RR][2 * NP];
   __device__ __forceinline__ void zero() {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RR; ++i)
 #pragma unroll
       for (int j = 0; j < 2 * NP; ++j) acc[i][j] = 0.f;
   }
@@ -267,16 +287,31 @@ struct Fma {
     const int ty = threadIdx.x >> 5, l = threadIdx.x & 31;
 #pragma unroll 4
     for (int r = 0; r < K; ++r) {
-      const float4 a = *reinterpret_cast<const float4*>(act + r * AP + 4 * ty);
-      const float av[4] = {a.x, a.y, a.z, a.w};
+      if constexpr (RR == 4) {
+        const float4 a = *reinterpret_cast<const float4*>(act + r * AP + 4 * ty);
+        const float av[4] = {a.x, a.y, a.z, a.w};
 #pragma unroll
-      for (int j = 0; j < NP; ++j) {
-        const float2 b =
-            *reinterpret_cast<const float2*>(w + r * WP + 64 * j + 2 * l);
+        for (int j = 0; j < NP; ++j) {
+          const float2 b =
+              *reinterpret_cast<const float2*>(w + r * WP + 64 * j + 2 * l);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][2 * j] = fmaf(av[i], b.x, acc[i][2 * j]);
-          acc[i][2 * j + 1] = fmaf(av[i], b.y, acc[i][2 * j + 1]);
+          for (int i = 0; i < 4; ++i) {
+            acc[i][2 * j] = fmaf(av[i], b.x, acc[i][2 * j]);
+            acc[i][2 * j + 1] = fmaf(av[i], b.y, acc[i][2 * j + 1]);
+          }
+        }
+      } else {
+        const float2 a = *reinterpret_cast<const float2*>(act + r * AP + 2 * ty);
+        const float av[2] = {a.x, a.y};
+#pragma unroll
+        for (int j = 0; j < NP; ++j) {
+          const float2 b =
+              *reinterpret_cast<const float2*>(w + r * WP + 64 * j + 2 * l);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            acc[i][2 * j] = fmaf(av[i], b.x, acc[i][2 * j]);
+            acc[i][2 * j + 1] = fmaf(av[i], b.y, acc[i][2 * j + 1]);
+          }
         }
       }
     }
@@ -289,14 +324,25 @@ struct Fma {
     for (int j = 0; j < 2 * NP; ++j) {
       const int c = 64 * (j >> 1) + 2 * l + (j & 1);
       const float b = ldg(bias + c);
-      float v[4];
+      if constexpr (RR == 4) {
+        float v[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        v[i] = acc[i][j] + b;
-        if (relu) v[i] = fmaxf(v[i], 0.f);
+        for (int i = 0; i < 4; ++i) {
+          v[i] = acc[i][j] + b;
+          if (relu) v[i] = fmaxf(v[i], 0.f);
+        }
+        *reinterpret_cast<float4*>(dst + c * AP + 4 * ty) =
+            make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+        float v[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          v[i] = acc[i][j] + b;
+          if (relu) v[i] = fmaxf(v[i], 0.f);
+        }
+        *reinterpret_cast<float2*>(dst + c * AP + 2 * ty) =
+            make_float2(v[0], v[1]);
       }
-      *reinterpret_cast<float4*>(dst + c * AP + 4 * ty) =
-          make_float4(v[0], v[1], v[2], v[3]);
     }
   }
 };
@@ -360,13 +406,20 @@ __device__ __forceinline__ void wgrad_mm(float* __restrict__ out,
 // dx's part (RT x D) += cot wt^T on dx's columns [n_lo, n_lo + ROWS): cot
 // feature-major (W, RT), wt those rows of a (D, W) weight at stride WP
 // (all D of them resident, or a chunk of the ring); warp w < D / 4 holds
-// dx's 16 x 8 tile at (16 (w & 1), 8 (w >> 1))
+// dx's 16 x 8 tile at (16 (w & 1), 8 (w >> 1)) with 32-row tiles, warp
+// w < D / 8 the tile at (0, 8 w) with 16-row ones
 template <int ROWS>
 __device__ __forceinline__ void dx_mm(float (&acc)[1][1][4], const float* cot,
                                       const float* wt, int n_lo) {
-  const int w = threadIdx.x >> 5, n0 = 8 * (w >> 1);
-  if (w < D / 4 && n0 >= n_lo && n0 < n_lo + ROWS)
-    tf::mm_fm<1, 1, W, false>(acc, cot, AP, wt, WP, 16 * (w & 1), n0 - n_lo);
+  if constexpr (RT == 32) {
+    const int w = threadIdx.x >> 5, n0 = 8 * (w >> 1);
+    if (w < D / 4 && n0 >= n_lo && n0 < n_lo + ROWS)
+      tf::mm_fm<1, 1, W, false>(acc, cot, AP, wt, WP, 16 * (w & 1), n0 - n_lo);
+  } else {
+    const int w = threadIdx.x >> 5, n0 = 8 * w;
+    if (w < D / 8 && n0 >= n_lo && n0 < n_lo + ROWS)
+      tf::mm_fm<1, 1, W, false>(acc, cot, AP, wt, WP, 0, n0 - n_lo);
+  }
 }
 
 // the forward's x-side product f (+)= x w with w = w1 or wc_x: resident, or
@@ -443,7 +496,7 @@ __device__ __forceinline__ void load_x(float* xs, const float* __restrict__ x,
 }
 
 // Partial dots of each row with a W-vector: thread (r, q) = (tid % RT,
-// tid / RT) sums act[k][r] v[k] over k in [q W / 8, (q + 1) W / 8) into
+// tid / RT) sums act[k][r] v[k] over k in [q W / NQ, (q + 1) W / NQ) into
 // part[(C q + c) RT + r] for each of the C columns of v (v[C k + c])
 template <int C>
 __device__ __forceinline__ void row_partials(float* part, const float* act,
@@ -453,7 +506,7 @@ __device__ __forceinline__ void row_partials(float* part, const float* act,
 #pragma unroll
   for (int c = 0; c < C; ++c) s[c] = 0.f;
 #pragma unroll 8
-  for (int k = q * (W / NWARP); k < (q + 1) * (W / NWARP); ++k) {
+  for (int k = q * (W / NQ); k < (q + 1) * (W / NQ); ++k) {
     const float h = act[k * AP + r];
 #pragma unroll
     for (int c = 0; c < C; ++c) s[c] = fmaf(h, ldg(v + C * k + c), s[c]);
@@ -462,13 +515,13 @@ __device__ __forceinline__ void row_partials(float* part, const float* act,
   for (int c = 0; c < C; ++c) part[(C * q + c) * RT + r] = s[c];
 }
 
-// the sum of row r's NWARP partials of column c, in order, plus b
+// the sum of row r's NQ partials of column c, in order, plus b
 template <int C>
 __device__ __forceinline__ float row_sum(const float* part, int r, int c,
                                          float b) {
   float z = 0.f;
 #pragma unroll
-  for (int q = 0; q < NWARP; ++q) z += part[(C * q + c) * RT + r];
+  for (int q = 0; q < NQ; ++q) z += part[(C * q + c) * RT + r];
   return z + b;
 }
 
@@ -487,7 +540,7 @@ decoder_forward_f32_kernel(const float* __restrict__ x, Params p,
   float* xs = ar.take<float>(XT);
   float* w1s = ar.take<float>(RES);
   float* wcx = ar.take<float>(RES);
-  float* sdfp = ar.take<float>(NWARP * RT);   // partial sdf dots
+  float* sdfp = ar.take<float>(NQ * RT);      // partial sdf dots
   float* part = ar.take<float>(PART);         // partial color logits
   Ring ring = ring_init(ar, wpack, NFWD);
   const float* ws_sdf = wpack + SDF_COL;
@@ -507,6 +560,16 @@ decoder_forward_f32_kernel(const float* __restrict__ x, Params p,
     __syncthreads();                // the last tile's readers
     load_x(xs, x, row0, nvalid);
     __syncthreads();
+    if constexpr (WIDE) {
+      // h1 -> a, h2 -> b on the FP32 units (the note on the wide sizes)
+      Fma<W> h;
+      h.zero();
+      x_mm(h, xs, w1s, ring, more);
+      h.store(a, p.b1, true);
+      h.zero();
+      stream_mm(h, a, N_W2, ring, more);
+      h.store(b, p.b2, true);
+    } else {
     // h1 = relu(x w1 + b1) -> a
     f.zero();
     x_mm(f, xs, w1s, ring, more);
@@ -515,6 +578,7 @@ decoder_forward_f32_kernel(const float* __restrict__ x, Params p,
     f.zero();
     stream_mm(f, a, N_W2, ring, more);
     f.store(b, p.b2, true);
+    }
     // feat = h2 ws[:, :SD] + bs[:SD] -> a, and h2's sdf dots
     fs.zero();
     stream_mm(fs, b, N_WS, ring, more);
@@ -723,11 +787,18 @@ decoder_backward_f32_kernel(const float* __restrict__ x,
     }
     dx_part(dxa, B1, w1s, ring, more);
     const int w = tid >> 5;
-    if (w < D / 4)
-      tf::for_each_acc(dxa, 16 * (w & 1), 8 * (w >> 1),
-                       [&](int r, int c, float& v) {
-                         if (r < nvalid) dx[(row0 + r) * D + c] = v;
-                       });
+    if constexpr (RT == 32) {
+      if (w < D / 4)
+        tf::for_each_acc(dxa, 16 * (w & 1), 8 * (w >> 1),
+                         [&](int r, int c, float& v) {
+                           if (r < nvalid) dx[(row0 + r) * D + c] = v;
+                         });
+    } else {
+      if (w < D / 8)
+        tf::for_each_acc(dxa, 0, 8 * w, [&](int r, int c, float& v) {
+          if (r < nvalid) dx[(row0 + r) * D + c] = v;
+        });
+    }
   }
 }
 

@@ -1,0 +1,183 @@
+// Fused per-sample feature blend + decoder forward (kernel K1) at the decoder
+// widths above 256: the wide plan (decoder_wide.cuh).
+//
+// Replaces the TPU kernel `_kernel` of
+// proudslam_tpu/ops/pallas/render_kernel.py (`fused_render_forward`), which
+// takes any decoder size; render_stream.cu is the same function up to width
+// 256. The function is render_stream.cu's: per sample (r, s) pick its hit
+// slot h = bins[r, s] (h == H: invalid, zero features), form p = (o +
+// d*z)/voxel - corner with the corner unpacked from the slot's packed voxel
+// key, blend the slot's 8 corner embeddings trilinearly into D = 16 or 32
+// features in the plain version's exact f32 order, then run the decoder
+// with bf16 operands and f32 sums. Outputs: out (R*S, 4) [r, g, b, sdf] and
+// feats (R*S, D).
+//
+// What bounds it on an H100: arithmetic, ~2 * 800k flops per sample at
+// (16, 512, 512) against 64 B of feature reads and 80 B of writes. Design:
+// render_stream.cu's persistent blocks of two warpgroups on one 64-sample
+// tile at a time, with decoder_wide.cuh's `decode` (every weight through
+// the ring, products in passes of 128 columns). The gather buffer of the
+// streamed plan (33,792 bytes a tile at in_dim 16, 66,560 at 32) does not
+// fit beside two width-512 activation tiles, so each thread (row = t % 64,
+// quarter = t / 64) loads its sample's corners for the next tile, dims
+// [16k + 4q, 16k + 4q + 4) of each of the 8 (k < D / 16), straight into
+// registers before this tile's decoder, and blends them after it: 8 or 16
+// float4 a thread in flight during the decoder. 188,464 bytes of shared
+// memory at (32, 512, 512).
+
+#include "decoder_wide.cuh"
+
+namespace {
+
+using dec::D;
+using dec::W;
+using st::bf16;
+
+constexpr int KS = 8 * D;                    // corner values of a hit slot
+constexpr int SMEM = wd::VEC_SMEM + wd::RING_SMEM
+                     + 2 * dec::pad16(tc::TR * W * 2)
+                     + dec::pad16(tc::TR * D * 2) + wd::PART_SMEM;
+static_assert(SMEM <= 232448, "one block's shared memory");
+
+struct Inputs {
+  const float *rb, *z, *rays_o, *rays_d;
+  const int *keys, *bins;
+  float *out, *feats;
+  long long N;
+  int H, S;
+  float voxel;
+};
+
+// a sample's scalars and this thread's dims of its 8 corners
+struct Sample {
+  bool slot;          // the sample has a hit slot
+  float z, o[3], d[3];
+  int key;
+  float4 e[8][D / 16];
+};
+
+// Gather of a tile: thread (row, q) loads its sample's scalars and dims
+// [16k + 4q, 16k + 4q + 4) (k < D / 16) of the slot's 8 corners; corner j's
+// D floats start at float D j of the slot's row.
+__device__ inline void gather(const Inputs& in, long long tile, int row, int q,
+                              Sample& s) {
+  const long long n = tile * tc::TR + row;
+  s.slot = false;
+  if (n < in.N) {
+    const int h = in.bins[n];
+    if (h >= 0 && h < in.H) {
+      const long long ray = n / in.S;
+      s.slot = true;
+      s.z = in.z[n];
+      s.key = in.keys[ray * in.H + h];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        s.o[k] = in.rays_o[ray * 3 + k];
+        s.d[k] = in.rays_d[ray * 3 + k];
+      }
+      const float* src = in.rb + (ray * in.H + h) * KS + 4 * q;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int k = 0; k < D / 16; ++k)
+          s.e[j][k] = __ldg(reinterpret_cast<const float4*>(src + j * D + 16 * k));
+    }
+  }
+}
+
+// The trilinear blend of this thread's D / 4 features (render_stream.cu's
+// arithmetic): to feats (f32) and, rounded to bf16, to the tile's input x.
+__device__ inline void blend(const Inputs& in, long long tile, int row, int q,
+                             const Sample& s, bf16* xs) {
+  const long long n = tile * tc::TR + row;
+#pragma unroll
+  for (int k = 0; k < D / 16; ++k) {
+    const int c = 16 * k + 4 * q;
+    float f[4] = {0.f, 0.f, 0.f, 0.f};
+    if (s.slot) {
+      const float cx = static_cast<float>(((s.key >> 20) & 1023) - 512);
+      const float cy = static_cast<float>(((s.key >> 10) & 1023) - 512);
+      const float cz = static_cast<float>((s.key & 1023) - 512);
+      const float px = __fdiv_rn(__fadd_rn(s.o[0], __fmul_rn(s.d[0], s.z)),
+                                 in.voxel) - cx;
+      const float py = __fdiv_rn(__fadd_rn(s.o[1], __fmul_rn(s.d[1], s.z)),
+                                 in.voxel) - cy;
+      const float pz = __fdiv_rn(__fadd_rn(s.o[2], __fmul_rn(s.d[2], s.z)),
+                                 in.voxel) - cz;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float wx = (j & 4) ? px : 1.f - px;
+        const float wy = (j & 2) ? py : 1.f - py;
+        const float wz = (j & 1) ? pz : 1.f - pz;
+        const float wj = __fmul_rn(__fmul_rn(wx, wy), wz);
+        const float4 e = s.e[j][k];
+        f[0] = __fadd_rn(f[0], __fmul_rn(wj, e.x));
+        f[1] = __fadd_rn(f[1], __fmul_rn(wj, e.y));
+        f[2] = __fadd_rn(f[2], __fmul_rn(wj, e.z));
+        f[3] = __fadd_rn(f[3], __fmul_rn(wj, e.w));
+      }
+    }
+    if (n < in.N)
+      *reinterpret_cast<float4*>(in.feats + n * D + c) =
+          make_float4(f[0], f[1], f[2], f[3]);
+    *reinterpret_cast<uint2*>(xs + tc::tofs(row, c, D)) =
+        make_uint2(tc::pack_bf16x2(f[0], f[1]), tc::pack_bf16x2(f[2], f[3]));
+  }
+}
+
+__global__ void __launch_bounds__(wd::THREADS, 1)
+render_forward_kernel(Inputs in, dec::Params prm, const bf16* wpack) {
+  extern __shared__ __align__(16) char smem[];
+  dec::Arena arena{smem};
+  const wd::Vecs w = wd::carve_vecs(arena);
+  wd::Ring ring = wd::ring_init(arena, wpack, wd::NFWD);
+  bf16* hA = arena.take<bf16>(tc::TR * W);
+  bf16* hB = arena.take<bf16>(tc::TR * W);
+  bf16* xs = arena.take<bf16>(tc::TR * D);
+  float* part = arena.take<float>(2 * tc::TR * 4);
+  wd::load_vecs(w, prm);                    // ends with a barrier
+
+  const int row = threadIdx.x % tc::TR, q = threadIdx.x / tc::TR;
+  const long long ntiles = (in.N + tc::TR - 1) / tc::TR;
+  long long tile = blockIdx.x;
+  Sample s;
+  if (tile < ntiles) {
+    wd::ring_start(ring);
+    gather(in, tile, row, q, s);
+  }
+  for (; tile < ntiles; tile += gridDim.x) {
+    const bool more = tile + gridDim.x < ntiles;
+    // x's last readers, the previous tile's products, are done at the
+    // barrier that ends its decode
+    blend(in, tile, row, q, s, xs);
+    tc::fence_proxy_async();
+    __syncthreads();                  // x is in place
+    if (more) gather(in, tile + gridDim.x, row, q, s);
+    wd::decode(w, xs, hA, hB, part, ring, more, in.out, in.N, tile);
+  }
+}
+
+}  // namespace
+
+// Returns cudaGetLastError() after the launches (0 = launched). wpack:
+// scratch of wd::PACKED bf16 for the packed weights.
+extern "C" int fused_render_forward(const float* rb, const int* keys,
+                                    const int* bins, const float* z,
+                                    const float* rays_o, const float* rays_d,
+                                    const void* const* params, void* wpack,
+                                    float* out, float* feats, int R, int H,
+                                    int S, float voxel, int grid,
+                                    cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      render_forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dec::Params prm = dec::params_from(params);
+  err = wd::pack_weights(prm, static_cast<bf16*>(wpack), stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  Inputs in{rb, z, rays_o, rays_d, keys, bins, out, feats,
+            static_cast<long long>(R) * S, H, S, voxel};
+  render_forward_kernel<<<grid, wd::THREADS, SMEM, stream>>>(
+      in, prm, static_cast<const bf16*>(wpack));
+  return static_cast<int>(cudaGetLastError());
+}

@@ -11,15 +11,18 @@ Ports of ``_run_fwd``/``_fwd_kernel`` and ``_run_bwd``/``_bwd_kernel`` in
 tensors and run :func:`decoder_fwd_plain` / :func:`decoder_bwd_plain` for
 CPU tensors; any other device raises. Both operand types of the Pallas
 kernels' ``_make_dot`` have a kernel: ``bf16=True`` launches
-``csrc/mlp_kernel.cu`` at the decoder size (16, 128, 128) and
-``csrc/mlp_stream.cu`` at the other sizes of :data:`BUILT_SIZES`
-(bf16 operands on the tensor cores), ``bf16=False``
+``csrc/mlp_kernel.cu`` at the decoder size (16, 128, 128),
+``csrc/mlp_stream.cu`` at the other sizes of :data:`BUILT_SIZES` up to width
+256 and ``csrc/mlp_wide.cu`` at widths 384 and 512 (bf16 operands on the
+tensor cores), ``bf16=False``
 ``csrc/mlp_kernel_f32.cu`` at (16, 128, 128) and ``csrc/mlp_stream_f32.cu``
 at the other sizes of :data:`BUILT_SIZES` (f32 operands: the products on the
 tensor cores as three TF32 products with f32 sums, "3xTF32", within f32
 tolerance of the true f32 product, except K3-f32's forward recompute,
-true f32 FMAs for its ReLU masks; the plain versions compute true f32).
-Any other size with in_dim <= 32 and width, sdf_dim <= 256 runs the
+true f32 FMAs for its ReLU masks, and at widths 384 and 512 K2-f32's h1
+and h2 products, true f32 FMAs for its sdf column; the plain versions
+compute true f32).
+Any other size with in_dim <= 32 and width, sdf_dim <= 512 runs the
 kernels at :func:`built_size` on zero-padded inputs and params
 (:func:`pad_params`), and the outputs and gradients are sliced back
 (:func:`unpad_params`): exact, every padded hidden unit being 0. A larger
@@ -49,27 +52,35 @@ from proudslam_tpu_torch.ops.kernels import build
 # rows of the kernels' tiles
 TILE_ROWS = 64
 # rows of the streamed f32 kernels' tiles (mlp_stream_f32.cu), whose four
-# f32 activation tiles of width 256 fit a block only at this height
+# f32 activation tiles of width 256 fit a block only at this height, and
+# at the widths above 256 (the `mma.sync` minimum)
 STREAM_F32_ROWS = 32
+WIDE_F32_ROWS = 16
 
 # The decoder sizes (in_dim, width, sdf_dim) every CUDA kernel form is built
 # for, one library per size (``build.size_flags``); chip_smoke.py's kernel
 # phase holds every one against its plain version on the card: in_dim 16
-# and 32, width and sdf_dim multiples of 64 up to 256 with sdf_dim <= width.
-# At (16, 128, 128) the weights stay in shared memory (render_kernel.cu,
-# mlp_kernel.cu; mlp_kernel_f32.cu stages them through one buffer); every
-# other size streams the large ones from L2 (render_stream.cu,
-# mlp_stream.cu, mlp_stream_f32.cu).
+# and 32 with width and sdf_dim multiples of 64 up to 256, then the wide
+# sizes, width 384 or 512 with sdf_dim a multiple of 128 from 128 up;
+# sdf_dim <= width. At (16, 128, 128) the weights stay in shared memory
+# (render_kernel.cu, mlp_kernel.cu; mlp_kernel_f32.cu stages them through
+# one buffer); every other size up to width 256 streams the large ones from
+# L2 (render_stream.cu, mlp_stream.cu, mlp_stream_f32.cu), and the wide
+# sizes stream all five (render_wide.cu, mlp_wide.cu; mlp_stream_f32.cu at
+# WIDE_F32_ROWS-row tiles).
 BUILT_IN_DIMS = (16, 32)
-BUILT_SIZES = tuple((d, w, sd) for d in BUILT_IN_DIMS
-                    for w in (64, 128, 192, 256)
-                    for sd in (64, 128, 192, 256) if sd <= w)
+WIDE_WIDTHS = (384, 512)
+BUILT_SIZES = (tuple((d, w, sd) for d in BUILT_IN_DIMS
+                     for w in (64, 128, 192, 256)
+                     for sd in (64, 128, 192, 256) if sd <= w)
+               + tuple((d, w, sd) for d in BUILT_IN_DIMS for w in WIDE_WIDTHS
+                       for sd in (128, 256, 384, 512) if sd <= w))
 # the CUDA kernel forms, as check_size names them
 FORMS = ("K1", "K2", "K3", "K2-f32", "K3-f32")
 # the largest in_dim and width (or sdf_dim) a built size covers: every
-# kernel reads a row's inputs as in_dim / 16 chunks of 16 floats, and 256
-# is wgmma's largest N
-MAX_IN_DIM, MAX_WIDTH = BUILT_IN_DIMS[-1], 256
+# kernel reads a row's inputs as in_dim / 16 chunks of 16 floats; 512 is
+# the widest plan built (decoder_wide.cuh)
+MAX_IN_DIM, MAX_WIDTH = BUILT_IN_DIMS[-1], WIDE_WIDTHS[-1]
 
 
 class FusedParams(NamedTuple):
@@ -187,19 +198,29 @@ def params_size(fp: FusedParams) -> Tuple[int, int, int]:
 
 
 def built_size(size: Tuple[int, int, int]) -> Tuple[int, int, int]:
-    """The built size whose kernels run a decoder ``size`` (in_dim <= 32,
-    1 <= width, sdf_dim <= 256) on zero-padded params: (D', W', SD') with
-    D' = 16 for in_dim <= 16 and 32 above, SD' = sdf_dim rounded up to a
-    multiple of 64 and W' the larger of width so rounded and SD'."""
+    """The smallest built size that covers a decoder ``size`` (in_dim <= 32,
+    1 <= width, sdf_dim <= 512), whose kernels run it on zero-padded
+    params: (D', W', SD') with D' = 16 for in_dim <= 16 and 32 above, SD' =
+    sdf_dim rounded up to a multiple of 64 and W' the larger of width so
+    rounded and SD'; a W' above 256 is then rounded up to 384 or 512 and SD'
+    to a multiple of 128."""
     d, w, sd = size
     d_b = next(b for b in BUILT_IN_DIMS if d <= b)
     sd_b = -(-sd // 64) * 64
-    return (d_b, max(-(-w // 64) * 64, sd_b), sd_b)
+    w_b = max(-(-w // 64) * 64, sd_b)
+    if w_b > 256:
+        w_b, sd_b = -(-w_b // 128) * 128, -(-sd_b // 128) * 128
+    return (d_b, w_b, sd_b)
+
+
+def wide(size: Tuple[int, int, int]) -> bool:
+    """True at the built sizes of width 384 and 512 (the wide plan)."""
+    return size[1] > 256
 
 
 def check_size(size: Tuple[int, int, int], form: str) -> None:
     """Raises ``ValueError`` unless a built size covers the decoder ``size``
-    (:func:`built_size`): in_dim <= 32 and width, sdf_dim <= 256, each at
+    (:func:`built_size`): in_dim <= 32 and width, sdf_dim <= 512, each at
     least 1. Every form is built at :data:`BUILT_SIZES`; ``form`` (one of
     :data:`FORMS`) is named in the error."""
     if form not in FORMS:
@@ -281,26 +302,46 @@ def _check_kernel_inputs(x, g, fp, form) -> Tuple[int, int, int]:
 
 def streamed(size: Tuple[int, int, int]) -> bool:
     """True where the kernels stream the large weights (every size but
-    (16, 128, 128)): render_stream.cu and mlp_stream.cu, which take a scratch
-    buffer for the packed weights and one 64-row tile per block at a time,
-    and mlp_stream_f32.cu (its own scratch, STREAM_F32_ROWS-row tiles)."""
+    (16, 128, 128)): render_stream.cu and mlp_stream.cu (render_wide.cu and
+    mlp_wide.cu at the :func:`wide` sizes), which take a scratch buffer for
+    the packed weights and one 64-row tile per block at a time, and
+    mlp_stream_f32.cu (its own scratch, tiles of :func:`f32_tile_rows`)."""
     return tuple(size) != build.DEFAULT_SIZE
 
 
+def f32_tile_rows(size: Tuple[int, int, int]) -> int:
+    """Rows of mlp_stream_f32.cu's tiles at a streamed size."""
+    return WIDE_F32_ROWS if wide(size) else STREAM_F32_ROWS
+
+
+def bf16_source(base: str, size: Tuple[int, int, int]) -> str:
+    """The source of a bf16 kernel (``base`` "render" or "mlp") at a
+    streamed size: ``<base>_stream`` up to width 256, ``<base>_wide``
+    above."""
+    return f"{base}_wide" if wide(size) else f"{base}_stream"
+
+
 def packed_weights(size: Tuple[int, int, int], device) -> torch.Tensor:
-    """Scratch for the streamed kernels' bf16 copy of w2, ws and wc_f."""
-    _, w, sd = size
-    return torch.empty((w * w + 2 * w * sd,), dtype=torch.bfloat16,
-                       device=device)
+    """Scratch for the streamed kernels' bf16 copy of w2, ws and wc_f; at
+    the wide sizes of all five weights, then K3's park of two (64, width)
+    bf16 tiles for each of the device's SMs (one block per SM at most)."""
+    d, w, sd = size
+    n = w * w + 2 * w * sd
+    if wide(size):
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        n += 2 * d * w + sms * 2 * TILE_ROWS * w
+    return torch.empty((n,), dtype=torch.bfloat16, device=device)
 
 
 def packed_f32_weights(size: Tuple[int, int, int], device) -> torch.Tensor:
     """Scratch for mlp_stream_f32.cu's packed chunks: w2, ws's feature part
-    and wc_f, then their transposes, 16 rows a chunk at row stride W + 4,
-    and ws's sdf column; at in_dim 32 also w1 and wc_x, twice each (the
-    forward's x-side products and dx)."""
+    and wc_f, then their transposes, 16 rows a chunk (8 at the wide sizes)
+    at row stride W + 4, and ws's sdf column; at in_dim 32 and at the wide
+    sizes also w1 and wc_x, twice each (the forward's x-side products and
+    dx)."""
     d, w, sd = size
-    rows = 2 * (2 * w + sd) + (4 * d if d > BUILT_IN_DIMS[0] else 0)
+    rows = 2 * (2 * w + sd) + (4 * d if d > BUILT_IN_DIMS[0] or wide(size)
+                               else 0)
     return torch.empty((rows * (w + 4) + w,), dtype=torch.float32,
                        device=device)
 
@@ -310,7 +351,7 @@ def _bf16_library(size, device):
     pointers after the params: the streamed plan's packed weights, none for
     the resident plan."""
     if streamed(size):
-        return (build.load("mlp_stream", _bind_stream, size),
+        return (build.load(bf16_source("mlp", size), _bind_stream, size),
                 [packed_weights(size, device)])
     return build.load("mlp_kernel", _bind), []
 
@@ -344,11 +385,12 @@ def forward_f32_grid(n_rows: int, sms: int) -> int:
     return forward_grid(n_rows, sms, 1)
 
 
-def forward_f32_stream_grid(n_rows: int, sms: int) -> int:
+def forward_f32_stream_grid(n_rows: int, sms: int,
+                            rows: int = STREAM_F32_ROWS) -> int:
     """Blocks of the streamed K2-f32 (mlp_stream_f32.cu) for ``n_rows``
-    rows: persistent blocks, block b taking the STREAM_F32_ROWS-row tiles
-    b, b + blocks, ..., so ``min(tiles, sms)``. No rows: 0."""
-    return min(-(-n_rows // STREAM_F32_ROWS), sms)
+    rows: persistent blocks, block b taking the ``rows``-row tiles b, b +
+    blocks, ..., so ``min(tiles, sms)``. No rows: 0."""
+    return min(-(-n_rows // rows), sms)
 
 
 def _partition(n_rows: int, sms: int, tile_rows: int) -> Tuple[int, int]:
@@ -368,10 +410,12 @@ def backward_partition(n_rows: int, sms: int) -> Tuple[int, int]:
     return _partition(n_rows, sms, TILE_ROWS)
 
 
-def backward_f32_stream_partition(n_rows: int, sms: int) -> Tuple[int, int]:
+def backward_f32_stream_partition(n_rows: int, sms: int,
+                                  rows: int = STREAM_F32_ROWS
+                                  ) -> Tuple[int, int]:
     """:func:`backward_partition` for the streamed K3-f32
-    (mlp_stream_f32.cu), whose tiles have STREAM_F32_ROWS rows."""
-    return _partition(n_rows, sms, STREAM_F32_ROWS)
+    (mlp_stream_f32.cu), whose tiles have ``rows`` rows."""
+    return _partition(n_rows, sms, rows)
 
 
 def _kernel_device(x: torch.Tensor, what: str) -> bool:
@@ -416,8 +460,8 @@ def decoder_fwd(x: torch.Tensor, fp: FusedParams,
             lib, scratch = _f32_library(size, x.device)
             err = lib.decoder_forward_f32(
                 *args[:2], *[t.data_ptr() for t in scratch], *args[2:],
-                forward_f32_stream_grid(N, sms) if scratch
-                else forward_f32_grid(N, sms), stream)
+                forward_f32_stream_grid(N, sms, f32_tile_rows(size))
+                if scratch else forward_f32_grid(N, sms), stream)
             build.check(err, "decoder_forward_f32")
             decoder_fwd_f32.launches += 1
     return out
@@ -453,10 +497,12 @@ def decoder_bwd(x: torch.Tensor, g: torch.Tensor, fp: FusedParams,
     dx = torch.empty_like(x)
     dflat = torch.zeros((nparam if want_wgrad else 0,), device=x.device)
     if N > 0:
-        partition = (backward_f32_stream_partition
-                     if not bf16 and streamed(size) else backward_partition)
-        blocks, per_block = partition(
-            N, torch.cuda.get_device_properties(x.device).multi_processor_count)
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        if not bf16 and streamed(size):
+            blocks, per_block = backward_f32_stream_partition(
+                N, sms, f32_tile_rows(size))
+        else:
+            blocks, per_block = backward_partition(N, sms)
         partial = torch.empty(((blocks if want_wgrad else 0) * nparam,),
                               device=x.device)
         args = (x.data_ptr(), g.data_ptr(), build.pointer_array(fp),

@@ -11,9 +11,10 @@ kernel, whatever ``matmul_dtype`` says).
 
 :func:`fused_render_forward` launches ``csrc/render_kernel.cu`` (decoder
 size (16, 128, 128)) or ``csrc/render_stream.cu`` (the other sizes of
-``mlp_kernel.BUILT_SIZES``) for CUDA tensors and runs
+``mlp_kernel.BUILT_SIZES`` up to width 256) or ``csrc/render_wide.cu``
+(widths 384 and 512) for CUDA tensors and runs
 :func:`fused_render_forward_plain` for CPU tensors. Any other decoder size
-with in_dim <= 32 and width, sdf_dim <= 256 runs the kernel at
+with in_dim <= 32 and width, sdf_dim <= 512 runs the kernel at
 ``mlp_kernel.built_size`` on zero-padded corner features (each corner's
 in_dim values padded to the built in_dim, 16 or 32) and params, and
 ``feats`` is sliced back to in_dim columns.
@@ -33,9 +34,9 @@ from proudslam_tpu_torch.ops.interp import (CORNER_BITS, corner_bits,
                                             segment_sum_rows)
 from proudslam_tpu_torch.ops.kernels import build
 from proudslam_tpu_torch.ops.kernels.mlp_kernel import (
-    FusedParams, built_size, check_size, decoder_bwd, decoder_fwd_plain,
-    forward_grid, pack_params, packed_weights, pad_params, params_size,
-    streamed)
+    FusedParams, bf16_source, built_size, check_size, decoder_bwd,
+    decoder_fwd_plain, forward_grid, pack_params, packed_weights, pad_params,
+    params_size, streamed)
 from proudslam_tpu_torch.ops.voxel_hash import unpack_key
 
 
@@ -123,7 +124,7 @@ def fused_render_forward(rb, keys_rb, bins, z, rays_o, rays_d,
         return out, feats
     scratch = []
     if streamed(size):
-        lib = build.load("render_stream", _bind_stream, size)
+        lib = build.load(bf16_source("render", size), _bind_stream, size)
         scratch.append(packed_weights(size, rb.device))
     else:
         lib = build.load("render_kernel", _bind)

@@ -5,9 +5,9 @@
 
 For each tree, one process imports that tree's ``proudslam_tpu_torch`` and
 builds (one ``nvcc`` each, all started together) its kernel libraries at
-the ten in_dim-16 decoder sizes: ``render_kernel``, ``mlp_kernel`` and
-``mlp_kernel_f32`` at (16, 128, 128), their streamed sources at the other
-nine. Then, per library and kernel function, the SASS of ``cuobjdump
+the twenty decoder sizes up to width 256 (in_dim 16 and 32):
+``render_kernel``, ``mlp_kernel`` and ``mlp_kernel_f32`` at (16, 128,
+128), their streamed sources at the other nineteen. Then, per library and kernel function, the SASS of ``cuobjdump
 -sass`` and the ptxas registers are compared: equal SASS is the same
 machine code, whatever the source text. Needs ``nvcc`` and ``cuobjdump``
 (the machine with the card). Prints one JSON line per library and, last,
@@ -23,7 +23,7 @@ import shutil
 import subprocess
 import sys
 
-SIZES = [(16, w, sd) for w in (64, 128, 192, 256)
+SIZES = [(d, w, sd) for d in (16, 32) for w in (64, 128, 192, 256)
          for sd in (64, 128, 192, 256) if sd <= w]
 SOURCES = {"render_kernel": "render_stream", "mlp_kernel": "mlp_stream",
            "mlp_kernel_f32": "mlp_stream_f32"}

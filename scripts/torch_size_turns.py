@@ -1,20 +1,21 @@
 #!/usr/bin/env python3
-"""The five decoder kernel forms at the ten in_dim-16 decoder sizes, for
-several checkouts in turns: outputs bit for bit and times.
+"""The five decoder kernel forms at the twenty decoder sizes up to width 256,
+for several checkouts in turns: outputs bit for bit and times.
 
     python3 scripts/torch_size_turns.py OLD_TREE . . OLD_TREE
 
 Each argument is the root of a checkout of the repo (default: this one).
 For each, in the order given, one process imports that tree's
-``proudslam_tpu_torch``, builds its kernels and, at each size (in_dim 16,
-width and sdf_dim multiples of 64 up to 256, sdf_dim <= width; (16, 128,
-128) is the resident plan, the others the streamed one), runs K1
+``proudslam_tpu_torch``, builds its kernels and, at each size (in_dim 16
+and 32, width and sdf_dim multiples of 64 up to 256, sdf_dim <= width;
+(16, 128, 128) is the resident plan, the others the streamed one), runs K1
 (``fused_render_forward``), K2 (``decoder_fwd``), K3 (``decoder_bwd``,
 full and dx-only), K2-f32 and K3-f32 (``bf16=False``, full and dx-only).
 K1's inputs are ``chip_smoke.py``'s (``kernel_inputs``: frame 0 of the
 scan in a bench-capacity map, rays intersected and sampled, embeddings
-from a seed), the bf16 forms run on K1's features, the f32 forms on the
-pcd branch's (PointNet) features, each size's decoder is ``init_decoder``'s
+from a seed; corners of 32 values at in_dim 32), the bf16 forms run on
+K1's features, the f32 forms on the pcd branch's (PointNet, of output
+width in_dim) features, each size's decoder is ``init_decoder``'s
 from a seed and the cotangents 1e-2 N(0, 1) from a seed: the same inputs
 in every turn. Per size and form the turn prints a SHA-256 of every
 output at the tracking shape (1024 rays x 64 samples: out, feats, dx and
@@ -22,8 +23,10 @@ the 11 gradients) and the time of one call (``chip_smoke.py``'s
 ``_event_ms``: CUDA events around 10 back-to-back calls, median of 5) at
 the mapping (5 x 1024 rays) and tracking shapes. After the turns, each
 turn's digests are compared with the first turn's, and the times of each
-tree are summed over its turns. Needs one card. Prints one JSON line per
-turn, the comparison and, last, the card's name and power limit.
+tree are summed over its turns; with two trees, the second's over the
+first's per size and form, and per form summed over the sizes. Needs one
+card. Prints one JSON line per turn, the comparison and, last, the card's
+name and power limit.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SIZES = [(16, w, sd) for w in (64, 128, 192, 256)
+SIZES = [(d, w, sd) for d in (16, 32) for w in (64, 128, 192, 256)
          for sd in (64, 128, 192, 256) if sd <= w]
 
 
@@ -82,21 +85,25 @@ def turn(tree: str) -> dict:
         for f in [pool.submit(build.build, *job) for job in jobs]:
             f.result()
     device = torch.device("cuda", 0)
-    inp = cs.kernel_inputs(device, dims=(16,))
-    args = (inp["rb"], inp["keys_rb"], inp["bins"], inp["z"], inp["rays_o"],
-            inp["rays_d"])
+    inp = cs.kernel_inputs(device, dims=(16, 32))
     S = inp["bins"].shape[1]
-    with torch.no_grad():
-        xp = gather_pcd_features(*inp["pcd_args"])
-    xp = xp.reshape(-1, xp.shape[-1]).contiguous()
+    xp_by_dim = {}
+    for d, pcd_args in inp["pcd_args_by_dim"].items():
+        with torch.no_grad():
+            xp = gather_pcd_features(*pcd_args)
+        xp_by_dim[d] = xp.reshape(-1, xp.shape[-1]).contiguous()
     gen = torch.Generator(device=device)
     gen.manual_seed(3)
-    g = 1e-2 * torch.randn((xp.shape[0], 4), generator=gen, device=device)
+    g = 1e-2 * torch.randn((xp_by_dim[16].shape[0], 4), generator=gen,
+                           device=device)
     res = {"tree": tree,
            "package": os.path.dirname(proudslam_tpu_torch.__file__),
            "sizes": {}}
     for size in SIZES:
         fp = cs._decoder_at(device, size, 4)
+        args = (inp["rb_by_dim"][size[0]], inp["keys_rb"], inp["bins"],
+                inp["z"], inp["rays_o"], inp["rays_d"])
+        xp = xp_by_dim[size[0]]
         st = res["sizes"]["x".join(map(str, size))] = {"digest": {}}
         for shape, rays in (("mapping", inp["bins"].shape[0]),
                             ("tracking", cs.TRACK_RAYS)):
@@ -151,14 +158,19 @@ def main() -> None:
                     tot = totals.setdefault(t["tree"], {}).setdefault(
                         tag, {})
                     tot[key] = tot.get(key, 0.0) + v
-    ratio = {}
+    ratio, summed = {}, {}
     trees = list(totals)
     if len(trees) == 2:
         a, b = trees
         ratio = {tag: {key: totals[b][tag][key] / totals[a][tag][key]
                        for key in totals[a][tag]} for tag in totals[a]}
+        keys = next(iter(totals[a].values()))
+        summed = {key: sum(totals[b][tag][key] for tag in totals[b])
+                  / sum(totals[a][tag][key] for tag in totals[a])
+                  for key in keys}
     print(json.dumps({"bit_for_bit": not differ, "differ": differ,
-                      "time_ratio_second_tree_over_first": ratio}))
+                      "time_ratio_second_tree_over_first": ratio,
+                      "summed_over_sizes": summed}))
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())

@@ -200,3 +200,163 @@ def test_size_table(monkeypatch):
     assert row["mapping"]["ms"] == 1.5 and row["tracking"]["ms"] == 0.5
     assert row["mapping"]["matmul_chain_ms"] == 3.0
     assert "rows" not in row["mapping"]
+
+
+def test_wide_sizes_and_sources():
+    """The wide sizes: built with render_wide.cu and mlp_wide.cu (the f32
+    forms' streamed source at every streamed size); the size phases run in
+    full at the four slice sizes, reduced at the others; the three wide
+    padded sizes pad as stated."""
+    wide = [s for s in mk.BUILT_SIZES if mk.wide(s)]
+    assert len(wide) == 14 and cs.W512_SIZE in wide
+    assert cs.PCD_W512_SIZE in wide
+    assert cs.FULL_SIZES == {cs.W256_SIZE, cs.D32_SIZE, cs.W512_SIZE,
+                             cs.PCD_W512_SIZE}
+    assert [s for s in mk.BUILT_SIZES if cs.full_size(s)] == [
+        cs.W256_SIZE, cs.D32_SIZE, cs.PCD_W512_SIZE, cs.W512_SIZE]
+    for size in ((16, 256, 128), (32, 64, 64)):
+        assert [cs.stream_library(lib, size) for lib in cs.LIBRARIES] == [
+            "render_stream", "mlp_stream", "mlp_stream_f32"]
+    for size in wide:
+        assert [cs.stream_library(lib, size) for lib in cs.LIBRARIES] == [
+            "render_wide", "mlp_wide", "mlp_stream_f32"]
+    assert [mk.built_size(s) for s in cs.PAD_SIZES[-3:]] == [
+        (16, 384, 256), (32, 512, 512), (16, 384, 384)]
+
+
+def _k1_inputs(d, rays=1100, hits=4, samples=40):
+    """Stand-in K1 inputs on the CPU: TRACK_RAYS + 76 rays of ``samples``
+    samples over ``hits`` slots (== hits: invalid), corners of ``d``
+    values."""
+    gen = torch.Generator().manual_seed(3)
+    c = torch.randint(-3, 4, (rays, hits, 3), generator=gen)
+    keys = (((c[..., 0] + 512) << 20) | ((c[..., 1] + 512) << 10)
+            | (c[..., 2] + 512)).to(torch.int32)
+    corner = c.float()
+    bins = torch.randint(0, hits + 1, (rays, samples), generator=gen)
+    # sample points inside their slot's voxel, as the sampler places them
+    h = bins.clamp_max(hits - 1)
+    cen = (torch.gather(corner, 1, h[..., None].expand(-1, -1, 3))
+           + torch.rand((rays, samples, 3), generator=gen)) * 0.2
+    ro = torch.zeros((rays, 3))
+    rd = cen[:, 0] / cen[:, 0].norm(dim=1, keepdim=True).clamp_min(1e-6)
+    z = (cen * rd[:, None]).sum(-1)
+    return {"rb_by_dim": {d: 0.5 * torch.randn((rays, hits, 8 * d),
+                                                 generator=gen)},
+            "keys_rb": keys, "bins": bins.to(torch.int32), "z": z,
+            "rays_o": ro, "rays_d": rd, "voxel": 0.2}
+
+
+@pytest.mark.parametrize("full", [True, False])
+def test_size_phases_shapes(on_cpu, full):
+    """``size_phase`` and ``f32_size_phase`` on CPU tensors (the wrappers'
+    plain versions stand in for the kernels, ``_event_ms`` for the
+    timing): full, the checks and the plain and chain times at both shapes;
+    reduced, the kernels timed at both shapes and the plain versions and
+    chains at the tracking shape only (None at the mapping shape). Every
+    check passes, plain against plain."""
+    timed = []
+    on_cpu.setattr(cs, "_event_ms", lambda fn, **kw: timed.append(fn) or 1.0)
+    size = (16, 64, 64)
+    inp = _k1_inputs(size[0])
+    out = cs.size_phase(torch.device("cpu"), inp, size, full=full)
+    for name in ("fused_render_forward", "decoder_forward",
+                 "decoder_backward"):
+        shapes = out[name]["shapes"]
+        assert shapes["mapping"]["rows"] == 1100 * 40
+        assert shapes["tracking"]["rows"] == cs.TRACK_RAYS * 40
+        assert shapes["mapping"]["ms"] == 1.0
+        assert shapes["tracking"]["plain_ms"] == 1.0
+        assert (shapes["mapping"]["plain_ms"] is None) == (not full)
+    assert (out["decoder_forward"]["shapes"]["mapping"]["matmul_chain_ms"]
+            is None) == (not full)
+    assert len(timed) == (20 if full else 14)
+    rng = np.random.default_rng(1)
+    x = torch.as_tensor(0.07 * rng.standard_normal((700, 16)),
+                        dtype=torch.float32)
+    g = torch.as_tensor(1e-2 * rng.standard_normal((700, 4)),
+                        dtype=torch.float32)
+    out = cs.f32_size_phase(torch.device("cpu"), x, g, size, 300, full=full)
+    for name in ("decoder_forward_f32", "decoder_backward_f32"):
+        shapes = out[name]["shapes"]
+        assert shapes["mapping"]["rows"] == 700
+        assert shapes["tracking"]["rows"] == 300
+        assert shapes["tracking"]["plain_ms"] == 1.0
+        assert (shapes["mapping"]["plain_ms"] is None) == (not full)
+
+
+def _bwd_off_on_kinks(everywhere=False):
+    """The plain bf16 backward with dwc_x moved by 5e-2 of its largest
+    magnitude when the rows hold one of margin under MARGIN_FLIP (as hc's
+    mask flips move it at the wide sizes), or whatever the rows
+    (``everywhere``: a fault no flip explains)."""
+    def bwd(x, g, fp, want_wgrad=True, bf16=True):
+        dx, grads = mk.decoder_bwd_plain(x, g, fp, want_wgrad, bf16)
+        kinks = bool((cs._margins(mk, x, fp, bf16) < cs.MARGIN_FLIP).any())
+        if grads is not None and (everywhere or kinks):
+            grads = grads._replace(
+                wc_x=grads.wc_x + 5e-2 * grads.wc_x.abs().max())
+        return dx, grads
+    return bwd
+
+
+@pytest.mark.parametrize("everywhere", [False, True])
+def test_wide_k3_gradients_on_kink_free_rows(on_cpu, everywhere):
+    """K3 at a wide size: a weight gradient off over all rows passes when
+    it agrees on the rows of margin >= MARGIN_FLIP (a second launch over
+    them), and fails when it is off there too."""
+    size = (16, 384, 128)
+    fp = cs._decoder_at(torch.device("cpu"), size, 4)
+    rng = np.random.default_rng(2)
+    x = torch.as_tensor(0.3 * rng.standard_normal((2000, 16)),
+                        dtype=torch.float32)
+    g = torch.as_tensor(1e-2 * rng.standard_normal((2000, 4)),
+                        dtype=torch.float32)
+    safe = cs._margins(mk, x, fp, True) >= cs.MARGIN_FLIP
+    assert 0 < int(safe.sum()) < 2000
+    on_cpu.setattr(mk, "decoder_bwd", _bwd_off_on_kinks(everywhere))
+    if everywhere:
+        with pytest.raises(AssertionError, match="disagrees"):
+            cs._k3_check("test", x, g, fp, True, True)
+    else:
+        _, rels = cs._k3_check("test", x, g, fp, True, True)
+        assert rels["wc_x"] > cs.TOL_GRAD_REL      # off over all rows
+    # up to width 256 the gradients over all rows are held as before
+    small = cs._decoder_at(torch.device("cpu"), (16, 256, 128), 4)
+    with pytest.raises(AssertionError, match="disagrees"):
+        cs._k3_check("test", x, g, small, True, True)
+
+
+@pytest.mark.parametrize("fault", [0.0, 1e-3])
+def test_k2_f32_float64_witness(on_cpu, fault):
+    """K2-f32 off its plain version beyond TOL_F32_FWD in the sdf column:
+    accepted when it is within TOL_F32_FWD of the float64 forward (here a
+    stand-in that returns that forward itself, rounded to f32, while the
+    plain version is made to drift), refused when it is off that too."""
+    fp = cs._decoder_at(torch.device("cpu"), SIZE, 4)
+    x = torch.as_tensor(0.07 * np.random.default_rng(3).standard_normal(
+        (500, SIZE[0])), dtype=torch.float32)
+    f64 = mk.FusedParams(*[t.double() for t in fp])
+    _, _, _, sdf_e, _, rgb_e = mk.decoder_fwd_plain(x.double(), f64, False)
+    exact = torch.cat([rgb_e, sdf_e], dim=1).float()
+    plain = mk.decoder_fwd_plain
+
+    def drifted(xx, ffp, bf16=True):     # f32 only: float64 stays exact
+        h1, h2, feat, sdf, hc, rgb = plain(xx, ffp, bf16)
+        if xx.dtype == torch.float32:
+            sdf = sdf + 5e-5 * sdf.abs().max()
+        return h1, h2, feat, sdf, hc, rgb
+    on_cpu.setattr(mk, "decoder_fwd_plain", drifted)
+
+    def kernel(xx, ffp, bf16=True):
+        out = exact.clone()
+        out[:, 3] += fault * out[:, 3].abs().max()
+        return out
+    on_cpu.setattr(mk, "decoder_fwd", kernel)
+    if fault:
+        with pytest.raises(AssertionError, match="disagrees"):
+            cs._k2_check("test", x, fp, False, cs.TOL_F32_FWD)
+    else:
+        cs._k2_check("test", x, fp, False, cs.TOL_F32_FWD)
+    with pytest.raises(AssertionError, match="disagrees"):
+        cs._k2_check("test", x, fp, True, cs.TOL_F32_FWD)   # bf16: no witness

@@ -41,7 +41,8 @@ from proudslam_tpu_torch.models.decoder import (decoder_values,
                                                 tree_leaves)
 from proudslam_tpu_torch.ops.kernels import mlp_kernel as tmk
 
-from torch_parity import SIZED_DEC, DEC, assert_close_scaled, n, port, t
+from torch_parity import (SIZED_DEC, DEC, assert_close_scaled,
+                          flipped_rows_zeroed, n, port, t)
 
 FWD_TOL = {"bf16": 1e-3, "f32": 1e-5}
 
@@ -90,16 +91,25 @@ def test_pack_unpack_roundtrip(params):
 
 @pytest.mark.parametrize("seed", [2, 3])
 def test_decoder_bwd_plain_matches_pallas(sized, seed):
+    """K3's plain version against ``_run_bwd`` (bf16 operands), 1e-3 of
+    each output's largest magnitude; at the wide sizes with the rows whose
+    dx misses (ReLU-mask flips, at most FLIP_SHARE of them) zeroed in a
+    second run (``flipped_rows_zeroed``)."""
     dec, params = sized
     rng = np.random.default_rng(seed)
     N = jmk.TILE
     x = rng.standard_normal((N, dec.in_dim)).astype(np.float32)
     g = rng.standard_normal((N, 4)).astype(np.float32)
     jfp = jmk.pack_params(params, dec)
-    outs = jmk._run_bwd(jnp.asarray(x), jnp.asarray(g), jfp, interpret=True,
-                        bf16=True)
     fp = tmk.pack_params(params_from_jax(params, device="cpu"), port(dec))
-    dx, grads = tmk.decoder_bwd_plain(t(x), t(g), fp)
+
+    def both(g):
+        outs = jmk._run_bwd(jnp.asarray(x), jnp.asarray(g), jfp,
+                            interpret=True, bf16=True)
+        return outs, tmk.decoder_bwd_plain(t(x), t(g), fp)
+    outs, (dx, grads) = both(g)
+    if tmk.wide(tmk.built_size(tmk.params_size(fp))):
+        outs, (dx, grads) = both(flipped_rows_zeroed(dx, outs[0], g, 1e-3))
     assert_close_scaled(dx, outs[0], 1e-3, "dx")
     for name, a, b in zip(jmk.FusedParams._fields, grads, outs[1:]):
         assert a.shape == b.shape, name
@@ -291,16 +301,21 @@ def test_kernel_forms(mode, dtype, forms):
 
 
 def test_kernel_sizes_refused():
-    """Every form is built at the twenty sizes (in_dim 16 and 32, width and
-    sdf_dim multiples of 64 up to 256, sdf_dim <= width) and takes every
-    other size with in_dim <= 32 and width, sdf_dim <= 256 zero-padded to
-    one of them; ``check_kernel_sizes`` refuses the rest naming size and
-    form, and the wrappers' check refuses params whose shapes disagree on a
-    size."""
-    assert len(tmk.BUILT_SIZES) == 20
+    """Every form is built at the 34 sizes (in_dim 16 and 32; width and
+    sdf_dim multiples of 64 up to 256, and width 384 or 512 with sdf_dim a
+    multiple of 128; sdf_dim <= width) and takes every other size with
+    in_dim <= 32 and width, sdf_dim <= 512 zero-padded to one of them;
+    ``check_kernel_sizes`` refuses the rest naming size and form, and the
+    wrappers' check refuses params whose shapes disagree on a size."""
+    assert len(tmk.BUILT_SIZES) == 34
+    assert len(set(tmk.BUILT_SIZES)) == 34
     for size in ((16, 64, 64), (16, 128, 128), (16, 256, 128), (32, 64, 64),
-                 (32, 256, 128), (32, 256, 256)):
+                 (32, 256, 128), (32, 256, 256), (16, 384, 128),
+                 (16, 512, 512), (32, 384, 384), (32, 512, 128)):
         assert size in tmk.BUILT_SIZES
+    assert [s for s in tmk.BUILT_SIZES if tmk.wide(s)] == [
+        (d, w, sd) for d in (16, 32) for w in (384, 512)
+        for sd in (128, 256, 384, 512) if sd <= w]
     assert tmk.FORMS == ("K1", "K2", "K3", "K2-f32", "K3-f32")
     base = port(DEC)
     accepted = [dict(width=w, sdf_dim=sd) for w, sd in (
@@ -312,27 +327,34 @@ def test_kernel_sizes_refused():
     # in_dim 32, and in_dim 17 to 31 padded to it
     accepted += [dict(in_dim=32), dict(in_dim=32, width=256, sdf_dim=256),
                  dict(in_dim=24, width=200, sdf_dim=72), dict(in_dim=17)]
+    # the wide sizes, built and padded (a width or sdf_dim of 257 to 512)
+    accepted += [dict(width=512, sdf_dim=512),
+                 dict(in_dim=32, width=384, sdf_dim=256),
+                 dict(width=320, sdf_dim=128), dict(width=256, sdf_dim=320),
+                 dict(in_dim=24, width=450, sdf_dim=500),
+                 dict(width=512, sdf_dim=64)]
     for kw in accepted:
         for mode, dtype in (("vox", "bf16"), ("pcd", "bf16"), ("pcd", "f32")):
             tmk.check_kernel_sizes(dataclasses.replace(
                 base, matmul_dtype=dtype, **kw), mode)
     for kw, mode, form in (
-            (dict(width=320, sdf_dim=128), "pcd", "K2"),
-            (dict(width=256, sdf_dim=320), "vox", "K1"),
+            (dict(width=513, sdf_dim=128), "pcd", "K2"),
+            (dict(width=256, sdf_dim=513), "vox", "K1"),
             (dict(in_dim=33), "vox", "K1"),
             (dict(in_dim=48), "pcd", "K2"),
             (dict(in_dim=33, matmul_dtype="f32"), "pcd", "K2-f32"),
-            (dict(width=320, sdf_dim=128, matmul_dtype="f32"), "pcd",
+            (dict(width=513, sdf_dim=128, matmul_dtype="f32"), "pcd",
              "K2-f32"),
             (dict(width=0), "pcd", "K2")):
         with pytest.raises(ValueError, match=form):
             tmk.check_kernel_sizes(dataclasses.replace(base, **kw), mode)
-    for size in ((33, 64, 64), (48, 64, 64), (16, 320, 64), (16, 64, 320),
-                 (32, 320, 64), (0, 64, 64), (16, 64, 0)):
+    for size in ((33, 64, 64), (48, 64, 64), (16, 513, 64), (16, 64, 513),
+                 (32, 513, 64), (0, 64, 64), (16, 64, 0)):
         for form in tmk.FORMS:
             with pytest.raises(ValueError, match=f"{form}.*in_dim <= 32"):
                 tmk.check_size(size, form)
-    for size in ((32, 64, 64), (17, 1, 1), (32, 256, 256)):
+    for size in ((32, 64, 64), (17, 1, 1), (32, 256, 256), (16, 512, 512),
+                 (32, 320, 64), (16, 64, 320), (32, 512, 512)):
         for form in tmk.FORMS:
             tmk.check_size(size, form)
     fp = tmk.pack_params(params_from_jax(j_init(jax.random.PRNGKey(0), DEC),
@@ -356,11 +378,19 @@ def test_kernel_sizes_refused():
     ((16, 65, 130), (16, 192, 192)), ((16, 256, 256), (16, 256, 256)),
     ((32, 64, 64), (32, 64, 64)), ((32, 256, 128), (32, 256, 128)),
     ((17, 1, 1), (32, 64, 64)), ((24, 200, 72), (32, 256, 128)),
-    ((20, 64, 64), (32, 64, 64)), ((31, 129, 200), (32, 256, 256))])
+    ((20, 64, 64), (32, 64, 64)), ((31, 129, 200), (32, 256, 256)),
+    ((16, 512, 512), (16, 512, 512)), ((32, 384, 128), (32, 384, 128)),
+    ((16, 257, 64), (16, 384, 128)), ((16, 300, 200), (16, 384, 256)),
+    ((16, 384, 129), (16, 384, 256)), ((16, 385, 1), (16, 512, 128)),
+    ((24, 450, 500), (32, 512, 512)), ((16, 64, 320), (16, 384, 384)),
+    ((16, 256, 257), (16, 384, 384)), ((32, 512, 300), (32, 512, 384)),
+    ((1, 1, 512), (16, 512, 512))])
 def test_built_size(size, built):
     """(D', W', SD'): D' = 16 for in_dim <= 16 and 32 above, SD' = sdf_dim
-    up to a multiple of 64, W' = the larger of width so rounded and SD'; a
-    built size maps to itself, and the result is always built."""
+    up to a multiple of 64, W' = the larger of width so rounded and SD';
+    above 256, W' up to 384 or 512 and SD' to a multiple of 128 (64 or less
+    to 128, 129-256 to 256). A built size maps to itself, and the result is
+    always built."""
     assert tmk.built_size(size) == built
     assert built in tmk.BUILT_SIZES
 

@@ -1,7 +1,7 @@
 """Decoder sizes the CUDA kernels take by zero padding.
 
 On the card a decoder size that no kernel is built for (in_dim <= 32,
-width and sdf_dim <= 256) runs the kernels at ``mlp_kernel.built_size`` on
+width and sdf_dim <= 512) runs the kernels at ``mlp_kernel.built_size`` on
 zero-padded inputs and params (``pad_params``), and the outputs and
 gradients are sliced back (``unpad_params``). Here the plain versions run
 that way on the CPU, on the padded params at the built size, and are held
@@ -35,14 +35,17 @@ from proudslam_tpu_torch.models.decoder import params_from_jax
 from proudslam_tpu_torch.ops.kernels import mlp_kernel as tmk
 from proudslam_tpu_torch.ops.kernels import render_kernel as trk
 
-from torch_parity import (MAP, RENDER, assert_close_scaled, map_coords, n,
-                          port, ray_batch, t)
+from torch_parity import (MAP, RENDER, assert_close_scaled,
+                          flipped_rows_zeroed, map_coords, n, port,
+                          ray_batch, t)
 
 FWD_TOL = {"bf16": 1e-3, "f32": 1e-5}
 # (in_dim, width, sdf_dim) -> the built size that runs it
 PADDED = {(8, 40, 24): (16, 64, 64), (16, 100, 72): (16, 128, 128),
           (12, 64, 192): (16, 192, 192), (16, 200, 256): (16, 256, 256),
-          (24, 100, 72): (32, 128, 128), (20, 40, 24): (32, 64, 64)}
+          (24, 100, 72): (32, 128, 128), (20, 40, 24): (32, 64, 64),
+          (16, 300, 200): (16, 384, 256), (24, 450, 500): (32, 512, 512),
+          (16, 64, 320): (16, 384, 384)}
 
 
 def _tag(size):
@@ -98,7 +101,9 @@ def test_padded_fwd_matches_pallas(padded, dtype):
 def test_padded_bwd_matches_pallas(padded, dtype):
     """K3 at the built size on padded inputs, sliced back, against
     ``_run_bwd`` at the unpadded size (bf16: 1e-3 as the unpadded
-    ``test_decoder_bwd_plain_matches_pallas``; f32: 1e-5); the padded
+    ``test_decoder_bwd_plain_matches_pallas``; f32: 1e-5), at a wide built
+    size with the rows whose dx misses (ReLU-mask flips, at most FLIP_SHARE
+    of them) zeroed in a second run (``flipped_rows_zeroed``); the padded
     entries of dx and of every gradient are exactly 0."""
     size, built = padded["size"], padded["built"]
     rng = np.random.default_rng(6)
@@ -106,11 +111,17 @@ def test_padded_bwd_matches_pallas(padded, dtype):
     g = rng.standard_normal((jmk.TILE, 4)).astype(np.float32)
     bf16 = dtype == "bf16"
     jfp = jmk.pack_params(padded["params"], padded["dec"])
-    outs = jmk._run_bwd(jnp.asarray(x), jnp.asarray(g), jfp, interpret=True,
-                        bf16=bf16)
-    dx_b, grads_b = tmk.decoder_bwd_plain(tmk.pad_rows(t(x), built[0]), t(g),
-                                          padded["fpb"], bf16=bf16)
+
+    def both(g):
+        outs = jmk._run_bwd(jnp.asarray(x), jnp.asarray(g), jfp,
+                            interpret=True, bf16=bf16)
+        return outs, tmk.decoder_bwd_plain(tmk.pad_rows(t(x), built[0]),
+                                           t(g), padded["fpb"], bf16=bf16)
+    outs, (dx_b, grads_b) = both(g)
     tol = 1e-3 if bf16 else FWD_TOL[dtype]
+    if tmk.wide(built):
+        outs, (dx_b, grads_b) = both(
+            flipped_rows_zeroed(dx_b[:, :size[0]], outs[0], g, tol))
     assert_close_scaled(dx_b[:, :size[0]], outs[0], tol, "dx")
     grads = tmk.unpad_params(grads_b, size)
     for name, a, b in zip(jmk.FusedParams._fields, grads, outs[1:]):

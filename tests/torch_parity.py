@@ -16,14 +16,17 @@ RENDER = RenderSettings(voxel_size=0.2, step_size=0.05, max_hits=6,
 DEC = DecoderSettings(depth=2, width=64, in_dim=16, sdf_dim=64,
                       matmul_dtype="bf16", use_fused_mlp=True)
 # the decoder sizes (in_dim, width, sdf_dim) of the kernel parity cases:
-# the small default, the reference's wider decoder (width 256), and the
-# smallest in_dim-32 size the kernels are built for
+# the small default, the reference's wider decoder (width 256), the
+# smallest in_dim-32 size the kernels are built for, and the widest
 SIZED_DEC = {"16x64x64": DEC,
              "16x256x128": DecoderSettings(
                  depth=2, width=256, in_dim=16, sdf_dim=128,
                  matmul_dtype="bf16", use_fused_mlp=True),
              "32x64x64": DecoderSettings(
                  depth=2, width=64, in_dim=32, sdf_dim=64,
+                 matmul_dtype="bf16", use_fused_mlp=True),
+             "16x512x512": DecoderSettings(
+                 depth=2, width=512, in_dim=16, sdf_dim=512,
                  matmul_dtype="bf16", use_fused_mlp=True)}
 
 
@@ -73,6 +76,37 @@ def assert_close_scaled(a, b, atol, what=""):
     a, b = n(a), n(b)
     scale = float(np.max(np.abs(b))) + 1e-12
     np.testing.assert_allclose(a / scale, b / scale, atol=atol, err_msg=what)
+
+
+# Backward parity at a wide decoder (width 384 or 512): the plain versions
+# and the Pallas kernels sum in other orders, so where a hidden
+# pre-activation lies within rounding of 0 (f32 rounding at f32 operands;
+# with bf16 operands a neighbouring activation's other bf16 rounding moves
+# it by up to ~1e-3) they can take different ReLU masks, and that row's dx
+# and its terms of the weight gradients differ by a whole term (up to
+# ~2.5e-2 of a gradient's largest magnitude over a 2048-row tile). With
+# N(0, 1) inputs such a tile of a wide decoder holds such a row at any
+# seed; at the narrower sizes none of these cases does. So there the rows
+# whose dx misses the tolerance may be at most FLIP_SHARE of all
+# (chip_smoke.py's TOL_FLIP_SHARE), and every output, dx and each weight
+# and bias gradient, is then held at the full tolerance on a second run of
+# both with those rows' cotangents zeroed (``flipped_rows_zeroed``): a
+# zero cotangent adds nothing to any gradient and gives dx 0 whichever
+# masks are taken.
+FLIP_SHARE = 1e-2
+
+
+def flipped_rows_zeroed(dx, dx_ref, g, atol):
+    """``g`` (numpy) with the rows where ``dx`` misses ``dx_ref`` by more
+    than ``atol`` of its largest magnitude zeroed; asserts they are at most
+    FLIP_SHARE of the rows."""
+    dx, dx_ref = n(dx), n(dx_ref)
+    scale = float(np.max(np.abs(dx_ref))) + 1e-12
+    miss = np.abs(dx - dx_ref).max(axis=1) > atol * scale
+    assert miss.sum() <= FLIP_SHARE * dx.shape[0], (
+        f"dx: {int(miss.sum())} of {dx.shape[0]} rows beyond {atol} of its "
+        "largest magnitude")
+    return np.where(miss[:, None], 0.0, g).astype(np.float32)
 
 
 @pytest.fixture(scope="module")
