@@ -11,10 +11,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``nvcc`` per source and decoder size, all started together): the three
    sources at the bench decoder's (in_dim, width, sdf_dim) = (16, 128,
    128), and ``render_stream.cu``, ``mlp_stream.cu`` and
-   ``mlp_stream_f32.cu`` (the streamed plans) at each of the nineteen other
-   sizes of ``mlp_kernel.BUILT_SIZES`` up to width 256, ``render_wide.cu``,
-   ``mlp_wide.cu`` and ``mlp_stream_f32.cu`` at its fourteen wide sizes
-   (width 384 and 512; in_dim 16 and 32): 102 libraries;
+   ``mlp_stream_f32.cu`` (the streamed plans) at each of the twenty-nine
+   other sizes of ``mlp_kernel.BUILT_SIZES`` up to width 256,
+   ``render_wide.cu``, ``mlp_wide.cu`` and ``mlp_stream_f32.cu`` at its
+   twenty-one wide sizes (width 384 and 512; in_dim 16, 32 and 64): 153
+   libraries;
    each library's ``-Xptxas -v`` report (registers, spills, wgmma
    warnings) and its count of tensor-core instructions (HGMMA, HMMA) and
    FFMA in ``cuobjdump -sass`` are logged; K1, K2 and K3 must each hold
@@ -42,13 +43,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    output: the embedding's ``x @ B`` in true f32, TF32 off; the same call
    with TF32 on is logged as the control). Then the same holds of K1, K2
    and K3 at each other size of ``mlp_kernel.BUILT_SIZES`` (``size_phase``:
-   the K1 inputs above, with corner embeddings of 32 values from a seed at
-   the in_dim-32 sizes, that size's ``init_decoder`` params; K3's dx there
+   the K1 inputs above, with corner embeddings of 32 or 64 values from a
+   seed at the in_dim-32 and -64 sizes, that size's ``init_decoder``
+   params; K3's dx there
    held on the rows away from a ReLU kink, ``MARGIN_FLIP``), with times,
    bounds and shares and the bf16 matmul chain's times; and of K2-f32 and
    K3-f32 (full and dx-only) at each other size of
    ``mlp_kernel.BUILT_SIZES`` (``f32_size_phase``: the pcd features above,
-   from a PointNet of output width 32 at the in_dim-32 sizes, at the
+   from a PointNet of output width 32 or 64 at the in_dim-32 and -64
+   sizes, at the
    mapping, tracking and a ragged row count, that size's params, the f32
    tolerances, K3-f32's dx held on the rows of
    margin >= ``MARGIN_FLIP_F32``, each row whose dx misses a witnessed
@@ -66,8 +69,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    sizes of ``PAD_SIZES``, which the kernels take zero-padded to a built
    size (``pad_phase``: in_dim 8, a width no multiple of 64, sdf_dim >
    width, a size landing on a streamed one, in_dim 24 and 20 padded to
-   32, and three that pad to wide sizes: (16, 300, 200), (24, 450, 500)
-   and (16, 64, 320)), at the tracking shape against its plain version at the unpadded
+   32, three that pad to wide sizes: (16, 300, 200), (24, 450, 500)
+   and (16, 64, 320), and in_dim 33, 48 and 40 padded to 64: (33, 64,
+   64), (48, 256, 128) and (40, 300, 200)), at the tracking shape against
+   its plain version at the unpadded
    size with each form's tolerance, and every padded gradient entry
    exactly 0. A ``size table`` line per kernel and streamed size joins its
    times, shares, plain and chain times, error and build;
@@ -78,12 +83,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    128) with embeddings of 32 values (the feature width of NICE-SLAM's
    and ESLAM's ``c_dim``), the same launches and bound; then vox-w512,
    the same at (16, 512, 512) (the wide plan of K1 and K3), the same
-   launches and bound; then ``run_slam.check_config`` for the card must
-   accept the fused pcd path at f32 operands at (16, 256, 128), at a
-   padded size, at (32, 256, 128), at (16, 512, 512) and at the padded
-   wide (16, 300, 200), and refuse in_dim 33, width 513 and sdf_dim 513
-   (no built size covers them) naming the size and the form, with no
-   launch;
+   launches and bound; then vox-d64, the same at (64, 256, 128) with
+   embeddings of 64 values (K3's w1 and wc_x streamed, K1's blend in
+   four passes), the same launches and bound; then ``run_slam.check_config``
+   for the card must accept the fused pcd path at f32 operands at (16,
+   256, 128), at a padded size, at (32, 256, 128), at (64, 256, 128), at
+   (16, 512, 512), at the padded wide (16, 300, 200) and at in_dim 48, and
+   refuse in_dim 65, width 513 and sdf_dim 513 (no built size covers
+   them) naming the size and the form, with no launch;
 4. vox slice: the bench configuration with the fused render path on
    (``config.bench_settings``): ``SlamSystem.initialize`` (200 mapping
    iterations), 39 ``process_frame`` calls over the first 40 frames of the
@@ -120,7 +127,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    same at (32, 256, 128) (PointNet's output width follows in_dim): only
    K2-f32 and K3-f32 launched, the same bounds and checks; then
    pcd-f32-w512, the same at (16, 512, 256) (the wide f32 plan's 16-row
-   tiles), the same launches, bound and checks;
+   tiles), the same launches, bound and checks; then pcd-f32-d64, the
+   same at (64, 256, 128), the same launches, bound and checks;
 5c. resample run: the vox configuration with ``fixed_sample_batch=False``
    in the tracker and the mapper (a fresh pixel batch per Adam iteration,
    intersected at the current pose) and the Gumbel pixel sampler, over the
@@ -129,7 +137,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    and per-phase ms are logged beside the fixed-batch vox slice's;
 5d. dda slice: the vox slice with ``intersect_mode="dda"`` (the grid
    march through the occupancy grid, built once per tracker and mapper
-   call): K1 and K3 launched and no other kernel, the unaligned ATE under
+   call) over its first 20 frames: K1 and K3 launched and no other kernel, the unaligned ATE under
    3 cm, frames/s and per-phase ms logged beside the vox slice's. On its
    final map: ``build_occupancy`` must drop no live voxel; at the tracking
    (1024 rays) and mapping (5 x 1024) shapes ``ray_intersect_dda`` is held
@@ -147,17 +155,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    first 30 frames and ``global_refine(rounds=2)``: at least 12 windows
    drawn by the covisibility rule, K1 and K3 launched, the unaligned ATE
    under 3 cm;
-6. vox profile: another vox run, ``torch.profiler`` over frames 5-8 (each
+6. vox profile: another vox run, ``torch.profiler`` over frames 5-6 (each
    engine phase a profiler range): device busy ms per frame in all and
    per phase with each phase's idle share, kernel launches per frame, the
    top kernels' shares, and the host's CPU ms per frame;
 7. cli: ``proudslam_tpu_torch.run_slam.main`` on
-   ``configs/synthetic/room.yaml`` (40 frames at 320x240, the unfused
-   branch with an f32 decoder, 100 initial mapping iterations, mesh at
-   res 8) with ``--debug_args.render_freq 20`` into a temporary log
-   directory: every artifact must be there (trajectory, mesh that parses
-   back, checkpoint + sidecar, metrics, and the panels
-   ``imgs/render_00019.png`` and ``imgs/render_00039.png``, each decoding
+   ``configs/synthetic/room.yaml`` (its first 10 of 40 frames at
+   320x240, the unfused branch with an f32 decoder, 100 initial mapping
+   iterations, mesh at res 8) with ``--debug_args.render_freq 5`` into a
+   temporary log directory: every artifact must be there (trajectory, mesh
+   that parses back, checkpoint + sidecar, metrics, and the panels
+   ``imgs/render_00004.png`` and ``imgs/render_00009.png``, each decoding
    to the panel's 3x2 tiles of the 200x160 preview), no kernel launched
    (the unfused branch and the preview run none), the unaligned ATE under
    3 cm, and the checkpoint, loaded into a fresh ``SlamSystem`` on the
@@ -167,7 +175,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    operands): K2-f32 and K3-f32 must have been launched and no other
    kernel, the trajectory finite and the checkpoint reloaded bit for bit;
 9. cli-embed: the same entry point on a YAML derived from room.yaml with
-   the NeRF embedder (4 frequencies) and a skip, 10 frames and a mesh: no
+   the NeRF embedder (4 frequencies) and a skip, 5 frames and a mesh: no
    kernel launched, the trajectory finite, the checkpoint reloaded bit for
    bit, the ATE logged without a bound;
 10. parallel (last, so that no other phase sees a live process group): a
@@ -175,7 +183,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    rank: NCCL takes one rank per device; 2 and 4 ranks are held on the CPU
    by ``tests/test_torch_parallel_*.py`` over gloo), and the vox slice's
    configuration as ``SlamSystem(mesh=make_engine_mesh(1, mp=1))`` (every
-   collective of ``parallel/engine.py`` on the path) over the first 10
+   collective of ``parallel/engine.py`` on the path) over the first 5
    frames and ``global_refine(rounds=2)``: K1 and K3 launched on this path
    (its own ``launches_by_path["parallel"]``), the unaligned ATE under
    3 cm, and the trajectory held against the plain engine's on the same
@@ -337,10 +345,13 @@ WITNESS_ROWS = 64
 # lands on the streamed (16, 256, 256), in_dim 24 and 20, padded to 32
 # on a streamed width-256 size and on the smallest, (32, 64, 64), and the
 # wide plan's: (16, 300, 200) to (16, 384, 256), (24, 450, 500) to (32,
-# 512, 512), and sdf_dim > width, (16, 64, 320) to (16, 384, 384)
+# 512, 512), and sdf_dim > width, (16, 64, 320) to (16, 384, 384); and
+# in_dim 33 to 63 padded to 64: (33, 64, 64) to the smallest in_dim-64
+# size, (48, 256, 128) to the vox-d64 slice's, (40, 300, 200) to (64,
+# 384, 256)
 PAD_SIZES = ((8, 40, 24), (16, 100, 72), (16, 128, 192), (12, 200, 256),
              (24, 200, 72), (20, 64, 64), (16, 300, 200), (24, 450, 500),
-             (16, 64, 320))
+             (16, 64, 320), (33, 64, 64), (48, 256, 128), (40, 300, 200))
 K1_RAGGED = (1001, 40)    # rays x samples of K1's ragged check (40,040 rows)
 TRACK_RAYS = 1024         # the tracking shape: 1024 rays x S samples
 ATE_LIMIT_CM = 3.0
@@ -369,7 +380,11 @@ PCD_W256_ATE_LIMIT_CM = 100.0
 N_FRAMES = 40
 PCD_FRAMES = 5
 RESAMPLE_FRAMES = 10
-CLI_RENDER_FREQ = 20      # the cli phase's panels: frames 19 and 39
+# the cli phase: room.yaml's first CLI_FRAMES of its 40 frames (cut to
+# keep the script inside its time budget with the in_dim-64 sizes), panels
+# at frames 4 and 9
+CLI_FRAMES = 10
+CLI_RENDER_FREQ = 5
 PANEL_WH = (3 * 200, 2 * 160)   # room.yaml's default 200x160 preview
 PCD_CLI_FRAMES = 5
 # the vox-w256 slice: the bench configuration with the reference's wider
@@ -389,12 +404,20 @@ D32_FRAMES = 10
 W512_SIZE = (16, 512, 512)
 PCD_W512_SIZE = (16, 512, 256)
 W512_FRAMES = 10
-# the sizes whose size_phase and f32_size_phase run in full: the four
+# the vox-d64 and pcd-f32-d64 slices: the reference's wider decoder on 64
+# features a point, as NICE-SLAM's fine-level decoder takes them: its
+# middle- and fine-grid features concatenated, 2 x c_dim (NICE-SLAM's
+# src/conv_onet/models/decoder.py: fine_decoder = MLP(name='fine', ...,
+# c_dim=c_dim*2, ..., concat_feature=True); configs/nice_slam.yaml:
+# model: c_dim: 32); embeddings of as many values
+D64_SIZE = (64, 256, 128)
+D64_FRAMES = 10
+# the sizes whose size_phase and f32_size_phase run in full: the five
 # slice sizes; the others run reduced (checks at the tracking shape and a
 # ragged count, the kernels timed at both shapes, the plain versions and
 # chains at the tracking shape), which keeps the script inside its time
-# budget with 34 sizes
-FULL_SIZES = {W256_SIZE, D32_SIZE, W512_SIZE, PCD_W512_SIZE}
+# budget with 51 sizes
+FULL_SIZES = {W256_SIZE, D32_SIZE, D64_SIZE, W512_SIZE, PCD_W512_SIZE}
 
 
 # a reduced size's kernels at the mapping shape: the median of 3 event
@@ -405,7 +428,10 @@ REDUCED_REPS = dict(reps=3, calls=5)
 def full_size(size) -> bool:
     """True where the size phases run in full (FULL_SIZES' note)."""
     return tuple(size) in FULL_SIZES
-PROFILE_START, PROFILE_FRAMES = 5, 4   # the vox profile: frames 5-8
+# the vox profile: frames 5-6 (two, for the time budget)
+PROFILE_START, PROFILE_FRAMES = 5, 2
+# the dda slice's frames (half the vox slice's, for the time budget)
+DDA_FRAMES = 20
 WIDTH, HEIGHT = 320, 240
 # the dda slice's intersection check, on its final map (tests/test_intersect
 # .py's rule): every brute hit the grid march misses is a graze, a voxel
@@ -438,13 +464,13 @@ WINDOW_FRAMES = 30
 WINDOW_GAP = 2
 WINDOW_ANGLE = 30.0
 WINDOW_MIN_DRAWS = 12
-CLI_EMBED_FRAMES = 10
+CLI_EMBED_FRAMES = 5      # (the time budget)
 # the parallel phase: the vox engine on a (1, 1) mesh over NCCL, on the
 # first PARALLEL_FRAMES frames. One rank's collectives are identities and
 # the engine's kernels and reductions are deterministic, so its trajectory
 # is expected to equal the plain engine's; it is held at the JAX dry run's
 # 5 mm mesh-against-single bound (the equality is logged).
-PARALLEL_FRAMES = 10
+PARALLEL_FRAMES = 5       # (the time budget)
 PARALLEL_TRAJ_TOL_M = 5e-3
 # the Schur step against its dense joint solve (tests/test_schur.py)
 SCHUR_DAMPING = 1e-3
@@ -583,7 +609,7 @@ def build_phase():
     ``mlp_kernel.BUILT_SIZES``; log the ptxas report and the instruction
     counts -> (seconds, {kernel function: its SASS counts and ptxas
     resources at (16, 128, 128)}, {size tag: {kernel function: the same}}
-    at all 34 sizes)."""
+    at all 51 sizes)."""
     from proudslam_tpu_torch.ops.kernels import build
     from proudslam_tpu_torch.ops.kernels.mlp_kernel import BUILT_SIZES
 
@@ -2110,9 +2136,10 @@ def refusal_check() -> dict:
     """``run_slam.check_config`` for the card accepts the fused pcd path at
     f32 operands at the reference's (16, 256, 128), where K2-f32 and K3-f32
     run their streamed plan, at a padded size, (12, 200, 72), at in_dim 32,
-    (32, 256, 128), at the widest built size, (16, 512, 512), and at a
-    padded wide size, (16, 300, 200); and refuses in_dim 33, width 513 and
-    sdf_dim 513, which no built size covers, with a ``ValueError`` naming
+    (32, 256, 128), at in_dim 64, (64, 256, 128), at in_dim 48, padded to
+    64, at the widest built size, (16, 512, 512), and at a padded wide
+    size, (16, 300, 200); and refuses in_dim 65, width 513 and sdf_dim 513,
+    which no built size covers, with a ``ValueError`` naming
     the size and the form (K2-f32 on that path, K1 on the fused vox path),
     before any data loads and with no kernel launched."""
     from proudslam_tpu_torch.config import load_config
@@ -2132,11 +2159,13 @@ def refusal_check() -> dict:
     padded_wide = {"decoder_specs.width": 300, "decoder_specs.sdf_dim": 200}
     for kv in (over, {**over, **padded},
                {**over, "decoder_specs.in_dim": D32_SIZE[0]},
+               {**over, "decoder_specs.in_dim": D64_SIZE[0]},
+               {**over, "decoder_specs.in_dim": 48},
                {**over, **wide}, {**over, **padded_wide}):
         dec = check_config(load_config(path, dict(kv)), "cuda").decoder
         accepted.append([dec.in_dim, dec.width, dec.sdf_dim])
     refused = {}
-    for key, val in (("decoder_specs.in_dim", D32_SIZE[0] + 1),
+    for key, val in (("decoder_specs.in_dim", D64_SIZE[0] + 1),
                      ("decoder_specs.width", W512_SIZE[1] + 1),
                      ("decoder_specs.sdf_dim", W512_SIZE[2] + 1)):
         for mode, form in (("pcd", "K2-f32"), ("vox", "K1")):
@@ -3061,6 +3090,10 @@ def main() -> None:
         device, "vox-w512", at_size(vox, W512_SIZE), frames, W512_FRAMES,
         ATE_LIMIT_CM, launched=("fused_render_forward", "decoder_backward"),
         not_launched=("decoder_forward",) + f32_kernels)
+    stats["vox-d64"] = slice_phase(
+        device, "vox-d64", at_size(vox, D64_SIZE), frames, D64_FRAMES,
+        ATE_LIMIT_CM, launched=("fused_render_forward", "decoder_backward"),
+        not_launched=("decoder_forward",) + f32_kernels)
     kern["extra"]["refusal"] = refusal_check()
     mark("vox slices")
     pcd = dataclasses.replace(
@@ -3090,6 +3123,11 @@ def main() -> None:
         device, "pcd-f32-w512", pcd_f32_w512, frames, PCD_FRAMES,
         PCD_W256_ATE_LIMIT_CM, launched=f32_kernels,
         not_launched=bf16_kernels, after=trained_decoder_check(pcd_f32_w512))
+    pcd_f32_d64 = at_size(pcd_f32, D64_SIZE)
+    stats["pcd-f32-d64"] = slice_phase(
+        device, "pcd-f32-d64", pcd_f32_d64, frames, PCD_FRAMES,
+        PCD_W256_ATE_LIMIT_CM, launched=f32_kernels,
+        not_launched=bf16_kernels, after=trained_decoder_check(pcd_f32_d64))
     mark("pcd slices")
     resample = dataclasses.replace(
         vox, render=dataclasses.replace(vox.render, pixel_sampler="gumbel"),
@@ -3106,7 +3144,7 @@ def main() -> None:
     dda = dataclasses.replace(vox, render=dataclasses.replace(
         vox.render, intersect_mode="dda"))
     stats["dda"] = slice_phase(
-        device, "dda", dda, frames, N_FRAMES, ATE_LIMIT_CM,
+        device, "dda", dda, frames, DDA_FRAMES, ATE_LIMIT_CM,
         launched=("fused_render_forward", "decoder_backward"),
         not_launched=("decoder_forward",) + f32_kernels, after=dda_checks)
     log("dda against the brute vox slice: " + json.dumps(
@@ -3125,8 +3163,9 @@ def main() -> None:
     profile = profile_phase(device, vox, frames)
     mark("profile")
     stats["cli"] = cli_phase(
-        device, "cli", ("--debug_args.render_freq", str(CLI_RENDER_FREQ)),
-        panels=range(CLI_RENDER_FREQ - 1, N_FRAMES, CLI_RENDER_FREQ))
+        device, "cli", ("--debug_args.render_freq", str(CLI_RENDER_FREQ),
+                        "--data_specs.num_frames", str(CLI_FRAMES)),
+        panels=range(CLI_RENDER_FREQ - 1, CLI_FRAMES, CLI_RENDER_FREQ))
     stats["cli-pcd"] = cli_phase(
         device, "cli-pcd", ("--tpu_specs.feature_mode", "pcd",
                             "--tpu_specs.fused_mlp", "true",

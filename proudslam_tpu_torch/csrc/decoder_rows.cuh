@@ -57,15 +57,16 @@ __device__ __forceinline__ void fold(const float* cs, float* dst, int len,
 }
 
 // dst (M x N, row-major) += act^T cot over the tile's rows, act (TR, M) and
-// cot (TR, N) tiles: pieces of 64 x 64, alternating between the
-// warpgroups. The slab's old values are loaded while the products run. (A
+// cot (TR, N) tiles: pieces of 64 x 64 (64 x 32 at in_dim 64 up to width
+// 256), alternating between the warpgroups. The slab's old values are loaded while the products run. (A
 // piece of 64 x 128, as in mlp_kernel.cu, takes 128 registers a thread for
 // its sums and old values: at width 256 the kernel then spills.)
 template <int M, int N>
 __device__ inline void wgrad(const bf16* act, const bf16* cot,
                              float* __restrict__ dst, bool first,
                              const Lane& ln) {
-  constexpr int NB = 64;
+  // 64 x 32 in the streamed plan at in_dim 64 (decoder_stream.cuh)
+  constexpr int NB = D > 32 && W <= 256 ? 32 : 64;
   constexpr int JOBS = (M / 64) * (N / NB);
   const int wg = threadIdx.x / tc::WG;
 #pragma unroll 1
@@ -105,6 +106,34 @@ __device__ inline void wgrad_x(const bf16* cot, const bf16* xs,
                                float* __restrict__ dst, bool first,
                                const Lane& ln) {
   const int wg = threadIdx.x / tc::WG;
+  if constexpr (D > 32 && W <= 256) { // the same: x's columns 32 at a time
+#pragma unroll 1
+    for (int mb = 64 * wg; mb < N; mb += 128)
+#pragma unroll 1
+      for (int k0 = 0; k0 < D; k0 += 32) {
+        float acc[16], old[16];
+        const uint64_t da = tc::desc_mn(cot + tc::tofs(0, mb, N), N);
+        const uint64_t db = tc::desc_mn(xs + tc::tofs(0, k0, D), D);
+        tc::fence_regs(acc);
+        tc::wg_fence();
+#pragma unroll
+        for (int j = 0; j < tc::TR / 16; ++j)
+          tc::mma_ss<32, 1, 1>(acc, da + j * tc::kstep_mn(N),
+                               db + j * tc::kstep_mn(D), j > 0);
+        tc::wg_commit();
+        float* o = dst + (k0 + ln.c2) * N + mb + ln.r0;
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+          old[i] = first ? 0.f
+                         : o[(8 * (i >> 2) + (i & 1)) * N + 8 * ((i >> 1) & 1)];
+        tc::wg_wait_all();
+        tc::fence_regs(acc);
+#pragma unroll
+        for (int i = 0; i < 16; ++i)
+          o[(8 * (i >> 2) + (i & 1)) * N + 8 * ((i >> 1) & 1)] = old[i] + acc[i];
+      }
+    return;
+  }
 #pragma unroll 1
   for (int mb = 64 * wg; mb < N; mb += 128) {
     float acc[D / 2], old[D / 2];

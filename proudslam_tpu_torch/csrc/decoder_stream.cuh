@@ -24,6 +24,16 @@
 //     weights (K1, K2: 256 KB at (16, 256, 128)) or two (K3, forward and
 //     backward), from L2: 1.3 GB per K1 launch at the mapping shape, which
 //     L2 serves at several TB/s;
+//   - at in_dim 64 K3 streams w1 and wc_x through the same ring (D / CR
+//     chunks each): resident, they take 64 KB at width 256, and K3's four
+//     activation tiles would not fit beside them (251,952 bytes at (64,
+//     256, 256)). Its tile then takes w1's chunks first, wc_x's before
+//     wc_f's for hc, and for dx w1's and wc_x's chunks again in turn, each
+//     pair giving CR finished columns of dx; its weight-gradient pieces
+//     are 64 x 32 there (wgrad, wgrad_x), half the registers of the 64 x
+//     64 ones, without which it spilled at width 256. K1 and K2 keep them
+//     resident (streamed, K1 and K2 sat at the 255-register cap at (64,
+//     256, 256) and spilled);
 //   - a per-launch pass (pack_weights_kernel) first writes the large
 //     weights as bf16 in exactly the chunks' shared-memory layout into a
 //     scratch buffer, so each chunk is one contiguous copy;
@@ -63,20 +73,34 @@ using tc::WG;
 constexpr int THREADS = 2 * WG;            // two warpgroups on one tile
 constexpr int CR = D == 16 ? 64 : 32;      // weight rows in a chunk
 constexpr int NW2 = W / CR, NWS = W / CR, NWC = SD / CR;   // chunks of each
-constexpr int NFWD = NW2 + NWS + NWC;      // chunks of one forward
-// the packed large weights (bf16): [w2 chunks | ws chunks | wc_f chunks]
+// K3's chunks of w1 and of wc_x at in_dim 64, else none
+constexpr int NX = D > 32 ? D / CR : 0;
+constexpr int NFWD = NW2 + NWS + NWC;      // chunks of K1's and K2's forward
+constexpr int NFWD3 = NFWD + 2 * NX;       // and of K3's
+// the packed streamed weights (bf16): [w2 chunks | ws chunks | wc_f chunks
+// (| w1 chunks | wc_x chunks)]
 constexpr int P_WS = W * W, P_WC = W * W + W * SD;
-constexpr int PACKED = W * W + W * SD + SD * W;
+constexpr int P_X = W * W + W * SD + SD * W;
+constexpr int PACKED = W * W + W * SD + SD * W + 2 * NX * CR * W;
+// the chunk ids of w1's first chunk and wc_x's (chunk_of)
+constexpr int ID_W1 = NW2 + NWS + NWC, ID_WX = ID_W1 + NX;
 constexpr int SLOT = CR * W;               // bf16 elements of a ring slot
 constexpr int RING_SMEM = 2 * SLOT * 2 + 16;   // two slots, two mbarriers
 constexpr int HALF = W / 2;                // a warpgroup's columns of W
 
 // Chunk `id` of the packed weights: rows [CR c, CR c + CR) of w2 (id <
-// NW2), of ws's feature part, or of wc_f, stored as the tile
-// (decoder_tc.cuh) of the chunk's transpose: rows = the weight's outputs,
-// cols = the chunk's CR inputs. -> its first element and size in the
-// packed buffer.
+// NW2), of ws's feature part, of wc_f, or (in_dim 64, id >= ID_W1) of w1
+// then wc_x, stored as the tile (decoder_tc.cuh) of the chunk's transpose:
+// rows = the weight's outputs, cols = the chunk's CR inputs. -> its first
+// element and size in the packed buffer.
 __device__ __forceinline__ void chunk_of(int id, int& off, int& n) {
+  if constexpr (NX > 0) {
+    if (id >= ID_W1) {
+      off = P_X + (id - ID_W1) * CR * W;
+      n = CR * W;
+      return;
+    }
+  }
   if (id < NW2) {
     off = id * CR * W;
     n = CR * W;
@@ -106,10 +130,15 @@ __global__ void pack_weights_kernel(dec::Params p, bf16* __restrict__ dst) {
       const int i = e - P_WS, k = i / SD, n = i - k * SD;
       v = p.ws[k * SO + n];
       o = P_WS + (k / CR) * CR * SD + tc::tofs(n, k % CR, CR);
-    } else {
+    } else if (NX == 0 || e < P_X) {
       const int i = e - P_WC, k = i / W, n = i - k * W;
       v = p.wc_f[i];
       o = P_WC + (k / CR) * CR * W + tc::tofs(n, k % CR, CR);
+    } else {                                 // w1, then wc_x (in_dim 64)
+      const int i = e - P_X, m = i / (D * W), j = i - m * D * W;
+      const int k = j / W, n = j - k * W;
+      v = (m ? p.wc_x : p.w1)[j];
+      o = P_X + m * D * W + (k / CR) * CR * W + tc::tofs(n, k % CR, CR);
     }
     dst[o] = __float2bfloat16_rn(v);
   }
@@ -131,8 +160,9 @@ using bulk::mbar_init;
 using bulk::mbar_wait;
 
 // The chunks a block consumes, in order: `len` per tile (the forward's
-// NFWD, or K3's 2 NFWD: the forward's, then wc_f, ws and w2 again for the
-// backward), the same sequence for every tile.
+// NFWD, or K3's 2 NFWD3: the forward's, then wc_f, ws and w2 again for the
+// backward, and at in_dim 64 w1 and wc_x for both), the same sequence for
+// every tile.
 struct Ring {
   bf16* slot;         // two slots of SLOT elements
   uint64_t* bar;      // their mbarriers
@@ -144,6 +174,25 @@ struct Ring {
 };
 
 __device__ __forceinline__ int chunk_id(int len, int i) {
+  if constexpr (NX > 0) {
+    // K3 at in_dim 64. Forward: w1, w2, ws, wc_x, wc_f; backward: wc_f,
+    // ws, w2, then the chunks of w1 and wc_x in turn (dx)
+    if (len != NFWD) {
+      if (i < NFWD3) {
+        if (i < NX) return ID_W1 + i;
+        i -= NX;
+        if (i < NW2 + NWS) return i;
+        i -= NW2 + NWS;
+        return i < NX ? ID_WX + i : NW2 + NWS + (i - NX);
+      }
+      i -= NFWD3;
+      if (i < NWC) return NW2 + NWS + i;
+      if (i < NWC + NWS) return NW2 + (i - NWC);
+      if (i < NWC + NWS + NW2) return i - NWC - NWS;
+      i -= NWC + NWS + NW2;                       // w1, wc_x in turn
+      return (i & 1 ? ID_WX : ID_W1) + i / 2;
+    }
+  }
   if (i < NFWD || len == NFWD) return i;
   i -= NFWD;                                       // the backward's order
   if (i < NWC) return NW2 + NWS + i;               // wc_f

@@ -136,13 +136,22 @@ struct TcWeights {
 constexpr int TC_SMALL_SMEM =
     2 * dec::pad16(W * D * 2) + dec::pad16(W * 4) + dec::pad16(W * 4 * 4)
     + 3 * dec::pad16(W * 4) + dec::pad16(SO * 4) + dec::pad16(3 * 4);
+// of which w1 and wc_x: 64 KB at (64, 256, *), which K3 at in_dim 64
+// streams through its ring instead (decoder_stream.cuh)
+constexpr int TC_X_SMEM = 2 * dec::pad16(W * D * 2);
 constexpr int TC_WEIGHT_SMEM =
     TC_SMALL_SMEM + dec::pad16(W * W * 2) + 2 * dec::pad16(W * SD * 2);
 
-// carves the small weights only (w2, ws and wc_f stay null)
+// carves the small weights only (w2, ws and wc_f stay null, and w1 and
+// wc_x unless X)
+template <bool X = true>
 __device__ inline void carve_small(dec::Arena& ar, TcWeights& w) {
-  w.w1 = ar.take<bf16>(W * D);
-  w.wc_x = ar.take<bf16>(W * D);
+  if constexpr (X) {
+    w.w1 = ar.take<bf16>(W * D);
+    w.wc_x = ar.take<bf16>(W * D);
+  } else {
+    w.w1 = w.wc_x = nullptr;
+  }
   w.w2 = w.ws = w.wc_f = nullptr;
   w.ws_sdf = ar.take<float>(W);
   w.wo = ar.take<float>(W * 4);
@@ -179,11 +188,14 @@ __device__ inline void load_wtile(bf16* dst, const float* src, int a, int b,
 }
 
 // global f32 FusedParams -> shared memory (the large three only where
-// carved); ends with the proxy fence and a barrier, so the first wgmma may
-// read the tiles
+// carved, w1 and wc_x if X); ends with the proxy fence and a barrier, so
+// the first wgmma may read the tiles
+template <bool X = true>
 __device__ inline void load_weights(const TcWeights& w, const dec::Params& p) {
-  load_wtile(w.w1, p.w1, D, W, W);
-  load_wtile(w.wc_x, p.wc_x, D, W, W);
+  if constexpr (X) {
+    load_wtile(w.w1, p.w1, D, W, W);
+    load_wtile(w.wc_x, p.wc_x, D, W, W);
+  }
   if (w.w2 != nullptr) {
     load_wtile(w.w2, p.w2, W, W, W);
     load_wtile(w.ws, p.ws, W, SD, SO);

@@ -40,7 +40,13 @@
 // At in_dim 32 a row's inputs are two chunks of 16 floats (each thread
 // loads and rounds one 4-float piece of each), the x-side products take
 // two k16 steps, and dx's and the x-side weight gradients' products are 16
-// columns wider; every other product is the in_dim-16 one.
+// columns wider; every other product is the in_dim-16 one. At in_dim 64
+// w1 and wc_x stream through the ring (decoder_stream.cuh; resident, they
+// would take K3's block to 251,952 bytes at (64, 256, 256), 186,416
+// streamed): the x-side forward products take their two chunks each, dx
+// takes w1's and wc_x's chunks in turn, each pair giving 32 finished
+// columns, and the weight gradients run in pieces of 64 x 32
+// (decoder_rows.cuh), which keeps K3 within 255 registers at width 256.
 // A ragged last tile is masked: its missing rows carry zero inputs and zero
 // cotangents (they add nothing to any gradient) and write no output.
 
@@ -113,7 +119,9 @@ decoder_forward_kernel(const float* __restrict__ x, Params prm,
 
 // ---- K3 ----
 
-constexpr int K3_SMEM = tc::TC_SMALL_SMEM + st::RING_SMEM
+// (w1 and wc_x stream at in_dim 64: decoder_stream.cuh)
+constexpr int K3_SMEM = tc::TC_SMALL_SMEM - (st::NX > 0 ? tc::TC_X_SMEM : 0)
+                        + st::RING_SMEM
                         + pad16(tc::TR * D * 2) + 3 * pad16(tc::TR * W * 2)
                         + pad16(tc::TR * SD * 2) + pad16(tc::TR * 4 * 4)
                         + pad16(4 * W * 4);
@@ -128,8 +136,8 @@ decoder_backward_kernel(const float* __restrict__ x,
   extern __shared__ __align__(16) char smem[];
   Arena arena{smem};
   tc::TcWeights w;
-  tc::carve_small(arena, w);
-  st::Ring ring = st::ring_init(arena, wpack, 2 * st::NFWD);
+  tc::carve_small<st::NX == 0>(arena, w);
+  st::Ring ring = st::ring_init(arena, wpack, 2 * st::NFWD3);
   bf16* xs = arena.take<bf16>(tc::TR * D);
   bf16* h1 = arena.take<bf16>(tc::TR * W);    // later dh1
   bf16* h2 = arena.take<bf16>(tc::TR * W);    // later dh2
@@ -137,7 +145,7 @@ decoder_backward_kernel(const float* __restrict__ x,
   bf16* feat = arena.take<bf16>(tc::TR * SD); // later dso[:, :SD]
   float* rowv = arena.take<float>(tc::TR * 4);   // [dzo (3) | g_sdf]
   float* cs = arena.take<float>(4 * W);
-  tc::load_weights(w, prm);                 // ends with a barrier
+  tc::load_weights<st::NX == 0>(w, prm);    // ends with a barrier
 
   const int tid = threadIdx.x, wg = tid / tc::WG;
   const Lane ln = st::lane();
@@ -176,9 +184,12 @@ decoder_backward_kernel(const float* __restrict__ x,
     __syncthreads();
 
     // forward recompute: h1, h2, feat, hc (bf16, shared memory)
-    st::product<HALF, 0, 0>(acc, tc::desc_k(xs, D), tc::KSTEP_K,
-                            tc::desc_k(w.w1 + tc::tofs(c0, 0, D), D),
-                            tc::KSTEP_K, D / 16, false);
+    if constexpr (st::NX > 0)
+      st::fwd_stream<W, D>(acc, xs, ring, more, false);
+    else
+      st::product<HALF, 0, 0>(acc, tc::desc_k(xs, D), tc::KSTEP_K,
+                              tc::desc_k(w.w1 + tc::tofs(c0, 0, D), D),
+                              tc::KSTEP_K, D / 16, false);
     st::store_tile(h1, W, acc, w.b1, true, c0, ln);
     tc::fence_proxy_async();
     st::fwd_stream<W, W>(acc, h1, ring, more, false);
@@ -187,9 +198,12 @@ decoder_backward_kernel(const float* __restrict__ x,
     st::fwd_stream<SD, W>(accs, h2, ring, more, false);
     st::store_tile(feat, SD, accs, w.bs, false, SD / 2 * wg, ln);
     tc::fence_proxy_async();
-    st::product<HALF, 0, 0>(acc, tc::desc_k(xs, D), tc::KSTEP_K,
-                            tc::desc_k(w.wc_x + tc::tofs(c0, 0, D), D),
-                            tc::KSTEP_K, D / 16, false);
+    if constexpr (st::NX > 0)
+      st::fwd_stream<W, D>(acc, xs, ring, more, false);
+    else
+      st::product<HALF, 0, 0>(acc, tc::desc_k(xs, D), tc::KSTEP_K,
+                              tc::desc_k(w.wc_x + tc::tofs(c0, 0, D), D),
+                              tc::KSTEP_K, D / 16, false);
     st::fwd_stream<W, SD>(acc, feat, ring, more, true);
     st::store_tile(dhc, W, acc, w.bc, true, c0, ln);    // hc
     __syncthreads();
@@ -345,9 +359,32 @@ decoder_backward_kernel(const float* __restrict__ x,
     __syncthreads();                  // dh1 is in place
     if (want_wgrad) fold(cs, slab + OFF_B1, W, first);
 
-    // dx = dh1 w1^T + dhc wc_x^T: warpgroup wg takes columns [D / 2 wg,
-    // D / 2 (wg + 1))
-    {
+    // dx = dh1 w1^T + dhc wc_x^T. At in_dim 64 from the chunks of w1 and
+    // wc_x in turn: chunk c of each gives columns [CR c, CR c + CR), CR / 2
+    // a warpgroup
+    if constexpr (st::NX > 0) {
+#pragma unroll 1
+      for (int c = 0; c < st::NX; ++c) {
+        float dd[st::CR / 4];
+        st::bwd_chunk<W>(dd, h1, st::acquire(ring, more));
+        const bf16* wx = st::acquire(ring, more);
+        st::product<st::CR / 2, 0, 1>(
+            dd, tc::desc_k(dhc, W), tc::KSTEP_K,
+            tc::desc_mn(wx + tc::tofs(0, st::CR / 2 * wg, st::CR), st::CR),
+            tc::kstep_mn(st::CR), W / 16, true);
+#pragma unroll
+        for (int i = 0; i < st::CR / 16; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int rr = ln.r0 + 8 * h;
+            if (rr < nvalid)
+              *reinterpret_cast<float2*>(
+                  dx + (row0 + rr) * D + st::CR * c + st::CR / 2 * wg
+                  + 8 * i + ln.c2) =
+                  make_float2(dd[4 * i + 2 * h], dd[4 * i + 2 * h + 1]);
+          }
+      }
+    } else {                          // warpgroup wg: [D / 2 wg, D / 2 (wg + 1))
       float dd[D / 4];
       const int n0 = D / 2 * wg;
       st::product<D / 2, 0, 1>(dd, tc::desc_k(h1, W), tc::KSTEP_K,

@@ -41,7 +41,11 @@
 //     chunks each (188,944 bytes at (32, 256, 256)): w1 before the forward's
 //     first product, wc_x after wc_f for hc's x part, and K3-f32's dx reads
 //     each again as D / 16 chunks, each giving 16 finished columns of dx.
-//     The products' sums are the resident plan's, term for term;
+//     The products' sums are the resident plan's, term for term. At in_dim
+//     64 the same, with four chunks each (193,552 bytes at (64, 256,
+//     256)); there dx's 32 x 64 tile is 16 tiles of 16 x 8, two a warp
+//     (dx_part2), and the x-side weight gradients keep their 16 x 32 warp
+//     tiles (dwc_x starts at an odd slab offset: no 8-byte accesses);
 //   - a per-launch pass (pack_weights_kernel) writes the streamed weights
 //     into a scratch buffer in exactly the chunks' layout (row stride WP =
 //     W + 4 floats), in the order a tile takes them: (w1,) w2, ws's feature
@@ -68,7 +72,11 @@
 // h1 and h2 (each product within ~2^-21 of the true one, a few times f32's
 // rounding) K2-f32's sdf was 1.9e-5 of its largest magnitude from the
 // float64 forward at (32, 512, 384) on the pcd features, the f32 plain
-// version 3.6e-6 (an H100, 700 W), against a tolerance of 1e-5.
+// version 3.6e-6 (an H100, 700 W), against a tolerance of 1e-5. The same
+// at in_dim 64 (FFMA_H): on in_dim 48 zero-padded to (64, 256, 128),
+// 3xTF32's h1 and h2 put K2-f32's sdf 1.04e-5 from the float64 forward
+// (the plain version 6.8e-6; an H100, 700 W); the older sizes keep their
+// 3xTF32 h1 and h2.
 // K3-f32 keeps mlp_kernel_f32.cu's reduction (decoder_slab.cuh): each block
 // walks a contiguous run of tiles and adds each tile's weight gradients
 // into its own f32 slab, and reduce_partials_kernel sums the slabs in a
@@ -112,13 +120,19 @@ constexpr int NBWD = XS + N_WCT + N_WST + N_W2T + XS;
 // the packed buffer: NFWD + NBWD chunks, then ws's sdf column (W floats)
 constexpr int SDF_COL = (NFWD + NBWD) * CHUNK;
 constexpr int PACKED = SDF_COL + W;
-static_assert(THREADS == 8 * 32 && (D == 16 || D == 32) && W % 64 == 0
+static_assert(THREADS == 8 * 32 && (D == 16 || D == 32 || D == 64)
+                  && W % 64 == 0
                   && SD % 64 == 0 && SD <= W && W <= 512,
               "the warp tilings below");
 static_assert(SO <= WP, "a chunk row holds any streamed weight's row");
 
 constexpr int RING_SMEM = 2 * CHUNK * 4 + 16;   // two slots, two mbarriers
 constexpr int PART = 3 * NQ * RT;   // NQ partial color logits x 3 per row
+// K2-f32's h1 and h2 on the FP32 units (the note on the wide sizes)
+constexpr bool FFMA_H = WIDE || D > 32;
+// dx's 16 x 8 tiles a warp holds: RT / 16 x D / 8 tiles over the warps,
+// two a warp at in_dim 64 with 32-row tiles (dx_part2)
+constexpr int DXT = (RT / 16) * (D / 8) > NWARP ? 2 : 1;
 constexpr int K2F_SMEM = 4 * (2 * ACT + XT + 2 * RES + NQ * RT + PART)
                          + RING_SMEM;
 constexpr int K3F_SMEM = 4 * (4 * ACT + XT + 2 * RES + 4 * RT + PART)
@@ -362,16 +376,17 @@ __device__ __forceinline__ void stream_mm(P& f, const float* act, int nchunks,
 
 // Weight gradient over the tile's rows, added into the slab: out[m][n] (+)=
 // sum_row act[m][row] cot[n][row] for m < M, n < N, out row-major at
-// stride LDO in global memory; warp tiles of 64 x 32 (16 x 32 for M = D)
-// taken by the warps in turn. All of a warp tile's reads of the slab, then
-// its writes (each entry is one warp's); for M >= 64 a row's two
-// neighbouring entries as one 8-byte access (decoder_slab.cuh keeps those
-// blocks at even offsets).
-template <int M, int N, int LDO>
+// stride LDO in global memory; warp tiles of 64 x 32 (16 x 32 for the
+// x-side gradients, XSIDE: M = D) taken by the warps in turn. All of a
+// warp tile's reads of the slab, then its writes (each entry is one
+// warp's); for the 64 x 32 tiles a row's two neighbouring entries as one
+// 8-byte access (decoder_slab.cuh keeps those blocks at even offsets; dwc_x
+// starts at an odd one).
+template <int M, int N, int LDO, bool XSIDE = false>
 __device__ __forceinline__ void wgrad_mm(float* __restrict__ out,
                                          const float* act, const float* cot,
                                          bool first) {
-  constexpr int TM = M >= 64 ? 4 : 1, TN = 4;
+  constexpr int TM = M >= 64 && !XSIDE ? 4 : 1, TN = 4;
   constexpr int MT = M / (16 * TM), NT = N / (8 * TN);
   static_assert(M % (16 * TM) == 0 && N % (8 * TN) == 0 && LDO % 2 == 0,
                 "warp tiles");
@@ -381,7 +396,7 @@ __device__ __forceinline__ void wgrad_mm(float* __restrict__ out,
     float acc[TM][TN][4];
     tf::zero(acc);
     tf::mm_kk<TM, TN, RT>(acc, act, cot, AP, m0, n0);
-    if (M >= 64) {
+    if (TM == 4) {
       if (!first)
         tf::for_each_pair(acc, m0, n0,
                           [&](int m, int n, float& v0, float& v1) {
@@ -443,6 +458,25 @@ __device__ __forceinline__ void dx_part(float (&acc)[1][1][4],
     for (int c = 0; c < XS; ++c) dx_mm<CR>(acc, cot, acquire(r, more), CR * c);
   } else {
     dx_mm<D>(acc, cot, res, 0);
+  }
+}
+
+// dx_part at in_dim 64 with 32-row tiles (DXT == 2): warp w holds dx's
+// 16 x 8 tiles at (16 (w & 1), 8 (w >> 1)) in a0 and 32 columns right of
+// it in a1; w's XS chunks from the ring (chunk c: dx's columns [CR c,
+// CR c + CR))
+__device__ __forceinline__ void dx_part2(float (&a0)[1][1][4],
+                                         float (&a1)[1][1][4],
+                                         const float* cot, Ring& r,
+                                         bool more) {
+  const int w = threadIdx.x >> 5, m0 = 16 * (w & 1), n0 = 8 * (w >> 1);
+#pragma unroll 1
+  for (int c = 0; c < XS; ++c) {
+    const float* wt = acquire(r, more);
+    if (n0 >= CR * c && n0 < CR * c + CR)
+      tf::mm_fm<1, 1, W, false>(a0, cot, AP, wt, WP, m0, n0 - CR * c);
+    if (n0 + 32 >= CR * c && n0 + 32 < CR * c + CR)
+      tf::mm_fm<1, 1, W, false>(a1, cot, AP, wt, WP, m0, n0 + 32 - CR * c);
   }
 }
 
@@ -560,7 +594,7 @@ decoder_forward_f32_kernel(const float* __restrict__ x, Params p,
     __syncthreads();                // the last tile's readers
     load_x(xs, x, row0, nvalid);
     __syncthreads();
-    if constexpr (WIDE) {
+    if constexpr (FFMA_H) {
       // h1 -> a, h2 -> b on the FP32 units (the note on the wide sizes)
       Fma<W> h;
       h.zero();
@@ -728,12 +762,18 @@ decoder_backward_f32_kernel(const float* __restrict__ x,
     // feat's last readers being before the first)
     if (want_wgrad) {
       wgrad_mm<SD, W, W>(slab + S_WCF, B2, B3, first);
-      wgrad_mm<D, W, W>(slab + OFF_WCX, xs, B3, first);
+      wgrad_mm<D, W, W, true>(slab + OFF_WCX, xs, B3, first);
       col_sum<W>(slab + OFF_BC, B3, first);
     }
     float dxa[1][1][4];
     tf::zero(dxa);
-    dx_part(dxa, B3, wcx, ring, more);
+    float dxb[1][1][4];               // DXT == 2: the warp's second tile
+    if constexpr (DXT == 2) {
+      tf::zero(dxb);
+      dx_part2(dxa, dxb, B3, ring, more);
+    } else {
+      dx_part(dxa, B3, wcx, ring, more);
+    }
     us.zero();
     stream_mm(us, B3, N_WCT, ring, more);
     tf::for_each_acc(us.acc, 0, us.n0(),
@@ -782,9 +822,21 @@ decoder_backward_f32_kernel(const float* __restrict__ x,
 
     // dw1 = x^T dh1, db1; dx = dhc wc_x^T + dh1 w1^T
     if (want_wgrad) {
-      wgrad_mm<D, W, W>(slab + OFF_W1, xs, B1, first);
+      wgrad_mm<D, W, W, true>(slab + OFF_W1, xs, B1, first);
       col_sum<W>(slab + OFF_B1, B1, first);
     }
+    if constexpr (DXT == 2) {
+      dx_part2(dxa, dxb, B1, ring, more);
+      const int w = tid >> 5;
+      tf::for_each_acc(dxa, 16 * (w & 1), 8 * (w >> 1),
+                       [&](int r, int c, float& v) {
+                         if (r < nvalid) dx[(row0 + r) * D + c] = v;
+                       });
+      tf::for_each_acc(dxb, 16 * (w & 1), 8 * (w >> 1) + 32,
+                       [&](int r, int c, float& v) {
+                         if (r < nvalid) dx[(row0 + r) * D + c] = v;
+                       });
+    } else {
     dx_part(dxa, B1, w1s, ring, more);
     const int w = tid >> 5;
     if constexpr (RT == 32) {
@@ -798,6 +850,7 @@ decoder_backward_f32_kernel(const float* __restrict__ x,
         tf::for_each_acc(dxa, 0, 8 * w, [&](int r, int c, float& v) {
           if (r < nvalid) dx[(row0 + r) * D + c] = v;
         });
+    }
     }
   }
 }

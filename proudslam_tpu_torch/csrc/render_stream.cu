@@ -25,9 +25,14 @@
 // 16k + 4q + 4) (k < D / 16) of its sample in the plain version's exact f32
 // order, as render_kernel.cu. At in_dim 32 the gather buffer doubles
 // (66,560 bytes), which fits beside the ring's 32-row chunks of that
-// in_dim (decoder_stream.cuh): 213,040 bytes at (32, 256, 256).
+// in_dim (decoder_stream.cuh): 213,040 bytes at (32, 256, 256). At in_dim
+// 64 a whole row's buffer (132,096 bytes) fits up to width 128; at width
+// 192 the buffer holds half of each corner and the blend runs in two
+// passes, at 256 a quarter in four (render_gather.cuh): 217,136 bytes at
+// (64, 256, 256).
 
 #include "decoder_stream.cuh"
+#include "render_gather.cuh"
 
 namespace {
 
@@ -35,13 +40,21 @@ using st::bf16;
 using dec::D;
 using dec::W;
 
+// the block's shared memory but the gather buffer
+constexpr int OTHER = tc::TC_SMALL_SMEM + st::RING_SMEM
+                      + 2 * dec::pad16(tc::TR * W * 2)
+                      + dec::pad16(tc::TR * D * 2) + st::PART_SMEM;
+#if DEC_D <= 32
 constexpr int KS = 8 * D;                    // corner values of a hit slot
 constexpr int GROW = KS * 4 + 16;            // gather-buffer row, bytes (padded)
-constexpr int SMEM = tc::TC_SMALL_SMEM + st::RING_SMEM
-                     + 2 * dec::pad16(tc::TR * W * 2)
-                     + dec::pad16(tc::TR * D * 2) + dec::pad16(tc::TR * GROW)
-                     + st::PART_SMEM;
+constexpr int SMEM = OTHER + dec::pad16(tc::TR * GROW);
+#else
+constexpr int G = kg::gather_dims(OTHER);    // a corner's dims in the buffer
+constexpr int SMEM = OTHER + kg::buffer_bytes(G);
+#endif
 static_assert(SMEM <= 232448, "one block's shared memory");
+
+#if DEC_D <= 32
 
 struct Inputs {
   const float *rb, *z, *rays_o, *rays_d;
@@ -163,6 +176,48 @@ render_forward_kernel(Inputs in, dec::Params prm, const bf16* wpack) {
     st::decode(w, xs, hA, hB, part, ring, more, in.out, in.N, tile);
   }
 }
+
+#else   // in_dim 64: the gather in passes
+
+using kg::Inputs;
+
+__global__ void __launch_bounds__(st::THREADS, 1)
+render_forward_kernel(Inputs in, dec::Params prm, const bf16* wpack) {
+  extern __shared__ __align__(16) char smem[];
+  dec::Arena arena{smem};
+  tc::TcWeights w;
+  tc::carve_small(arena, w);
+  st::Ring ring = st::ring_init(arena, wpack, st::NFWD);
+  bf16* hA = arena.take<bf16>(tc::TR * W);
+  bf16* hB = arena.take<bf16>(tc::TR * W);
+  bf16* xs = arena.take<bf16>(tc::TR * D);
+  char* gbuf = arena.take<char>(kg::buffer_bytes(G));
+  float* part = arena.take<float>(2 * tc::TR * 4);
+  tc::load_weights(w, prm);                 // ends with a barrier
+
+  const int row = threadIdx.x % tc::TR, q = threadIdx.x / tc::TR;
+  const long long ntiles = (in.N + tc::TR - 1) / tc::TR;
+  long long tile = blockIdx.x;
+  kg::Sample s;
+  if (tile < ntiles) {
+    st::ring_start(ring);
+    kg::locate(in, tile, row, q, s);
+    kg::issue<G>(s, row, q, 0, gbuf);
+  }
+  for (; tile < ntiles; tile += gridDim.x) {
+    const bool more = tile + gridDim.x < ntiles;
+    // x's last readers, the previous tile's products, are done at the
+    // barrier that ends its decode
+    kg::blend_tile<G>(in, tile, row, q, gbuf, s, xs);
+    if (more) {
+      kg::locate(in, tile + gridDim.x, row, q, s);
+      kg::issue<G>(s, row, q, 0, gbuf);
+    }
+    st::decode(w, xs, hA, hB, part, ring, more, in.out, in.N, tile);
+  }
+}
+
+#endif
 
 }  // namespace
 

@@ -23,9 +23,13 @@
 // [16k + 4q, 16k + 4q + 4) of each of the 8 (k < D / 16), straight into
 // registers before this tile's decoder, and blends them after it: 8 or 16
 // float4 a thread in flight during the decoder. 188,464 bytes of shared
-// memory at (32, 512, 512).
+// memory at (32, 512, 512). At in_dim 64 that would be 32 float4 a thread,
+// so there the corners go through a gather buffer of part of each corner,
+// the blend in passes (render_gather.cuh): a quarter at width 512 (226,352
+// bytes at (64, 512, 512)), half at 384.
 
 #include "decoder_wide.cuh"
+#include "render_gather.cuh"
 
 namespace {
 
@@ -33,11 +37,20 @@ using dec::D;
 using dec::W;
 using st::bf16;
 
-constexpr int KS = 8 * D;                    // corner values of a hit slot
-constexpr int SMEM = wd::VEC_SMEM + wd::RING_SMEM
-                     + 2 * dec::pad16(tc::TR * W * 2)
-                     + dec::pad16(tc::TR * D * 2) + wd::PART_SMEM;
+constexpr int OTHER = wd::VEC_SMEM + wd::RING_SMEM
+                      + 2 * dec::pad16(tc::TR * W * 2)
+                      + dec::pad16(tc::TR * D * 2) + wd::PART_SMEM;
+#if DEC_D <= 32
+constexpr int SMEM = OTHER;
+#else
+constexpr int G = kg::gather_dims(OTHER);    // a corner's dims in the buffer
+constexpr int SMEM = OTHER + kg::buffer_bytes(G);
+#endif
 static_assert(SMEM <= 232448, "one block's shared memory");
+
+#if DEC_D <= 32
+
+constexpr int KS = 8 * D;                    // corner values of a hit slot
 
 struct Inputs {
   const float *rb, *z, *rays_o, *rays_d;
@@ -156,6 +169,47 @@ render_forward_kernel(Inputs in, dec::Params prm, const bf16* wpack) {
     wd::decode(w, xs, hA, hB, part, ring, more, in.out, in.N, tile);
   }
 }
+
+#else   // in_dim 64: the gather in passes
+
+using kg::Inputs;
+
+__global__ void __launch_bounds__(wd::THREADS, 1)
+render_forward_kernel(Inputs in, dec::Params prm, const bf16* wpack) {
+  extern __shared__ __align__(16) char smem[];
+  dec::Arena arena{smem};
+  const wd::Vecs w = wd::carve_vecs(arena);
+  wd::Ring ring = wd::ring_init(arena, wpack, wd::NFWD);
+  bf16* hA = arena.take<bf16>(tc::TR * W);
+  bf16* hB = arena.take<bf16>(tc::TR * W);
+  bf16* xs = arena.take<bf16>(tc::TR * D);
+  float* part = arena.take<float>(2 * tc::TR * 4);
+  char* gbuf = arena.take<char>(kg::buffer_bytes(G));
+  wd::load_vecs(w, prm);                    // ends with a barrier
+
+  const int row = threadIdx.x % tc::TR, q = threadIdx.x / tc::TR;
+  const long long ntiles = (in.N + tc::TR - 1) / tc::TR;
+  long long tile = blockIdx.x;
+  kg::Sample s;
+  if (tile < ntiles) {
+    wd::ring_start(ring);
+    kg::locate(in, tile, row, q, s);
+    kg::issue<G>(s, row, q, 0, gbuf);
+  }
+  for (; tile < ntiles; tile += gridDim.x) {
+    const bool more = tile + gridDim.x < ntiles;
+    // x's last readers, the previous tile's products, are done at the
+    // barrier that ends its decode
+    kg::blend_tile<G>(in, tile, row, q, gbuf, s, xs);
+    if (more) {
+      kg::locate(in, tile + gridDim.x, row, q, s);
+      kg::issue<G>(s, row, q, 0, gbuf);
+    }
+    wd::decode(w, xs, hA, hB, part, ring, more, in.out, in.N, tile);
+  }
+}
+
+#endif
 
 }  // namespace
 

@@ -22,7 +22,7 @@ tolerance of the true f32 product, except K3-f32's forward recompute,
 true f32 FMAs for its ReLU masks, and at widths 384 and 512 K2-f32's h1
 and h2 products, true f32 FMAs for its sdf column; the plain versions
 compute true f32).
-Any other size with in_dim <= 32 and width, sdf_dim <= 512 runs the
+Any other size with in_dim <= 64 and width, sdf_dim <= 512 runs the
 kernels at :func:`built_size` on zero-padded inputs and params
 (:func:`pad_params`), and the outputs and gradients are sliced back
 (:func:`unpad_params`): exact, every padded hidden unit being 0. A larger
@@ -59,16 +59,18 @@ WIDE_F32_ROWS = 16
 
 # The decoder sizes (in_dim, width, sdf_dim) every CUDA kernel form is built
 # for, one library per size (``build.size_flags``); chip_smoke.py's kernel
-# phase holds every one against its plain version on the card: in_dim 16
-# and 32 with width and sdf_dim multiples of 64 up to 256, then the wide
+# phase holds every one against its plain version on the card: in_dim 16,
+# 32 and 64 with width and sdf_dim multiples of 64 up to 256, then the wide
 # sizes, width 384 or 512 with sdf_dim a multiple of 128 from 128 up;
 # sdf_dim <= width. At (16, 128, 128) the weights stay in shared memory
 # (render_kernel.cu, mlp_kernel.cu; mlp_kernel_f32.cu stages them through
 # one buffer); every other size up to width 256 streams the large ones from
 # L2 (render_stream.cu, mlp_stream.cu, mlp_stream_f32.cu), and the wide
 # sizes stream all five (render_wide.cu, mlp_wide.cu; mlp_stream_f32.cu at
-# WIDE_F32_ROWS-row tiles).
-BUILT_IN_DIMS = (16, 32)
+# WIDE_F32_ROWS-row tiles). At in_dim 64 the streamed K3 streams w1 and
+# wc_x too, and K1 blends a sample's corners in passes where its whole row
+# does not fit the gather buffer (render_gather.cuh).
+BUILT_IN_DIMS = (16, 32, 64)
 WIDE_WIDTHS = (384, 512)
 BUILT_SIZES = (tuple((d, w, sd) for d in BUILT_IN_DIMS
                      for w in (64, 128, 192, 256)
@@ -198,9 +200,10 @@ def params_size(fp: FusedParams) -> Tuple[int, int, int]:
 
 
 def built_size(size: Tuple[int, int, int]) -> Tuple[int, int, int]:
-    """The smallest built size that covers a decoder ``size`` (in_dim <= 32,
+    """The smallest built size that covers a decoder ``size`` (in_dim <= 64,
     1 <= width, sdf_dim <= 512), whose kernels run it on zero-padded
-    params: (D', W', SD') with D' = 16 for in_dim <= 16 and 32 above, SD' =
+    params: (D', W', SD') with D' the smallest of 16, 32 and 64 that is at
+    least in_dim, SD' =
     sdf_dim rounded up to a multiple of 64 and W' the larger of width so
     rounded and SD'; a W' above 256 is then rounded up to 384 or 512 and SD'
     to a multiple of 128."""
@@ -220,7 +223,7 @@ def wide(size: Tuple[int, int, int]) -> bool:
 
 def check_size(size: Tuple[int, int, int], form: str) -> None:
     """Raises ``ValueError`` unless a built size covers the decoder ``size``
-    (:func:`built_size`): in_dim <= 32 and width, sdf_dim <= 512, each at
+    (:func:`built_size`): in_dim <= 64 and width, sdf_dim <= 512, each at
     least 1. Every form is built at :data:`BUILT_SIZES`; ``form`` (one of
     :data:`FORMS`) is named in the error."""
     if form not in FORMS:
@@ -323,22 +326,25 @@ def bf16_source(base: str, size: Tuple[int, int, int]) -> str:
 
 def packed_weights(size: Tuple[int, int, int], device) -> torch.Tensor:
     """Scratch for the streamed kernels' bf16 copy of w2, ws and wc_f; at
-    the wide sizes of all five weights, then K3's park of two (64, width)
-    bf16 tiles for each of the device's SMs (one block per SM at most)."""
+    in_dim 64 (for K3) and at the wide sizes of all five weights, and at
+    the wide sizes then K3's park of two (64, width) bf16 tiles for each of
+    the device's SMs (one block per SM at most)."""
     d, w, sd = size
     n = w * w + 2 * w * sd
+    if d > BUILT_IN_DIMS[1] or wide(size):
+        n += 2 * d * w
     if wide(size):
         sms = torch.cuda.get_device_properties(device).multi_processor_count
-        n += 2 * d * w + sms * 2 * TILE_ROWS * w
+        n += sms * 2 * TILE_ROWS * w
     return torch.empty((n,), dtype=torch.bfloat16, device=device)
 
 
 def packed_f32_weights(size: Tuple[int, int, int], device) -> torch.Tensor:
     """Scratch for mlp_stream_f32.cu's packed chunks: w2, ws's feature part
     and wc_f, then their transposes, 16 rows a chunk (8 at the wide sizes)
-    at row stride W + 4, and ws's sdf column; at in_dim 32 and at the wide
-    sizes also w1 and wc_x, twice each (the forward's x-side products and
-    dx)."""
+    at row stride W + 4, and ws's sdf column; at in_dim 32 and 64 and at
+    the wide sizes also w1 and wc_x, twice each (the forward's x-side
+    products and dx)."""
     d, w, sd = size
     rows = 2 * (2 * w + sd) + (4 * d if d > BUILT_IN_DIMS[0] or wide(size)
                                else 0)

@@ -5,9 +5,11 @@
 
 For each tree, one process imports that tree's ``proudslam_tpu_torch`` and
 builds (one ``nvcc`` each, all started together) its kernel libraries at
-the twenty decoder sizes up to width 256 (in_dim 16 and 32):
-``render_kernel``, ``mlp_kernel`` and ``mlp_kernel_f32`` at (16, 128,
-128), their streamed sources at the other nineteen. Then, per library and kernel function, the SASS of ``cuobjdump
+the 34 decoder sizes of in_dim 16 and 32: ``render_kernel``,
+``mlp_kernel`` and ``mlp_kernel_f32`` at (16, 128, 128), their streamed
+sources at the other nineteen up to width 256 and their wide sources
+(``render_wide``, ``mlp_wide``, ``mlp_stream_f32``) at the fourteen of
+width 384 and 512. Then, per library and kernel function, the SASS of ``cuobjdump
 -sass`` and the ptxas registers are compared: equal SASS is the same
 machine code, whatever the source text. Needs ``nvcc`` and ``cuobjdump``
 (the machine with the card). Prints one JSON line per library and, last,
@@ -23,10 +25,14 @@ import shutil
 import subprocess
 import sys
 
-SIZES = [(d, w, sd) for d in (16, 32) for w in (64, 128, 192, 256)
-         for sd in (64, 128, 192, 256) if sd <= w]
+SIZES = ([(d, w, sd) for d in (16, 32) for w in (64, 128, 192, 256)
+          for sd in (64, 128, 192, 256) if sd <= w]
+         + [(d, w, sd) for d in (16, 32) for w in (384, 512)
+            for sd in (128, 256, 384, 512) if sd <= w])
 SOURCES = {"render_kernel": "render_stream", "mlp_kernel": "mlp_stream",
            "mlp_kernel_f32": "mlp_stream_f32"}
+WIDE_SOURCES = {"render_kernel": "render_wide", "mlp_kernel": "mlp_wide",
+                "mlp_kernel_f32": "mlp_stream_f32"}
 
 
 def build_tree(tree: str) -> None:
@@ -36,8 +42,9 @@ def build_tree(tree: str) -> None:
     sys.path.insert(0, os.path.abspath(tree))
     from proudslam_tpu_torch.ops.kernels import build
 
-    jobs = [(name if size == build.DEFAULT_SIZE else stream, size)
-            for size in SIZES for name, stream in SOURCES.items()]
+    jobs = [(name if size == build.DEFAULT_SIZE else
+             (WIDE_SOURCES if size[1] > 256 else SOURCES)[name], size)
+            for size in SIZES for name in SOURCES]
     with ThreadPoolExecutor(len(jobs)) as pool:
         paths = list(pool.map(lambda job: build.build(*job), jobs))
     print(json.dumps({f"{name}@{'x'.join(map(str, size))}": str(path)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""The five decoder kernel forms at the twenty decoder sizes up to width 256,
+"""The five decoder kernel forms at the 34 decoder sizes of in_dim 16 and 32,
 for several checkouts in turns: outputs bit for bit and times.
 
     python3 scripts/torch_size_turns.py OLD_TREE . . OLD_TREE
@@ -7,8 +7,9 @@ for several checkouts in turns: outputs bit for bit and times.
 Each argument is the root of a checkout of the repo (default: this one).
 For each, in the order given, one process imports that tree's
 ``proudslam_tpu_torch``, builds its kernels and, at each size (in_dim 16
-and 32, width and sdf_dim multiples of 64 up to 256, sdf_dim <= width;
-(16, 128, 128) is the resident plan, the others the streamed one), runs K1
+and 32, width and sdf_dim multiples of 64 up to 256, sdf_dim <= width,
+and the wide sizes, width 384 or 512 with sdf_dim a multiple of 128; (16,
+128, 128) is the resident plan, the others the streamed or wide one), runs K1
 (``fused_render_forward``), K2 (``decoder_fwd``), K3 (``decoder_bwd``,
 full and dx-only), K2-f32 and K3-f32 (``bf16=False``, full and dx-only).
 K1's inputs are ``chip_smoke.py``'s (``kernel_inputs``: frame 0 of the
@@ -20,8 +21,9 @@ from a seed and the cotangents 1e-2 N(0, 1) from a seed: the same inputs
 in every turn. Per size and form the turn prints a SHA-256 of every
 output at the tracking shape (1024 rays x 64 samples: out, feats, dx and
 the 11 gradients) and the time of one call (``chip_smoke.py``'s
-``_event_ms``: CUDA events around 10 back-to-back calls, median of 5) at
-the mapping (5 x 1024 rays) and tracking shapes. After the turns, each
+``_event_ms``: CUDA events around 10 back-to-back calls, median of 5; at
+the wide sizes 5 calls, median of 3, ``REDUCED_REPS``) at the mapping (5 x
+1024 rays) and tracking shapes. After the turns, each
 turn's digests are compared with the first turn's, and the times of each
 tree are summed over its turns; with two trees, the second's over the
 first's per size and form, and per form summed over the sizes. Needs one
@@ -39,8 +41,10 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SIZES = [(d, w, sd) for d in (16, 32) for w in (64, 128, 192, 256)
-         for sd in (64, 128, 192, 256) if sd <= w]
+SIZES = ([(d, w, sd) for d in (16, 32) for w in (64, 128, 192, 256)
+          for sd in (64, 128, 192, 256) if sd <= w]
+         + [(d, w, sd) for d in (16, 32) for w in (384, 512)
+            for sd in (128, 256, 384, 512) if sd <= w])
 
 
 def _chip_smoke():
@@ -78,9 +82,9 @@ def turn(tree: str) -> dict:
     from concurrent.futures import ThreadPoolExecutor
 
     from proudslam_tpu_torch.ops.kernels import build
-    jobs = [(name if size == build.DEFAULT_SIZE else stream, size)
-            for size in SIZES
-            for name, stream in cs.STREAM_LIBRARIES.items()]
+    jobs = [(name if size == build.DEFAULT_SIZE else
+             cs.stream_library(name, size), size)
+            for size in SIZES for name in cs.LIBRARIES]
     with ThreadPoolExecutor(len(jobs)) as pool:
         for f in [pool.submit(build.build, *job) for job in jobs]:
             f.result()
@@ -105,6 +109,7 @@ def turn(tree: str) -> dict:
                 inp["z"], inp["rays_o"], inp["rays_d"])
         xp = xp_by_dim[size[0]]
         st = res["sizes"]["x".join(map(str, size))] = {"digest": {}}
+        reps = cs.REDUCED_REPS if size[1] > 256 else {}
         for shape, rays in (("mapping", inp["bins"].shape[0]),
                             ("tracking", cs.TRACK_RAYS)):
             rows = rays * S
@@ -129,7 +134,7 @@ def turn(tree: str) -> dict:
                     flat = [out[0], *(out[1] or ())] if form.startswith(
                         "K3") else list(out) if form == "K1" else [out]
                     st["digest"][form] = _digest(flat)
-                st[f"{form} {shape} ms"] = cs._event_ms(fn)
+                st[f"{form} {shape} ms"] = cs._event_ms(fn, **reps)
     return res
 
 

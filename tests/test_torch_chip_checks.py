@@ -173,6 +173,10 @@ def test_at_size_and_blend_flops():
     assert cs.k1_blend_flops(16) == 272
     assert cs.k1_blend_flops(32) == 2 * 8 * 32 + 16
     assert mk.built_size(cs.D32_SIZE) == cs.D32_SIZE
+    s = cs.at_size(base, cs.D64_SIZE)
+    assert (s.decoder.in_dim, s.map.embed_dim) == (64, 64)
+    assert cs.k1_blend_flops(64) == 2 * 8 * 64 + 16
+    assert mk.built_size(cs.D64_SIZE) == cs.D64_SIZE
 
 
 def test_size_table(monkeypatch):
@@ -205,23 +209,25 @@ def test_size_table(monkeypatch):
 def test_wide_sizes_and_sources():
     """The wide sizes: built with render_wide.cu and mlp_wide.cu (the f32
     forms' streamed source at every streamed size); the size phases run in
-    full at the four slice sizes, reduced at the others; the three wide
-    padded sizes pad as stated."""
+    full at the five slice sizes, reduced at the others; the three wide
+    padded sizes and the three in_dim-64 ones pad as stated."""
     wide = [s for s in mk.BUILT_SIZES if mk.wide(s)]
-    assert len(wide) == 14 and cs.W512_SIZE in wide
+    assert len(wide) == 21 and cs.W512_SIZE in wide
     assert cs.PCD_W512_SIZE in wide
-    assert cs.FULL_SIZES == {cs.W256_SIZE, cs.D32_SIZE, cs.W512_SIZE,
-                             cs.PCD_W512_SIZE}
+    assert cs.FULL_SIZES == {cs.W256_SIZE, cs.D32_SIZE, cs.D64_SIZE,
+                             cs.W512_SIZE, cs.PCD_W512_SIZE}
     assert [s for s in mk.BUILT_SIZES if cs.full_size(s)] == [
-        cs.W256_SIZE, cs.D32_SIZE, cs.PCD_W512_SIZE, cs.W512_SIZE]
-    for size in ((16, 256, 128), (32, 64, 64)):
+        cs.W256_SIZE, cs.D32_SIZE, cs.D64_SIZE, cs.PCD_W512_SIZE,
+        cs.W512_SIZE]
+    for size in ((16, 256, 128), (32, 64, 64), (64, 256, 128)):
         assert [cs.stream_library(lib, size) for lib in cs.LIBRARIES] == [
             "render_stream", "mlp_stream", "mlp_stream_f32"]
     for size in wide:
         assert [cs.stream_library(lib, size) for lib in cs.LIBRARIES] == [
             "render_wide", "mlp_wide", "mlp_stream_f32"]
-    assert [mk.built_size(s) for s in cs.PAD_SIZES[-3:]] == [
-        (16, 384, 256), (32, 512, 512), (16, 384, 384)]
+    assert [mk.built_size(s) for s in cs.PAD_SIZES[-6:]] == [
+        (16, 384, 256), (32, 512, 512), (16, 384, 384), (64, 64, 64),
+        cs.D64_SIZE, (64, 384, 256)]
 
 
 def _k1_inputs(d, rays=1100, hits=4, samples=40):

@@ -3,10 +3,12 @@ the CUDA render kernel) against the JAX package's Pallas
 ``fused_render_forward`` in interpret mode, and the gradients of the
 port's ``FusedFeatsDecode`` against ``jax.grad`` of ``fused_feats_decode``.
 
-Both run at three decoder sizes (in_dim, width, sdf_dim): (16, 64, 64),
-the reference's wider (16, 256, 128), which the CUDA kernel takes through
-its streamed plan, and (32, 64, 64), on a map whose embeddings hold 32
-values (the case's map, rays and samples are the same at each in_dim).
+Both run at the decoder sizes (in_dim, width, sdf_dim) of
+``torch_parity.SIZED_DEC``: (16, 64, 64), the reference's wider (16, 256,
+128), which the CUDA kernel takes through its streamed plan, (32, 64, 64)
+and (64, 64, 64), on maps whose embeddings hold 32 or 64 values (the
+case's map, rays and samples are the same at each in_dim), and (16, 512,
+512).
 
 Tolerances: features 1e-5 (the same f32 blend formula); decoder outputs
 1e-3 (bf16 operands in both; f32 summation order may flip the bf16

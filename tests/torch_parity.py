@@ -17,13 +17,17 @@ DEC = DecoderSettings(depth=2, width=64, in_dim=16, sdf_dim=64,
                       matmul_dtype="bf16", use_fused_mlp=True)
 # the decoder sizes (in_dim, width, sdf_dim) of the kernel parity cases:
 # the small default, the reference's wider decoder (width 256), the
-# smallest in_dim-32 size the kernels are built for, and the widest
+# smallest in_dim-32 and in_dim-64 sizes the kernels are built for, and
+# the widest
 SIZED_DEC = {"16x64x64": DEC,
              "16x256x128": DecoderSettings(
                  depth=2, width=256, in_dim=16, sdf_dim=128,
                  matmul_dtype="bf16", use_fused_mlp=True),
              "32x64x64": DecoderSettings(
                  depth=2, width=64, in_dim=32, sdf_dim=64,
+                 matmul_dtype="bf16", use_fused_mlp=True),
+             "64x64x64": DecoderSettings(
+                 depth=2, width=64, in_dim=64, sdf_dim=64,
                  matmul_dtype="bf16", use_fused_mlp=True),
              "16x512x512": DecoderSettings(
                  depth=2, width=512, in_dim=16, sdf_dim=512,
