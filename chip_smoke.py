@@ -11,11 +11,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``nvcc`` per source and decoder size, all started together): the three
    sources at the bench decoder's (in_dim, width, sdf_dim) = (16, 128,
    128), and ``render_stream.cu``, ``mlp_stream.cu`` and
-   ``mlp_stream_f32.cu`` (the streamed plans) at each of the twenty-nine
+   ``mlp_stream_f32.cu`` (the streamed plans) at each of the thirty-two
    other sizes of ``mlp_kernel.BUILT_SIZES`` up to width 256,
    ``render_wide.cu``, ``mlp_wide.cu`` and ``mlp_stream_f32.cu`` at its
-   twenty-one wide sizes (width 384 and 512; in_dim 16, 32 and 64): 153
-   libraries;
+   twenty-three wide sizes (width 384 and 512; in_dim 16, 32 and 64, and
+   in_dim 128 at (128, 512, 256) and (128, 512, 512)): 168 libraries;
    each library's ``-Xptxas -v`` report (registers, spills, wgmma
    warnings) and its count of tensor-core instructions (HGMMA, HMMA) and
    FFMA in ``cuobjdump -sass`` are logged; K1, K2 and K3 must each hold
@@ -43,15 +43,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    output: the embedding's ``x @ B`` in true f32, TF32 off; the same call
    with TF32 on is logged as the control). Then the same holds of K1, K2
    and K3 at each other size of ``mlp_kernel.BUILT_SIZES`` (``size_phase``:
-   the K1 inputs above, with corner embeddings of 32 or 64 values from a
-   seed at the in_dim-32 and -64 sizes, that size's ``init_decoder``
-   params; K3's dx there
+   the K1 inputs above, with corner embeddings of 32, 64 or 128 values
+   from a seed at the in_dim-32, -64 and -128 sizes, that size's
+   ``init_decoder`` params; K3's dx there
    held on the rows away from a ReLU kink, ``MARGIN_FLIP``), with times,
    bounds and shares and the bf16 matmul chain's times; and of K2-f32 and
    K3-f32 (full and dx-only) at each other size of
    ``mlp_kernel.BUILT_SIZES`` (``f32_size_phase``: the pcd features above,
-   from a PointNet of output width 32 or 64 at the in_dim-32 and -64
-   sizes, at the
+   from a PointNet of output width 32, 64 or 128 at the in_dim-32, -64
+   and -128 sizes, at the
    mapping, tracking and a ragged row count, that size's params, the f32
    tolerances, K3-f32's dx held on the rows of
    margin >= ``MARGIN_FLIP_F32``, each row whose dx misses a witnessed
@@ -70,8 +70,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    size (``pad_phase``: in_dim 8, a width no multiple of 64, sdf_dim >
    width, a size landing on a streamed one, in_dim 24 and 20 padded to
    32, three that pad to wide sizes: (16, 300, 200), (24, 450, 500)
-   and (16, 64, 320), and in_dim 33, 48 and 40 padded to 64: (33, 64,
-   64), (48, 256, 128) and (40, 300, 200)), at the tracking shape against
+   and (16, 64, 320), in_dim 33, 48 and 40 padded to 64: (33, 64,
+   64), (48, 256, 128) and (40, 300, 200), and in_dim 65 to 127 padded to
+   128: (65, 64, 64), (100, 256, 128), (96, 300, 200) and (72, 64, 320)),
+   at the tracking shape against
    its plain version at the unpadded
    size with each form's tolerance, and every padded gradient entry
    exactly 0. A ``size table`` line per kernel and streamed size joins its
@@ -85,12 +87,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    the same at (16, 512, 512) (the wide plan of K1 and K3), the same
    launches and bound; then vox-d64, the same at (64, 256, 128) with
    embeddings of 64 values (K3's w1 and wc_x streamed, K1's blend in
-   four passes), the same launches and bound; then ``run_slam.check_config``
+   four passes), the same launches and bound; then vox-d128, the same at
+   (128, 256, 128) with embeddings of 128 values (K1's and K2's w1 and
+   wc_x streamed too, K1's blend in four passes of 32 dims), the same
+   launches and bound; then ``run_slam.check_config``
    for the card must accept the fused pcd path at f32 operands at (16,
    256, 128), at a padded size, at (32, 256, 128), at (64, 256, 128), at
-   (16, 512, 512), at the padded wide (16, 300, 200) and at in_dim 48, and
-   refuse in_dim 65, width 513 and sdf_dim 513 (no built size covers
-   them) naming the size and the form, with no launch;
+   (128, 256, 128), at (16, 512, 512), at the padded wide (16, 300, 200),
+   at in_dim 48 and at in_dim 100 (padded to 128), and refuse in_dim 129,
+   width 513 and sdf_dim 513 (no built size covers them) naming the size
+   and the form, with no launch;
 4. vox slice: the bench configuration with the fused render path on
    (``config.bench_settings``): ``SlamSystem.initialize`` (200 mapping
    iterations), 39 ``process_frame`` calls over the first 40 frames of the
@@ -128,7 +134,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    K2-f32 and K3-f32 launched, the same bounds and checks; then
    pcd-f32-w512, the same at (16, 512, 256) (the wide f32 plan's 16-row
    tiles), the same launches, bound and checks; then pcd-f32-d64, the
-   same at (64, 256, 128), the same launches, bound and checks;
+   same at (64, 256, 128), the same launches, bound and checks; then
+   pcd-f32-d128, the same at (128, 256, 128), the same launches, bound and
+   checks;
 5c. resample run: the vox configuration with ``fixed_sample_batch=False``
    in the tracker and the mapper (a fresh pixel batch per Adam iteration,
    intersected at the current pose) and the Gumbel pixel sampler, over the
@@ -348,10 +356,14 @@ WITNESS_ROWS = 64
 # 512, 512), and sdf_dim > width, (16, 64, 320) to (16, 384, 384); and
 # in_dim 33 to 63 padded to 64: (33, 64, 64) to the smallest in_dim-64
 # size, (48, 256, 128) to the vox-d64 slice's, (40, 300, 200) to (64,
-# 384, 256)
+# 384, 256); and in_dim 65 to 127 padded to 128: (65, 64, 64) to the
+# smallest in_dim-128 size, (100, 256, 128) to the vox-d128 slice's, (96,
+# 300, 200) to (128, 512, 256), and sdf_dim > width, (72, 64, 320), to
+# (128, 512, 512)
 PAD_SIZES = ((8, 40, 24), (16, 100, 72), (16, 128, 192), (12, 200, 256),
              (24, 200, 72), (20, 64, 64), (16, 300, 200), (24, 450, 500),
-             (16, 64, 320), (33, 64, 64), (48, 256, 128), (40, 300, 200))
+             (16, 64, 320), (33, 64, 64), (48, 256, 128), (40, 300, 200),
+             (65, 64, 64), (100, 256, 128), (96, 300, 200), (72, 64, 320))
 K1_RAGGED = (1001, 40)    # rays x samples of K1's ragged check (40,040 rows)
 TRACK_RAYS = 1024         # the tracking shape: 1024 rays x S samples
 ATE_LIMIT_CM = 3.0
@@ -412,12 +424,20 @@ W512_FRAMES = 10
 # model: c_dim: 32); embeddings of as many values
 D64_SIZE = (64, 256, 128)
 D64_FRAMES = 10
-# the sizes whose size_phase and f32_size_phase run in full: the five
-# slice sizes; the others run reduced (checks at the tracking shape and a
-# ragged count, the kernels timed at both shapes, the plain versions and
-# chains at the tracking shape), which keeps the script inside its time
-# budget with 51 sizes
-FULL_SIZES = {W256_SIZE, D32_SIZE, D64_SIZE, W512_SIZE, PCD_W512_SIZE}
+# the vox-d128 and pcd-f32-d128 slices: the reference's wider decoder on
+# 128 features a point, the most a multiresolution hash encoding gives
+# (tiny-cuda-nn's HashGrid at 16 levels x 8 features a level, its largest
+# n_features_per_level); embeddings of as many values
+D128_SIZE = (128, 256, 128)
+D128_FRAMES = 10
+# the sizes whose size_phase and f32_size_phase run in full: four slice
+# sizes, the width-256 one at in_dim 16 and 128 and the wide ones; the
+# others (the in_dim-32 and -64 slice sizes among them since in_dim 128
+# came) run reduced (checks at the tracking shape and a ragged count, the
+# kernels timed at both shapes, the plain versions and chains at the
+# tracking shape), which keeps the script inside its time budget with 56
+# sizes
+FULL_SIZES = {W256_SIZE, D128_SIZE, W512_SIZE, PCD_W512_SIZE}
 
 
 # a reduced size's kernels at the mapping shape: the median of 3 event
@@ -512,8 +532,9 @@ F32_FUNCTIONS = (("mlp_kernel_f32", "decoder_forward_f32_kernel"),
                  ("mlp_kernel_f32", "decoder_backward_f32_kernel"))
 LIBRARIES = ("render_kernel", "mlp_kernel", "mlp_kernel_f32")
 # the kernels' sources at every other decoder size of mlp_kernel.BUILT_SIZES
-# (the streamed plans up to width 256, the wide ones above; the f32 forms'
-# streamed source takes both), one library per size; their kernel
+# (the streamed plans up to width 256 and in_dim 64, the wide ones above and
+# at in_dim 128, mlp_kernel.wide_plan; the f32 forms' streamed source takes
+# both), one library per size; their kernel
 # functions carry KERNEL_FUNCTIONS' and F32_FUNCTIONS' names
 STREAM_LIBRARIES = {"render_kernel": "render_stream",
                     "mlp_kernel": "mlp_stream",
@@ -524,9 +545,9 @@ WIDE_LIBRARIES = {"render_kernel": "render_wide", "mlp_kernel": "mlp_wide",
 
 def stream_library(lib: str, size) -> str:
     """The source that builds ``lib``'s kernels at a streamed ``size``."""
-    from proudslam_tpu_torch.ops.kernels.mlp_kernel import wide
+    from proudslam_tpu_torch.ops.kernels.mlp_kernel import wide_plan
 
-    return (WIDE_LIBRARIES if wide(size) else STREAM_LIBRARIES)[lib]
+    return (WIDE_LIBRARIES if wide_plan(size) else STREAM_LIBRARIES)[lib]
 # the kernels' launch counters, by the name of the kernels JSON line
 KERNELS = ("fused_render_forward", "decoder_forward", "decoder_backward",
            "decoder_forward_f32", "decoder_backward_f32")
@@ -609,7 +630,7 @@ def build_phase():
     ``mlp_kernel.BUILT_SIZES``; log the ptxas report and the instruction
     counts -> (seconds, {kernel function: its SASS counts and ptxas
     resources at (16, 128, 128)}, {size tag: {kernel function: the same}}
-    at all 51 sizes)."""
+    at all 56 sizes)."""
     from proudslam_tpu_torch.ops.kernels import build
     from proudslam_tpu_torch.ops.kernels.mlp_kernel import BUILT_SIZES
 
@@ -2137,8 +2158,9 @@ def refusal_check() -> dict:
     f32 operands at the reference's (16, 256, 128), where K2-f32 and K3-f32
     run their streamed plan, at a padded size, (12, 200, 72), at in_dim 32,
     (32, 256, 128), at in_dim 64, (64, 256, 128), at in_dim 48, padded to
-    64, at the widest built size, (16, 512, 512), and at a padded wide
-    size, (16, 300, 200); and refuses in_dim 65, width 513 and sdf_dim 513,
+    64, at in_dim 128, (128, 256, 128), at in_dim 100, padded to 128, at
+    the widest built size, (16, 512, 512), and at a padded wide size, (16,
+    300, 200); and refuses in_dim 129, width 513 and sdf_dim 513,
     which no built size covers, with a ``ValueError`` naming
     the size and the form (K2-f32 on that path, K1 on the fused vox path),
     before any data loads and with no kernel launched."""
@@ -2161,11 +2183,13 @@ def refusal_check() -> dict:
                {**over, "decoder_specs.in_dim": D32_SIZE[0]},
                {**over, "decoder_specs.in_dim": D64_SIZE[0]},
                {**over, "decoder_specs.in_dim": 48},
+               {**over, "decoder_specs.in_dim": D128_SIZE[0]},
+               {**over, "decoder_specs.in_dim": 100},
                {**over, **wide}, {**over, **padded_wide}):
         dec = check_config(load_config(path, dict(kv)), "cuda").decoder
         accepted.append([dec.in_dim, dec.width, dec.sdf_dim])
     refused = {}
-    for key, val in (("decoder_specs.in_dim", D64_SIZE[0] + 1),
+    for key, val in (("decoder_specs.in_dim", D128_SIZE[0] + 1),
                      ("decoder_specs.width", W512_SIZE[1] + 1),
                      ("decoder_specs.sdf_dim", W512_SIZE[2] + 1)):
         for mode, form in (("pcd", "K2-f32"), ("vox", "K1")):
@@ -3094,6 +3118,10 @@ def main() -> None:
         device, "vox-d64", at_size(vox, D64_SIZE), frames, D64_FRAMES,
         ATE_LIMIT_CM, launched=("fused_render_forward", "decoder_backward"),
         not_launched=("decoder_forward",) + f32_kernels)
+    stats["vox-d128"] = slice_phase(
+        device, "vox-d128", at_size(vox, D128_SIZE), frames, D128_FRAMES,
+        ATE_LIMIT_CM, launched=("fused_render_forward", "decoder_backward"),
+        not_launched=("decoder_forward",) + f32_kernels)
     kern["extra"]["refusal"] = refusal_check()
     mark("vox slices")
     pcd = dataclasses.replace(
@@ -3128,6 +3156,11 @@ def main() -> None:
         device, "pcd-f32-d64", pcd_f32_d64, frames, PCD_FRAMES,
         PCD_W256_ATE_LIMIT_CM, launched=f32_kernels,
         not_launched=bf16_kernels, after=trained_decoder_check(pcd_f32_d64))
+    pcd_f32_d128 = at_size(pcd_f32, D128_SIZE)
+    stats["pcd-f32-d128"] = slice_phase(
+        device, "pcd-f32-d128", pcd_f32_d128, frames, PCD_FRAMES,
+        PCD_W256_ATE_LIMIT_CM, launched=f32_kernels,
+        not_launched=bf16_kernels, after=trained_decoder_check(pcd_f32_d128))
     mark("pcd slices")
     resample = dataclasses.replace(
         vox, render=dataclasses.replace(vox.render, pixel_sampler="gumbel"),

@@ -106,7 +106,9 @@ __device__ inline void wgrad_x(const bf16* cot, const bf16* xs,
                                float* __restrict__ dst, bool first,
                                const Lane& ln) {
   const int wg = threadIdx.x / tc::WG;
-  if constexpr (D > 32 && W <= 256) { // the same: x's columns 32 at a time
+  // the same: x's columns 32 at a time (and in the wide plan at in_dim
+  // 128, where whole they would take 128 registers a thread)
+  if constexpr ((D > 32 && W <= 256) || D > 64) {
 #pragma unroll 1
     for (int mb = 64 * wg; mb < N; mb += 128)
 #pragma unroll 1

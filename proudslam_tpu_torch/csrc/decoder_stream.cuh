@@ -1,5 +1,7 @@
 // The streamed plan of the bf16 decoder kernels K1 (render_stream.cu), K2
-// and K3 (mlp_stream.cu): every decoder size other than (16, 128, 128).
+// and K3 (mlp_stream.cu): every decoder size up to width 256 other than
+// (16, 128, 128), in_dim 64 at most (in_dim 128 runs the wide plan,
+// decoder_wide.cuh, which includes this file for its products).
 //
 // Why another plan. At (16, 128, 128) a block holds all its bf16 weights in
 // shared memory (111 KB, decoder_tc.cuh's TcWeights) and each of its two
@@ -115,7 +117,7 @@ __device__ __forceinline__ void chunk_of(int id, int& off, int& n) {
 
 // (not in the wide plan's builds, which pack their own chunks and run their
 // own decode: decoder_wide.cuh)
-#if DEC_W <= 256
+#if DEC_W <= 256 && DEC_D <= 64
 // f32 FusedParams -> the packed bf16 chunks (round to nearest even)
 __global__ void pack_weights_kernel(dec::Params p, bf16* __restrict__ dst) {
   for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < PACKED;
@@ -355,7 +357,7 @@ __device__ __forceinline__ void relu_mask(float (&acc)[NA], const bf16* act,
 
 // ---- the forward of K1 and K2 ----
 
-#if DEC_W <= 256
+#if DEC_W <= 256 && DEC_D <= 64
 
 // the partial dots of the two warpgroups: part[wg][row] = [rgb logits | sdf]
 constexpr int PART_SMEM = 2 * TR * 4 * 4;
@@ -461,6 +463,6 @@ __device__ inline void decode(const tc::TcWeights& w, const bf16* xs,
   }
 }
 
-#endif  // DEC_W <= 256
+#endif  // DEC_W <= 256 && DEC_D <= 64
 
 }  // namespace st

@@ -12,8 +12,8 @@
 // three TF32 products on the tensor cores (tf32x3.cuh), K3-f32's forward
 // recompute as FFMA.
 //
-// The sizes are set per build: -DDEC_D (in_dim, 16, 32 or 64), -DDEC_W (the
-// hidden width) and -DDEC_SD (sdf_dim, the sdf head's feature width), by
+// The sizes are set per build: -DDEC_D (in_dim, 16, 32, 64 or 128),
+// -DDEC_W (the hidden width) and -DDEC_SD (sdf_dim, the sdf head's feature width), by
 // default the bench decoder's 16, 128, 128; each size is its own library
 // (ops/kernels/build.py). At (16, 128, 128) the weights stay in shared
 // memory for a block's life (render_kernel.cu, mlp_kernel.cu); every other
@@ -24,7 +24,9 @@
 // inputs (x w1, x wc_x) takes D / 16 k16 steps. At in_dim 64 the streamed
 // K3 streams w1 and wc_x too (decoder_stream.cuh), and K1 gathers a
 // sample's corners in passes where a whole row does not fit
-// (render_gather.cuh).
+// (render_gather.cuh); in_dim 128 runs the wide plan at every width
+// (decoder_wide.cuh), which takes w1 and wc_x there in chunks of 64 input
+// rows.
 //
 // Layout (the JAX package's `FusedParams`, all f32 row-major in global
 // memory): w1 (D,W) b1 (W) w2 (W,W) b2 (W) ws (W,SD+1) [feat cols | sdf col
@@ -54,7 +56,7 @@ constexpr int SO = SD + 1;         // sdf head outputs: [feat | sdf]
 constexpr int TR = 64;             // rows per tile
 constexpr int NPARAM = D * W + W + W * W + W + W * SO + SO + SD * W + D * W
                        + W + W * 3 + 3;    // 54,276 floats at (16, 128, 128)
-static_assert(D == 16 || D == 32 || D == 64,
+static_assert(D == 16 || D == 32 || D == 64 || D == 128,
               "the kernels read a row's inputs as D / 16 chunks of 16 floats");
 static_assert(W % 64 == 0 && SD % 64 == 0 && SD <= W && W <= 512,
               "widths are multiples of 64, sdf_dim <= width <= 512");

@@ -1,6 +1,7 @@
 // The wide plan of the bf16 decoder kernels K1 (render_wide.cu), K2 and K3
 // (mlp_wide.cu): the decoder sizes of width 384 and 512 (sdf_dim 128 to the
-// width, a multiple of 128), built with -DDEC_W > 256.
+// width, a multiple of 128), built with -DDEC_W > 256, and every size of
+// in_dim 128 (widths 128 to 512).
 //
 // Why another plan. The streamed plan (decoder_stream.cuh) splits each
 // product's output columns between the block's two warpgroups, one m64nN
@@ -28,7 +29,16 @@
 //     mlp_wide.cu);
 //   - K1 keeps no gather buffer: each thread loads its sample's corners for
 //     the next tile into registers before this tile's decoder (render_wide
-//     .cu).
+//     .cu);
+//   - at in_dim 128 a w1 or wc_x chunk of all D input rows (32 KB) would
+//     not fit a slot, so those come as XC = 2 chunks of XR = 64 input rows
+//     for each pass of 128 columns: an x-side forward pass sums its two
+//     K-slices into one accumulator, and dx takes XR / 2 columns of each
+//     chunk a warpgroup (dx_passes2). The streamed plan does not reach
+//     in_dim 128 at width 256: its K1 and K2, with w1 and wc_x streamed
+//     too, hold 64-column accumulators per warpgroup beside the ring's
+//     state and spilled at (128, 256, 256) in every variant tried (52-600
+//     bytes), while this plan's 32-register accumulators leave room.
 // The rounding points are the other plans': every product operand bf16
 // (round to nearest even), f32 sums; K1 and K2 run one `decode`, so K2 on
 // K1's features gives K1's outputs bit for bit. A wait on a ring slot that
@@ -57,9 +67,14 @@ constexpr int PW = W / NP, PS = SD / NP;   // passes over W and SD columns
 constexpr int KW = W / CR, KS = SD / CR;   // row blocks of W and SD inputs
 constexpr int SLOT = CR * NP;              // bf16 elements of a ring slot
 constexpr int RING_SMEM = 2 * SLOT * 2 + 16;   // two slots, two mbarriers
-static_assert(W > 256 && W <= 512 && W % NP == 0 && SD % NP == 0 && SD <= W,
-              "the wide plan: width 384 or 512, sdf_dim a multiple of 128");
-static_assert(D * NP <= SLOT, "a w1 or wc_x chunk fits a slot");
+static_assert((W > 256 || D > 64) && W <= 512 && W % NP == 0
+                  && SD % NP == 0 && SD <= W,
+              "the wide plan: width 384 or 512 or in_dim 128, widths "
+              "multiples of 128");
+// input rows of a w1 or wc_x chunk (all D up to in_dim 64), and the
+// chunks of a pass
+constexpr int XR = D > 64 ? 64 : D, XC = D / XR;
+static_assert(XR * NP <= SLOT, "a w1 or wc_x chunk fits a slot");
 
 // the packed bf16 weights: [w1 | w2 | ws's feature part | wc_f | wc_x]
 constexpr int P_W1 = 0, P_W2 = D * W, P_WS = P_W2 + W * W;
@@ -69,10 +84,11 @@ constexpr int PACKED = P_WX + D * W;
 constexpr int PARK = 2 * TR * W;
 
 // chunks of one tile's forward and of K3's backward, in the order taken
-constexpr int F_W1 = PW, F_W2 = KW * PW, F_WS = KW * PS, F_HC = PW * (1 + KS);
+constexpr int F_W1 = PW * XC, F_W2 = KW * PW, F_WS = KW * PS;
+constexpr int F_HC = PW * (XC + KS);
 constexpr int NFWD = F_W1 + F_W2 + F_WS + F_HC;
-constexpr int B_WX = PW, B_WC = KS * PW, B_WS = KW * PS, B_W2 = KW * PW;
-constexpr int NBWD = B_WX + B_WC + B_WS + B_W2 + PW;
+constexpr int B_WX = PW * XC, B_WC = KS * PW, B_WS = KW * PS, B_W2 = KW * PW;
+constexpr int NBWD = B_WX + B_WC + B_WS + B_W2 + PW * XC;
 
 // Where element (k, n) of a weight (input k, output n) goes: the chunk of
 // input rows [rows (k / rows), ...) and outputs [NP (n / NP), ...), chunks
@@ -92,7 +108,7 @@ __global__ void pack_weights_kernel(dec::Params p, bf16* __restrict__ dst) {
     int o;
     if (e < P_W2) {
       v = p.w1[e];
-      o = P_W1 + place(D, PW, e / W, e % W);
+      o = P_W1 + place(XR, PW, e / W, e % W);
     } else if (e < P_WS) {
       const int i = e - P_W2;
       v = p.w2[i];
@@ -108,7 +124,7 @@ __global__ void pack_weights_kernel(dec::Params p, bf16* __restrict__ dst) {
     } else {
       const int i = e - P_WX;
       v = p.wc_x[i];
-      o = P_WX + place(D, PW, i / W, i % W);
+      o = P_WX + place(XR, PW, i / W, i % W);
     }
     dst[o] = __float2bfloat16_rn(v);
   }
@@ -120,16 +136,23 @@ inline cudaError_t pack_weights(const dec::Params& p, bf16* dst,
   return cudaGetLastError();
 }
 
+// The offset of chunk j of w1's or wc_x's run (pass j / XC, its input
+// rows' block j % XC) from the weight's first element
+__host__ __device__ constexpr int x_chunk(int j) {
+  return ((j % XC) * PW + j / XC) * XR * NP;
+}
+
 // Chunk i of a tile's sequence -> its first element and size in the packed
-// buffer. Forward: w1 by pass; w2 and ws pass by pass, each pass's row
-// blocks in order; then per pass of hc wc_x's chunk and wc_f's row blocks.
-// Backward (K3): wc_x by pass (dx's x part), then wc_f, ws and w2 row block
-// by row block (each row block's passes in order), then w1 by pass.
+// buffer. Forward: w1 by pass (XC chunks a pass); w2 and ws pass by pass,
+// each pass's row blocks in order; then per pass of hc wc_x's chunks and
+// wc_f's row blocks. Backward (K3): wc_x by pass (dx's x part), then wc_f,
+// ws and w2 row block by row block (each row block's passes in order),
+// then w1 by pass.
 __device__ inline void chunk_at(int i, int& off, int& n) {
   n = SLOT;
   if (i < F_W1) {
-    off = P_W1 + i * D * NP;
-    n = D * NP;
+    off = P_W1 + x_chunk(i);
+    n = XR * NP;
     return;
   }
   i -= F_W1;
@@ -144,19 +167,19 @@ __device__ inline void chunk_at(int i, int& off, int& n) {
   }
   i -= F_WS;
   if (i < F_HC) {
-    const int p = i / (1 + KS), j = i % (1 + KS);
-    if (j == 0) {
-      off = P_WX + p * D * NP;
-      n = D * NP;
+    const int p = i / (XC + KS), j = i % (XC + KS);
+    if (j < XC) {
+      off = P_WX + x_chunk(p * XC + j);
+      n = XR * NP;
     } else {
-      off = P_WC + ((j - 1) * PW + p) * SLOT;
+      off = P_WC + ((j - XC) * PW + p) * SLOT;
     }
     return;
   }
   i -= F_HC;
   if (i < B_WX) {
-    off = P_WX + i * D * NP;
-    n = D * NP;
+    off = P_WX + x_chunk(i);
+    n = XR * NP;
     return;
   }
   i -= B_WX;
@@ -175,8 +198,8 @@ __device__ inline void chunk_at(int i, int& off, int& n) {
     return;
   }
   i -= B_W2;
-  off = P_W1 + i * D * NP;
-  n = D * NP;
+  off = P_W1 + x_chunk(i);
+  n = XR * NP;
 }
 
 // ---- the ring (decoder_stream.cuh's, over chunk_at's sequence) ----
@@ -272,14 +295,26 @@ __device__ __forceinline__ const bf16* acquire(Ring& r, bool more) {
 // ---- products ----
 
 // pass p's x-side product: acc (this warpgroup's NP / 2 columns) = x w with
-// w = w1 or wc_x, its chunk of the pass from the ring
+// w = w1 or wc_x, its chunk of the pass from the ring (at in_dim 128 its
+// XC chunks, each a K-slice of XR input rows)
 __device__ __forceinline__ void x_pass(float (&acc)[NP / 4], const bf16* xs,
                                        Ring& r, bool more) {
   const int wg = threadIdx.x / WG;
-  const bf16* w = acquire(r, more);
-  st::product<NP / 2, 0, 0>(acc, tc::desc_k(xs, D), tc::KSTEP_K,
-                            tc::desc_k(w + tc::tofs(NP / 2 * wg, 0, D), D),
-                            tc::KSTEP_K, D / 16, false);
+  if constexpr (XC > 1) {
+#pragma unroll 1
+    for (int c = 0; c < XC; ++c) {
+      const bf16* w = acquire(r, more);
+      st::product<NP / 2, 0, 0>(
+          acc, tc::desc_k(xs + tc::tofs(0, XR * c, D), D), tc::KSTEP_K,
+          tc::desc_k(w + tc::tofs(NP / 2 * wg, 0, XR), XR), tc::KSTEP_K,
+          XR / 16, c > 0);
+    }
+  } else {
+    const bf16* w = acquire(r, more);
+    st::product<NP / 2, 0, 0>(acc, tc::desc_k(xs, D), tc::KSTEP_K,
+                              tc::desc_k(w + tc::tofs(NP / 2 * wg, 0, D), D),
+                              tc::KSTEP_K, D / 16, false);
+  }
 }
 
 // A pass of a forward product with a streamed weight of K inputs: acc =
@@ -329,6 +364,24 @@ __device__ inline void dx_passes(float (&acc)[D / 4], const bf16* dy, Ring& r,
                              tc::desc_mn(w + tc::tofs(0, D / 2 * wg, D), D),
                              tc::kstep_mn(D), NP / 16, accum || p > 0);
   }
+}
+
+// dx_passes at in_dim 128 (XC chunks a pass): acc[c] (+)= dy w^T on dx's
+// columns [XR c + XR / 2 wg, XR c + XR / 2 (wg + 1)), from chunk c of each
+// pass
+__device__ inline void dx_passes2(float (&acc)[XC][XR / 4], const bf16* dy,
+                                  Ring& r, bool more, bool accum) {
+  const int wg = threadIdx.x / WG;
+#pragma unroll 1
+  for (int p = 0; p < PW; ++p)
+#pragma unroll
+    for (int c = 0; c < XC; ++c) {
+      const bf16* w = acquire(r, more);
+      st::product<XR / 2, 0, 1>(
+          acc[c], tc::desc_k(dy + tc::tofs(0, NP * p, W), W), tc::KSTEP_K,
+          tc::desc_mn(w + tc::tofs(0, XR / 2 * wg, XR), XR),
+          tc::kstep_mn(XR), NP / 16, accum || p > 0);
+    }
 }
 
 // ---- the f32 vectors, resident ----

@@ -47,6 +47,7 @@
 // takes w1's and wc_x's chunks in turn, each pair giving 32 finished
 // columns, and the weight gradients run in pieces of 64 x 32
 // (decoder_rows.cuh), which keeps K3 within 255 registers at width 256.
+// In_dim 128 runs the wide plan (mlp_wide.cu).
 // A ragged last tile is masked: its missing rows carry zero inputs and zero
 // cotangents (they add nothing to any gradient) and write no output.
 
@@ -71,6 +72,7 @@ constexpr int K2_SMEM = tc::TC_SMALL_SMEM + st::RING_SMEM
                         + 2 * pad16(tc::TR * W * 2) + pad16(tc::TR * D * 2)
                         + pad16(tc::TR * D * 4) + st::PART_SMEM;
 static_assert(K2_SMEM <= 232448, "one block's shared memory");
+static_assert(D <= 64, "in_dim 128 runs the wide plan (mlp_wide.cu)");
 
 __global__ void __launch_bounds__(st::THREADS, 1)
 decoder_forward_kernel(const float* __restrict__ x, Params prm,

@@ -45,7 +45,10 @@
 //     64 the same, with four chunks each (193,552 bytes at (64, 256,
 //     256)); there dx's 32 x 64 tile is 16 tiles of 16 x 8, two a warp
 //     (dx_part2), and the x-side weight gradients keep their 16 x 32 warp
-//     tiles (dwc_x starts at an odd slab offset: no 8-byte accesses);
+//     tiles (dwc_x starts at an odd slab offset: no 8-byte accesses). At
+//     in_dim 128 eight chunks each (202,768 bytes at (128, 256, 256)), the
+//     x tile 18,432 bytes, and dx's tile 32 tiles of 16 x 8, four a warp
+//     (dx_partn; two a warp at 16-row tiles);
 //   - a per-launch pass (pack_weights_kernel) writes the streamed weights
 //     into a scratch buffer in exactly the chunks' layout (row stride WP =
 //     W + 4 floats), in the order a tile takes them: (w1,) w2, ws's feature
@@ -76,7 +79,7 @@
 // at in_dim 64 (FFMA_H): on in_dim 48 zero-padded to (64, 256, 128),
 // 3xTF32's h1 and h2 put K2-f32's sdf 1.04e-5 from the float64 forward
 // (the plain version 6.8e-6; an H100, 700 W); the older sizes keep their
-// 3xTF32 h1 and h2.
+// 3xTF32 h1 and h2. In_dim 128 keeps FFMA_H.
 // K3-f32 keeps mlp_kernel_f32.cu's reduction (decoder_slab.cuh): each block
 // walks a contiguous run of tiles and adds each tile's weight gradients
 // into its own f32 slab, and reduce_partials_kernel sums the slabs in a
@@ -120,7 +123,7 @@ constexpr int NBWD = XS + N_WCT + N_WST + N_W2T + XS;
 // the packed buffer: NFWD + NBWD chunks, then ws's sdf column (W floats)
 constexpr int SDF_COL = (NFWD + NBWD) * CHUNK;
 constexpr int PACKED = SDF_COL + W;
-static_assert(THREADS == 8 * 32 && (D == 16 || D == 32 || D == 64)
+static_assert(THREADS == 8 * 32 && (D == 16 || D == 32 || D == 64 || D == 128)
                   && W % 64 == 0
                   && SD % 64 == 0 && SD <= W && W <= 512,
               "the warp tilings below");
@@ -131,8 +134,10 @@ constexpr int PART = 3 * NQ * RT;   // NQ partial color logits x 3 per row
 // K2-f32's h1 and h2 on the FP32 units (the note on the wide sizes)
 constexpr bool FFMA_H = WIDE || D > 32;
 // dx's 16 x 8 tiles a warp holds: RT / 16 x D / 8 tiles over the warps,
-// two a warp at in_dim 64 with 32-row tiles (dx_part2)
+// two a warp at in_dim 64 with 32-row tiles (dx_part2); at in_dim 128
+// DXN a warp (dx_partn)
 constexpr int DXT = (RT / 16) * (D / 8) > NWARP ? 2 : 1;
+constexpr int DXN = D > 64 ? (RT / 16) * (D / 8) / NWARP : 1;
 constexpr int K2F_SMEM = 4 * (2 * ACT + XT + 2 * RES + NQ * RT + PART)
                          + RING_SMEM;
 constexpr int K3F_SMEM = 4 * (4 * ACT + XT + 2 * RES + 4 * RT + PART)
@@ -480,6 +485,26 @@ __device__ __forceinline__ void dx_part2(float (&a0)[1][1][4],
   }
 }
 
+// dx_part at in_dim 128: warp w holds dx's 16 x 8 tiles t = w + NWARP j
+// (j < DXN), tile t at rows 16 (t % (RT / 16)), columns 8 (t / (RT / 16));
+// w's XS chunks from the ring (chunk c: dx's columns [CR c, CR c + CR))
+__device__ __forceinline__ void dx_partn(float (&a)[DXN][1][1][4],
+                                         const float* cot, Ring& r,
+                                         bool more) {
+  const int w = threadIdx.x >> 5;
+#pragma unroll 1
+  for (int c = 0; c < XS; ++c) {
+    const float* wt = acquire(r, more);
+#pragma unroll
+    for (int j = 0; j < DXN; ++j) {
+      const int t = w + NWARP * j, n0 = 8 * (t / (RT / 16));
+      if (n0 >= CR * c && n0 < CR * c + CR)
+        tf::mm_fm<1, 1, W, false>(a[j], cot, AP, wt, WP, 16 * (t % (RT / 16)),
+                                  n0 - CR * c);
+    }
+  }
+}
+
 // Column sums over the tile's rows of a feature-major tile of NC columns,
 // added into out[col]
 template <int NC>
@@ -768,7 +793,12 @@ decoder_backward_f32_kernel(const float* __restrict__ x,
     float dxa[1][1][4];
     tf::zero(dxa);
     float dxb[1][1][4];               // DXT == 2: the warp's second tile
-    if constexpr (DXT == 2) {
+    float dxn[DXN][1][1][4];          // D > 64: the warp's DXN tiles
+    if constexpr (D > 64) {
+#pragma unroll
+      for (int j = 0; j < DXN; ++j) tf::zero(dxn[j]);
+      dx_partn(dxn, B3, ring, more);
+    } else if constexpr (DXT == 2) {
       tf::zero(dxb);
       dx_part2(dxa, dxb, B3, ring, more);
     } else {
@@ -825,7 +855,18 @@ decoder_backward_f32_kernel(const float* __restrict__ x,
       wgrad_mm<D, W, W, true>(slab + OFF_W1, xs, B1, first);
       col_sum<W>(slab + OFF_B1, B1, first);
     }
-    if constexpr (DXT == 2) {
+    if constexpr (D > 64) {
+      dx_partn(dxn, B1, ring, more);
+      const int w = tid >> 5;
+#pragma unroll
+      for (int j = 0; j < DXN; ++j) {
+        const int t = w + NWARP * j;
+        tf::for_each_acc(dxn[j], 16 * (t % (RT / 16)), 8 * (t / (RT / 16)),
+                         [&](int r, int c, float& v) {
+                           if (r < nvalid) dx[(row0 + r) * D + c] = v;
+                         });
+      }
+    } else if constexpr (DXT == 2) {
       dx_part2(dxa, dxb, B1, ring, more);
       const int w = tid >> 5;
       tf::for_each_acc(dxa, 16 * (w & 1), 8 * (w >> 1),

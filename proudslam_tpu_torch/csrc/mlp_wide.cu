@@ -1,10 +1,10 @@
 // Fused decoder forward (kernel K2) and backward (kernel K3) at the decoder
-// widths above 256: the wide plan (decoder_wide.cuh).
+// widths above 256 and at in_dim 128: the wide plan (decoder_wide.cuh).
 //
 // K2 replaces the TPU kernel `_fwd_kernel` and K3 `_bwd_kernel` of
 // proudslam_tpu/ops/pallas/mlp_kernel.py (`_run_fwd`, `_run_bwd`,
 // bf16=True), which take any decoder size; mlp_stream.cu is the same pair up
-// to width 256. The functions and rounding points are mlp_stream.cu's: K2
+// to width 256 and in_dim 64. The functions and rounding points are mlp_stream.cu's: K2
 // maps x (N, D) f32 to out (N, 4) [sigmoid(rgb), sdf]; K3 recomputes the
 // forward per tile and returns dx (N, D) and, unless dx-only, the 11
 // parameter gradients summed over all rows, every product operand
@@ -29,6 +29,13 @@
 //     h1 in A; dx += dh1 w1^T, dw1. The ReLU masks are the parked tiles'
 //     own values, so every product and mask is mlp_stream.cu's. 195,632
 //     bytes of shared memory at (32, 512, 512).
+// At in_dim 128 K2's staging buffer for the next tile's inputs (32 KB)
+// would take its block to 233,520 bytes at (128, 512, 512), so there each
+// tile's inputs are read straight from global memory at its start, as K3
+// reads them; w1 and wc_x come in chunks of 64 rows (decoder_wide.cuh),
+// dx's columns two blocks of 64 (dx_passes2), and the x-side weight
+// gradients in pieces of 32 of x's columns (decoder_rows.cuh). K3 there
+// takes 207,920 bytes.
 // A ragged last tile is masked: its missing rows carry zero inputs and zero
 // cotangents (they add nothing to any gradient) and write no output.
 
@@ -50,9 +57,11 @@ namespace {
 
 // ---- K2 ----
 
+// no staging buffer at in_dim 128 (the note above)
+constexpr bool STAGE = D <= 64;
 constexpr int K2_SMEM = wd::VEC_SMEM + wd::RING_SMEM
                         + 2 * pad16(tc::TR * W * 2) + pad16(tc::TR * D * 2)
-                        + pad16(tc::TR * D * 4) + wd::PART_SMEM;
+                        + (STAGE ? pad16(tc::TR * D * 4) : 0) + wd::PART_SMEM;
 static_assert(K2_SMEM <= 232448, "one block's shared memory");
 
 __global__ void __launch_bounds__(wd::THREADS, 1)
@@ -66,7 +75,7 @@ decoder_forward_kernel(const float* __restrict__ x, Params prm,
   bf16* hA = arena.take<bf16>(tc::TR * W);
   bf16* hB = arena.take<bf16>(tc::TR * W);
   bf16* xs = arena.take<bf16>(tc::TR * D);
-  float* stage = arena.take<float>(tc::TR * D);
+  float* stage = STAGE ? arena.take<float>(tc::TR * D) : nullptr;
   float* part = arena.take<float>(2 * tc::TR * 4);
   wd::load_vecs(w, prm);                    // ends with a barrier
 
@@ -75,26 +84,41 @@ decoder_forward_kernel(const float* __restrict__ x, Params prm,
   long long tile = blockIdx.x;
   if (tile < ntiles) {
     wd::ring_start(ring);
-    stage_x(x, N, tile, stage);
+    if constexpr (STAGE) stage_x(x, N, tile, stage);
   }
   for (; tile < ntiles; tile += gridDim.x) {
     const bool more = tile + gridDim.x < ntiles;
-    tc::cp_async_wait_all();
-    // every thread's copy has landed; the barrier also keeps x's tile until
-    // the previous tile's products have finished
-    __syncthreads();
+    if constexpr (STAGE) {
+      tc::cp_async_wait_all();
+      // every thread's copy has landed; the barrier also keeps x's tile
+      // until the previous tile's products have finished
+      __syncthreads();
 #pragma unroll
-    for (int k = 0; k < D / 16; ++k) {
-      const int c = 16 * k + 4 * q;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (tile * tc::TR + row < N)
-        v = *reinterpret_cast<const float4*>(stage + row * D + c);
-      *reinterpret_cast<uint2*>(xs + tc::tofs(row, c, D)) =
-          make_uint2(tc::pack_bf16x2(v.x, v.y), tc::pack_bf16x2(v.z, v.w));
+      for (int k = 0; k < D / 16; ++k) {
+        const int c = 16 * k + 4 * q;
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (tile * tc::TR + row < N)
+          v = *reinterpret_cast<const float4*>(stage + row * D + c);
+        *reinterpret_cast<uint2*>(xs + tc::tofs(row, c, D)) =
+            make_uint2(tc::pack_bf16x2(v.x, v.y), tc::pack_bf16x2(v.z, v.w));
+      }
+    } else {
+      // x's last readers, the previous tile's products, are done at the
+      // barrier that ends its decode: thread (row, q) reads x[row, 16k +
+      // 4q : 16k + 4q + 4] (k < D / 16) from global memory
+      const long long n = tile * tc::TR + row;
+#pragma unroll
+      for (int k = 0; k < D / 16; ++k) {
+        const int c = 16 * k + 4 * q;
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (n < N) v = __ldg(reinterpret_cast<const float4*>(x + n * D + c));
+        *reinterpret_cast<uint2*>(xs + tc::tofs(row, c, D)) =
+            make_uint2(tc::pack_bf16x2(v.x, v.y), tc::pack_bf16x2(v.z, v.w));
+      }
     }
     tc::fence_proxy_async();
     __syncthreads();                  // x is in place; the stage is free
-    if (more) stage_x(x, N, tile + gridDim.x, stage);
+    if (STAGE && more) stage_x(x, N, tile + gridDim.x, stage);
     wd::decode(w, xs, hA, hB, part, ring, more, out, N, tile);
   }
 }
@@ -166,6 +190,7 @@ decoder_backward_kernel(const float* __restrict__ x,
   float acc[NP / 4];                  // a pass's columns of an activation
   float ac[CR / 4];                   // a row block's columns of a cotangent
   float dd[D / 4];                    // dx's columns of this warpgroup
+  float dd2[wd::XC][wd::XR / 4];      // the same at in_dim 128 (dx_passes2)
   if (tile0 < tile1) wd::ring_start(ring);
 
   for (long long tile = tile0; tile < tile1; ++tile) {
@@ -311,8 +336,12 @@ decoder_backward_kernel(const float* __restrict__ x,
       }
     }
     // dx = dhc wc_x^T (+ dh1 w1^T below): warpgroup wg takes columns
-    // [D / 2 wg, D / 2 (wg + 1)); the first chunk's barrier also frees cs
-    wd::dx_passes(dd, tb, ring, more, false);
+    // [D / 2 wg, D / 2 (wg + 1)) (at in_dim 128 [64 c + 32 wg, 64 c + 32
+    // (wg + 1)) for c < 2); the first chunk's barrier also frees cs
+    if constexpr (wd::XC > 1)
+      wd::dx_passes2(dd2, tb, ring, more, false);
+    else
+      wd::dx_passes(dd, tb, ring, more, false);
 
     // dso[:, :SD] = dfeat = dhc wc_f^T, over feat (its readers are done at
     // the first chunk's barrier)
@@ -382,8 +411,24 @@ decoder_backward_kernel(const float* __restrict__ x,
     if (want_wgrad) fold_all(cs, slab + OFF_B1, W, first);
 
     // dx += dh1 w1^T
-    wd::dx_passes(dd, ta, ring, more, true);
-    {
+    if constexpr (wd::XC > 1) {
+      wd::dx_passes2(dd2, ta, ring, more, true);
+#pragma unroll
+      for (int c = 0; c < wd::XC; ++c)
+#pragma unroll
+        for (int i = 0; i < wd::XR / 16; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int rr = ln.r0 + 8 * h;
+            if (rr < nvalid)
+              *reinterpret_cast<float2*>(
+                  dx + (row0 + rr) * D + wd::XR * c + wd::XR / 2 * wg
+                  + 8 * i + ln.c2) =
+                  make_float2(dd2[c][4 * i + 2 * h],
+                              dd2[c][4 * i + 2 * h + 1]);
+          }
+    } else {
+      wd::dx_passes(dd, ta, ring, more, true);
       const int n0 = D / 2 * wg;
 #pragma unroll
       for (int i = 0; i < D / 16; ++i)

@@ -1,5 +1,5 @@
 // K1's gather and blend in passes (render_stream.cu, render_wide.cu at
-// in_dim 64).
+// in_dim 64 and 128).
 //
 // A sample's hit slot holds 8 corners of D floats: 2 KB at in_dim 64. The
 // streamed plan's gather buffer of whole rows (TR x (8 D 4 + 16) bytes:
@@ -12,6 +12,9 @@
 // the first pass's copies are issued before the previous tile's decoder
 // and land during it, as in the whole-row gather; each later pass issues
 // its copies after the pass before has been blended, and waits for them.
+// (In the wide plan at in_dim 128 no buffer fits beside the tiles, so the
+// buffer is the two activation tiles, free between decoders, and the first
+// pass waits too: render_wide.cu.)
 // Thread (row = t % 64, quarter = t / 64) copies and blends dims
 // [G p + 16k + 4q, G p + 16k + 4q + 4) (k < G / 16) of its sample in pass
 // p, reading only what it copied itself, so a pass needs no block barrier;
@@ -33,12 +36,17 @@ __host__ __device__ constexpr int buffer_bytes(int g) {
   return tc::TR * (8 * g * 4 + 16);
 }
 
-// The dims a corner a pass holds beside `other` bytes of shared memory:
-// D, D / 2 or D / 4, the most that fits a block.
+// The dims a corner a gather buffer of at most `bytes` bytes holds: D,
+// D / 2 or D / 4, the most that fits.
+__host__ __device__ constexpr int dims_within(int bytes) {
+  return buffer_bytes(D) <= bytes       ? D
+         : buffer_bytes(D / 2) <= bytes ? D / 2
+                                        : D / 4;
+}
+
+// The same for a buffer beside `other` bytes of shared memory in a block.
 __host__ __device__ constexpr int gather_dims(int other) {
-  return other + buffer_bytes(D) <= 232448       ? D
-         : other + buffer_bytes(D / 2) <= 232448 ? D / 2
-                                                 : D / 4;
+  return dims_within(232448 - other);
 }
 
 struct Inputs {

@@ -29,7 +29,7 @@
 // 64 a whole row's buffer (132,096 bytes) fits up to width 128; at width
 // 192 the buffer holds half of each corner and the blend runs in two
 // passes, at 256 a quarter in four (render_gather.cuh): 217,136 bytes at
-// (64, 256, 256).
+// (64, 256, 256). In_dim 128 runs the wide plan (render_wide.cu).
 
 #include "decoder_stream.cuh"
 #include "render_gather.cuh"
@@ -53,6 +53,7 @@ constexpr int G = kg::gather_dims(OTHER);    // a corner's dims in the buffer
 constexpr int SMEM = OTHER + kg::buffer_bytes(G);
 #endif
 static_assert(SMEM <= 232448, "one block's shared memory");
+static_assert(D <= 64, "in_dim 128 runs the wide plan (render_wide.cu)");
 
 #if DEC_D <= 32
 

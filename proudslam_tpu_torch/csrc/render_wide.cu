@@ -1,14 +1,14 @@
 // Fused per-sample feature blend + decoder forward (kernel K1) at the decoder
-// widths above 256: the wide plan (decoder_wide.cuh).
+// widths above 256 and at in_dim 128: the wide plan (decoder_wide.cuh).
 //
 // Replaces the TPU kernel `_kernel` of
 // proudslam_tpu/ops/pallas/render_kernel.py (`fused_render_forward`), which
 // takes any decoder size; render_stream.cu is the same function up to width
-// 256. The function is render_stream.cu's: per sample (r, s) pick its hit
+// 256 and in_dim 64. The function is render_stream.cu's: per sample (r, s) pick its hit
 // slot h = bins[r, s] (h == H: invalid, zero features), form p = (o +
 // d*z)/voxel - corner with the corner unpacked from the slot's packed voxel
-// key, blend the slot's 8 corner embeddings trilinearly into D = 16 or 32
-// features in the plain version's exact f32 order, then run the decoder
+// key, blend the slot's 8 corner embeddings trilinearly into D features
+// (16 to 128) in the plain version's exact f32 order, then run the decoder
 // with bf16 operands and f32 sums. Outputs: out (R*S, 4) [r, g, b, sdf] and
 // feats (R*S, D).
 //
@@ -26,7 +26,14 @@
 // memory at (32, 512, 512). At in_dim 64 that would be 32 float4 a thread,
 // so there the corners go through a gather buffer of part of each corner,
 // the blend in passes (render_gather.cuh): a quarter at width 512 (226,352
-// bytes at (64, 512, 512)), half at 384.
+// bytes at (64, 512, 512)), half at 384. At in_dim 128 (decoder_wide.cuh
+// streams w1 and wc_x in chunks of 64 rows there) the buffer holds half of
+// each corner at width 128 (220,720 bytes at (128, 128, 128)) and a
+// quarter at 256 (192,560 bytes at (128, 256, 256)); at 512 no buffer of
+// 16 dims a corner (33,792 bytes) fits beside the 200,752 bytes of the
+// rest, so there the buffer is the block's two activation tiles, which are
+// free between one tile's decoder and the next: a quarter of each corner,
+// four passes a tile, the first one's gather exposed too.
 
 #include "decoder_wide.cuh"
 #include "render_gather.cuh"
@@ -43,8 +50,13 @@ constexpr int OTHER = wd::VEC_SMEM + wd::RING_SMEM
 #if DEC_D <= 32
 constexpr int SMEM = OTHER;
 #else
-constexpr int G = kg::gather_dims(OTHER);    // a corner's dims in the buffer
-constexpr int SMEM = OTHER + kg::buffer_bytes(G);
+// at in_dim 128 and width 512 no buffer of 16 dims a corner fits beside
+// the rest: the buffer is then the activation tiles hA and hB
+constexpr bool IN_TILES = OTHER + kg::buffer_bytes(D / 4) > 232448;
+constexpr int G = IN_TILES ? kg::dims_within(2 * tc::TR * W * 2)
+                           : kg::gather_dims(OTHER);   // a corner's dims
+constexpr int SMEM = OTHER + (IN_TILES ? 0 : kg::buffer_bytes(G));
+static_assert(G % 16 == 0, "a pass holds whole 16-dim pieces");
 #endif
 static_assert(SMEM <= 232448, "one block's shared memory");
 
@@ -170,7 +182,7 @@ render_forward_kernel(Inputs in, dec::Params prm, const bf16* wpack) {
   }
 }
 
-#else   // in_dim 64: the gather in passes
+#else   // in_dim 64 and 128: the gather in passes
 
 using kg::Inputs;
 
@@ -184,7 +196,9 @@ render_forward_kernel(Inputs in, dec::Params prm, const bf16* wpack) {
   bf16* hB = arena.take<bf16>(tc::TR * W);
   bf16* xs = arena.take<bf16>(tc::TR * D);
   float* part = arena.take<float>(2 * tc::TR * 4);
-  char* gbuf = arena.take<char>(kg::buffer_bytes(G));
+  // (hA and hB lie back to back: the buffer at in_dim 128)
+  char* gbuf = IN_TILES ? reinterpret_cast<char*>(hA)
+                        : arena.take<char>(kg::buffer_bytes(G));
   wd::load_vecs(w, prm);                    // ends with a barrier
 
   const int row = threadIdx.x % tc::TR, q = threadIdx.x / tc::TR;
@@ -193,15 +207,23 @@ render_forward_kernel(Inputs in, dec::Params prm, const bf16* wpack) {
   kg::Sample s;
   if (tile < ntiles) {
     wd::ring_start(ring);
-    kg::locate(in, tile, row, q, s);
-    kg::issue<G>(s, row, q, 0, gbuf);
+    if constexpr (!IN_TILES) {
+      kg::locate(in, tile, row, q, s);
+      kg::issue<G>(s, row, q, 0, gbuf);
+    }
   }
   for (; tile < ntiles; tile += gridDim.x) {
     const bool more = tile + gridDim.x < ntiles;
+    if constexpr (IN_TILES) {
+      // the tiles' last readers, the previous tile's products, are done at
+      // the barrier that ends its decode
+      kg::locate(in, tile, row, q, s);
+      kg::issue<G>(s, row, q, 0, gbuf);
+    }
     // x's last readers, the previous tile's products, are done at the
     // barrier that ends its decode
     kg::blend_tile<G>(in, tile, row, q, gbuf, s, xs);
-    if (more) {
+    if (!IN_TILES && more) {
       kg::locate(in, tile + gridDim.x, row, q, s);
       kg::issue<G>(s, row, q, 0, gbuf);
     }

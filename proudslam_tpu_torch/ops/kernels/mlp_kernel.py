@@ -13,8 +13,9 @@ CPU tensors; any other device raises. Both operand types of the Pallas
 kernels' ``_make_dot`` have a kernel: ``bf16=True`` launches
 ``csrc/mlp_kernel.cu`` at the decoder size (16, 128, 128),
 ``csrc/mlp_stream.cu`` at the other sizes of :data:`BUILT_SIZES` up to width
-256 and ``csrc/mlp_wide.cu`` at widths 384 and 512 (bf16 operands on the
-tensor cores), ``bf16=False``
+256 and in_dim 64 and ``csrc/mlp_wide.cu`` at widths 384 and 512 and at
+in_dim 128 (:func:`wide_plan`; bf16 operands on the tensor cores),
+``bf16=False``
 ``csrc/mlp_kernel_f32.cu`` at (16, 128, 128) and ``csrc/mlp_stream_f32.cu``
 at the other sizes of :data:`BUILT_SIZES` (f32 operands: the products on the
 tensor cores as three TF32 products with f32 sums, "3xTF32", within f32
@@ -22,7 +23,7 @@ tolerance of the true f32 product, except K3-f32's forward recompute,
 true f32 FMAs for its ReLU masks, and at widths 384 and 512 K2-f32's h1
 and h2 products, true f32 FMAs for its sdf column; the plain versions
 compute true f32).
-Any other size with in_dim <= 64 and width, sdf_dim <= 512 runs the
+Any other size with in_dim <= 128 and width, sdf_dim <= 512 runs the
 kernels at :func:`built_size` on zero-padded inputs and params
 (:func:`pad_params`), and the outputs and gradients are sliced back
 (:func:`unpad_params`): exact, every padded hidden unit being 0. A larger
@@ -69,14 +70,21 @@ WIDE_F32_ROWS = 16
 # sizes stream all five (render_wide.cu, mlp_wide.cu; mlp_stream_f32.cu at
 # WIDE_F32_ROWS-row tiles). At in_dim 64 the streamed K3 streams w1 and
 # wc_x too, and K1 blends a sample's corners in passes where its whole row
-# does not fit the gather buffer (render_gather.cuh).
-BUILT_IN_DIMS = (16, 32, 64)
+# does not fit the gather buffer (render_gather.cuh). In_dim 128 is built
+# at five sizes only (D128_SIZES), to which every in_dim from 65 up is
+# padded; the bf16 forms run the wide plan there at every width
+# (:func:`wide_plan`), which takes w1 and wc_x in chunks of 64 input rows.
+BUILT_IN_DIMS = (16, 32, 64, 128)
 WIDE_WIDTHS = (384, 512)
-BUILT_SIZES = (tuple((d, w, sd) for d in BUILT_IN_DIMS
+D128_SIZES = ((128, 128, 128), (128, 256, 128), (128, 256, 256),
+              (128, 512, 256), (128, 512, 512))
+BUILT_SIZES = (tuple((d, w, sd) for d in BUILT_IN_DIMS[:3]
                      for w in (64, 128, 192, 256)
                      for sd in (64, 128, 192, 256) if sd <= w)
-               + tuple((d, w, sd) for d in BUILT_IN_DIMS for w in WIDE_WIDTHS
-                       for sd in (128, 256, 384, 512) if sd <= w))
+               + tuple((d, w, sd) for d in BUILT_IN_DIMS[:3]
+                       for w in WIDE_WIDTHS
+                       for sd in (128, 256, 384, 512) if sd <= w)
+               + D128_SIZES)
 # the CUDA kernel forms, as check_size names them
 FORMS = ("K1", "K2", "K3", "K2-f32", "K3-f32")
 # the largest in_dim and width (or sdf_dim) a built size covers: every
@@ -199,31 +207,47 @@ def params_size(fp: FusedParams) -> Tuple[int, int, int]:
     return size
 
 
-def built_size(size: Tuple[int, int, int]) -> Tuple[int, int, int]:
-    """The smallest built size that covers a decoder ``size`` (in_dim <= 64,
-    1 <= width, sdf_dim <= 512), whose kernels run it on zero-padded
-    params: (D', W', SD') with D' the smallest of 16, 32 and 64 that is at
-    least in_dim, SD' =
-    sdf_dim rounded up to a multiple of 64 and W' the larger of width so
-    rounded and SD'; a W' above 256 is then rounded up to 384 or 512 and SD'
-    to a multiple of 128."""
+def forward_flops(size: Tuple[int, int, int]) -> int:
+    """Multiply-adds x 2 of one row's decoder forward at ``size``."""
     d, w, sd = size
-    d_b = next(b for b in BUILT_IN_DIMS if d <= b)
-    sd_b = -(-sd // 64) * 64
-    w_b = max(-(-w // 64) * 64, sd_b)
-    if w_b > 256:
-        w_b, sd_b = -(-w_b // 128) * 128, -(-sd_b // 128) * 128
-    return (d_b, w_b, sd_b)
+    return 2 * (d * w + w * w + w * (sd + 1) + (sd + d) * w + 3 * w)
+
+
+def built_size(size: Tuple[int, int, int]) -> Tuple[int, int, int]:
+    """The built size whose kernels run a decoder ``size`` (in_dim <= 128,
+    1 <= width, sdf_dim <= 512) on zero-padded params: of the sizes of
+    :data:`BUILT_SIZES` at least as large on each axis, the one with the
+    fewest forward flops a row. Up to in_dim 64 that is the smallest on
+    every axis (in_dim the smallest of 16, 32 and 64 that covers it, sdf_dim
+    rounded up to a multiple of 64, width so rounded and at least that; a
+    width above 256 rounded up to 384 or 512 and sdf_dim to a multiple of
+    128); above, one of the five :data:`D128_SIZES`."""
+    return _covering(*size)
+
+
+@functools.lru_cache(maxsize=256)
+def _covering(d: int, w: int, sd: int) -> Tuple[int, int, int]:
+    return min((b for b in BUILT_SIZES
+                if b[0] >= d and b[1] >= w and b[2] >= sd),
+               key=forward_flops)
 
 
 def wide(size: Tuple[int, int, int]) -> bool:
-    """True at the built sizes of width 384 and 512 (the wide plan)."""
+    """True at the built sizes of width 384 and 512 (the bf16 forms' wide
+    plan, the f32 forms' 16-row tiles)."""
     return size[1] > 256
+
+
+def wide_plan(size: Tuple[int, int, int]) -> bool:
+    """True where the bf16 forms run the wide plan (decoder_wide.cuh): at
+    the :func:`wide` sizes and at in_dim 128, where the streamed plan's K1
+    and K2 would spill at width 256."""
+    return wide(size) or size[0] > BUILT_IN_DIMS[2]
 
 
 def check_size(size: Tuple[int, int, int], form: str) -> None:
     """Raises ``ValueError`` unless a built size covers the decoder ``size``
-    (:func:`built_size`): in_dim <= 64 and width, sdf_dim <= 512, each at
+    (:func:`built_size`): in_dim <= 128 and width, sdf_dim <= 512, each at
     least 1. Every form is built at :data:`BUILT_SIZES`; ``form`` (one of
     :data:`FORMS`) is named in the error."""
     if form not in FORMS:
@@ -319,21 +343,21 @@ def f32_tile_rows(size: Tuple[int, int, int]) -> int:
 
 def bf16_source(base: str, size: Tuple[int, int, int]) -> str:
     """The source of a bf16 kernel (``base`` "render" or "mlp") at a
-    streamed size: ``<base>_stream`` up to width 256, ``<base>_wide``
-    above."""
-    return f"{base}_wide" if wide(size) else f"{base}_stream"
+    streamed size: ``<base>_wide`` where :func:`wide_plan`, else
+    ``<base>_stream``."""
+    return f"{base}_wide" if wide_plan(size) else f"{base}_stream"
 
 
 def packed_weights(size: Tuple[int, int, int], device) -> torch.Tensor:
     """Scratch for the streamed kernels' bf16 copy of w2, ws and wc_f; at
-    in_dim 64 (for K3) and at the wide sizes of all five weights, and at
-    the wide sizes then K3's park of two (64, width) bf16 tiles for each of
-    the device's SMs (one block per SM at most)."""
+    in_dim 64 (for K3) and in the wide plan (:func:`wide_plan`) of all five
+    weights, and in the wide plan then K3's park of two (64, width) bf16
+    tiles for each of the device's SMs (one block per SM at most)."""
     d, w, sd = size
     n = w * w + 2 * w * sd
-    if d > BUILT_IN_DIMS[1] or wide(size):
+    if d > BUILT_IN_DIMS[1] or wide_plan(size):
         n += 2 * d * w
-    if wide(size):
+    if wide_plan(size):
         sms = torch.cuda.get_device_properties(device).multi_processor_count
         n += sms * 2 * TILE_ROWS * w
     return torch.empty((n,), dtype=torch.bfloat16, device=device)
@@ -342,7 +366,7 @@ def packed_weights(size: Tuple[int, int, int], device) -> torch.Tensor:
 def packed_f32_weights(size: Tuple[int, int, int], device) -> torch.Tensor:
     """Scratch for mlp_stream_f32.cu's packed chunks: w2, ws's feature part
     and wc_f, then their transposes, 16 rows a chunk (8 at the wide sizes)
-    at row stride W + 4, and ws's sdf column; at in_dim 32 and 64 and at
+    at row stride W + 4, and ws's sdf column; at in_dim 32 to 128 and at
     the wide sizes also w1 and wc_x, twice each (the forward's x-side
     products and dx)."""
     d, w, sd = size

@@ -14,9 +14,9 @@ size (16, 128, 128)) or ``csrc/render_stream.cu`` (the other sizes of
 ``mlp_kernel.BUILT_SIZES`` up to width 256) or ``csrc/render_wide.cu``
 (widths 384 and 512) for CUDA tensors and runs
 :func:`fused_render_forward_plain` for CPU tensors. Any other decoder size
-with in_dim <= 64 and width, sdf_dim <= 512 runs the kernel at
+with in_dim <= 128 and width, sdf_dim <= 512 runs the kernel at
 ``mlp_kernel.built_size`` on zero-padded corner features (each corner's
-in_dim values padded to the built in_dim, 16, 32 or 64) and params, and
+in_dim values padded to the built in_dim, 16, 32, 64 or 128) and params, and
 ``feats`` is sliced back to in_dim columns.
 :class:`FusedFeatsDecode` is the backward of ``_ffd_bwd``: kernel K3 for
 the decoder, then plain tensor code for the sample -> hit slot -> corner

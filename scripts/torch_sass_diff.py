@@ -5,15 +5,17 @@
 
 For each tree, one process imports that tree's ``proudslam_tpu_torch`` and
 builds (one ``nvcc`` each, all started together) its kernel libraries at
-the 34 decoder sizes of in_dim 16 and 32: ``render_kernel``,
+every decoder size of its ``mlp_kernel.BUILT_SIZES``: ``render_kernel``,
 ``mlp_kernel`` and ``mlp_kernel_f32`` at (16, 128, 128), their streamed
-sources at the other nineteen up to width 256 and their wide sources
-(``render_wide``, ``mlp_wide``, ``mlp_stream_f32``) at the fourteen of
-width 384 and 512. Then, per library and kernel function, the SASS of ``cuobjdump
--sass`` and the ptxas registers are compared: equal SASS is the same
-machine code, whatever the source text. Needs ``nvcc`` and ``cuobjdump``
-(the machine with the card). Prints one JSON line per library and, last,
-a summary.
+sources (``render_stream``, ``mlp_stream``, ``mlp_stream_f32``) at the
+other sizes up to width 256 and their wide sources (``render_wide``,
+``mlp_wide``, ``mlp_stream_f32``) at width 384 and 512 and at in_dim 128
+(the tree's ``mlp_kernel.wide_plan``). Then, per library
+both trees build and kernel function, the SASS of ``cuobjdump -sass`` is
+compared: equal SASS is the same machine code, whatever the source text.
+The libraries only one tree builds (a size the other does not take) are
+counted. Needs ``nvcc`` and ``cuobjdump`` (the machine with the card).
+Prints one JSON line per library and, last, a summary.
 """
 
 from __future__ import annotations
@@ -25,10 +27,6 @@ import shutil
 import subprocess
 import sys
 
-SIZES = ([(d, w, sd) for d in (16, 32) for w in (64, 128, 192, 256)
-          for sd in (64, 128, 192, 256) if sd <= w]
-         + [(d, w, sd) for d in (16, 32) for w in (384, 512)
-            for sd in (128, 256, 384, 512) if sd <= w])
 SOURCES = {"render_kernel": "render_stream", "mlp_kernel": "mlp_stream",
            "mlp_kernel_f32": "mlp_stream_f32"}
 WIDE_SOURCES = {"render_kernel": "render_wide", "mlp_kernel": "mlp_wide",
@@ -41,10 +39,13 @@ def build_tree(tree: str) -> None:
 
     sys.path.insert(0, os.path.abspath(tree))
     from proudslam_tpu_torch.ops.kernels import build
+    from proudslam_tpu_torch.ops.kernels import mlp_kernel as mk
 
+    # the wide plan's sizes (a tree from before in_dim 128: width > 256)
+    wide = getattr(mk, "wide_plan", mk.wide)
     jobs = [(name if size == build.DEFAULT_SIZE else
-             (WIDE_SOURCES if size[1] > 256 else SOURCES)[name], size)
-            for size in SIZES for name in SOURCES]
+             (WIDE_SOURCES if wide(size) else SOURCES)[name], size)
+            for size in mk.BUILT_SIZES for name in SOURCES]
     with ThreadPoolExecutor(len(jobs)) as pool:
         paths = list(pool.map(lambda job: build.build(*job), jobs))
     print(json.dumps({f"{name}@{'x'.join(map(str, size))}": str(path)
@@ -78,6 +79,8 @@ def main(old: str, new: str) -> None:
         libs.append(json.loads(out.strip().splitlines()[-1]))
     same_all = True
     for key in libs[0]:
+        if key not in libs[1]:
+            continue
         a, b = sass(libs[0][key]), sass(libs[1][key])
         res = {}
         for fn in sorted(set(a) | set(b)):
@@ -89,7 +92,10 @@ def main(old: str, new: str) -> None:
         same = all(v == "equal" for v in res.values())
         same_all &= same
         print(json.dumps({"library": key, "same_sass": same, **res}))
-    print(json.dumps({"all_same_sass": same_all, "libraries": len(libs[0])}))
+    both = [k for k in libs[0] if k in libs[1]]
+    print(json.dumps({"all_same_sass": same_all, "libraries": len(both),
+                      "only_old": [k for k in libs[0] if k not in libs[1]],
+                      "only_new": [k for k in libs[1] if k not in libs[0]]}))
 
 
 if __name__ == "__main__":

@@ -1,20 +1,19 @@
 #!/usr/bin/env python3
-"""The five decoder kernel forms at the 34 decoder sizes of in_dim 16 and 32,
-for several checkouts in turns: outputs bit for bit and times.
+"""The five decoder kernel forms at every built decoder size, for several
+checkouts in turns: outputs bit for bit and times.
 
     python3 scripts/torch_size_turns.py OLD_TREE . . OLD_TREE
 
 Each argument is the root of a checkout of the repo (default: this one).
 For each, in the order given, one process imports that tree's
-``proudslam_tpu_torch``, builds its kernels and, at each size (in_dim 16
-and 32, width and sdf_dim multiples of 64 up to 256, sdf_dim <= width,
-and the wide sizes, width 384 or 512 with sdf_dim a multiple of 128; (16,
-128, 128) is the resident plan, the others the streamed or wide one), runs K1
+``proudslam_tpu_torch``, builds its kernels and, at each size of that
+tree's ``mlp_kernel.BUILT_SIZES`` ((16, 128, 128) is the resident plan,
+the others the streamed or wide one), runs K1
 (``fused_render_forward``), K2 (``decoder_fwd``), K3 (``decoder_bwd``,
 full and dx-only), K2-f32 and K3-f32 (``bf16=False``, full and dx-only).
 K1's inputs are ``chip_smoke.py``'s (``kernel_inputs``: frame 0 of the
 scan in a bench-capacity map, rays intersected and sampled, embeddings
-from a seed; corners of 32 values at in_dim 32), the bf16 forms run on
+from a seed; corners of in_dim values), the bf16 forms run on
 K1's features, the f32 forms on the pcd branch's (PointNet, of output
 width in_dim) features, each size's decoder is ``init_decoder``'s
 from a seed and the cotangents 1e-2 N(0, 1) from a seed: the same inputs
@@ -24,9 +23,10 @@ the 11 gradients) and the time of one call (``chip_smoke.py``'s
 ``_event_ms``: CUDA events around 10 back-to-back calls, median of 5; at
 the wide sizes 5 calls, median of 3, ``REDUCED_REPS``) at the mapping (5 x
 1024 rays) and tracking shapes. After the turns, each
-turn's digests are compared with the first turn's, and the times of each
-tree are summed over its turns; with two trees, the second's over the
-first's per size and form, and per form summed over the sizes. Needs one
+turn's digests are compared with the first turn's at the sizes both
+built, and the times of each tree are summed over its turns; with two
+trees, the second's over the first's per size and form, and per form
+summed over the sizes both built. Needs one
 card. Prints one JSON line per turn, the comparison and, last, the card's
 name and power limit.
 """
@@ -41,10 +41,6 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SIZES = ([(d, w, sd) for d in (16, 32) for w in (64, 128, 192, 256)
-          for sd in (64, 128, 192, 256) if sd <= w]
-         + [(d, w, sd) for d in (16, 32) for w in (384, 512)
-            for sd in (128, 256, 384, 512) if sd <= w])
 
 
 def _chip_smoke():
@@ -82,14 +78,18 @@ def turn(tree: str) -> dict:
     from concurrent.futures import ThreadPoolExecutor
 
     from proudslam_tpu_torch.ops.kernels import build
+    sizes = mk.BUILT_SIZES
+    # the tree's own choice of plan (one from before in_dim 128: by width)
+    wide = getattr(mk, "wide_plan", mk.wide)
     jobs = [(name if size == build.DEFAULT_SIZE else
-             cs.stream_library(name, size), size)
-            for size in SIZES for name in cs.LIBRARIES]
+             (cs.WIDE_LIBRARIES if wide(size) else cs.STREAM_LIBRARIES)[name],
+             size)
+            for size in sizes for name in cs.LIBRARIES]
     with ThreadPoolExecutor(len(jobs)) as pool:
         for f in [pool.submit(build.build, *job) for job in jobs]:
             f.result()
     device = torch.device("cuda", 0)
-    inp = cs.kernel_inputs(device, dims=(16, 32))
+    inp = cs.kernel_inputs(device, dims=sorted({s[0] for s in sizes}))
     S = inp["bins"].shape[1]
     xp_by_dim = {}
     for d, pcd_args in inp["pcd_args_by_dim"].items():
@@ -103,7 +103,7 @@ def turn(tree: str) -> dict:
     res = {"tree": tree,
            "package": os.path.dirname(proudslam_tpu_torch.__file__),
            "sizes": {}}
-    for size in SIZES:
+    for size in sizes:
         fp = cs._decoder_at(device, size, 4)
         args = (inp["rb_by_dim"][size[0]], inp["keys_rb"], inp["bins"],
                 inp["z"], inp["rays_o"], inp["rays_d"])
@@ -152,7 +152,7 @@ def main() -> None:
         turns.append(json.loads(line))
     first = turns[0]["sizes"]
     differ = [(t["tree"], tag, form) for t in turns
-              for tag, st in t["sizes"].items()
+              for tag, st in t["sizes"].items() if tag in first
               for form, dg in st["digest"].items()
               if dg != first[tag]["digest"][form]]
     totals = {}
@@ -167,11 +167,12 @@ def main() -> None:
     trees = list(totals)
     if len(trees) == 2:
         a, b = trees
+        both = [tag for tag in totals[a] if tag in totals[b]]
         ratio = {tag: {key: totals[b][tag][key] / totals[a][tag][key]
-                       for key in totals[a][tag]} for tag in totals[a]}
-        keys = next(iter(totals[a].values()))
-        summed = {key: sum(totals[b][tag][key] for tag in totals[b])
-                  / sum(totals[a][tag][key] for tag in totals[a])
+                       for key in totals[a][tag]} for tag in both}
+        keys = totals[a][both[0]]
+        summed = {key: sum(totals[b][tag][key] for tag in both)
+                  / sum(totals[a][tag][key] for tag in both)
                   for key in keys}
     print(json.dumps({"bit_for_bit": not differ, "differ": differ,
                       "time_ratio_second_tree_over_first": ratio,

@@ -177,6 +177,11 @@ def test_at_size_and_blend_flops():
     assert (s.decoder.in_dim, s.map.embed_dim) == (64, 64)
     assert cs.k1_blend_flops(64) == 2 * 8 * 64 + 16
     assert mk.built_size(cs.D64_SIZE) == cs.D64_SIZE
+    s = cs.at_size(base, cs.D128_SIZE)
+    assert (s.decoder.in_dim, s.decoder.width, s.decoder.sdf_dim,
+            s.map.embed_dim) == (128, 256, 128, 128)
+    assert cs.k1_blend_flops(128) == 2 * 8 * 128 + 16
+    assert mk.built_size(cs.D128_SIZE) == cs.D128_SIZE
 
 
 def test_size_table(monkeypatch):
@@ -207,27 +212,30 @@ def test_size_table(monkeypatch):
 
 
 def test_wide_sizes_and_sources():
-    """The wide sizes: built with render_wide.cu and mlp_wide.cu (the f32
-    forms' streamed source at every streamed size); the size phases run in
-    full at the five slice sizes, reduced at the others; the three wide
-    padded sizes and the three in_dim-64 ones pad as stated."""
+    """The wide sizes and the in_dim-128 ones: built with render_wide.cu and
+    mlp_wide.cu (the f32 forms' streamed source at every streamed size);
+    the size phases run in
+    full at four slice sizes (the in_dim-16 and -128 width-256 ones and
+    the wide ones), reduced at the others; the three wide padded sizes,
+    the three in_dim-64 ones and the four in_dim-128 ones pad as
+    stated."""
     wide = [s for s in mk.BUILT_SIZES if mk.wide(s)]
-    assert len(wide) == 21 and cs.W512_SIZE in wide
+    assert len(wide) == 23 and cs.W512_SIZE in wide
     assert cs.PCD_W512_SIZE in wide
-    assert cs.FULL_SIZES == {cs.W256_SIZE, cs.D32_SIZE, cs.D64_SIZE,
-                             cs.W512_SIZE, cs.PCD_W512_SIZE}
+    assert cs.FULL_SIZES == {cs.W256_SIZE, cs.D128_SIZE, cs.W512_SIZE,
+                             cs.PCD_W512_SIZE}
     assert [s for s in mk.BUILT_SIZES if cs.full_size(s)] == [
-        cs.W256_SIZE, cs.D32_SIZE, cs.D64_SIZE, cs.PCD_W512_SIZE,
-        cs.W512_SIZE]
+        cs.W256_SIZE, cs.PCD_W512_SIZE, cs.W512_SIZE, cs.D128_SIZE]
     for size in ((16, 256, 128), (32, 64, 64), (64, 256, 128)):
         assert [cs.stream_library(lib, size) for lib in cs.LIBRARIES] == [
             "render_stream", "mlp_stream", "mlp_stream_f32"]
-    for size in wide:
+    for size in wide + list(mk.D128_SIZES):
         assert [cs.stream_library(lib, size) for lib in cs.LIBRARIES] == [
             "render_wide", "mlp_wide", "mlp_stream_f32"]
-    assert [mk.built_size(s) for s in cs.PAD_SIZES[-6:]] == [
+    assert [mk.built_size(s) for s in cs.PAD_SIZES[-10:]] == [
         (16, 384, 256), (32, 512, 512), (16, 384, 384), (64, 64, 64),
-        cs.D64_SIZE, (64, 384, 256)]
+        cs.D64_SIZE, (64, 384, 256), (128, 128, 128), cs.D128_SIZE,
+        (128, 512, 256), (128, 512, 512)]
 
 
 def _k1_inputs(d, rays=1100, hits=4, samples=40):

@@ -170,12 +170,12 @@ def test_check_config_refusals():
     Gaussian embedders) give the JAX package's settings. For the card (the
     CLI's default device), every fused path takes the decoder sizes its
     kernels are built for and, zero-padded to one of them, every in_dim
-    <= 64 and width, sdf_dim <= 512: the f32 pcd forms at the reference's
+    <= 128 and width, sdf_dim <= 512: the f32 pcd forms at the reference's
     (16, 256, 128) and at widths 64 and 100, a width that is no multiple of
-    64, in_dim 12, in_dim 32 and 24, in_dim 64, 33 and 48, the wide (16,
-    512, 512) and a padded wide size. A size no built size covers (in_dim
-    65 or 96, width or sdf_dim 513) is refused naming the form; the CPU
-    (the kernels' plain versions) takes any size."""
+    64, in_dim 12, in_dim 32 and 24, in_dim 64, 33 and 48, in_dim 128, 65
+    and 96, the wide (16, 512, 512) and a padded wide size. A size no built
+    size covers (in_dim 129 or 160, width or sdf_dim 513) is refused naming
+    the form; the CPU (the kernels' plain versions) takes any size."""
     cfg = lambda *kv: load_config(CONFIG, dict(kv))  # noqa: E731
     for kv in ((("tpu_specs.intersect_mode", "dda"),),
                (("tpu_specs.covis_angle_deg", 30.0),),
@@ -221,14 +221,19 @@ def test_check_config_refusals():
                         ("decoder_specs.width", 256)), (64, 256, 128)),
             (fused + (("decoder_specs.in_dim", 64),), (64, 128, 128)),
             (fused + (("decoder_specs.in_dim", 33),), (33, 128, 128)),
-            (pcd_f32 + (("decoder_specs.in_dim", 48),), (48, 128, 128))):
+            (pcd_f32 + (("decoder_specs.in_dim", 48),), (48, 128, 128)),
+            (pcd_f32 + (("decoder_specs.in_dim", 128),
+                        ("decoder_specs.width", 256)), (128, 256, 128)),
+            (fused + (("decoder_specs.in_dim", 128),), (128, 128, 128)),
+            (fused + (("decoder_specs.in_dim", 65),), (65, 128, 128)),
+            (pcd_f32 + (("decoder_specs.in_dim", 96),), (96, 128, 128))):
         s = run_slam.check_config(cfg(*kv))
         assert (s.decoder.in_dim, s.decoder.width, s.decoder.sdf_dim) == size
     for kv, form in (
             (pcd_f32 + (("decoder_specs.width", 513),), "K2-f32"),
-            (pcd_f32 + (("decoder_specs.in_dim", 65),), "K2-f32"),
-            (fused + (("decoder_specs.in_dim", 65),), "K1"),
-            (fused + (("decoder_specs.in_dim", 96),), "K1"),
+            (pcd_f32 + (("decoder_specs.in_dim", 129),), "K2-f32"),
+            (fused + (("decoder_specs.in_dim", 129),), "K1"),
+            (fused + (("decoder_specs.in_dim", 160),), "K1"),
             (fused + (("decoder_specs.sdf_dim", 513),), "K1")):
         with pytest.raises(ValueError, match=form):
             run_slam.check_config(cfg(*kv))

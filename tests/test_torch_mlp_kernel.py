@@ -15,8 +15,9 @@ run at the decoder sizes (in_dim, width, sdf_dim) of
 ``torch_parity.SIZED_DEC``: (16, 64, 64), the reference's wider (16, 256,
 128), which the CUDA kernels take through their streamed plan, (32, 64,
 64) and (64, 64, 64), the smallest in_dim-32 and in_dim-64 sizes they are
-built for (``-k 32x64x64``, ``-k 64x64x64``), and the widest, (16, 512,
-512). Also: the weight
+built for (``-k 32x64x64``, ``-k 64x64x64``), the widest, (16, 512,
+512), and in_dim 128 at (128, 64, 64) (``-k 128x64x64``; the kernels
+run it padded to (128, 128, 128)). Also: the weight
 bridge round trip (exact) and ``decoder_values`` in f32 (1e-5) and bf16
 (1e-3: f32 accumulation order against XLA's, through bf16-rounded
 operands). On CPU tensors neither operand type launches a kernel: the f32
@@ -303,14 +304,16 @@ def test_kernel_forms(mode, dtype, forms):
 
 
 def test_kernel_sizes_refused():
-    """Every form is built at the 51 sizes (in_dim 16, 32 and 64; width and
+    """Every form is built at the 56 sizes (in_dim 16, 32 and 64; width and
     sdf_dim multiples of 64 up to 256, and width 384 or 512 with sdf_dim a
-    multiple of 128; sdf_dim <= width) and takes every other size with
-    in_dim <= 64 and width, sdf_dim <= 512 zero-padded to one of them;
-    ``check_kernel_sizes`` refuses the rest naming size and form, and the
-    wrappers' check refuses params whose shapes disagree on a size."""
-    assert len(tmk.BUILT_SIZES) == 51
-    assert len(set(tmk.BUILT_SIZES)) == 51
+    multiple of 128; sdf_dim <= width; and in_dim 128 at (128, 128, 128),
+    (128, 256, 128), (128, 256, 256), (128, 512, 256) and (128, 512, 512))
+    and takes every other size with in_dim <= 128 and width, sdf_dim <= 512
+    zero-padded to one of them; ``check_kernel_sizes`` refuses the rest
+    naming size and form, and the wrappers' check refuses params whose
+    shapes disagree on a size."""
+    assert len(tmk.BUILT_SIZES) == 56
+    assert len(set(tmk.BUILT_SIZES)) == 56
     for size in ((16, 64, 64), (16, 128, 128), (16, 256, 128), (32, 64, 64),
                  (32, 256, 128), (32, 256, 256), (16, 384, 128),
                  (16, 512, 512), (32, 384, 384), (32, 512, 128),
@@ -319,7 +322,18 @@ def test_kernel_sizes_refused():
         assert size in tmk.BUILT_SIZES
     assert [s for s in tmk.BUILT_SIZES if tmk.wide(s)] == [
         (d, w, sd) for d in (16, 32, 64) for w in (384, 512)
-        for sd in (128, 256, 384, 512) if sd <= w]
+        for sd in (128, 256, 384, 512) if sd <= w] + [
+        (128, 512, 256), (128, 512, 512)]
+    assert [s for s in tmk.BUILT_SIZES if s[0] == 128] == [
+        (128, 128, 128), (128, 256, 128), (128, 256, 256), (128, 512, 256),
+        (128, 512, 512)]
+    # the bf16 forms' wide plan: the wide sizes and every in_dim-128 one
+    assert [s for s in tmk.BUILT_SIZES if tmk.wide_plan(s)] == [
+        s for s in tmk.BUILT_SIZES if tmk.wide(s) or s[0] == 128]
+    assert [tmk.bf16_source("mlp", s) for s in (
+        (64, 256, 256), (128, 128, 128), (16, 384, 128))] == [
+        "mlp_stream", "mlp_wide", "mlp_wide"]
+    assert tmk.f32_tile_rows((128, 256, 128)) == tmk.STREAM_F32_ROWS
     assert [s for s in tmk.BUILT_SIZES if s[0] == 64] == [
         (64, w, sd) for w, sd in [s[1:] for s in tmk.BUILT_SIZES
                                   if s[0] == 16]]
@@ -339,6 +353,14 @@ def test_kernel_sizes_refused():
                  dict(in_dim=33), dict(in_dim=48),
                  dict(in_dim=40, width=300, sdf_dim=200),
                  dict(in_dim=64, width=512, sdf_dim=512)]
+    # in_dim 128, and in_dim 65 to 127 padded to it
+    accepted += [dict(in_dim=128), dict(in_dim=128, width=256, sdf_dim=128),
+                 dict(in_dim=65), dict(in_dim=96), dict(in_dim=100,
+                                                        width=256,
+                                                        sdf_dim=128),
+                 dict(in_dim=96, width=300, sdf_dim=200),
+                 dict(in_dim=72, width=64, sdf_dim=320),
+                 dict(in_dim=128, width=512, sdf_dim=512)]
     # the wide sizes, built and padded (a width or sdf_dim of 257 to 512)
     accepted += [dict(width=512, sdf_dim=512),
                  dict(in_dim=32, width=384, sdf_dim=256),
@@ -352,22 +374,24 @@ def test_kernel_sizes_refused():
     for kw, mode, form in (
             (dict(width=513, sdf_dim=128), "pcd", "K2"),
             (dict(width=256, sdf_dim=513), "vox", "K1"),
-            (dict(in_dim=65), "vox", "K1"),
-            (dict(in_dim=96), "pcd", "K2"),
-            (dict(in_dim=65, matmul_dtype="f32"), "pcd", "K2-f32"),
+            (dict(in_dim=129), "vox", "K1"),
+            (dict(in_dim=160), "pcd", "K2"),
+            (dict(in_dim=129, matmul_dtype="f32"), "pcd", "K2-f32"),
             (dict(width=513, sdf_dim=128, matmul_dtype="f32"), "pcd",
              "K2-f32"),
             (dict(width=0), "pcd", "K2")):
         with pytest.raises(ValueError, match=form):
             tmk.check_kernel_sizes(dataclasses.replace(base, **kw), mode)
-    for size in ((65, 64, 64), (96, 64, 64), (16, 513, 64), (16, 64, 513),
-                 (64, 513, 64), (0, 64, 64), (16, 64, 0)):
+    for size in ((129, 64, 64), (160, 64, 64), (16, 513, 64), (16, 64, 513),
+                 (64, 513, 64), (128, 64, 513), (0, 64, 64), (16, 64, 0)):
         for form in tmk.FORMS:
-            with pytest.raises(ValueError, match=f"{form}.*in_dim <= 64"):
+            with pytest.raises(ValueError, match=f"{form}.*in_dim <= 128"):
                 tmk.check_size(size, form)
     for size in ((32, 64, 64), (17, 1, 1), (32, 256, 256), (16, 512, 512),
                  (32, 320, 64), (16, 64, 320), (32, 512, 512), (33, 64, 64),
-                 (48, 64, 64), (64, 256, 128), (64, 512, 512)):
+                 (48, 64, 64), (64, 256, 128), (64, 512, 512), (65, 64, 64),
+                 (96, 64, 64), (128, 256, 128), (128, 512, 512),
+                 (127, 1, 512)):
         for form in tmk.FORMS:
             tmk.check_size(size, form)
     fp = tmk.pack_params(params_from_jax(j_init(jax.random.PRNGKey(0), DEC),
@@ -401,13 +425,23 @@ def test_kernel_sizes_refused():
     ((64, 256, 128), (64, 256, 128)), ((33, 1, 1), (64, 64, 64)),
     ((48, 64, 64), (64, 64, 64)), ((40, 100, 72), (64, 128, 128)),
     ((48, 256, 128), (64, 256, 128)), ((40, 300, 200), (64, 384, 256)),
-    ((63, 450, 500), (64, 512, 512))])
+    ((63, 450, 500), (64, 512, 512)),
+    ((128, 128, 128), (128, 128, 128)), ((128, 256, 128), (128, 256, 128)),
+    ((128, 512, 512), (128, 512, 512)), ((65, 64, 64), (128, 128, 128)),
+    ((100, 64, 64), (128, 128, 128)), ((100, 256, 128), (128, 256, 128)),
+    ((65, 200, 200), (128, 256, 256)), ((128, 64, 256), (128, 256, 256)),
+    ((96, 300, 200), (128, 512, 256)), ((72, 300, 200), (128, 512, 256)),
+    ((72, 64, 320), (128, 512, 512)), ((127, 1, 1), (128, 128, 128)),
+    ((128, 257, 64), (128, 512, 256))])
 def test_built_size(size, built):
-    """(D', W', SD'): D' the smallest of 16, 32 and 64 that is at least
-    in_dim, SD' = sdf_dim up to a multiple of 64, W' = the larger of width
-    so rounded and SD'; above 256, W' up to 384 or 512 and SD' to a
-    multiple of 128 (64 or less to 128, 129-256 to 256). A built size maps
-    to itself, and the result is always built."""
+    """The covering built size with the fewest forward flops a row. Up
+    to in_dim 64 that is (D', W', SD'): D' the smallest of 16, 32 and 64
+    that is at least in_dim, SD' = sdf_dim up to a multiple of 64, W' = the
+    larger of width so rounded and SD'; above 256, W' up to 384 or 512 and
+    SD' to a multiple of 128 (64 or less to 128, 129-256 to 256). In_dim 65
+    to 128 goes to the cheapest of the five in_dim-128 sizes that covers
+    width and sdf_dim. A built size maps to itself, and the result is
+    always built."""
     assert tmk.built_size(size) == built
     assert built in tmk.BUILT_SIZES
 

@@ -1,6 +1,6 @@
 """Decoder sizes the CUDA kernels take by zero padding.
 
-On the card a decoder size that no kernel is built for (in_dim <= 64,
+On the card a decoder size that no kernel is built for (in_dim <= 128,
 width and sdf_dim <= 512) runs the kernels at ``mlp_kernel.built_size`` on
 zero-padded inputs and params (``pad_params``), and the outputs and
 gradients are sliced back (``unpad_params``). Here the plain versions run
@@ -46,7 +46,8 @@ PADDED = {(8, 40, 24): (16, 64, 64), (16, 100, 72): (16, 128, 128),
           (24, 100, 72): (32, 128, 128), (20, 40, 24): (32, 64, 64),
           (16, 300, 200): (16, 384, 256), (24, 450, 500): (32, 512, 512),
           (16, 64, 320): (16, 384, 384), (48, 64, 64): (64, 64, 64),
-          (40, 100, 72): (64, 128, 128)}
+          (40, 100, 72): (64, 128, 128), (100, 64, 64): (128, 128, 128),
+          (72, 300, 200): (128, 512, 256)}
 
 
 def _tag(size):
@@ -135,8 +136,9 @@ def test_padded_bwd_matches_pallas(padded, dtype):
 
 def test_padded_k1_matches_pallas(padded):
     """K1's plain version on corner features padded from in_dim to the
-    built in_dim (16, 32 or 64) and the padded params, ``feats`` sliced back,
-    against the Pallas ``fused_render_forward`` at the unpadded size."""
+    built in_dim (16, 32, 64 or 128) and the padded params, ``feats``
+    sliced back, against the Pallas ``fused_render_forward`` at the
+    unpadded size."""
     size, built = padded["size"], padded["built"]
     d = size[0]
     mp = dataclasses.replace(MAP, embed_dim=d)

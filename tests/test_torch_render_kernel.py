@@ -5,10 +5,10 @@ port's ``FusedFeatsDecode`` against ``jax.grad`` of ``fused_feats_decode``.
 
 Both run at the decoder sizes (in_dim, width, sdf_dim) of
 ``torch_parity.SIZED_DEC``: (16, 64, 64), the reference's wider (16, 256,
-128), which the CUDA kernel takes through its streamed plan, (32, 64, 64)
-and (64, 64, 64), on maps whose embeddings hold 32 or 64 values (the
-case's map, rays and samples are the same at each in_dim), and (16, 512,
-512).
+128), which the CUDA kernel takes through its streamed plan, (32, 64, 64),
+(64, 64, 64) and (128, 64, 64), on maps whose embeddings hold 32, 64 or
+128 values (the case's map, rays and samples are the same at each
+in_dim), and (16, 512, 512).
 
 Tolerances: features 1e-5 (the same f32 blend formula); decoder outputs
 1e-3 (bf16 operands in both; f32 summation order may flip the bf16

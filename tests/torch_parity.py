@@ -17,8 +17,9 @@ DEC = DecoderSettings(depth=2, width=64, in_dim=16, sdf_dim=64,
                       matmul_dtype="bf16", use_fused_mlp=True)
 # the decoder sizes (in_dim, width, sdf_dim) of the kernel parity cases:
 # the small default, the reference's wider decoder (width 256), the
-# smallest in_dim-32 and in_dim-64 sizes the kernels are built for, and
-# the widest
+# smallest in_dim-32 and in_dim-64 sizes the kernels are built for, the
+# widest, and in_dim 128 (built at width 128 and up: 128x64x64 runs padded
+# to (128, 128, 128) on the card)
 SIZED_DEC = {"16x64x64": DEC,
              "16x256x128": DecoderSettings(
                  depth=2, width=256, in_dim=16, sdf_dim=128,
@@ -31,6 +32,9 @@ SIZED_DEC = {"16x64x64": DEC,
                  matmul_dtype="bf16", use_fused_mlp=True),
              "16x512x512": DecoderSettings(
                  depth=2, width=512, in_dim=16, sdf_dim=512,
+                 matmul_dtype="bf16", use_fused_mlp=True),
+             "128x64x64": DecoderSettings(
+                 depth=2, width=64, in_dim=128, sdf_dim=64,
                  matmul_dtype="bf16", use_fused_mlp=True)}
 
 
