@@ -15,7 +15,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    other sizes of ``mlp_kernel.BUILT_SIZES`` up to width 256,
    ``render_wide.cu``, ``mlp_wide.cu`` and ``mlp_stream_f32.cu`` at its
    twenty-three wide sizes (width 384 and 512; in_dim 16, 32 and 64, and
-   in_dim 128 at (128, 512, 256) and (128, 512, 512)): 168 libraries;
+   in_dim 128 at (128, 512, 256) and (128, 512, 512)), and
+   ``render_park.cu``, ``mlp_park.cu`` and ``mlp_stream_f32.cu`` at its
+   six parked sizes (width 768 and 1024, ``mlp_kernel.PARK_SIZES``): 186
+   libraries;
    each library's ``-Xptxas -v`` report (registers, spills, wgmma
    warnings) and its count of tensor-core instructions (HGMMA, HMMA) and
    FFMA in ``cuobjdump -sass`` are logged; K1, K2 and K3 must each hold
@@ -64,28 +67,34 @@ Phases, in order; any failure raises and the script exits non-zero:
    chain, the 3xTF32 bound and its share. Both run in full (the checks at
    the mapping, tracking and ragged shapes) at the sizes of FULL_SIZES and
    reduced elsewhere (``full=False``: the checks at the tracking shape and
-   a ragged count below it, the kernels timed at both shapes, their plain
-   versions and the chains at the tracking shape). Then every form at the decoder
+   a ragged count below it; at the parked sizes the kernels timed at both
+   shapes and their plain versions and the chains at the tracking shape,
+   at the older ones the kernels at the tracking shape, ``size_timing``).
+   Then every form at the decoder
    sizes of ``PAD_SIZES``, which the kernels take zero-padded to a built
    size (``pad_phase``: in_dim 8, a width no multiple of 64, sdf_dim >
    width, a size landing on a streamed one, in_dim 24 and 20 padded to
    32, three that pad to wide sizes: (16, 300, 200), (24, 450, 500)
    and (16, 64, 320), in_dim 33, 48 and 40 padded to 64: (33, 64,
    64), (48, 256, 128) and (40, 300, 200), and in_dim 65 to 127 padded to
-   128: (65, 64, 64), (100, 256, 128), (96, 300, 200) and (72, 64, 320)),
+   128: (65, 64, 64), (100, 256, 128), (96, 300, 200) and (72, 64, 320),
+   and two that pad to parked sizes: (16, 700, 200) and (40, 900, 1000)),
    at the tracking shape against
    its plain version at the unpadded
    size with each form's tolerance, and every padded gradient entry
    exactly 0. A ``size table`` line per kernel and streamed size joins its
    times, shares, plain and chain times, error and build;
 4b. vox-w256 slice: the vox slice's configuration with the reference's
-   wider decoder (16, 256, 128) over the first 10 frames: K1 and K3 (their
+   wider decoder (16, 256, 128) over the first 5 frames: K1 and K3 (their
    streamed plan) launched, K2 and the f32 forms not, the poses finite and
    the unaligned ATE under 3 cm; then vox-d32, the same at (32, 256,
    128) with embeddings of 32 values (the feature width of NICE-SLAM's
    and ESLAM's ``c_dim``), the same launches and bound; then vox-w512,
    the same at (16, 512, 512) (the wide plan of K1 and K3), the same
-   launches and bound; then vox-d64, the same at (64, 256, 128) with
+   launches and bound; then vox-w1024, the same at the widest built size
+   (16, 1024, 1024) (the parked plan of K1 and K3) over the first 10
+   frames, the same launches and bound; then vox-d64, the same at (64,
+   256, 128) with
    embeddings of 64 values (K3's w1 and wc_x streamed, K1's blend in
    four passes), the same launches and bound; then vox-d128, the same at
    (128, 256, 128) with embeddings of 128 values (K1's and K2's w1 and
@@ -94,9 +103,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    for the card must accept the fused pcd path at f32 operands at (16,
    256, 128), at a padded size, at (32, 256, 128), at (64, 256, 128), at
    (128, 256, 128), at (16, 512, 512), at the padded wide (16, 300, 200),
-   at in_dim 48 and at in_dim 100 (padded to 128), and refuse in_dim 129,
-   width 513 and sdf_dim 513 (no built size covers them) naming the size
-   and the form, with no launch;
+   at in_dim 48, at in_dim 100 (padded to 128), at (16, 1024, 1024) and
+   at the padded (40, 900, 1000), and refuse in_dim 129, width 1025 and
+   sdf_dim 1025 (no built size covers them) naming the size and the form,
+   with no launch;
 4. vox slice: the bench configuration with the fused render path on
    (``config.bench_settings``): ``SlamSystem.initialize`` (200 mapping
    iterations), 39 ``process_frame`` calls over the first 40 frames of the
@@ -359,11 +369,13 @@ WITNESS_ROWS = 64
 # 384, 256); and in_dim 65 to 127 padded to 128: (65, 64, 64) to the
 # smallest in_dim-128 size, (100, 256, 128) to the vox-d128 slice's, (96,
 # 300, 200) to (128, 512, 256), and sdf_dim > width, (72, 64, 320), to
-# (128, 512, 512)
+# (128, 512, 512); and above 512 the parked sizes': (16, 700, 200) to
+# (16, 768, 256) and (40, 900, 1000) to (128, 1024, 1024)
 PAD_SIZES = ((8, 40, 24), (16, 100, 72), (16, 128, 192), (12, 200, 256),
              (24, 200, 72), (20, 64, 64), (16, 300, 200), (24, 450, 500),
              (16, 64, 320), (33, 64, 64), (48, 256, 128), (40, 300, 200),
-             (65, 64, 64), (100, 256, 128), (96, 300, 200), (72, 64, 320))
+             (65, 64, 64), (100, 256, 128), (96, 300, 200), (72, 64, 320),
+             (16, 700, 200), (40, 900, 1000))
 K1_RAGGED = (1001, 40)    # rays x samples of K1's ragged check (40,040 rows)
 TRACK_RAYS = 1024         # the tracking shape: 1024 rays x S samples
 ATE_LIMIT_CM = 3.0
@@ -403,19 +415,19 @@ PCD_CLI_FRAMES = 5
 # decoder (SURVEY.md: decoder_specs at width 256, sdf_dim 128), which runs
 # the streamed plan of K1 and K3
 W256_SIZE = (16, 256, 128)
-W256_FRAMES = 10
+W256_FRAMES = 5
 # the vox-d32 and pcd-f32-d32 slices: the reference's wider decoder at the
 # per-point feature width of voxel- and plane-feature SLAM systems
 # (NICE-SLAM's and ESLAM's c_dim 32), embeddings of as many values
 D32_SIZE = (32, 256, 128)
-D32_FRAMES = 10
-# the vox-w512 slice: the widest built decoder, twice the reference's
-# widest and the width of DeepSDF's SDF MLP (fully connected layers of 512),
+D32_FRAMES = 5
+# the vox-w512 slice: twice the reference's widest decoder and the width
+# of DeepSDF's SDF MLP (fully connected layers of 512),
 # on the wide plan of K1 and K3; pcd-f32-w512 the f32 forms' wide plan at
 # sdf_dim 256
 W512_SIZE = (16, 512, 512)
 PCD_W512_SIZE = (16, 512, 256)
-W512_FRAMES = 10
+W512_FRAMES = 5
 # the vox-d64 and pcd-f32-d64 slices: the reference's wider decoder on 64
 # features a point, as NICE-SLAM's fine-level decoder takes them: its
 # middle- and fine-grid features concatenated, 2 x c_dim (NICE-SLAM's
@@ -423,21 +435,27 @@ W512_FRAMES = 10
 # c_dim=c_dim*2, ..., concat_feature=True); configs/nice_slam.yaml:
 # model: c_dim: 32); embeddings of as many values
 D64_SIZE = (64, 256, 128)
-D64_FRAMES = 10
+D64_FRAMES = 5
 # the vox-d128 and pcd-f32-d128 slices: the reference's wider decoder on
 # 128 features a point, the most a multiresolution hash encoding gives
 # (tiny-cuda-nn's HashGrid at 16 levels x 8 features a level, its largest
 # n_features_per_level); embeddings of as many values
 D128_SIZE = (128, 256, 128)
-D128_FRAMES = 10
-# the sizes whose size_phase and f32_size_phase run in full: four slice
-# sizes, the width-256 one at in_dim 16 and 128 and the wide ones; the
-# others (the in_dim-32 and -64 slice sizes among them since in_dim 128
-# came) run reduced (checks at the tracking shape and a ragged count, the
-# kernels timed at both shapes, the plain versions and chains at the
-# tracking shape), which keeps the script inside its time budget with 56
+D128_FRAMES = 5
+# the vox-w1024 slice: the widest built decoder, the end of the sizes the
+# port takes (width and sdf_dim 1024), on the parked plan of K1 and K3
+W1024_SIZE = (16, 1024, 1024)
+W1024_FRAMES = 10
+# the sizes whose size_phase and f32_size_phase run in full: five slice
+# sizes, the width-256 one at in_dim 16 and 128, the wide ones and the
+# widest; the others (the in_dim-32 and -64 slice sizes among them since
+# in_dim 128 came) run reduced (checks at the tracking shape and a ragged
+# count; the kernels, plain versions and chains timed at both shapes at
+# the parked sizes, the kernels at the tracking shape only at the older
+# ones, whose other times PERF.md keeps from the run that measured them:
+# size_timing), which keeps the script inside its time budget with 62
 # sizes
-FULL_SIZES = {W256_SIZE, D128_SIZE, W512_SIZE, PCD_W512_SIZE}
+FULL_SIZES = {W256_SIZE, D128_SIZE, W512_SIZE, PCD_W512_SIZE, W1024_SIZE}
 
 
 # a reduced size's kernels at the mapping shape: the median of 3 event
@@ -448,6 +466,31 @@ REDUCED_REPS = dict(reps=3, calls=5)
 def full_size(size) -> bool:
     """True where the size phases run in full (FULL_SIZES' note)."""
     return tuple(size) in FULL_SIZES
+
+
+# a parked size's kernels and yardsticks at the mapping shape, whose calls
+# take 0.005-0.5 s there: the median of 3 event pairs of 2 calls each
+PARK_REPS = dict(reps=3, calls=2)
+
+
+def size_timing(size, full) -> dict:
+    """How the size phases time at ``size`` -> {shape: (the kernels'
+    ``_event_ms`` arguments, the plain versions' and chains', or None where
+    those are not timed)}. In full, both shapes at the phases' own counts;
+    at a parked size both shapes, REDUCED_REPS at the tracking shape and
+    PARK_REPS at the mapping one, the plain versions and chains at the
+    tracking shape (and at the mapping one in full); at the other reduced
+    sizes the kernels at the tracking shape, REDUCED_REPS, and no plain
+    version or chain: those run no code of the kernels, and PERF.md keeps
+    their times from the run that measured them (FULL_SIZES' note)."""
+    from proudslam_tpu_torch.ops.kernels.mlp_kernel import parked
+
+    if parked(size):
+        return {"mapping": (PARK_REPS, PARK_REPS if full else None),
+                "tracking": (REDUCED_REPS, REDUCED_REPS)}
+    if full:
+        return {"mapping": ({}, {}), "tracking": ({}, {})}
+    return {"tracking": (REDUCED_REPS, None)}
 # the vox profile: frames 5-6 (two, for the time budget)
 PROFILE_START, PROFILE_FRAMES = 5, 2
 # the dda slice's frames (half the vox slice's, for the time budget)
@@ -533,20 +576,25 @@ F32_FUNCTIONS = (("mlp_kernel_f32", "decoder_forward_f32_kernel"),
 LIBRARIES = ("render_kernel", "mlp_kernel", "mlp_kernel_f32")
 # the kernels' sources at every other decoder size of mlp_kernel.BUILT_SIZES
 # (the streamed plans up to width 256 and in_dim 64, the wide ones above and
-# at in_dim 128, mlp_kernel.wide_plan; the f32 forms' streamed source takes
-# both), one library per size; their kernel
+# at in_dim 128, mlp_kernel.wide_plan, the parked ones at widths 768 and
+# 1024, mlp_kernel.parked; the f32 forms' streamed source takes all), one
+# library per size; their kernel
 # functions carry KERNEL_FUNCTIONS' and F32_FUNCTIONS' names
 STREAM_LIBRARIES = {"render_kernel": "render_stream",
                     "mlp_kernel": "mlp_stream",
                     "mlp_kernel_f32": "mlp_stream_f32"}
 WIDE_LIBRARIES = {"render_kernel": "render_wide", "mlp_kernel": "mlp_wide",
                   "mlp_kernel_f32": "mlp_stream_f32"}
+PARK_LIBRARIES = {"render_kernel": "render_park", "mlp_kernel": "mlp_park",
+                  "mlp_kernel_f32": "mlp_stream_f32"}
 
 
 def stream_library(lib: str, size) -> str:
     """The source that builds ``lib``'s kernels at a streamed ``size``."""
-    from proudslam_tpu_torch.ops.kernels.mlp_kernel import wide_plan
+    from proudslam_tpu_torch.ops.kernels.mlp_kernel import parked, wide_plan
 
+    if parked(size):
+        return PARK_LIBRARIES[lib]
     return (WIDE_LIBRARIES if wide_plan(size) else STREAM_LIBRARIES)[lib]
 # the kernels' launch counters, by the name of the kernels JSON line
 KERNELS = ("fused_render_forward", "decoder_forward", "decoder_backward",
@@ -630,7 +678,7 @@ def build_phase():
     ``mlp_kernel.BUILT_SIZES``; log the ptxas report and the instruction
     counts -> (seconds, {kernel function: its SASS counts and ptxas
     resources at (16, 128, 128)}, {size tag: {kernel function: the same}}
-    at all 56 sizes)."""
+    at all 62 sizes)."""
     from proudslam_tpu_torch.ops.kernels import build
     from proudslam_tpu_torch.ops.kernels.mlp_kernel import BUILT_SIZES
 
@@ -1640,8 +1688,9 @@ def size_phase(device, inp, size, full=True) -> dict:
     and its plain version at both shapes with the bound and its share ->
     {kernel: entry}. ``full=False``: K1's and K3's checks without the
     mapping shape (K3's ragged count cut from the tracking shape, its
-    repeatability there), and the plain versions and the chain timed at
-    the tracking shape only (their mapping-shape entries None)."""
+    repeatability there). Which shapes are timed, how, and where the plain
+    versions and the chain are (their entries None elsewhere):
+    :func:`size_timing`."""
     import torch
 
     from proudslam_tpu_torch.config import bench_settings
@@ -1704,7 +1753,16 @@ def size_phase(device, inp, size, full=True) -> dict:
     N = x.shape[0]
     TRR = min(TRACK_RAYS * S, N)
     g = 1e-2 * torch.randn((N, 4), generator=gen, device=device)
-    nz = (x.abs().sum(1) > 0).nonzero().flatten()
+    nz = x.abs().sum(1) > 0
+    if mk.parked(mk.built_size(size)):
+        # at widths 768 and 1024 a row has ~3,000 hidden units, and few rows
+        # have a margin >= MARGIN_FLIP (~0.7% at the tracking shape): the
+        # small ragged counts take the first nonzero rows of margin, so
+        # that every output is held at the tolerance there
+        lead = min(N, 65536)
+        nz[:lead] &= _margins(mk, x[:lead], fp) >= MARGIN_FLIP
+        nz[lead:] = False
+    nz = nz.nonzero().flatten()
     cases = [("tracking", x[:TRR], g[:TRR], True),
              ("tracking", x[:TRR], g[:TRR], False)]
     if full:
@@ -1729,7 +1787,9 @@ def size_phase(device, inp, size, full=True) -> dict:
             and all(torch.equal(a, b) for a, b in zip(gr_k, gr_k2))):
         raise AssertionError(f"K3 at {size} is not bitwise repeatable")
 
-    shapes = {"mapping": N, "tracking": TRR}
+    timing = size_timing(size, full)
+    shapes = {k: v for k, v in (("mapping", N), ("tracking", TRR))
+              if k in timing}
     k1, k2, k3 = {}, {}, {}
     chain, leaves = _matmul_chain(fp)
     for shape, rows in shapes.items():
@@ -1743,35 +1803,37 @@ def size_phase(device, inp, size, full=True) -> dict:
             for t in leaves + [xg]:
                 t.grad = None
             chain(xg).backward(gb)
-        yard = full or shape == "tracking"    # plain versions and chains
-        reps = {} if yard else REDUCED_REPS
+        reps, yreps = timing[shape]
+        yard = yreps is not None              # plain versions and chains
         st = k1[shape] = dict(rows=rows)
         st["ms"] = _event_ms(lambda: rk.fused_render_forward(*a), **reps)
-        st["plain_ms"] = (_event_ms(lambda: rk.fused_render_forward_plain(*a))
-                          if yard else None)
+        st["plain_ms"] = (_event_ms(lambda: rk.fused_render_forward_plain(*a),
+                                    **yreps) if yard else None)
         st["bound_ms"], st["bound_by"] = _bound(
             flops * rows, k1_blend_flops(d) * rows,
             _nbytes(*a[:6], *fp) + rows * (4 + d) * 4)
         st = k2[shape] = dict(rows=rows)
         st["ms"] = _event_ms(lambda: mk.decoder_fwd(xn, fp), **reps)
-        st["plain_ms"] = (_event_ms(lambda: mk.decoder_fwd_plain(xn, fp))
-                          if yard else None)
+        st["plain_ms"] = (_event_ms(lambda: mk.decoder_fwd_plain(xn, fp),
+                                    **yreps) if yard else None)
         with torch.no_grad():
-            st["matmul_chain_ms"] = (_event_ms(lambda: chain(xb), reps=3)
+            st["matmul_chain_ms"] = (_event_ms(lambda: chain(xb),
+                                               **(yreps or dict(reps=3)))
                                      if yard else None)
         st["bound_ms"], st["bound_by"] = _bound(
             flops * rows, 0, _nbytes(xn, *fp) + rows * 4 * 4)
         st = k3[shape] = dict(rows=rows)
         st["ms"] = _event_ms(lambda: mk.decoder_bwd(xn, gn, fp), **reps)
-        st["plain_ms"] = (_event_ms(lambda: mk.decoder_bwd_plain(xn, gn, fp))
-                          if yard else None)
-        st["matmul_chain_ms"] = (_event_ms(chain_fwd_bwd, reps=3) if yard
-                                 else None)
+        st["plain_ms"] = (_event_ms(lambda: mk.decoder_bwd_plain(xn, gn, fp),
+                                    **yreps) if yard else None)
+        st["matmul_chain_ms"] = (_event_ms(chain_fwd_bwd,
+                                           **(yreps or dict(reps=3)))
+                                 if yard else None)
         st["dx_only_ms"] = _event_ms(
             lambda: mk.decoder_bwd(xn, gn, fp, want_wgrad=False), **reps)
         st["dx_only_plain_ms"] = (_event_ms(
-            lambda: mk.decoder_bwd_plain(xn, gn, fp, want_wgrad=False))
-            if yard else None)
+            lambda: mk.decoder_bwd_plain(xn, gn, fp, want_wgrad=False),
+            **yreps) if yard else None)
         st["bound_ms"], st["bound_by"] = _bound(
             3 * flops * rows, 0, _nbytes(xn, gn, *fp, xn, *gr_k))
         st["slab_gb"] = _slab_gb(fp, rows, mk.TILE_ROWS)
@@ -1884,8 +1946,9 @@ def f32_size_phase(device, x, g, size, track_rows, full=True) -> dict:
     shapes, with the 3xTF32 bound and its share -> {kernel: entry}. The
     tracking shape is the first ``track_rows`` rows. ``full=False``: the
     checks at the tracking shape and a ragged count cut from it, the
-    repeatability there, the plain versions and the chain timed at the
-    tracking shape only (their mapping-shape entries None)."""
+    repeatability there. Which shapes are timed, how, and where the plain
+    versions and the chain are (their entries None elsewhere):
+    :func:`size_timing`."""
     import torch
 
     from proudslam_tpu_torch.ops.kernels import mlp_kernel as mk
@@ -1918,18 +1981,20 @@ def f32_size_phase(device, x, g, size, track_rows, full=True) -> dict:
 
     chain, leaves = _matmul_chain(fp, torch.float32)
     k2, k3 = {}, {}
-    for shape, rows in shapes[:2]:
+    timing = size_timing(size, full)
+    for shape, rows in [sr for sr in shapes[:2] if sr[0] in timing]:
         xn, gn = x[:rows].contiguous(), g[:rows].contiguous()
-        yard = full or shape == "tracking"    # plain versions and chains
-        reps = {} if yard else REDUCED_REPS
+        reps, yreps = timing[shape]
+        yard = yreps is not None              # plain versions and chains
+        yreps = yreps or dict(reps=3)
         st = k2[shape] = dict(rows=rows)
         st["ms"] = _event_ms(lambda: mk.decoder_fwd(xn, fp, bf16=False),
                              **reps)
         st["plain_ms"] = (_event_ms(
-            lambda: mk.decoder_fwd_plain(xn, fp, False), reps=3)
+            lambda: mk.decoder_fwd_plain(xn, fp, False), **yreps)
             if yard else None)
         with torch.no_grad():
-            st["matmul_chain_ms"] = (_event_ms(lambda: chain(xn), reps=3)
+            st["matmul_chain_ms"] = (_event_ms(lambda: chain(xn), **yreps)
                                      if yard else None)
         st["bound_ms"], st["bound_by"] = _bound(
             0, 0, _nbytes(xn, *fp) + rows * 4 * 4, flops * rows)
@@ -1937,7 +2002,7 @@ def f32_size_phase(device, x, g, size, track_rows, full=True) -> dict:
         st["ms"] = _event_ms(lambda: mk.decoder_bwd(xn, gn, fp, bf16=False),
                              **reps)
         st["plain_ms"] = (_event_ms(
-            lambda: mk.decoder_bwd_plain(xn, gn, fp, bf16=False), reps=3)
+            lambda: mk.decoder_bwd_plain(xn, gn, fp, bf16=False), **yreps)
             if yard else None)
         st["dx_only_ms"] = _event_ms(lambda: mk.decoder_bwd(
             xn, gn, fp, want_wgrad=False, bf16=False), **reps)
@@ -1947,7 +2012,7 @@ def f32_size_phase(device, x, g, size, track_rows, full=True) -> dict:
             for t in leaves + [xg]:
                 t.grad = None
             chain(xg).backward(gn)
-        st["matmul_chain_ms"] = (_event_ms(chain_fwd_bwd, reps=3) if yard
+        st["matmul_chain_ms"] = (_event_ms(chain_fwd_bwd, **yreps) if yard
                                  else None)
         st["bound_ms"], st["bound_by"] = _bound(
             0, 0, _nbytes(xn, gn, *fp, xn, *gr_k), 3 * flops * rows)
@@ -2159,11 +2224,12 @@ def refusal_check() -> dict:
     run their streamed plan, at a padded size, (12, 200, 72), at in_dim 32,
     (32, 256, 128), at in_dim 64, (64, 256, 128), at in_dim 48, padded to
     64, at in_dim 128, (128, 256, 128), at in_dim 100, padded to 128, at
-    the widest built size, (16, 512, 512), and at a padded wide size, (16,
-    300, 200); and refuses in_dim 129, width 513 and sdf_dim 513,
-    which no built size covers, with a ``ValueError`` naming
-    the size and the form (K2-f32 on that path, K1 on the fused vox path),
-    before any data loads and with no kernel launched."""
+    (16, 512, 512), at a padded wide size, (16, 300, 200), at the widest
+    built size, (16, 1024, 1024), and at a padded parked size, (40, 900,
+    1000); and refuses in_dim 129, width 1025 and sdf_dim 1025, which no
+    built size covers, with a ``ValueError`` naming the size and the form
+    (K2-f32 on that path, K1 on the fused vox path), before any data loads
+    and with no kernel launched."""
     from proudslam_tpu_torch.config import load_config
     from proudslam_tpu_torch.run_slam import check_config
 
@@ -2179,19 +2245,24 @@ def refusal_check() -> dict:
     wide = {"decoder_specs.width": W512_SIZE[1],
             "decoder_specs.sdf_dim": W512_SIZE[2]}
     padded_wide = {"decoder_specs.width": 300, "decoder_specs.sdf_dim": 200}
+    widest = {"decoder_specs.width": W1024_SIZE[1],
+              "decoder_specs.sdf_dim": W1024_SIZE[2]}
+    padded_parked = {"decoder_specs.in_dim": 40, "decoder_specs.width": 900,
+                     "decoder_specs.sdf_dim": 1000}
     for kv in (over, {**over, **padded},
                {**over, "decoder_specs.in_dim": D32_SIZE[0]},
                {**over, "decoder_specs.in_dim": D64_SIZE[0]},
                {**over, "decoder_specs.in_dim": 48},
                {**over, "decoder_specs.in_dim": D128_SIZE[0]},
                {**over, "decoder_specs.in_dim": 100},
-               {**over, **wide}, {**over, **padded_wide}):
+               {**over, **wide}, {**over, **padded_wide},
+               {**over, **widest}, {**over, **padded_parked}):
         dec = check_config(load_config(path, dict(kv)), "cuda").decoder
         accepted.append([dec.in_dim, dec.width, dec.sdf_dim])
     refused = {}
     for key, val in (("decoder_specs.in_dim", D128_SIZE[0] + 1),
-                     ("decoder_specs.width", W512_SIZE[1] + 1),
-                     ("decoder_specs.sdf_dim", W512_SIZE[2] + 1)):
+                     ("decoder_specs.width", W1024_SIZE[1] + 1),
+                     ("decoder_specs.sdf_dim", W1024_SIZE[2] + 1)):
         for mode, form in (("pcd", "K2-f32"), ("vox", "K1")):
             kv = {**over, "tpu_specs.feature_mode": mode, key: val}
             try:
@@ -2217,7 +2288,10 @@ def render_frames():
     store them (uint8 rgb, uint16 depth)."""
     scene, poses, K = _scene()
     t0 = time.perf_counter()
-    frames = [scene.render(p, WIDTH, HEIGHT, *K) for p in poses[:N_FRAMES]]
+    # one frame a thread: numpy's array operations release the GIL
+    with ThreadPoolExecutor(os.cpu_count() or 8) as pool:
+        frames = list(pool.map(lambda p: scene.render(p, WIDTH, HEIGHT, *K),
+                               poses[:N_FRAMES]))
     log(f"rendered {N_FRAMES} frames in {time.perf_counter() - t0:.1f} s "
         "(host)")
     depth_quant = 65535.0 / 10.0
@@ -3114,6 +3188,10 @@ def main() -> None:
         device, "vox-w512", at_size(vox, W512_SIZE), frames, W512_FRAMES,
         ATE_LIMIT_CM, launched=("fused_render_forward", "decoder_backward"),
         not_launched=("decoder_forward",) + f32_kernels)
+    stats["vox-w1024"] = slice_phase(
+        device, "vox-w1024", at_size(vox, W1024_SIZE), frames, W1024_FRAMES,
+        ATE_LIMIT_CM, launched=("fused_render_forward", "decoder_backward"),
+        not_launched=("decoder_forward",) + f32_kernels)
     stats["vox-d64"] = slice_phase(
         device, "vox-d64", at_size(vox, D64_SIZE), frames, D64_FRAMES,
         ATE_LIMIT_CM, launched=("fused_render_forward", "decoder_backward"),
@@ -3234,6 +3312,7 @@ def main() -> None:
         {"name": name, "route": "cuda", "source": f"{csrc}/{src}.cu",
          "stream_source": f"{csrc}/{STREAM_LIBRARIES[src]}.cu",
          "wide_source": f"{csrc}/{WIDE_LIBRARIES[src]}.cu",
+         "park_source": f"{csrc}/{PARK_LIBRARIES[src]}.cu",
          "replaces": rep, "replaces_form": form,
          "launches": sum(st["launches"][name] for st in stats.values()),
          "launches_by_path": {p: st["launches"][name]

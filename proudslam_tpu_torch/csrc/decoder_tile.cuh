@@ -19,7 +19,9 @@
 // memory for a block's life (render_kernel.cu, mlp_kernel.cu); every other
 // size up to width 256 streams the large ones through it
 // (decoder_stream.cuh), and the widths 384 and 512 stream them all
-// (decoder_wide.cuh; mlp_stream_f32.cu for K2-f32 and K3-f32). A row's
+// (decoder_wide.cuh; mlp_stream_f32.cu for K2-f32 and K3-f32), as do 768
+// and 1024, whose activation tiles are parked in global memory
+// (decoder_park.cuh; mlp_stream_f32.cu). A row's
 // inputs are read as D / 16 chunks of 16 floats, and a product over the
 // inputs (x w1, x wc_x) takes D / 16 k16 steps. At in_dim 64 the streamed
 // K3 streams w1 and wc_x too (decoder_stream.cuh), and K1 gathers a
@@ -58,8 +60,8 @@ constexpr int NPARAM = D * W + W + W * W + W + W * SO + SO + SD * W + D * W
                        + W + W * 3 + 3;    // 54,276 floats at (16, 128, 128)
 static_assert(D == 16 || D == 32 || D == 64 || D == 128,
               "the kernels read a row's inputs as D / 16 chunks of 16 floats");
-static_assert(W % 64 == 0 && SD % 64 == 0 && SD <= W && W <= 512,
-              "widths are multiples of 64, sdf_dim <= width <= 512");
+static_assert(W % 64 == 0 && SD % 64 == 0 && SD <= W && W <= 1024,
+              "widths are multiples of 64, sdf_dim <= width <= 1024");
 
 typedef __nv_bfloat16 bf16;
 

@@ -1,7 +1,8 @@
 // The wide plan of the bf16 decoder kernels K1 (render_wide.cu), K2 and K3
 // (mlp_wide.cu): the decoder sizes of width 384 and 512 (sdf_dim 128 to the
 // width, a multiple of 128), built with -DDEC_W > 256, and every size of
-// in_dim 128 (widths 128 to 512).
+// in_dim 128 (widths 128 to 512). The parked plan of widths 768 and 1024
+// (decoder_park.cuh) takes its packing, ring and products from here.
 //
 // Why another plan. The streamed plan (decoder_stream.cuh) splits each
 // product's output columns between the block's two warpgroups, one m64nN
@@ -67,10 +68,10 @@ constexpr int PW = W / NP, PS = SD / NP;   // passes over W and SD columns
 constexpr int KW = W / CR, KS = SD / CR;   // row blocks of W and SD inputs
 constexpr int SLOT = CR * NP;              // bf16 elements of a ring slot
 constexpr int RING_SMEM = 2 * SLOT * 2 + 16;   // two slots, two mbarriers
-static_assert((W > 256 || D > 64) && W <= 512 && W % NP == 0
+static_assert((W > 256 || D > 64) && W <= 1024 && W % NP == 0
                   && SD % NP == 0 && SD <= W,
-              "the wide plan: width 384 or 512 or in_dim 128, widths "
-              "multiples of 128");
+              "the wide plan: width 384 to 1024 or in_dim 128, widths "
+              "multiples of 128 (above 512 decoder_park.cuh's kernels)");
 // input rows of a w1 or wc_x chunk (all D up to in_dim 64), and the
 // chunks of a pass
 constexpr int XR = D > 64 ? 64 : D, XC = D / XR;

@@ -80,6 +80,14 @@
 // 3xTF32's h1 and h2 put K2-f32's sdf 1.04e-5 from the float64 forward
 // (the plain version 6.8e-6; an H100, 700 W); the older sizes keep their
 // 3xTF32 h1 and h2. In_dim 128 keeps FFMA_H.
+// At widths 768 and 1024 (PARK) not even K2-f32's two 16-row tiles fit
+// beside the ring (243,984 bytes at (128, 1024, *)), nor K3-f32's four
+// (327,680 bytes of tiles at width 1024). There each kernel keeps in shared
+// memory as many of its tiles as fit (K2_TILES, K3_TILES: one at width
+// 1024, two at 768), and the others lie in a per-block scratch in global
+// memory after the packed weights (PARK_F32 tiles at most), read and written
+// by the same plain loads and stores as the tiles in shared memory, through
+// L1 and L2: every product, sum and mask is the same.
 // K3-f32 keeps mlp_kernel_f32.cu's reduction (decoder_slab.cuh): each block
 // walks a contiguous run of tiles and adds each tile's weight gradients
 // into its own f32 slab, and reduce_partials_kernel sums the slabs in a
@@ -125,7 +133,7 @@ constexpr int SDF_COL = (NFWD + NBWD) * CHUNK;
 constexpr int PACKED = SDF_COL + W;
 static_assert(THREADS == 8 * 32 && (D == 16 || D == 32 || D == 64 || D == 128)
                   && W % 64 == 0
-                  && SD % 64 == 0 && SD <= W && W <= 512,
+                  && SD % 64 == 0 && SD <= W && W <= 1024,
               "the warp tilings below");
 static_assert(SO <= WP, "a chunk row holds any streamed weight's row");
 
@@ -138,11 +146,24 @@ constexpr bool FFMA_H = WIDE || D > 32;
 // DXN a warp (dx_partn)
 constexpr int DXT = (RT / 16) * (D / 8) > NWARP ? 2 : 1;
 constexpr int DXN = D > 64 ? (RT / 16) * (D / 8) / NWARP : 1;
-constexpr int K2F_SMEM = 4 * (2 * ACT + XT + 2 * RES + NQ * RT + PART)
-                         + RING_SMEM;
-constexpr int K3F_SMEM = 4 * (4 * ACT + XT + 2 * RES + 4 * RT + PART)
-                         + RING_SMEM;
-static_assert(K3F_SMEM <= 232448, "one block's shared memory");
+// widths 768 and 1024: the tiles that do not fit a block lie in global
+// memory (the note above), PARK_F32 of them at most a block
+constexpr bool PARK = W > 512;
+constexpr int PARK_F32 = 3;
+constexpr int K2F_REST = 4 * (XT + 2 * RES + NQ * RT + PART) + RING_SMEM;
+constexpr int K3F_REST = 4 * (XT + 2 * RES + 4 * RT + PART) + RING_SMEM;
+constexpr int tiles_in_smem(int rest, int n) {
+  return PARK && (232448 - rest) / (4 * ACT) < n ? (232448 - rest) / (4 * ACT)
+                                                 : n;
+}
+constexpr int K2_TILES = tiles_in_smem(K2F_REST, 2);
+constexpr int K3_TILES = tiles_in_smem(K3F_REST, 4);
+static_assert(K2_TILES >= 1 && K3_TILES >= 1 && 4 - K3_TILES <= PARK_F32,
+              "the tiles in shared memory and in the park");
+constexpr int K2F_SMEM = 4 * K2_TILES * ACT + K2F_REST;
+constexpr int K3F_SMEM = 4 * K3_TILES * ACT + K3F_REST;
+static_assert(K2F_SMEM <= 232448 && K3F_SMEM <= 232448,
+              "one block's shared memory");
 static_assert((ACT * 4) % 16 == 0 && (XT * 4) % 16 == 0 && (RES * 4) % 16 == 0
                   && (CHUNK * 4) % 16 == 0,
               "16-byte aligned pieces and bulk copies");
@@ -588,6 +609,13 @@ __device__ __forceinline__ float sigmoid(float z) {
   return 1.f / (1.f + expf(-z));
 }
 
+// this block's parked tiles (widths 768 and 1024): PARK_F32 (W, RT) tiles
+// after the packed weights
+__device__ __forceinline__ float* park_of(const float* wpack) {
+  return const_cast<float*>(wpack) + PACKED
+         + static_cast<long long>(blockIdx.x) * PARK_F32 * ACT;
+}
+
 __global__ void __launch_bounds__(THREADS, 1)
 decoder_forward_f32_kernel(const float* __restrict__ x, Params p,
                            const float* wpack, float* __restrict__ out,
@@ -595,7 +623,7 @@ decoder_forward_f32_kernel(const float* __restrict__ x, Params p,
   extern __shared__ __align__(16) char smem[];
   Arena ar{smem};
   float* a = ar.take<float>(ACT);
-  float* b = ar.take<float>(ACT);
+  float* b = K2_TILES > 1 ? ar.take<float>(ACT) : park_of(wpack);
   float* xs = ar.take<float>(XT);
   float* w1s = ar.take<float>(RES);
   float* wcx = ar.take<float>(RES);
@@ -671,9 +699,10 @@ decoder_backward_f32_kernel(const float* __restrict__ x,
                             int tiles_per_block, int want_wgrad) {
   extern __shared__ __align__(16) char smem[];
   Arena ar{smem};
-  float* B0 = ar.take<float>(ACT);
-  float* B1 = ar.take<float>(ACT);
-  float* B2 = ar.take<float>(ACT);
+  // at widths 768 and 1024 the first 4 - K3_TILES in the park
+  float* B0 = K3_TILES > 3 ? ar.take<float>(ACT) : park_of(wpack);
+  float* B1 = K3_TILES > 2 ? ar.take<float>(ACT) : park_of(wpack) + ACT;
+  float* B2 = K3_TILES > 1 ? ar.take<float>(ACT) : park_of(wpack) + 2 * ACT;
   float* B3 = ar.take<float>(ACT);
   float* xs = ar.take<float>(XT);
   float* w1s = ar.take<float>(RES);
@@ -898,8 +927,9 @@ decoder_backward_f32_kernel(const float* __restrict__ x,
 
 }  // namespace
 
-// K2-f32: out (N, D) from x (N, D); wpack: scratch of PACKED floats;
-// `blocks` persistent blocks (<= tiles of RT rows). Returns
+// K2-f32: out (N, D) from x (N, D); wpack: scratch of PACKED floats (at
+// widths 768 and 1024 then PARK_F32 tiles of ACT floats for each block);
+// `blocks` persistent blocks (<= tiles of RT rows, <= the SMs). Returns
 // cudaGetLastError() after the launches (0 = launched).
 extern "C" int decoder_forward_f32(const float* x, const void* const* params,
                                    void* wpack, float* out, long long N,
@@ -917,9 +947,9 @@ extern "C" int decoder_forward_f32(const float* x, const void* const* params,
 }
 
 // K3-f32: dx (N, D); dparams (NPARAM,) in FusedParams order when
-// want_wgrad; partial: (P, NPARAM) scratch; wpack: scratch of PACKED
-// floats. P blocks each take tiles_per_block tiles of RT rows. Returns
-// cudaGetLastError() after the launches.
+// want_wgrad; partial: (P, NPARAM) scratch; wpack: as K2-f32's. P blocks
+// each take tiles_per_block tiles of RT rows. Returns cudaGetLastError()
+// after the launches.
 extern "C" int decoder_backward_f32(const float* x, const float* g,
                                     const void* const* params, void* wpack,
                                     float* dx, float* dparams, float* partial,

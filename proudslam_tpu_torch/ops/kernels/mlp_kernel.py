@@ -13,17 +13,17 @@ CPU tensors; any other device raises. Both operand types of the Pallas
 kernels' ``_make_dot`` have a kernel: ``bf16=True`` launches
 ``csrc/mlp_kernel.cu`` at the decoder size (16, 128, 128),
 ``csrc/mlp_stream.cu`` at the other sizes of :data:`BUILT_SIZES` up to width
-256 and in_dim 64 and ``csrc/mlp_wide.cu`` at widths 384 and 512 and at
-in_dim 128 (:func:`wide_plan`; bf16 operands on the tensor cores),
-``bf16=False``
+256 and in_dim 64, ``csrc/mlp_wide.cu`` at widths 384 and 512 and at
+in_dim 128 (:func:`wide_plan`) and ``csrc/mlp_park.cu`` at widths 768 and
+1024 (:func:`parked`; bf16 operands on the tensor cores), ``bf16=False``
 ``csrc/mlp_kernel_f32.cu`` at (16, 128, 128) and ``csrc/mlp_stream_f32.cu``
 at the other sizes of :data:`BUILT_SIZES` (f32 operands: the products on the
 tensor cores as three TF32 products with f32 sums, "3xTF32", within f32
 tolerance of the true f32 product, except K3-f32's forward recompute,
-true f32 FMAs for its ReLU masks, and at widths 384 and 512 K2-f32's h1
+true f32 FMAs for its ReLU masks, and from width 384 K2-f32's h1
 and h2 products, true f32 FMAs for its sdf column; the plain versions
 compute true f32).
-Any other size with in_dim <= 128 and width, sdf_dim <= 512 runs the
+Any other size with in_dim <= 128 and width, sdf_dim <= 1024 runs the
 kernels at :func:`built_size` on zero-padded inputs and params
 (:func:`pad_params`), and the outputs and gradients are sliced back
 (:func:`unpad_params`): exact, every padded hidden unit being 0. A larger
@@ -74,23 +74,36 @@ WIDE_F32_ROWS = 16
 # at five sizes only (D128_SIZES), to which every in_dim from 65 up is
 # padded; the bf16 forms run the wide plan there at every width
 # (:func:`wide_plan`), which takes w1 and wc_x in chunks of 64 input rows.
+# Widths 768 and 1024 are built at six sizes (PARK_SIZES), in_dim 16 and
+# 128, to which every in_dim from 17 up is padded at those widths; there
+# the activation tiles do not fit a block beside each other, and the
+# kernels keep one (the bf16 forms, decoder_park.cuh) or as many as fit
+# (the f32 forms) in shared memory and park the others in a per-block
+# scratch in global memory (:func:`parked`).
 BUILT_IN_DIMS = (16, 32, 64, 128)
 WIDE_WIDTHS = (384, 512)
 D128_SIZES = ((128, 128, 128), (128, 256, 128), (128, 256, 256),
               (128, 512, 256), (128, 512, 512))
+PARK_SIZES = ((16, 768, 256), (16, 768, 768), (16, 1024, 512),
+              (16, 1024, 1024), (128, 768, 768), (128, 1024, 1024))
 BUILT_SIZES = (tuple((d, w, sd) for d in BUILT_IN_DIMS[:3]
                      for w in (64, 128, 192, 256)
                      for sd in (64, 128, 192, 256) if sd <= w)
                + tuple((d, w, sd) for d in BUILT_IN_DIMS[:3]
                        for w in WIDE_WIDTHS
                        for sd in (128, 256, 384, 512) if sd <= w)
-               + D128_SIZES)
+               + D128_SIZES + PARK_SIZES)
 # the CUDA kernel forms, as check_size names them
 FORMS = ("K1", "K2", "K3", "K2-f32", "K3-f32")
 # the largest in_dim and width (or sdf_dim) a built size covers: every
-# kernel reads a row's inputs as in_dim / 16 chunks of 16 floats; 512 is
-# the widest plan built (decoder_wide.cuh)
-MAX_IN_DIM, MAX_WIDTH = BUILT_IN_DIMS[-1], WIDE_WIDTHS[-1]
+# kernel reads a row's inputs as in_dim / 16 chunks of 16 floats; 1024 is
+# the widest plan built (decoder_park.cuh), the end of the sizes the port
+# takes
+MAX_IN_DIM, MAX_WIDTH = BUILT_IN_DIMS[-1], PARK_SIZES[-1][1]
+# the parked plan's (TILE_ROWS, width) bf16 tiles a block parks in global
+# memory (K3's four; K1 and K2 park one), and the most of the f32 forms'
+# (WIDE_F32_ROWS, width) tiles that lie there (mlp_stream_f32.cu)
+PARK_TILES, PARK_F32_TILES = 4, 3
 
 
 class FusedParams(NamedTuple):
@@ -215,13 +228,14 @@ def forward_flops(size: Tuple[int, int, int]) -> int:
 
 def built_size(size: Tuple[int, int, int]) -> Tuple[int, int, int]:
     """The built size whose kernels run a decoder ``size`` (in_dim <= 128,
-    1 <= width, sdf_dim <= 512) on zero-padded params: of the sizes of
+    1 <= width, sdf_dim <= 1024) on zero-padded params: of the sizes of
     :data:`BUILT_SIZES` at least as large on each axis, the one with the
-    fewest forward flops a row. Up to in_dim 64 that is the smallest on
-    every axis (in_dim the smallest of 16, 32 and 64 that covers it, sdf_dim
-    rounded up to a multiple of 64, width so rounded and at least that; a
-    width above 256 rounded up to 384 or 512 and sdf_dim to a multiple of
-    128); above, one of the five :data:`D128_SIZES`."""
+    fewest forward flops a row. Up to in_dim 64 and width 512 that is the
+    smallest on every axis (in_dim the smallest of 16, 32 and 64 that
+    covers it, sdf_dim rounded up to a multiple of 64, width so rounded and
+    at least that; a width above 256 rounded up to 384 or 512 and sdf_dim to
+    a multiple of 128); above, one of the five :data:`D128_SIZES` or of the
+    six :data:`PARK_SIZES`."""
     return _covering(*size)
 
 
@@ -239,17 +253,28 @@ def wide(size: Tuple[int, int, int]) -> bool:
 
 
 def wide_plan(size: Tuple[int, int, int]) -> bool:
-    """True where the bf16 forms run the wide plan (decoder_wide.cuh): at
-    the :func:`wide` sizes and at in_dim 128, where the streamed plan's K1
-    and K2 would spill at width 256."""
+    """True where the bf16 forms pack all five weights in chunks of the
+    wide plan (decoder_wide.cuh): at the :func:`wide` sizes and at in_dim
+    128, where the streamed plan's K1 and K2 would spill at width 256; the
+    :func:`parked` sizes among them run decoder_park.cuh's kernels."""
     return wide(size) or size[0] > BUILT_IN_DIMS[2]
+
+
+def parked(size: Tuple[int, int, int]) -> bool:
+    """True at the built sizes of width 768 and 1024, where the kernels
+    park activation tiles in global memory: the bf16 forms run the parked
+    plan (decoder_park.cuh: one (64, width) tile in shared memory), the
+    f32 forms keep as many of their 16-row tiles in shared memory as fit
+    (mlp_stream_f32.cu)."""
+    return size[1] > WIDE_WIDTHS[-1]
 
 
 def check_size(size: Tuple[int, int, int], form: str) -> None:
     """Raises ``ValueError`` unless a built size covers the decoder ``size``
-    (:func:`built_size`): in_dim <= 128 and width, sdf_dim <= 512, each at
+    (:func:`built_size`): in_dim <= 128 and width, sdf_dim <= 1024, each at
     least 1. Every form is built at :data:`BUILT_SIZES`; ``form`` (one of
-    :data:`FORMS`) is named in the error."""
+    :data:`FORMS`) is named in the error. Larger decoders are refused: no
+    configuration the port runs, nor a decoder the repo cites, is wider."""
     if form not in FORMS:
         raise ValueError(f"unknown CUDA kernel form {form!r}")
     d, w, sd = size
@@ -330,7 +355,8 @@ def _check_kernel_inputs(x, g, fp, form) -> Tuple[int, int, int]:
 def streamed(size: Tuple[int, int, int]) -> bool:
     """True where the kernels stream the large weights (every size but
     (16, 128, 128)): render_stream.cu and mlp_stream.cu (render_wide.cu and
-    mlp_wide.cu at the :func:`wide` sizes), which take a scratch buffer for
+    mlp_wide.cu at the :func:`wide` sizes, render_park.cu and mlp_park.cu
+    at the :func:`parked` ones), which take a scratch buffer for
     the packed weights and one 64-row tile per block at a time, and
     mlp_stream_f32.cu (its own scratch, tiles of :func:`f32_tile_rows`)."""
     return tuple(size) != build.DEFAULT_SIZE
@@ -343,8 +369,10 @@ def f32_tile_rows(size: Tuple[int, int, int]) -> int:
 
 def bf16_source(base: str, size: Tuple[int, int, int]) -> str:
     """The source of a bf16 kernel (``base`` "render" or "mlp") at a
-    streamed size: ``<base>_wide`` where :func:`wide_plan`, else
-    ``<base>_stream``."""
+    streamed size: ``<base>_park`` where :func:`parked`, ``<base>_wide``
+    where :func:`wide_plan`, else ``<base>_stream``."""
+    if parked(size):
+        return f"{base}_park"
     return f"{base}_wide" if wide_plan(size) else f"{base}_stream"
 
 
@@ -352,14 +380,23 @@ def packed_weights(size: Tuple[int, int, int], device) -> torch.Tensor:
     """Scratch for the streamed kernels' bf16 copy of w2, ws and wc_f; at
     in_dim 64 (for K3) and in the wide plan (:func:`wide_plan`) of all five
     weights, and in the wide plan then K3's park of two (64, width) bf16
-    tiles for each of the device's SMs (one block per SM at most)."""
+    tiles for each of the device's SMs (one block per SM at most). In the
+    parked plan (:func:`parked`) the weights are followed by the f32
+    vectors (decoder_park.cuh's ``VEC_FLOATS``: ws's sdf column, wo padded
+    to 4 columns, b1, b2, bc, bs and bo, 16-byte aligned) and then
+    :data:`PARK_TILES` parked tiles a block."""
     d, w, sd = size
     n = w * w + 2 * w * sd
     if d > BUILT_IN_DIMS[1] or wide_plan(size):
         n += 2 * d * w
     if wide_plan(size):
         sms = torch.cuda.get_device_properties(device).multi_processor_count
-        n += sms * 2 * TILE_ROWS * w
+        if parked(size):
+            vec_floats = 8 * w + -(-(sd + 1) // 4) * 4 + 4
+            n = (-(-n // 8) * 8 + 2 * vec_floats
+                 + sms * PARK_TILES * TILE_ROWS * w)
+        else:
+            n += sms * 2 * TILE_ROWS * w
     return torch.empty((n,), dtype=torch.bfloat16, device=device)
 
 
@@ -368,12 +405,16 @@ def packed_f32_weights(size: Tuple[int, int, int], device) -> torch.Tensor:
     and wc_f, then their transposes, 16 rows a chunk (8 at the wide sizes)
     at row stride W + 4, and ws's sdf column; at in_dim 32 to 128 and at
     the wide sizes also w1 and wc_x, twice each (the forward's x-side
-    products and dx)."""
+    products and dx); at the :func:`parked` sizes then
+    :data:`PARK_F32_TILES` activation tiles (width x 20 floats) a block."""
     d, w, sd = size
     rows = 2 * (2 * w + sd) + (4 * d if d > BUILT_IN_DIMS[0] or wide(size)
                                else 0)
-    return torch.empty((rows * (w + 4) + w,), dtype=torch.float32,
-                       device=device)
+    n = rows * (w + 4) + w
+    if parked(size):
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        n += sms * PARK_F32_TILES * w * (WIDE_F32_ROWS + 4)
+    return torch.empty((n,), dtype=torch.float32, device=device)
 
 
 def _bf16_library(size, device):

@@ -12,9 +12,10 @@ kernel, whatever ``matmul_dtype`` says).
 :func:`fused_render_forward` launches ``csrc/render_kernel.cu`` (decoder
 size (16, 128, 128)) or ``csrc/render_stream.cu`` (the other sizes of
 ``mlp_kernel.BUILT_SIZES`` up to width 256) or ``csrc/render_wide.cu``
-(widths 384 and 512) for CUDA tensors and runs
+(widths 384 and 512, and in_dim 128) or ``csrc/render_park.cu`` (widths
+768 and 1024) for CUDA tensors and runs
 :func:`fused_render_forward_plain` for CPU tensors. Any other decoder size
-with in_dim <= 128 and width, sdf_dim <= 512 runs the kernel at
+with in_dim <= 128 and width, sdf_dim <= 1024 runs the kernel at
 ``mlp_kernel.built_size`` on zero-padded corner features (each corner's
 in_dim values padded to the built in_dim, 16, 32, 64 or 128) and params, and
 ``feats`` is sliced back to in_dim columns.

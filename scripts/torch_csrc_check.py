@@ -6,7 +6,7 @@ template and type at each decoder size, in seconds.
     python3 scripts/torch_csrc_check.py [--all] [SIZE ...]
 
 Each (source, size) of ``mlp_kernel.BUILT_SIZES`` (``--all``; by default
-the in_dim-128 sizes, ``mlp_kernel.D128_SIZES``; or the sizes given as
+the sizes of widths 768 and 1024, ``mlp_kernel.PARK_SIZES``; or the sizes given as
 ``D,W,SD``) is compiled with ``g++ -std=c++20`` against stub
 ``cuda_runtime.h`` and ``cuda_bf16.h`` headers written to a temporary
 directory: the CUDA qualifiers as no-ops, the intrinsics as plain C++,
@@ -96,8 +96,10 @@ inline float2 __bfloat1622float2(__nv_bfloat162 v) {
 # the constants each source prints: its kernels' shared-memory bytes
 CONSTANTS = {
     "render_stream": ["SMEM"], "render_wide": ["SMEM"],
+    "render_park": ["SMEM"],
     "mlp_stream": ["K2_SMEM", "K3_SMEM"], "mlp_wide": ["K2_SMEM", "K3_SMEM"],
-    "mlp_stream_f32": ["K2F_SMEM", "K3F_SMEM"],
+    "mlp_park": ["K2_SMEM", "K3_SMEM"],
+    "mlp_stream_f32": ["K2F_SMEM", "K3F_SMEM", "K2_TILES", "K3_TILES"],
 }
 
 
@@ -141,7 +143,7 @@ def main() -> None:
     sizes = [tuple(int(v) for v in a.split(",")) for a in args
              if a != "--all"]
     if not sizes:
-        sizes = list(mk.BUILT_SIZES if "--all" in args else mk.D128_SIZES)
+        sizes = list(mk.BUILT_SIZES if "--all" in args else mk.PARK_SIZES)
     with tempfile.TemporaryDirectory() as tmp:
         with open(os.path.join(tmp, "cuda_runtime.h"), "w") as fh:
             fh.write(RUNTIME_H)

@@ -10,7 +10,9 @@ every decoder size of its ``mlp_kernel.BUILT_SIZES``: ``render_kernel``,
 sources (``render_stream``, ``mlp_stream``, ``mlp_stream_f32``) at the
 other sizes up to width 256 and their wide sources (``render_wide``,
 ``mlp_wide``, ``mlp_stream_f32``) at width 384 and 512 and at in_dim 128
-(the tree's ``mlp_kernel.wide_plan``). Then, per library
+(the tree's ``mlp_kernel.wide_plan``), its parked ones (``render_park``,
+``mlp_park``) at widths 768 and 1024 (``mlp_kernel.bf16_source``). Then,
+per library
 both trees build and kernel function, the SASS of ``cuobjdump -sass`` is
 compared: equal SASS is the same machine code, whatever the source text.
 The libraries only one tree builds (a size the other does not take) are
@@ -33,6 +35,17 @@ WIDE_SOURCES = {"render_kernel": "render_wide", "mlp_kernel": "mlp_wide",
                 "mlp_kernel_f32": "mlp_stream_f32"}
 
 
+def _source(mk, name: str, size) -> str:
+    """The source that builds ``name``'s kernels at a streamed ``size`` in
+    the tree of ``mk``: its ``bf16_source`` (the streamed, wide or parked
+    plan) for the bf16 forms where it has one, else by its wide predicate
+    (a tree from before in_dim 128: width > 256)."""
+    if name != "mlp_kernel_f32" and hasattr(mk, "bf16_source"):
+        return mk.bf16_source(name.split("_")[0], size)
+    wide = getattr(mk, "wide_plan", mk.wide)
+    return (WIDE_SOURCES if wide(size) else SOURCES)[name]
+
+
 def build_tree(tree: str) -> None:
     """Child: build the tree's libraries; print {name@size: path}."""
     from concurrent.futures import ThreadPoolExecutor
@@ -41,10 +54,8 @@ def build_tree(tree: str) -> None:
     from proudslam_tpu_torch.ops.kernels import build
     from proudslam_tpu_torch.ops.kernels import mlp_kernel as mk
 
-    # the wide plan's sizes (a tree from before in_dim 128: width > 256)
-    wide = getattr(mk, "wide_plan", mk.wide)
     jobs = [(name if size == build.DEFAULT_SIZE else
-             (WIDE_SOURCES if wide(size) else SOURCES)[name], size)
+             _source(mk, name, size), size)
             for size in mk.BUILT_SIZES for name in SOURCES]
     with ThreadPoolExecutor(len(jobs)) as pool:
         paths = list(pool.map(lambda job: build.build(*job), jobs))

@@ -8,7 +8,7 @@ Each argument is the root of a checkout of the repo (default: this one).
 For each, in the order given, one process imports that tree's
 ``proudslam_tpu_torch``, builds its kernels and, at each size of that
 tree's ``mlp_kernel.BUILT_SIZES`` ((16, 128, 128) is the resident plan,
-the others the streamed or wide one), runs K1
+the others the streamed, wide or parked one), runs K1
 (``fused_render_forward``), K2 (``decoder_fwd``), K3 (``decoder_bwd``,
 full and dx-only), K2-f32 and K3-f32 (``bf16=False``, full and dx-only).
 K1's inputs are ``chip_smoke.py``'s (``kernel_inputs``: frame 0 of the
@@ -79,10 +79,16 @@ def turn(tree: str) -> dict:
 
     from proudslam_tpu_torch.ops.kernels import build
     sizes = mk.BUILT_SIZES
-    # the tree's own choice of plan (one from before in_dim 128: by width)
+    # the tree's own choice of plan (``bf16_source``; one from before in_dim
+    # 128: by width)
     wide = getattr(mk, "wide_plan", mk.wide)
-    jobs = [(name if size == build.DEFAULT_SIZE else
-             (cs.WIDE_LIBRARIES if wide(size) else cs.STREAM_LIBRARIES)[name],
+
+    def source(name, size):
+        if name != "mlp_kernel_f32" and hasattr(mk, "bf16_source"):
+            return mk.bf16_source(name.split("_")[0], size)
+        return (cs.WIDE_LIBRARIES if wide(size)
+                else cs.STREAM_LIBRARIES)[name]
+    jobs = [(name if size == build.DEFAULT_SIZE else source(name, size),
              size)
             for size in sizes for name in cs.LIBRARIES]
     with ThreadPoolExecutor(len(jobs)) as pool:

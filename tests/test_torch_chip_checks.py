@@ -213,29 +213,49 @@ def test_size_table(monkeypatch):
 
 def test_wide_sizes_and_sources():
     """The wide sizes and the in_dim-128 ones: built with render_wide.cu and
-    mlp_wide.cu (the f32 forms' streamed source at every streamed size);
-    the size phases run in
-    full at four slice sizes (the in_dim-16 and -128 width-256 ones and
-    the wide ones), reduced at the others; the three wide padded sizes,
-    the three in_dim-64 ones and the four in_dim-128 ones pad as
-    stated."""
+    mlp_wide.cu, the parked sizes (widths 768 and 1024) with render_park.cu
+    and mlp_park.cu (the f32 forms' streamed source at every streamed
+    size); the size phases run in full at five slice sizes (the in_dim-16
+    and -128 width-256 ones, the wide ones and the widest), reduced at the
+    others, which time the kernels at both shapes at the parked sizes and
+    at the tracking shape at the older ones (``size_timing``); the three
+    wide padded sizes,
+    the three in_dim-64 ones, the four in_dim-128 ones and the two parked
+    ones pad as stated."""
     wide = [s for s in mk.BUILT_SIZES if mk.wide(s)]
-    assert len(wide) == 23 and cs.W512_SIZE in wide
+    parked = [s for s in mk.BUILT_SIZES if mk.parked(s)]
+    assert len(wide) == 29 and cs.W512_SIZE in wide
     assert cs.PCD_W512_SIZE in wide
+    assert parked == list(mk.PARK_SIZES) and cs.W1024_SIZE in parked
     assert cs.FULL_SIZES == {cs.W256_SIZE, cs.D128_SIZE, cs.W512_SIZE,
-                             cs.PCD_W512_SIZE}
+                             cs.PCD_W512_SIZE, cs.W1024_SIZE}
     assert [s for s in mk.BUILT_SIZES if cs.full_size(s)] == [
-        cs.W256_SIZE, cs.PCD_W512_SIZE, cs.W512_SIZE, cs.D128_SIZE]
+        cs.W256_SIZE, cs.PCD_W512_SIZE, cs.W512_SIZE, cs.D128_SIZE,
+        cs.W1024_SIZE]
     for size in ((16, 256, 128), (32, 64, 64), (64, 256, 128)):
         assert [cs.stream_library(lib, size) for lib in cs.LIBRARIES] == [
             "render_stream", "mlp_stream", "mlp_stream_f32"]
-    for size in wide + list(mk.D128_SIZES):
+        assert list(cs.size_timing(size, cs.full_size(size))) == (
+            ["mapping", "tracking"] if cs.full_size(size) else ["tracking"])
+    for size in [s for s in wide if s not in parked] + list(mk.D128_SIZES):
         assert [cs.stream_library(lib, size) for lib in cs.LIBRARIES] == [
             "render_wide", "mlp_wide", "mlp_stream_f32"]
-    assert [mk.built_size(s) for s in cs.PAD_SIZES[-10:]] == [
+    for size in parked:
+        assert [cs.stream_library(lib, size) for lib in cs.LIBRARIES] == [
+            "render_park", "mlp_park", "mlp_stream_f32"]
+        assert cs.size_timing(size, False) == {
+            "mapping": (cs.PARK_REPS, None),
+            "tracking": (cs.REDUCED_REPS, cs.REDUCED_REPS)}
+    assert cs.size_timing(cs.W1024_SIZE, True)["mapping"] == (
+        cs.PARK_REPS, cs.PARK_REPS)
+    assert cs.size_timing(cs.W256_SIZE, True) == {
+        "mapping": ({}, {}), "tracking": ({}, {})}
+    assert cs.size_timing((32, 64, 64), False) == {
+        "tracking": (cs.REDUCED_REPS, None)}
+    assert [mk.built_size(s) for s in cs.PAD_SIZES[-12:]] == [
         (16, 384, 256), (32, 512, 512), (16, 384, 384), (64, 64, 64),
         cs.D64_SIZE, (64, 384, 256), (128, 128, 128), cs.D128_SIZE,
-        (128, 512, 256), (128, 512, 512)]
+        (128, 512, 256), (128, 512, 512), (16, 768, 256), (128, 1024, 1024)]
 
 
 def _k1_inputs(d, rays=1100, hits=4, samples=40):
@@ -266,8 +286,8 @@ def test_size_phases_shapes(on_cpu, full):
     """``size_phase`` and ``f32_size_phase`` on CPU tensors (the wrappers'
     plain versions stand in for the kernels, ``_event_ms`` for the
     timing): full, the checks and the plain and chain times at both shapes;
-    reduced, the kernels timed at both shapes and the plain versions and
-    chains at the tracking shape only (None at the mapping shape). Every
+    reduced at a size below width 768, the kernels timed at the tracking
+    shape only (no mapping-shape entry, no plain or chain time). Every
     check passes, plain against plain."""
     timed = []
     on_cpu.setattr(cs, "_event_ms", lambda fn, **kw: timed.append(fn) or 1.0)
@@ -277,14 +297,15 @@ def test_size_phases_shapes(on_cpu, full):
     for name in ("fused_render_forward", "decoder_forward",
                  "decoder_backward"):
         shapes = out[name]["shapes"]
-        assert shapes["mapping"]["rows"] == 1100 * 40
         assert shapes["tracking"]["rows"] == cs.TRACK_RAYS * 40
-        assert shapes["mapping"]["ms"] == 1.0
-        assert shapes["tracking"]["plain_ms"] == 1.0
-        assert (shapes["mapping"]["plain_ms"] is None) == (not full)
-    assert (out["decoder_forward"]["shapes"]["mapping"]["matmul_chain_ms"]
-            is None) == (not full)
-    assert len(timed) == (20 if full else 14)
+        assert shapes["tracking"]["ms"] == 1.0
+        assert (shapes["tracking"]["plain_ms"] is None) == (not full)
+        assert ("mapping" in shapes) == full
+        if full:
+            assert shapes["mapping"]["rows"] == 1100 * 40
+            assert shapes["mapping"]["ms"] == 1.0
+            assert shapes["mapping"]["plain_ms"] == 1.0
+    assert len(timed) == (20 if full else 4)
     rng = np.random.default_rng(1)
     x = torch.as_tensor(0.07 * rng.standard_normal((700, 16)),
                         dtype=torch.float32)
@@ -293,10 +314,12 @@ def test_size_phases_shapes(on_cpu, full):
     out = cs.f32_size_phase(torch.device("cpu"), x, g, size, 300, full=full)
     for name in ("decoder_forward_f32", "decoder_backward_f32"):
         shapes = out[name]["shapes"]
-        assert shapes["mapping"]["rows"] == 700
         assert shapes["tracking"]["rows"] == 300
-        assert shapes["tracking"]["plain_ms"] == 1.0
-        assert (shapes["mapping"]["plain_ms"] is None) == (not full)
+        assert (shapes["tracking"]["plain_ms"] is None) == (not full)
+        assert ("mapping" in shapes) == full
+        if full:
+            assert shapes["mapping"]["rows"] == 700
+            assert shapes["mapping"]["plain_ms"] == 1.0
 
 
 def _bwd_off_on_kinks(everywhere=False):

@@ -170,11 +170,12 @@ def test_check_config_refusals():
     Gaussian embedders) give the JAX package's settings. For the card (the
     CLI's default device), every fused path takes the decoder sizes its
     kernels are built for and, zero-padded to one of them, every in_dim
-    <= 128 and width, sdf_dim <= 512: the f32 pcd forms at the reference's
+    <= 128 and width, sdf_dim <= 1024: the f32 pcd forms at the reference's
     (16, 256, 128) and at widths 64 and 100, a width that is no multiple of
     64, in_dim 12, in_dim 32 and 24, in_dim 64, 33 and 48, in_dim 128, 65
-    and 96, the wide (16, 512, 512) and a padded wide size. A size no built
-    size covers (in_dim 129 or 160, width or sdf_dim 513) is refused naming
+    and 96, the wide (16, 512, 512) and a padded wide size, the widest
+    (16, 1024, 1024) and padded sizes above 512. A size no built size
+    covers (in_dim 129 or 160, width or sdf_dim 1025) is refused naming
     the form; the CPU (the kernels' plain versions) takes any size."""
     cfg = lambda *kv: load_config(CONFIG, dict(kv))  # noqa: E731
     for kv in ((("tpu_specs.intersect_mode", "dda"),),
@@ -226,15 +227,22 @@ def test_check_config_refusals():
                         ("decoder_specs.width", 256)), (128, 256, 128)),
             (fused + (("decoder_specs.in_dim", 128),), (128, 128, 128)),
             (fused + (("decoder_specs.in_dim", 65),), (65, 128, 128)),
-            (pcd_f32 + (("decoder_specs.in_dim", 96),), (96, 128, 128))):
+            (pcd_f32 + (("decoder_specs.in_dim", 96),), (96, 128, 128)),
+            (fused + (("decoder_specs.width", 1024),
+                      ("decoder_specs.sdf_dim", 1024)), (16, 1024, 1024)),
+            (pcd_f32 + (("decoder_specs.width", 513),), (16, 513, 128)),
+            (fused + (("decoder_specs.sdf_dim", 513),), (16, 128, 513)),
+            (pcd_f32 + (("decoder_specs.in_dim", 40),
+                        ("decoder_specs.width", 900),
+                        ("decoder_specs.sdf_dim", 1000)), (40, 900, 1000))):
         s = run_slam.check_config(cfg(*kv))
         assert (s.decoder.in_dim, s.decoder.width, s.decoder.sdf_dim) == size
     for kv, form in (
-            (pcd_f32 + (("decoder_specs.width", 513),), "K2-f32"),
+            (pcd_f32 + (("decoder_specs.width", 1025),), "K2-f32"),
             (pcd_f32 + (("decoder_specs.in_dim", 129),), "K2-f32"),
             (fused + (("decoder_specs.in_dim", 129),), "K1"),
             (fused + (("decoder_specs.in_dim", 160),), "K1"),
-            (fused + (("decoder_specs.sdf_dim", 513),), "K1")):
+            (fused + (("decoder_specs.sdf_dim", 1025),), "K1")):
         with pytest.raises(ValueError, match=form):
             run_slam.check_config(cfg(*kv))
         run_slam.check_config(cfg(*kv), "cpu")

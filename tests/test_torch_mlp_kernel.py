@@ -304,39 +304,46 @@ def test_kernel_forms(mode, dtype, forms):
 
 
 def test_kernel_sizes_refused():
-    """Every form is built at the 56 sizes (in_dim 16, 32 and 64; width and
+    """Every form is built at the 62 sizes (in_dim 16, 32 and 64; width and
     sdf_dim multiples of 64 up to 256, and width 384 or 512 with sdf_dim a
-    multiple of 128; sdf_dim <= width; and in_dim 128 at (128, 128, 128),
-    (128, 256, 128), (128, 256, 256), (128, 512, 256) and (128, 512, 512))
-    and takes every other size with in_dim <= 128 and width, sdf_dim <= 512
-    zero-padded to one of them; ``check_kernel_sizes`` refuses the rest
-    naming size and form, and the wrappers' check refuses params whose
-    shapes disagree on a size."""
-    assert len(tmk.BUILT_SIZES) == 56
-    assert len(set(tmk.BUILT_SIZES)) == 56
+    multiple of 128; sdf_dim <= width; in_dim 128 at (128, 128, 128),
+    (128, 256, 128), (128, 256, 256), (128, 512, 256) and (128, 512, 512);
+    and the parked sizes (16, 768, 256), (16, 768, 768), (16, 1024, 512),
+    (16, 1024, 1024), (128, 768, 768) and (128, 1024, 1024)) and takes every
+    other size with in_dim <= 128 and width, sdf_dim <= 1024 zero-padded to
+    one of them; ``check_kernel_sizes`` refuses the rest naming size and
+    form, and the wrappers' check refuses params whose shapes disagree on a
+    size."""
+    assert len(tmk.BUILT_SIZES) == 62
+    assert len(set(tmk.BUILT_SIZES)) == 62
     for size in ((16, 64, 64), (16, 128, 128), (16, 256, 128), (32, 64, 64),
                  (32, 256, 128), (32, 256, 256), (16, 384, 128),
                  (16, 512, 512), (32, 384, 384), (32, 512, 128),
                  (64, 64, 64), (64, 128, 128), (64, 256, 128),
                  (64, 256, 256), (64, 384, 256), (64, 512, 512)):
         assert size in tmk.BUILT_SIZES
+    parked = [(16, 768, 256), (16, 768, 768), (16, 1024, 512),
+              (16, 1024, 1024), (128, 768, 768), (128, 1024, 1024)]
     assert [s for s in tmk.BUILT_SIZES if tmk.wide(s)] == [
         (d, w, sd) for d in (16, 32, 64) for w in (384, 512)
         for sd in (128, 256, 384, 512) if sd <= w] + [
-        (128, 512, 256), (128, 512, 512)]
+        (128, 512, 256), (128, 512, 512)] + parked
+    assert [s for s in tmk.BUILT_SIZES if tmk.parked(s)] == parked
     assert [s for s in tmk.BUILT_SIZES if s[0] == 128] == [
         (128, 128, 128), (128, 256, 128), (128, 256, 256), (128, 512, 256),
-        (128, 512, 512)]
+        (128, 512, 512), (128, 768, 768), (128, 1024, 1024)]
     # the bf16 forms' wide plan: the wide sizes and every in_dim-128 one
     assert [s for s in tmk.BUILT_SIZES if tmk.wide_plan(s)] == [
         s for s in tmk.BUILT_SIZES if tmk.wide(s) or s[0] == 128]
     assert [tmk.bf16_source("mlp", s) for s in (
-        (64, 256, 256), (128, 128, 128), (16, 384, 128))] == [
-        "mlp_stream", "mlp_wide", "mlp_wide"]
+        (64, 256, 256), (128, 128, 128), (16, 384, 128), (16, 768, 256),
+        (128, 1024, 1024))] == [
+        "mlp_stream", "mlp_wide", "mlp_wide", "mlp_park", "mlp_park"]
     assert tmk.f32_tile_rows((128, 256, 128)) == tmk.STREAM_F32_ROWS
+    assert tmk.f32_tile_rows((16, 1024, 1024)) == tmk.WIDE_F32_ROWS
     assert [s for s in tmk.BUILT_SIZES if s[0] == 64] == [
         (64, w, sd) for w, sd in [s[1:] for s in tmk.BUILT_SIZES
-                                  if s[0] == 16]]
+                                  if s[0] == 16 and not tmk.parked(s)]]
     assert tmk.FORMS == ("K1", "K2", "K3", "K2-f32", "K3-f32")
     base = port(DEC)
     accepted = [dict(width=w, sdf_dim=sd) for w, sd in (
@@ -367,23 +374,29 @@ def test_kernel_sizes_refused():
                  dict(width=320, sdf_dim=128), dict(width=256, sdf_dim=320),
                  dict(in_dim=24, width=450, sdf_dim=500),
                  dict(width=512, sdf_dim=64)]
+    # the parked sizes, built and padded (a width or sdf_dim of 513 to 1024)
+    accepted += [dict(width=1024, sdf_dim=1024),
+                 dict(in_dim=128, width=768, sdf_dim=768),
+                 dict(width=513, sdf_dim=128), dict(width=128, sdf_dim=513),
+                 dict(in_dim=40, width=900, sdf_dim=1000)]
     for kw in accepted:
         for mode, dtype in (("vox", "bf16"), ("pcd", "bf16"), ("pcd", "f32")):
             tmk.check_kernel_sizes(dataclasses.replace(
                 base, matmul_dtype=dtype, **kw), mode)
     for kw, mode, form in (
-            (dict(width=513, sdf_dim=128), "pcd", "K2"),
-            (dict(width=256, sdf_dim=513), "vox", "K1"),
+            (dict(width=1025, sdf_dim=128), "pcd", "K2"),
+            (dict(width=256, sdf_dim=1025), "vox", "K1"),
             (dict(in_dim=129), "vox", "K1"),
             (dict(in_dim=160), "pcd", "K2"),
             (dict(in_dim=129, matmul_dtype="f32"), "pcd", "K2-f32"),
-            (dict(width=513, sdf_dim=128, matmul_dtype="f32"), "pcd",
+            (dict(width=1025, sdf_dim=128, matmul_dtype="f32"), "pcd",
              "K2-f32"),
             (dict(width=0), "pcd", "K2")):
         with pytest.raises(ValueError, match=form):
             tmk.check_kernel_sizes(dataclasses.replace(base, **kw), mode)
-    for size in ((129, 64, 64), (160, 64, 64), (16, 513, 64), (16, 64, 513),
-                 (64, 513, 64), (128, 64, 513), (0, 64, 64), (16, 64, 0)):
+    for size in ((129, 64, 64), (160, 64, 64), (16, 1025, 64),
+                 (16, 64, 1025), (64, 1025, 64), (128, 64, 1025), (0, 64, 64),
+                 (16, 64, 0)):
         for form in tmk.FORMS:
             with pytest.raises(ValueError, match=f"{form}.*in_dim <= 128"):
                 tmk.check_size(size, form)
@@ -391,7 +404,8 @@ def test_kernel_sizes_refused():
                  (32, 320, 64), (16, 64, 320), (32, 512, 512), (33, 64, 64),
                  (48, 64, 64), (64, 256, 128), (64, 512, 512), (65, 64, 64),
                  (96, 64, 64), (128, 256, 128), (128, 512, 512),
-                 (127, 1, 512)):
+                 (127, 1, 512), (16, 513, 64), (128, 64, 513),
+                 (16, 1024, 1024), (127, 1024, 1)):
         for form in tmk.FORMS:
             tmk.check_size(size, form)
     fp = tmk.pack_params(params_from_jax(j_init(jax.random.PRNGKey(0), DEC),

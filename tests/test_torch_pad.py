@@ -1,7 +1,7 @@
 """Decoder sizes the CUDA kernels take by zero padding.
 
 On the card a decoder size that no kernel is built for (in_dim <= 128,
-width and sdf_dim <= 512) runs the kernels at ``mlp_kernel.built_size`` on
+width and sdf_dim <= 1024) runs the kernels at ``mlp_kernel.built_size`` on
 zero-padded inputs and params (``pad_params``), and the outputs and
 gradients are sliced back (``unpad_params``). Here the plain versions run
 that way on the CPU, on the padded params at the built size, and are held
@@ -47,7 +47,7 @@ PADDED = {(8, 40, 24): (16, 64, 64), (16, 100, 72): (16, 128, 128),
           (16, 300, 200): (16, 384, 256), (24, 450, 500): (32, 512, 512),
           (16, 64, 320): (16, 384, 384), (48, 64, 64): (64, 64, 64),
           (40, 100, 72): (64, 128, 128), (100, 64, 64): (128, 128, 128),
-          (72, 300, 200): (128, 512, 256)}
+          (72, 300, 200): (128, 512, 256), (16, 700, 200): (16, 768, 256)}
 
 
 def _tag(size):
