@@ -15,10 +15,8 @@
 //     parked tile back over `t` with plain 16-byte loads (`unpark`) when it
 //     becomes the next product's A operand. ReLU masks are read from the
 //     parked tiles where they lie;
-//   - a weight gradient act^T cot (mlp_park.cu) takes cot from `t` and act
-//     from its park in blocks of 64 columns through an 8 KB buffer
-//     (`load_cols`), one block's 64 rows of the gradient at a time
-//     (st::wgrad with M = 64);
+//   - K3 (mlp_park.cu) parks its activations and cotangents where its
+//     weight gradients' second pass reads them (decoder_wgrad.cuh);
 //   - the f32 vectors (ws's sdf column and wo, both bf16-rounded, and the
 //     biases) lie in global memory too, written once per launch beside the
 //     packed weights (`pack`), and are read through L1 in the epilogues;
@@ -27,12 +25,12 @@
 //     fwd_pass, bwd_block, dx_passes, dx_passes2): the same sums, term for
 //     term, as at width 512.
 // Shared memory at (128, 1024, 1024): K2 182,288 bytes, K1 182,288 plus its
-// gather buffer, which at in_dim 128 is `t` (render_park.cu), K3 207,888.
+// gather buffer, which at in_dim 128 is `t` (render_park.cu), K3 199,696.
 // What the parks cost: per 64-row tile K2 and K1 write and load back h2 and
-// feat (4 x 128 KB at width 1024); K3 writes seven parked tiles and reads
-// eleven (six loaded back, three in column blocks, two as masks), ~2.3 MB
-// at width 1024; against the 6 MB of bf16 weights a tile streams (K3:
-// 12 MB).
+// feat (4 x 128 KB at width 1024); K3 writes seven parked tiles (nine
+// stores with the weight gradients' x and dhc) and reads eight (six loaded
+// back, two as masks), ~1.9 MB at width 1024; against the 6 MB of bf16
+// weights a tile streams (K3: 12 MB).
 // The rounding points are the other plans': every product operand bf16
 // (round to nearest even), f32 sums; K1 and K2 run one `decode`, so K2 on
 // K1's features gives K1's outputs bit for bit. A wait on a ring slot that
@@ -126,21 +124,6 @@ __device__ inline void unpark(bf16* t, const bf16* src, int n) {
   __syncthreads();
   for (int i = threadIdx.x; i < n / 8; i += blockDim.x)
     reinterpret_cast<uint4*>(t)[i] = reinterpret_cast<const uint4*>(src)[i];
-  tc::fence_proxy_async();
-  __syncthreads();
-}
-
-// Columns [mb, mb + 64) of a parked (TR, ld) tile -> the (TR, 64) tile c, by
-// the whole block after c's last readers (the barrier first): row group g
-// (rows 8g .. 8g + 7) holds those columns as 8 core matrices in a row,
-// 1 KB, in both layouts. Ends with the proxy fence and a barrier.
-__device__ inline void load_cols(bf16* c, const bf16* src, int ld, int mb) {
-  __syncthreads();
-  for (int i = threadIdx.x; i < TR * 8; i += blockDim.x) {
-    const int g = i >> 6, j = i & 63;
-    reinterpret_cast<uint4*>(c + 512 * g)[j] = reinterpret_cast<const uint4*>(
-        src + (g * (ld / 8) + mb / 8) * 64)[j];
-  }
   tc::fence_proxy_async();
   __syncthreads();
 }

@@ -1,7 +1,8 @@
-// The decoder backward's weight-gradient slabs, shared by K3 (bf16 operands,
-// mlp_kernel.cu) and K3-f32 (f32 operands, mlp_kernel_f32.cu): each block
-// of the backward owns one f32 slab of NPARAM partial gradients, which only
-// it touches, and reduce_partials_kernel sums the P slabs in slab order.
+// The weight-gradient slabs of K3-f32 (f32 operands, mlp_kernel_f32.cu and
+// mlp_stream_f32.cu): each block of the backward owns one f32 slab of
+// NPARAM partial gradients, which only it touches, and
+// reduce_partials_kernel sums the P slabs in slab order. (K3, the bf16
+// form, sums its weight gradients in two passes: decoder_wgrad.cuh.)
 // There are no float atomics, so the gradients are bitwise repeatable.
 //
 // A slab holds the gradients in FusedParams order, except that ws is stored

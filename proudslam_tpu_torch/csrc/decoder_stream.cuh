@@ -31,9 +31,7 @@
 //     activation tiles would not fit beside them (251,952 bytes at (64,
 //     256, 256)). Its tile then takes w1's chunks first, wc_x's before
 //     wc_f's for hc, and for dx w1's and wc_x's chunks again in turn, each
-//     pair giving CR finished columns of dx; its weight-gradient pieces
-//     are 64 x 32 there (wgrad, wgrad_x), half the registers of the 64 x
-//     64 ones, without which it spilled at width 256. K1 and K2 keep them
+//     pair giving CR finished columns of dx. K1 and K2 keep them
 //     resident (streamed, K1 and K2 sat at the 255-register cap at (64,
 //     256, 256) and spilled);
 //   - a per-launch pass (pack_weights_kernel) first writes the large

@@ -31,34 +31,33 @@
 // are summed in f32; the bias gradients are f32 sums of the unrounded
 // cotangents; ReLU masks come from the forward activations.
 //
-// What bounds it on an H100: arithmetic again (~3 x 108k flops per row:
-// forward recompute, input gradients, weight gradients) plus one cross-block
-// reduction. The products run on the tensor cores (`wgmma`,
+// What bounds it on an H100: arithmetic again (~2 x 108k flops per row:
+// forward recompute and input gradients; the weight gradients' products
+// run in a second pass). The products run on the tensor cores (`wgmma`,
 // decoder_tc.cuh). A block of two warpgroups works on one 64-row tile at a
 // time: every 128-wide product of the forward and of the input-gradient
-// chain is split by output columns (each warpgroup one m64n64 half), and
-// each weight-gradient product (act^T cot: M = 128 features, N = 128 or 16,
-// K = the tile's 64 rows) by its M halves; dx is split into two m64n8
-// halves. The tile's bf16 activations and cotangents live in shared memory
-// in wgmma's layout, next to the bf16 weights (~200 KB in all), and each is
-// read in place: K-major as the next product's A, MN-major (transposed) as
-// a weight-gradient operand, so nothing is copied transposed. The odd
-// widths run on the FMA units: the color head and its 3-wide gradients,
-// the sdf column of ws and its rank-1 term in dh2.
+// chain is split by output columns (each warpgroup one m64n64 half); dx is
+// split into two m64n8 halves. The tile's bf16 activations and cotangents
+// live in shared memory in wgmma's layout, next to the bf16 weights (~200
+// KB in all), and each is read in place as the next product's A (K-major).
+// The odd widths run on the FMA units: the color head and its 3-wide
+// gradients, the sdf column of ws and its rank-1 term in dh2.
 //
-// The TPU kernel accumulated the weight gradients in one output block over
-// a sequential grid; on the GPU blocks run in parallel and in no order.
-// Each of P blocks (P <= the SM count) therefore owns a contiguous run of
-// tiles and its own f32 slab of partial gradients in device memory (only
-// that block ever touches it, in tile order: each tile adds its products
-// into it), and a second kernel sums the P slabs in a fixed order. There
-// are no float atomics, so the gradients are bitwise repeatable from run to
-// run, which lockstep comparisons rely on. A ragged last tile is masked:
-// its missing rows carry zero inputs and zero cotangents (so they add
-// nothing to any gradient) and write no dx.
+// The weight gradients (decoder_wgrad.cuh): this kernel is pass 1. It sums
+// the six small ones (bias sums, dwo, ws's sdf column) over its tiles into
+// its block's f32 slab (P blocks, P <= the SM count, each a contiguous run
+// of tiles), and stores each tile's bf16 operands of the five large ones
+// (x, h1, h2, feat, dhc, dfeat, dh2, dh1) in the scratch, as the tiles are
+// (16-byte stores of the shared-memory tiles, each once it is complete and
+// before it is overwritten); pass 2 (mlp_wgrad.cu) sums those products and
+// a fixed-order reduce the slabs: no float atomics, so the gradients are
+// bitwise repeatable from run to run, which lockstep comparisons rely on.
+// dx-only (want_wgrad 0) stores nothing. A ragged last tile is masked: its
+// missing rows carry zero inputs and zero cotangents (so they add nothing
+// to any gradient) and write no dx.
 
 #include "decoder_chain.cuh"
-#include "decoder_slab.cuh"
+#include "decoder_wgrad.cuh"
 
 using namespace dec;
 
@@ -78,7 +77,8 @@ constexpr int K3_SMEM = tc::TC_WEIGHT_SMEM + pad16(tc::TR * D * 2)
                         + 5 * pad16(ACT * 2) + pad16(tc::TR * 4 * 4)
                         + pad16(NBIAS * 8 * 64 * 4);
 
-// The slab layout (S_WS_SDF, S_WCF, S_BS) is decoder_slab.cuh's.
+// the block's slab of small gradients
+using SG = wg::SmallAt<W, SD>;
 
 __device__ __forceinline__ void put(float* p, float v, bool first) {
   *p = first ? v : *p + v;
@@ -158,70 +158,12 @@ __device__ __forceinline__ void col_sums(const float (&acc)[32], float* cs) {
     }
 }
 
-// Weight-gradient product act[:, nb:nb+64]^T cot (K = the tile's rows),
-// added to the slab at dst (W x W, row-major). The slab's old values are
-// loaded while the products run, as float pairs (whole 32-byte sectors per
-// row of a warp's access).
-__device__ __forceinline__ void wgrad(const bf16* act, const bf16* cot,
-                                      float* __restrict__ dst, bool first,
-                                      const Lane& ln) {
-  float acc[64];
-  float2 old[32];
-  const uint64_t da = tc::desc_mn(act + tc::tofs(0, ln.nb, W), W);
-  const uint64_t db = tc::desc_mn(cot, W);
-  tc::fence_regs(acc);
-  tc::wg_fence();
-#pragma unroll
-  for (int j = 0; j < tc::TR / 16; ++j)
-    tc::mma_m64n128<1, 1>(acc, da + j * tc::kstep_mn(W),
-                          db + j * tc::kstep_mn(W), j > 0);
-  tc::wg_commit();
-  // entries 2i, 2i + 1: row nb + r0 + 8 (i % 2), columns 8 (i / 2) + c2 + {0, 1}
-  float2* o = reinterpret_cast<float2*>(dst + (ln.nb + ln.r0) * W + ln.c2);
-#pragma unroll
-  for (int i = 0; i < 32; ++i)
-    old[i] = first ? make_float2(0.f, 0.f) : o[(i & 1) * 4 * W + 4 * (i >> 1)];
-  tc::wg_wait_all();
-  tc::fence_regs(acc);
-#pragma unroll
-  for (int i = 0; i < 32; ++i)
-    o[(i & 1) * 4 * W + 4 * (i >> 1)] =
-        make_float2(old[i].x + acc[2 * i], old[i].y + acc[2 * i + 1]);
-}
-
-// The 16-wide weight gradient dst (D, W) += x^T cot, computed transposed
-// (cot[:, nb:nb+64]^T x: M = 64 of cot's features, N = D) and stored
-// transposed.
-__device__ __forceinline__ void wgrad_x(const bf16* cot, const bf16* xs,
-                                        float* __restrict__ dst, bool first,
-                                        const Lane& ln) {
-  float acc[8], old[8];
-  const uint64_t da = tc::desc_mn(cot + tc::tofs(0, ln.nb, W), W);
-  const uint64_t db = tc::desc_mn(xs, D);
-  tc::fence_regs(acc);
-  tc::wg_fence();
-#pragma unroll
-  for (int j = 0; j < tc::TR / 16; ++j)
-    tc::mma_m64n16<1, 1>(acc, da + j * tc::kstep_mn(W),
-                         db + j * tc::kstep_mn(D), j > 0);
-  tc::wg_commit();
-  // entry 4i + e: column m = nb + r0 + 8 (e / 2) of cot, row k of x
-  float* o = dst + ln.c2 * W + ln.nb + ln.r0;
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-    old[i] = first ? 0.f : o[(8 * (i >> 2) + (i & 1)) * W + 8 * ((i >> 1) & 1)];
-  tc::wg_wait_all();
-  tc::fence_regs(acc);
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-    o[(8 * (i >> 2) + (i & 1)) * W + 8 * ((i >> 1) & 1)] = old[i] + acc[i];
-}
-
 __global__ void __launch_bounds__(K3_THREADS, 1)
 decoder_backward_kernel(const float* __restrict__ x,
                         const float* __restrict__ g, Params prm,
                         float* __restrict__ dx, float* __restrict__ partial,
-                        long long N, int tiles_per_block, int want_wgrad) {
+                        bf16* __restrict__ scratch, long long N,
+                        int tiles_per_block, int want_wgrad) {
   extern __shared__ __align__(16) char smem[];
   Arena arena{smem};
   tc::TcWeights w;
@@ -238,8 +180,12 @@ decoder_backward_kernel(const float* __restrict__ x,
 
   const int tid = threadIdx.x, wg = tid / tc::WG, l = tid & 31;
   const Lane ln{16 * ((tid % tc::WG) >> 5) + (l >> 2), 2 * (l & 3), 64 * wg};
-  float* slab = partial + static_cast<long long>(blockIdx.x) * NPARAM;
+  float* slab = partial + static_cast<long long>(blockIdx.x) * SG::n;
   const long long ntiles = (N + tc::TR - 1) / tc::TR;
+  // tile `tile` of operand `op` in the scratch
+  auto at = [&](int op, long long tile) {
+    return scratch + wg::offset(op, tile, D, W, SD);
+  };
   const long long tile0 = static_cast<long long>(blockIdx.x) * tiles_per_block;
   const long long tile1 = min(ntiles, tile0 + tiles_per_block);
   const uint64_t kmn = tc::kstep_mn(W);
@@ -265,6 +211,7 @@ decoder_backward_kernel(const float* __restrict__ x,
     }
     tc::fence_proxy_async();
     __syncthreads();
+    if (want_wgrad && tid == 0) wg::store(at(wg::X, tile), xs, 2 * tc::TR * D);
 
     // forward recompute: h1, h2, feat, hc (bf16, shared memory)
     prod_n64<1, 0>(acc, tc::desc_k(xs, D),
@@ -272,16 +219,19 @@ decoder_backward_kernel(const float* __restrict__ x,
     store_tile(h1, acc, w.b1, true, ln);
     tc::fence_proxy_async();
     __syncthreads();
+    if (want_wgrad && tid == 0) wg::store(at(wg::H1, tile), h1, 2 * ACT);
     prod_n64<8, 0>(acc, tc::desc_k(h1, W),
                    tc::desc_k(w.w2 + tc::tofs(ln.nb, 0, W), W), tc::KSTEP_K);
     store_tile(h2, acc, w.b2, true, ln);
     tc::fence_proxy_async();
     __syncthreads();
+    if (want_wgrad && tid == 0) wg::store(at(wg::H2, tile), h2, 2 * ACT);
     prod_n64<8, 0>(acc, tc::desc_k(h2, W),
                    tc::desc_k(w.ws + tc::tofs(ln.nb, 0, W), W), tc::KSTEP_K);
     store_tile(feat, acc, w.bs, false, ln);
     tc::fence_proxy_async();
     __syncthreads();
+    if (want_wgrad && tid == 0) wg::store(at(wg::FEAT, tile), feat, 2 * ACT);
     {
       const uint64_t da = tc::desc_k(feat, W);
       const uint64_t db = tc::desc_k(w.wc_f + tc::tofs(ln.nb, 0, W), W);
@@ -362,16 +312,17 @@ decoder_backward_kernel(const float* __restrict__ x,
         for (int rr = 0; rr < tc::TR; ++rr)
           s = fmaf(__bfloat162float(hc[tc::tofs(rr, k, W)]),
                    tc::rbf(rowv[rr * 4 + c]), s);
-        put(slab + OFF_WO + e, s, first);
+        put(slab + SG::wo + e, s, first);
       }
       if (tid < 3) {
         float s = 0.f;
         for (int rr = 0; rr < tc::TR; ++rr) s += rowv[rr * 4 + tid];
-        put(slab + OFF_BO + tid, s, first);
+        put(slab + SG::bo + tid, s, first);
       }
     }
     tc::fence_proxy_async();
     __syncthreads();
+    if (want_wgrad && tid == 0) wg::store(at(wg::DHC, tile), dhc, 2 * ACT);
 
     // dfeat = dhc wc_f^T; dso = [dfeat | g_sdf]
     prod_n64<8, 1>(acc, tc::desc_k(dhc, W),
@@ -381,16 +332,16 @@ decoder_backward_kernel(const float* __restrict__ x,
       if (tid == 0) {
         float s = 0.f;
         for (int rr = 0; rr < tc::TR; ++rr) s += rowv[rr * 4 + 3];
-        put(slab + S_BS + W, s, first);
+        put(slab + SG::bs + SD, s, first);
       }
-      wgrad(feat, dhc, slab + S_WCF, first, ln);          // feat^T dhc
-      wgrad_x(dhc, xs, slab + OFF_WCX, first, ln);        // x^T dhc
     }
+    if (want_wgrad && tid == 0) wg::stored_read();      // feat's store read
     __syncthreads();                                      // feat's last reader done
     bf16* dso = feat;
     store_tile(dso, acc, nullptr, false, ln);
     tc::fence_proxy_async();
     __syncthreads();
+    if (want_wgrad && tid == 0) wg::store(at(wg::DFEAT, tile), dso, 2 * ACT);
 
     // dh2 = (dso ws^T) * (h2 > 0): the 128 feature columns on the tensor
     // cores, the sdf column's rank-1 term g_sdf ws[:, W]^T on the FMA units
@@ -410,32 +361,31 @@ decoder_backward_kernel(const float* __restrict__ x,
     relu_mask(acc, h2, ln);
     if (want_wgrad) {
       col_sums(acc, cs + 2 * 8 * 64);                     // db2
-      wgrad(h2, dso, slab + OFF_WS, first, ln);           // h2^T dso[:, :W]
       if (tid < W) {                                      // h2^T g_sdf
         float s = 0.f;
         for (int rr = 0; rr < tc::TR; ++rr)
           s = fmaf(__bfloat162float(h2[tc::tofs(rr, tid, W)]),
                    tc::rbf(rowv[rr * 4 + 3]), s);
-        put(slab + S_WS_SDF + tid, s, first);
+        put(slab + SG::ws_sdf + tid, s, first);
       }
     }
     bf16* dh2 = hc;                                       // hc's readers are done
     store_tile(dh2, acc, nullptr, false, ln);
     tc::fence_proxy_async();
+    if (want_wgrad && tid == 0) wg::stored_read();      // h2's store read
     __syncthreads();
+    if (want_wgrad && tid == 0) wg::store(at(wg::DH2, tile), dh2, 2 * ACT);
 
     // dh1 = (dh2 w2^T) * (h1 > 0)
     prod_n64<8, 1>(acc, tc::desc_k(dh2, W),
                    tc::desc_mn(w.w2 + tc::tofs(0, ln.nb, W), W), kmn);
     relu_mask(acc, h1, ln);
-    if (want_wgrad) {
-      col_sums(acc, cs + 3 * 8 * 64);                     // db1
-      wgrad(h1, dh2, slab + OFF_W2, first, ln);           // h1^T dh2
-    }
+    if (want_wgrad) col_sums(acc, cs + 3 * 8 * 64);     // db1
     bf16* dh1 = h2;                                       // h2's readers are done
     store_tile(dh1, acc, nullptr, false, ln);
     tc::fence_proxy_async();
     __syncthreads();
+    if (want_wgrad && tid == 0) wg::store(at(wg::DH1, tile), dh1, 2 * ACT);
 
     // dx = dh1 w1^T + dhc wc_x^T: warpgroup wg takes columns 8wg..8wg+7
     {
@@ -465,11 +415,10 @@ decoder_backward_kernel(const float* __restrict__ x,
       }
     }
     if (want_wgrad) {
-      wgrad_x(dh1, xs, slab + OFF_W1, first, ln);         // x^T dh1
       // the tile's bias gradients: warps' column sums in a fixed order
       if (tid < W) {
         const int half = tid >> 6, col = tid & 63;
-        const int off[NBIAS] = {OFF_BC, S_BS, OFF_B2, OFF_B1};
+        const int off[NBIAS] = {SG::bc, SG::bs, SG::b2, SG::b1};
         float old[NBIAS];
 #pragma unroll
         for (int b = 0; b < NBIAS; ++b)
@@ -480,9 +429,11 @@ decoder_backward_kernel(const float* __restrict__ x,
           slab[off[b] + tid] = old[b] + (((c[0] + c[64]) + c[128]) + c[192]);
         }
       }
+      if (tid == 0) wg::stored_read();    // the tile's stores read
     }
     __syncthreads();
   }
+  if (want_wgrad && tid == 0) wg::stored();
 }
 
 // ---- K2: the decoder forward on the tensor cores ----
@@ -562,12 +513,14 @@ extern "C" int decoder_forward(const float* x, const void* const* params,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K3: dx (N, D); dparams (NPARAM,) in FusedParams order when want_wgrad;
-// partial: (P, NPARAM) scratch. P blocks each take tiles_per_block tiles.
-// Returns cudaGetLastError() after the launches (0 = launched).
+// K3's pass 1: dx (N, D); when want_wgrad the small gradients' slabs
+// (P, wg::small(W, SD).n) and the operands of the large ones in `scratch`
+// (decoder_wgrad.cuh's layout). P blocks each take
+// tiles_per_block tiles.
+// Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int decoder_backward(const float* x, const float* g,
                                 const void* const* params, float* dx,
-                                float* dparams, float* partial, long long N,
+                                float* slab, void* scratch, long long N,
                                 int P, int tiles_per_block, int want_wgrad,
                                 cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
@@ -575,10 +528,7 @@ extern "C" int decoder_backward(const float* x, const float* g,
       K3_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   decoder_backward_kernel<<<P, K3_THREADS, K3_SMEM, stream>>>(
-      x, g, params_from(params), dx, partial, N, tiles_per_block, want_wgrad);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || !want_wgrad) return static_cast<int>(err);
-  reduce_partials_kernel<<<(NPARAM + 255) / 256, 256, 0, stream>>>(
-      partial, dparams, P);
+      x, g, params_from(params), dx, slab, static_cast<bf16*>(scratch), N,
+      tiles_per_block, want_wgrad);
   return static_cast<int>(cudaGetLastError());
 }

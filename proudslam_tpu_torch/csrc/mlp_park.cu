@@ -12,37 +12,35 @@
 // unrounded cotangents, ReLU masks from the forward activations.
 //
 // What bounds them on an H100: arithmetic (~2 * 3.2M flops per row forward
-// at (16, 1024, 1024), 3x that for the full backward), then, for the full
-// backward, the slab of partial weight gradients each block reads and
-// rewrites per 64-row tile (12.7 MB at (16, 1024, 1024)). Design:
+// at (16, 1024, 1024), 2x that for K3's pass 1). Design:
 //   - K2 is mlp_wide.cu's K2 with decoder_park.cuh's `decode`, K1's, so K2
 //     on K1's features gives K1's outputs bit for bit;
-//   - K3 keeps mlp_wide.cu's reduction (each of P blocks walks a contiguous
-//     run of tiles and adds each tile's weight gradients into its own f32
-//     slab; reduce_partials_kernel sums the slabs in a fixed order: bitwise
-//     repeatable), its products and their order, with one (TR, W) tile t in
-//     shared memory and four parks in global memory: P1 h1; P2 h2, then
-//     dh1; P3 feat, then dh2; P4 hc, then dso. Per tile: h1 -> t and P1;
-//     h2 -> P2, back over t; feat -> P3, back over t; hc -> P4 with its
-//     color logits; dzo; hc back over t; dwo; dhc over hc in t; dwc_x and
-//     dx's part dhc wc_x^T; dso -> P4; dwc_f with feat from P3; dso back
-//     over t; dws with h2 from P2; dh2 (masks from P2) -> P3, back over t;
-//     dw2 with h1 from P1; dh1 (masks from P1) -> P2, back over t; dx +=
-//     dh1 w1^T, dw1. Every product and mask is mlp_wide.cu's; the color
-//     logits are summed as in `decode` (K2's order).
+//   - K3 is pass 1 of decoder_wgrad.cuh's two passes, as in mlp_wide.cu
+//     (each of P blocks walks a contiguous run of tiles, adds each tile's
+//     small gradients into its own f32 slab and stores its bf16 operands of
+//     the large ones in the scratch), with its products and their order,
+//     one (TR, W) tile t in shared memory and the other activations parked
+//     in global memory. dx-only, four parks a block: P1 h1; P2 h2, then
+//     dh1; P3 feat, then dh2; P4 hc, then dso. With the weight gradients
+//     every operand is parked at its place in the scratch, which pass 2
+//     reads, and only hc in P4. Per tile: h1 -> t and P1; h2 -> P2, back
+//     over t (ws's sdf column of the gradient, h2^T g_sdf, from t); feat ->
+//     P3, back over t; hc -> P4 with its color logits; dzo; hc back over t;
+//     dwo; dhc over hc in t; dx's part dhc wc_x^T; dso -> P4; dso back over
+//     t; dh2 (masks from P2) -> P3, back over t; dh1 (masks from P1) -> P2,
+//     back over t; dx += dh1 w1^T. Every product and mask is mlp_wide.cu's;
+//     the color logits are summed as in `decode` (K2's order).
 // A ragged last tile is masked: its missing rows carry zero inputs and zero
 // cotangents (they add nothing to any gradient) and write no output.
 
 #include "decoder_park.cuh"
-#include "decoder_slab.cuh"
+#include "decoder_wgrad.cuh"
 
 using namespace dec;
 using st::Lane;
 using st::col_sums;
 using st::put;
 using st::stage_x;
-using st::wgrad;
-using st::wgrad_x;
 using wd::CR;
 using wd::NP;
 
@@ -120,10 +118,11 @@ decoder_forward_kernel(const float* __restrict__ x, bf16* wpack,
 // ---- K3 ----
 
 constexpr int K3_SMEM = wd::RING_SMEM + pad16(tc::TR * D * 2)
-                        + pad16(tc::TR * W * 2) + pad16(tc::TR * 64 * 2)
-                        + pad16(tc::TR * 4 * 4) + pad16(4 * W * 4)
-                        + wd::PART_SMEM;
+                        + pad16(tc::TR * W * 2) + pad16(tc::TR * 4 * 4)
+                        + pad16(4 * W * 4) + wd::PART_SMEM;
 static_assert(K3_SMEM <= 232448, "one block's shared memory");
+// the block's slab of small gradients
+using SG = wg::SmallAt<W, SD>;
 
 // dst[0:len] (+)= the four warps' column sums, added in st::fold's order
 // (len may exceed the block's threads here)
@@ -148,31 +147,17 @@ __device__ __forceinline__ void park(bf16* dst, const float (&acc)[NP / 4],
           tc::pack_bf16x2(acc[4 * i + 2 * h], acc[4 * i + 2 * h + 1]);
 }
 
-// dst (M x N, row-major) (+)= act^T cot, act a parked (TR, M) tile and cot
-// the (TR, N) tile in shared memory: act's columns 64 at a time through the
-// buffer cb, each block of 64 the gradient's rows [mb, mb + 64)
-template <int M, int N>
-__device__ inline void wgrad_parked(const bf16* act, const bf16* cot,
-                                    bf16* cb, float* __restrict__ dst,
-                                    bool first, const Lane& ln) {
-#pragma unroll 1
-  for (int mb = 0; mb < M; mb += 64) {
-    pk::load_cols(cb, act, M, mb);
-    wgrad<64, N>(cb, cot, dst + static_cast<long long>(mb) * N, first, ln);
-  }
-}
-
 __global__ void __launch_bounds__(wd::THREADS, 1)
 decoder_backward_kernel(const float* __restrict__ x,
                         const float* __restrict__ g, bf16* wpack,
                         float* __restrict__ dx, float* __restrict__ partial,
-                        long long N, int tiles_per_block, int want_wgrad) {
+                        bf16* __restrict__ scratch, long long N,
+                        int tiles_per_block, int want_wgrad) {
   extern __shared__ __align__(16) char smem[];
   Arena arena{smem};
   wd::Ring ring = wd::ring_init(arena, wpack, wd::NFWD + wd::NBWD);
   bf16* xs = arena.take<bf16>(tc::TR * D);
   bf16* t = arena.take<bf16>(tc::TR * W);
-  bf16* cb = arena.take<bf16>(tc::TR * 64);   // a parked tile's 64 columns
   float* rowv = arena.take<float>(tc::TR * 4);   // [dzo (3) | g_sdf]
   float* cs = arena.take<float>(4 * W);
   float* part = arena.take<float>(2 * tc::TR * 4);
@@ -183,7 +168,7 @@ decoder_backward_kernel(const float* __restrict__ x,
   const Lane ln = st::lane();
   const int cw = NP / 2 * wg;              // this warpgroup's columns of a pass
   const bool lead = (tid & 3) == 0;
-  float* slab = partial + static_cast<long long>(blockIdx.x) * NPARAM;
+  float* slab = partial + static_cast<long long>(blockIdx.x) * SG::n;
   bf16* p1 = wpack + pk::PARK_OFF
              + static_cast<long long>(blockIdx.x) * pk::NPARK * pk::TILE;
   bf16* p2 = p1 + pk::TILE;
@@ -192,6 +177,10 @@ decoder_backward_kernel(const float* __restrict__ x,
   const long long ntiles = (N + tc::TR - 1) / tc::TR;
   const long long tile0 = static_cast<long long>(blockIdx.x) * tiles_per_block;
   const long long tile1 = min(ntiles, tile0 + tiles_per_block);
+  // tile `tile` of operand `op` in the scratch
+  auto at = [&](int op, long long tile) {
+    return scratch + wg::offset(op, tile, D, W, SD);
+  };
   float acc[NP / 4];                  // a pass's columns of an activation
   float ac[CR / 4];                   // a row block's columns of a cotangent
   float dd[D / 4];                    // dx's columns of this warpgroup
@@ -219,29 +208,48 @@ decoder_backward_kernel(const float* __restrict__ x,
       *reinterpret_cast<uint2*>(xs + tc::tofs(r, c, D)) =
           make_uint2(tc::pack_bf16x2(v.x, v.y), tc::pack_bf16x2(v.z, v.w));
     }
+    if (q == 3) rowv[r * 4 + 3] = gv;         // g_sdf
     tc::fence_proxy_async();
     __syncthreads();
+    // where each activation is parked: dx-only in the block's four parks,
+    // else the operands at their places in the scratch (hc in P4)
+    bf16* const ph1 = want_wgrad ? at(wg::H1, tile) : p1;
+    bf16* const ph2 = want_wgrad ? at(wg::H2, tile) : p2;
+    bf16* const pfeat = want_wgrad ? at(wg::FEAT, tile) : p3;
+    bf16* const pdso = want_wgrad ? at(wg::DFEAT, tile) : p4;
+    bf16* const pdh2 = want_wgrad ? at(wg::DH2, tile) : p3;
+    bf16* const pdh1 = want_wgrad ? at(wg::DH1, tile) : p2;
+    if (want_wgrad && tid == 0) wg::store(at(wg::X, tile), xs, 2 * tc::TR * D);
 
     // forward recompute: h1 -> t and P1, h2 -> P2, feat -> P3, hc -> P4
 #pragma unroll 1
     for (int p = 0; p < wd::PW; ++p) {
       wd::x_pass(acc, xs, ring, more);
       st::store_tile(t, W, acc, w.b1, true, NP * p + cw, ln);
-      park(p1, acc, NP * p + cw, ln);
+      park(ph1, acc, NP * p + cw, ln);
     }
     tc::fence_proxy_async();
 #pragma unroll 1
     for (int p = 0; p < wd::PW; ++p) {
       wd::fwd_pass<W>(acc, t, ring, more, false);
-      st::store_tile(p2, W, acc, w.b2, true, NP * p + cw, ln);
+      st::store_tile(ph2, W, acc, w.b2, true, NP * p + cw, ln);
     }
-    pk::unpark(t, p2, tc::TR * W);
+    pk::unpark(t, ph2, tc::TR * W);
+    if (want_wgrad) {
+      for (int k = tid; k < W; k += wd::THREADS) {        // h2^T g_sdf
+        float s = 0.f;
+        for (int rr = 0; rr < tc::TR; ++rr)
+          s = fmaf(__bfloat162float(t[tc::tofs(rr, k, W)]),
+                   tc::rbf(rowv[rr * 4 + 3]), s);
+        put(slab + SG::ws_sdf + k, s, first);
+      }
+    }
 #pragma unroll 1
     for (int p = 0; p < wd::PS; ++p) {
       wd::fwd_pass<W>(acc, t, ring, more, false);
-      st::store_tile(p3, SD, acc, w.bs, false, NP * p + cw, ln);
+      st::store_tile(pfeat, SD, acc, w.bs, false, NP * p + cw, ln);
     }
-    pk::unpark(t, p3, tc::TR * SD);
+    pk::unpark(t, pfeat, tc::TR * SD);
     // hc and this thread's part of its color logits hc wo (decode's sums)
     {
       float p0[3] = {0.f, 0.f, 0.f}, p1s[3] = {0.f, 0.f, 0.f};
@@ -287,8 +295,6 @@ decoder_backward_kernel(const float* __restrict__ x,
       const float s = part[r * 4 + q] + part[(tc::TR + r) * 4 + q];
       const float rgb = 1.f / (1.f + expf(-(s + w.bo[q])));
       rowv[r * 4 + q] = gv * rgb * (1.f - rgb);
-    } else {
-      rowv[r * 4 + 3] = gv;
     }
     pk::unpark(t, p4, tc::TR * W);           // hc over feat; rowv is in place
     if (want_wgrad) {
@@ -299,12 +305,12 @@ decoder_backward_kernel(const float* __restrict__ x,
         for (int rr = 0; rr < tc::TR; ++rr)
           s = fmaf(__bfloat162float(t[tc::tofs(rr, k, W)]),
                    tc::rbf(rowv[rr * 4 + c]), s);
-        put(slab + OFF_WO + e, s, first);
+        put(slab + SG::wo + e, s, first);
       }
       if (tid < 3) {
         float s = 0.f;
         for (int rr = 0; rr < tc::TR; ++rr) s += rowv[rr * 4 + tid];
-        put(slab + OFF_BO + tid, s, first);
+        put(slab + SG::bo + tid, s, first);
       }
       __syncthreads();                // hc's readers are done
     }
@@ -337,12 +343,12 @@ decoder_backward_kernel(const float* __restrict__ x,
     tc::fence_proxy_async();
     __syncthreads();                  // dhc is in place; cs holds dbc
     if (want_wgrad) {
-      fold_all(cs, slab + OFF_BC, W, first);
-      wgrad_x<W>(t, xs, slab + OFF_WCX, first, ln);       // x^T dhc
+      fold_all(cs, slab + SG::bc, W, first);
+      if (tid == 0) wg::store(at(wg::DHC, tile), t, 2 * tc::TR * W);
       if (tid == 0) {
         float s = 0.f;
         for (int rr = 0; rr < tc::TR; ++rr) s += rowv[rr * 4 + 3];
-        put(slab + S_BS + SD, s, first);
+        put(slab + SG::bs + SD, s, first);
       }
     }
     // dx = dhc wc_x^T (+ dh1 w1^T below): warpgroup wg takes columns
@@ -353,38 +359,21 @@ decoder_backward_kernel(const float* __restrict__ x,
     else
       wd::dx_passes(dd, t, ring, more, false);
 
-    // dso[:, :SD] = dfeat = dhc wc_f^T -> P4 (hc's park, read back above)
+    // dso[:, :SD] = dfeat = dhc wc_f^T -> P4 (hc's park, read back above);
+    // dhc's store has read t before dso comes back over it
+    if (want_wgrad && tid == 0) wg::stored_read();
 #pragma unroll 1
     for (int c = 0; c < wd::KS; ++c) {
       wd::bwd_block<W>(ac, t, ring, more);
       const int col0 = CR * c + CR / 2 * wg;
       if (want_wgrad) col_sums(ac, cs, col0);            // dbs[:SD]
-      st::store_tile(p4, SD, ac, nullptr, false, col0, ln);
+      st::store_tile(pdso, SD, ac, nullptr, false, col0, ln);
     }
     __syncthreads();                  // dso is parked; cs holds dbs
-    if (want_wgrad) {
-      fold_all(cs, slab + S_BS, SD, first);
-      wgrad_parked<SD, W>(p3, t, cb, slab + S_WCF, first, ln);  // feat^T dhc
-    }
+    if (want_wgrad) fold_all(cs, slab + SG::bs, SD, first);
 
     // dso back over dhc
-    pk::unpark(t, p4, tc::TR * SD);
-    if (want_wgrad) {
-      // h2^T dso[:, :SD], and h2^T g_sdf from each block of h2's columns
-#pragma unroll 1
-      for (int mb = 0; mb < W; mb += 64) {
-        pk::load_cols(cb, p2, W, mb);
-        if (tid < 64) {
-          float s = 0.f;
-          for (int rr = 0; rr < tc::TR; ++rr)
-            s = fmaf(__bfloat162float(cb[tc::tofs(rr, tid, 64)]),
-                     tc::rbf(rowv[rr * 4 + 3]), s);
-          put(slab + S_WS_SDF + mb + tid, s, first);
-        }
-        wgrad<64, SD>(cb, t, slab + OFF_WS + static_cast<long long>(mb) * SD,
-                      first, ln);
-      }
-    }
+    pk::unpark(t, pdso, tc::TR * SD);
 
     // dh2 = (dso ws^T) * (h2 > 0) -> P3 (feat's park): the SD feature
     // columns on the tensor cores, the sdf column's rank-1 term g_sdf
@@ -402,32 +391,30 @@ decoder_backward_kernel(const float* __restrict__ x,
           ac[4 * i + e] = fmaf(gs[e >> 1],
                                w.ws_sdf[col0 + 8 * i + ln.c2 + (e & 1)],
                                ac[4 * i + e]);
-      st::relu_mask(ac, p2, W, col0, ln);
+      st::relu_mask(ac, ph2, W, col0, ln);
       if (want_wgrad) col_sums(ac, cs, col0);            // db2
-      st::store_tile(p3, W, ac, nullptr, false, col0, ln);
+      st::store_tile(pdh2, W, ac, nullptr, false, col0, ln);
     }
     __syncthreads();                  // dh2 is parked
-    if (want_wgrad) fold_all(cs, slab + OFF_B2, W, first);
+    if (want_wgrad) fold_all(cs, slab + SG::b2, W, first);
 
     // dh2 back over dso
-    pk::unpark(t, p3, tc::TR * W);
-    if (want_wgrad)
-      wgrad_parked<W, W>(p1, t, cb, slab + OFF_W2, first, ln);   // h1^T dh2
+    pk::unpark(t, pdh2, tc::TR * W);
 
     // dh1 = (dh2 w2^T) * (h1 > 0) -> P2 (h2's park), the masks from h1's
 #pragma unroll 1
     for (int c = 0; c < wd::KW; ++c) {
       wd::bwd_block<W>(ac, t, ring, more);
       const int col0 = CR * c + CR / 2 * wg;
-      st::relu_mask(ac, p1, W, col0, ln);
+      st::relu_mask(ac, ph1, W, col0, ln);
       if (want_wgrad) col_sums(ac, cs, col0);            // db1
-      st::store_tile(p2, W, ac, nullptr, false, col0, ln);
+      st::store_tile(pdh1, W, ac, nullptr, false, col0, ln);
     }
     __syncthreads();                  // dh1 is parked
-    if (want_wgrad) fold_all(cs, slab + OFF_B1, W, first);
+    if (want_wgrad) fold_all(cs, slab + SG::b1, W, first);
 
     // dh1 back over dh2; dx += dh1 w1^T
-    pk::unpark(t, p2, tc::TR * W);
+    pk::unpark(t, pdh1, tc::TR * W);
     if constexpr (wd::XC > 1) {
       wd::dx_passes2(dd2, t, ring, more, true);
 #pragma unroll
@@ -458,9 +445,10 @@ decoder_backward_kernel(const float* __restrict__ x,
                 make_float2(dd[4 * i + 2 * h], dd[4 * i + 2 * h + 1]);
         }
     }
-    if (want_wgrad) wgrad_x<W>(t, xs, slab + OFF_W1, first, ln);   // x^T dh1
+    if (want_wgrad && tid == 0) wg::stored_read();      // x's store
     __syncthreads();
   }
+  if (want_wgrad && tid == 0) wg::stored();
 }
 
 }  // namespace
@@ -484,13 +472,14 @@ extern "C" int decoder_forward(const float* x, const void* const* params,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K3: dx (N, D); dparams (NPARAM,) in FusedParams order when want_wgrad;
-// partial: (P, NPARAM) scratch; wpack: as K2's. P blocks (<= the SMs) each
-// take tiles_per_block tiles.
+// K3's pass 1: dx (N, D); when want_wgrad the small gradients' slabs
+// (P, wg::small(W, SD).n) and the operands of the large ones in `scratch`
+// (decoder_wgrad.cuh's layout); wpack: as K2's. P
+// blocks (<= the SMs) each take tiles_per_block tiles.
 // Returns cudaGetLastError() after the launches (0 = launched).
 extern "C" int decoder_backward(const float* x, const float* g,
                                 const void* const* params, void* wpack,
-                                float* dx, float* dparams, float* partial,
+                                float* dx, float* slab, void* scratch,
                                 long long N, int P, int tiles_per_block,
                                 int want_wgrad, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
@@ -500,11 +489,7 @@ extern "C" int decoder_backward(const float* x, const float* g,
   err = pk::pack(params_from(params), static_cast<bf16*>(wpack), stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   decoder_backward_kernel<<<P, wd::THREADS, K3_SMEM, stream>>>(
-      x, g, static_cast<bf16*>(wpack), dx, partial, N, tiles_per_block,
-      want_wgrad);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || !want_wgrad) return static_cast<int>(err);
-  reduce_partials_kernel<<<(NPARAM + 255) / 256, 256, 0, stream>>>(
-      partial, dparams, P);
+      x, g, static_cast<bf16*>(wpack), dx, slab, static_cast<bf16*>(scratch),
+      N, tiles_per_block, want_wgrad);
   return static_cast<int>(cudaGetLastError());
 }

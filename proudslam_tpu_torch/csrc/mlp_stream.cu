@@ -21,17 +21,16 @@
 //     for the next tile with cp.async during this one's decoder, and the
 //     decoder is decoder_stream.cuh's `decode`, K1's, so K2 on K1's features
 //     gives K1's outputs bit for bit;
-//   - K3: each of P blocks (<= the SM count) walks a contiguous run of tiles
-//     and adds each tile's weight gradients into its own f32 slab, and
-//     reduce_partials_kernel (decoder_slab.cuh) sums the slabs in a fixed
-//     order: no float atomics, bitwise repeatable. Per tile it recomputes
-//     h1, h2, feat and hc into shared-memory tiles (hc in the tile that then
-//     holds dhc), then the backward chain, each streamed product giving 64
+//   - K3 is pass 1 of the two passes of decoder_wgrad.cuh: each of P blocks
+//     (<= the SM count) walks a contiguous run of tiles, adds each tile's
+//     six small gradients into its own f32 slab, and stores each tile's
+//     bf16 operands of the five large ones in the scratch (pass 2,
+//     mlp_wgrad.cu, sums those products). Per tile it recomputes h1, h2,
+//     feat and hc into shared-memory tiles (hc in the tile that then holds
+//     dhc), then the backward chain, each streamed product giving 64
 //     finished columns per chunk, written in place over the forward tile
-//     whose ReLU mask it takes once that tile's weight gradient is done
-//     (dso over feat, dh2 over h2, dh1 over h1). The weight gradients
-//     (act^T cot, K = the tile's 64 rows) are split into 64 x 64 pieces
-//     over the two warpgroups; the bias gradients' per-warp column
+//     whose ReLU mask it takes once that tile has been stored (dso over
+//     feat, dh2 over h2, dh1 over h1); the bias gradients' per-warp column
 //     sums are folded into the slab in a fixed order after each product, so
 //     one 4 x W buffer serves all four. Four bf16 tiles of width W or SD
 //     beside the ring fit a block up to (16, 256, 256) (229,424 bytes) and,
@@ -45,14 +44,13 @@
 // would take K3's block to 251,952 bytes at (64, 256, 256), 186,416
 // streamed): the x-side forward products take their two chunks each, dx
 // takes w1's and wc_x's chunks in turn, each pair giving 32 finished
-// columns, and the weight gradients run in pieces of 64 x 32
-// (decoder_rows.cuh), which keeps K3 within 255 registers at width 256.
+// columns.
 // In_dim 128 runs the wide plan (mlp_wide.cu).
 // A ragged last tile is masked: its missing rows carry zero inputs and zero
 // cotangents (they add nothing to any gradient) and write no output.
 
 #include "decoder_rows.cuh"
-#include "decoder_slab.cuh"
+#include "decoder_wgrad.cuh"
 
 using namespace dec;
 using st::HALF;
@@ -61,8 +59,6 @@ using st::col_sums;
 using st::fold;
 using st::put;
 using st::stage_x;
-using st::wgrad;
-using st::wgrad_x;
 
 namespace {
 
@@ -128,12 +124,15 @@ constexpr int K3_SMEM = tc::TC_SMALL_SMEM - (st::NX > 0 ? tc::TC_X_SMEM : 0)
                         + pad16(tc::TR * SD * 2) + pad16(tc::TR * 4 * 4)
                         + pad16(4 * W * 4);
 static_assert(K3_SMEM <= 232448, "one block's shared memory");
+// the block's slab of small gradients
+using SG = wg::SmallAt<W, SD>;
 
 __global__ void __launch_bounds__(st::THREADS, 1)
 decoder_backward_kernel(const float* __restrict__ x,
                         const float* __restrict__ g, Params prm,
                         const bf16* wpack, float* __restrict__ dx,
-                        float* __restrict__ partial, long long N,
+                        float* __restrict__ partial,
+                        bf16* __restrict__ scratch, long long N,
                         int tiles_per_block, int want_wgrad) {
   extern __shared__ __align__(16) char smem[];
   Arena arena{smem};
@@ -152,8 +151,12 @@ decoder_backward_kernel(const float* __restrict__ x,
   const int tid = threadIdx.x, wg = tid / tc::WG;
   const Lane ln = st::lane();
   const int c0 = HALF * wg;
-  float* slab = partial + static_cast<long long>(blockIdx.x) * NPARAM;
+  float* slab = partial + static_cast<long long>(blockIdx.x) * SG::n;
   const long long ntiles = (N + tc::TR - 1) / tc::TR;
+  // tile `tile` of operand `op` in the scratch
+  auto at = [&](int op, long long tile) {
+    return scratch + wg::offset(op, tile, D, W, SD);
+  };
   const long long tile0 = static_cast<long long>(blockIdx.x) * tiles_per_block;
   const long long tile1 = min(ntiles, tile0 + tiles_per_block);
   float acc[W / 4];
@@ -184,6 +187,7 @@ decoder_backward_kernel(const float* __restrict__ x,
     }
     tc::fence_proxy_async();
     __syncthreads();
+    if (want_wgrad && tid == 0) wg::store(at(wg::X, tile), xs, 2 * tc::TR * D);
 
     // forward recompute: h1, h2, feat, hc (bf16, shared memory)
     if constexpr (st::NX > 0)
@@ -209,6 +213,11 @@ decoder_backward_kernel(const float* __restrict__ x,
     st::fwd_stream<W, SD>(acc, feat, ring, more, true);
     st::store_tile(dhc, W, acc, w.bc, true, c0, ln);    // hc
     __syncthreads();
+    if (want_wgrad && tid == 0) {
+      wg::store(at(wg::H1, tile), h1, 2 * tc::TR * W);
+      wg::store(at(wg::H2, tile), h2, 2 * tc::TR * W);
+      wg::store(at(wg::FEAT, tile), feat, 2 * tc::TR * SD);
+    }
 
     // color head and dzo = g_rgb * rgb * (1 - rgb): thread (r, q) sums
     // hc[r, q W/4 : (q + 1) W/4] . wo, the four quarters are summed across
@@ -271,28 +280,26 @@ decoder_backward_kernel(const float* __restrict__ x,
         for (int rr = 0; rr < tc::TR; ++rr)
           s = fmaf(__bfloat162float(dhc[tc::tofs(rr, k, W)]),
                    tc::rbf(rowv[rr * 4 + c]), s);
-        put(slab + OFF_WO + e, s, first);
+        put(slab + SG::wo + e, s, first);
       }
       if (tid < 3) {
         float s = 0.f;
         for (int rr = 0; rr < tc::TR; ++rr) s += rowv[rr * 4 + tid];
-        put(slab + OFF_BO + tid, s, first);
+        put(slab + SG::bo + tid, s, first);
       }
     }
     __syncthreads();                  // hc's readers are done
-    if (want_wgrad) fold(cs, slab + OFF_BC, W, first);
+    if (want_wgrad) fold(cs, slab + SG::bc, W, first);
     st::store_tile(dhc, W, acc, nullptr, false, c0, ln);
     tc::fence_proxy_async();
     __syncthreads();                  // dhc is in place; cs is free
 
-    if (want_wgrad) {
-      wgrad<SD, W>(feat, dhc, slab + S_WCF, first, ln);   // feat^T dhc
-      wgrad_x<W>(dhc, xs, slab + OFF_WCX, first, ln);     // x^T dhc
-      if (tid == 0) {
-        float s = 0.f;
-        for (int rr = 0; rr < tc::TR; ++rr) s += rowv[rr * 4 + 3];
-        put(slab + S_BS + SD, s, first);
-      }
+    if (want_wgrad && tid == 0) {
+      wg::store(at(wg::DHC, tile), dhc, 2 * tc::TR * W);
+      float s = 0.f;
+      for (int rr = 0; rr < tc::TR; ++rr) s += rowv[rr * 4 + 3];
+      put(slab + SG::bs + SD, s, first);
+      wg::stored_read();            // h1's, h2's and feat's: overwritten next
     }
 
     // dso[:, :SD] = dfeat = dhc wc_f^T, over feat (its readers are done at
@@ -308,14 +315,15 @@ decoder_backward_kernel(const float* __restrict__ x,
     tc::fence_proxy_async();
     __syncthreads();                  // dso is in place
     if (want_wgrad) {
-      fold(cs, slab + S_BS, SD, first);
-      wgrad<W, SD>(h2, feat, slab + OFF_WS, first, ln);   // h2^T dso[:, :SD]
+      fold(cs, slab + SG::bs, SD, first);
+      if (tid == 0)                                       // dso[:, :SD]
+        wg::store(at(wg::DFEAT, tile), feat, 2 * tc::TR * SD);
       if (tid < W) {                                      // h2^T g_sdf
         float s = 0.f;
         for (int rr = 0; rr < tc::TR; ++rr)
           s = fmaf(__bfloat162float(h2[tc::tofs(rr, tid, W)]),
                    tc::rbf(rowv[rr * 4 + 3]), s);
-        put(slab + S_WS_SDF + tid, s, first);
+        put(slab + SG::ws_sdf + tid, s, first);
       }
     }
 
@@ -343,8 +351,8 @@ decoder_backward_kernel(const float* __restrict__ x,
     tc::fence_proxy_async();
     __syncthreads();                  // dh2 is in place
     if (want_wgrad) {
-      fold(cs, slab + OFF_B2, W, first);
-      wgrad<W, W>(h1, h2, slab + OFF_W2, first, ln);      // h1^T dh2
+      fold(cs, slab + SG::b2, W, first);
+      if (tid == 0) wg::store(at(wg::DH2, tile), h2, 2 * tc::TR * W);
     }
 
     // dh1 = (dh2 w2^T) * (h1 > 0), over h1
@@ -359,7 +367,10 @@ decoder_backward_kernel(const float* __restrict__ x,
     }
     tc::fence_proxy_async();
     __syncthreads();                  // dh1 is in place
-    if (want_wgrad) fold(cs, slab + OFF_B1, W, first);
+    if (want_wgrad) {
+      fold(cs, slab + SG::b1, W, first);
+      if (tid == 0) wg::store(at(wg::DH1, tile), h1, 2 * tc::TR * W);
+    }
 
     // dx = dh1 w1^T + dhc wc_x^T. At in_dim 64 from the chunks of w1 and
     // wc_x in turn: chunk c of each gives columns [CR c, CR c + CR), CR / 2
@@ -406,9 +417,10 @@ decoder_backward_kernel(const float* __restrict__ x,
                 make_float2(dd[4 * i + 2 * h], dd[4 * i + 2 * h + 1]);
         }
     }
-    if (want_wgrad) wgrad_x<W>(h1, xs, slab + OFF_W1, first, ln);   // x^T dh1
+    if (want_wgrad && tid == 0) wg::stored_read();      // the tile's stores
     __syncthreads();
   }
+  if (want_wgrad && tid == 0) wg::stored();
 }
 
 }  // namespace
@@ -431,13 +443,14 @@ extern "C" int decoder_forward(const float* x, const void* const* params,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K3: dx (N, D); dparams (NPARAM,) in FusedParams order when want_wgrad;
-// partial: (P, NPARAM) scratch; wpack: scratch of st::PACKED bf16. P blocks
-// each take tiles_per_block tiles.
+// K3's pass 1: dx (N, D); when want_wgrad the small gradients' slabs
+// (P, wg::small(W, SD).n) and the operands of the large ones in `scratch`
+// (decoder_wgrad.cuh's layout); wpack: scratch of
+// st::PACKED bf16. P blocks each take tiles_per_block tiles.
 // Returns cudaGetLastError() after the launches (0 = launched).
 extern "C" int decoder_backward(const float* x, const float* g,
                                 const void* const* params, void* wpack,
-                                float* dx, float* dparams, float* partial,
+                                float* dx, float* slab, void* scratch,
                                 long long N, int P, int tiles_per_block,
                                 int want_wgrad, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
@@ -448,11 +461,7 @@ extern "C" int decoder_backward(const float* x, const float* g,
   err = st::pack_weights(prm, static_cast<bf16*>(wpack), stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   decoder_backward_kernel<<<P, st::THREADS, K3_SMEM, stream>>>(
-      x, g, prm, static_cast<const bf16*>(wpack), dx, partial, N,
-      tiles_per_block, want_wgrad);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || !want_wgrad) return static_cast<int>(err);
-  reduce_partials_kernel<<<(NPARAM + 255) / 256, 256, 0, stream>>>(
-      partial, dparams, P);
+      x, g, prm, static_cast<const bf16*>(wpack), dx, slab,
+      static_cast<bf16*>(scratch), N, tiles_per_block, want_wgrad);
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,35 +12,33 @@
 // unrounded cotangents, ReLU masks from the forward activations.
 //
 // What bounds them on an H100: arithmetic (~2 * 800k flops per row forward
-// at (16, 512, 512), 3x that for the full backward), then, for the full
-// backward, the slab of partial weight gradients each block reads and
-// rewrites per 64-row tile (3.2 MB at (16, 512, 512)). Design:
+// at (16, 512, 512), 2x that for K3's pass 1). Design:
 //   - K2 is mlp_stream.cu's K2 with decoder_wide.cuh's `decode`, K1's, so
 //     K2 on K1's features gives K1's outputs bit for bit;
-//   - K3 keeps mlp_stream.cu's reduction (each of P blocks walks a
-//     contiguous run of tiles and adds each tile's weight gradients into its
-//     own f32 slab; reduce_partials_kernel sums the slabs in a fixed order:
-//     bitwise repeatable) and its products, in passes, with two (TR, W)
-//     bf16 activation tiles A and B instead of four. Per tile: h1 -> A and
-//     h2 -> B, each also parked in the block's scratch in global memory;
-//     feat -> A, hc -> B; dzo, dwo; dhc over hc in B; dwc_f, dwc_x and dx's
-//     part dhc wc_x^T; dso over feat in A (dhc is then dead); h2 back from
-//     its park over B, dws; dh2 over h2 in B; h1 back over A, dw2; dh1 over
-//     h1 in A; dx += dh1 w1^T, dw1. The ReLU masks are the parked tiles'
-//     own values, so every product and mask is mlp_stream.cu's. 195,632
-//     bytes of shared memory at (32, 512, 512).
+//   - K3 is pass 1 of decoder_wgrad.cuh's two passes, as in mlp_stream.cu
+//     (each of P blocks walks a contiguous run of tiles, adds each tile's
+//     small gradients into its own f32 slab and stores its bf16 operands of
+//     the large ones in the scratch), with mlp_stream.cu's products, in
+//     passes, and two (TR, W) bf16 activation tiles A and B instead of
+//     four. Per tile: h1 -> A and h2 -> B, each also parked in global
+//     memory (in the scratch, where the operands go; dx-only in the block's
+//     own park); feat -> A, hc -> B; dzo, dwo; dhc over hc in B; dx's part
+//     dhc wc_x^T; dso over feat in A (dhc is then dead); h2 back from its
+//     park over B; dh2 over h2 in B; h1 back over A; dh1 over h1 in A; dx
+//     += dh1 w1^T. The ReLU masks are the parked tiles' own values, so
+//     every product and mask is mlp_stream.cu's. 195,632 bytes of shared
+//     memory at (32, 512, 512).
 // At in_dim 128 K2's staging buffer for the next tile's inputs (32 KB)
 // would take its block to 233,520 bytes at (128, 512, 512), so there each
 // tile's inputs are read straight from global memory at its start, as K3
 // reads them; w1 and wc_x come in chunks of 64 rows (decoder_wide.cuh),
-// dx's columns two blocks of 64 (dx_passes2), and the x-side weight
-// gradients in pieces of 32 of x's columns (decoder_rows.cuh). K3 there
-// takes 207,920 bytes.
+// and dx's columns two blocks of 64 (dx_passes2). K3 there takes 207,920
+// bytes.
 // A ragged last tile is masked: its missing rows carry zero inputs and zero
 // cotangents (they add nothing to any gradient) and write no output.
 
 #include "decoder_rows.cuh"
-#include "decoder_slab.cuh"
+#include "decoder_wgrad.cuh"
 #include "decoder_wide.cuh"
 
 using namespace dec;
@@ -48,8 +46,6 @@ using st::Lane;
 using st::col_sums;
 using st::put;
 using st::stage_x;
-using st::wgrad;
-using st::wgrad_x;
 using wd::CR;
 using wd::NP;
 
@@ -129,6 +125,8 @@ constexpr int K3_SMEM = wd::VEC_SMEM + wd::RING_SMEM + pad16(tc::TR * D * 2)
                         + 2 * pad16(tc::TR * W * 2) + pad16(tc::TR * 4 * 4)
                         + pad16(4 * W * 4);
 static_assert(K3_SMEM <= 232448, "one block's shared memory");
+// the block's slab of small gradients
+using SG = wg::SmallAt<W, SD>;
 
 // dst[0:len] (+)= the four warps' column sums, added in st::fold's order
 // (len may exceed the block's threads here)
@@ -166,7 +164,8 @@ __global__ void __launch_bounds__(wd::THREADS, 1)
 decoder_backward_kernel(const float* __restrict__ x,
                         const float* __restrict__ g, Params prm, bf16* wpack,
                         float* __restrict__ dx, float* __restrict__ partial,
-                        long long N, int tiles_per_block, int want_wgrad) {
+                        bf16* __restrict__ scratch, long long N,
+                        int tiles_per_block, int want_wgrad) {
   extern __shared__ __align__(16) char smem[];
   Arena arena{smem};
   const wd::Vecs w = wd::carve_vecs(arena);
@@ -181,10 +180,14 @@ decoder_backward_kernel(const float* __restrict__ x,
   const int tid = threadIdx.x, wg = tid / tc::WG;
   const Lane ln = st::lane();
   const int cw = NP / 2 * wg;              // this warpgroup's columns of a pass
-  float* slab = partial + static_cast<long long>(blockIdx.x) * NPARAM;
+  float* slab = partial + static_cast<long long>(blockIdx.x) * SG::n;
   bf16* park1 = wpack + wd::PACKED + static_cast<long long>(blockIdx.x) * wd::PARK;
   bf16* park2 = park1 + tc::TR * W;
   const long long ntiles = (N + tc::TR - 1) / tc::TR;
+  // tile `tile` of operand `op` in the scratch
+  auto at = [&](int op, long long tile) {
+    return scratch + wg::offset(op, tile, D, W, SD);
+  };
   const long long tile0 = static_cast<long long>(blockIdx.x) * tiles_per_block;
   const long long tile1 = min(ntiles, tile0 + tiles_per_block);
   float acc[NP / 4];                  // a pass's columns of an activation
@@ -216,6 +219,11 @@ decoder_backward_kernel(const float* __restrict__ x,
     }
     tc::fence_proxy_async();
     __syncthreads();
+    // h1 and h2 are parked where pass 2 reads them (dx-only: in the
+    // block's park)
+    bf16* p1 = want_wgrad ? at(wg::H1, tile) : park1;
+    bf16* p2 = want_wgrad ? at(wg::H2, tile) : park2;
+    if (want_wgrad && tid == 0) wg::store(at(wg::X, tile), xs, 2 * tc::TR * D);
 
     // forward recompute: h1 -> A and parked, h2 -> B and parked, feat -> A,
     // hc -> B
@@ -223,14 +231,14 @@ decoder_backward_kernel(const float* __restrict__ x,
     for (int p = 0; p < wd::PW; ++p) {
       wd::x_pass(acc, xs, ring, more);
       st::store_tile(ta, W, acc, w.b1, true, NP * p + cw, ln);
-      park(park1, acc, NP * p + cw, ln);
+      park(p1, acc, NP * p + cw, ln);
     }
     tc::fence_proxy_async();
 #pragma unroll 1
     for (int p = 0; p < wd::PW; ++p) {
       wd::fwd_pass<W>(acc, ta, ring, more, false);
       st::store_tile(tb, W, acc, w.b2, true, NP * p + cw, ln);
-      park(park2, acc, NP * p + cw, ln);
+      park(p2, acc, NP * p + cw, ln);
     }
     tc::fence_proxy_async();
 #pragma unroll 1
@@ -246,6 +254,8 @@ decoder_backward_kernel(const float* __restrict__ x,
       st::store_tile(tb, W, acc, w.bc, true, NP * p + cw, ln);
     }
     __syncthreads();
+    if (want_wgrad && tid == 0)
+      wg::store(at(wg::FEAT, tile), ta, 2 * tc::TR * SD);
 
     // color head and dzo = g_rgb * rgb * (1 - rgb): thread (r, q) sums
     // hc[r, q W/4 : (q + 1) W/4] . wo, the four quarters are summed across
@@ -288,12 +298,12 @@ decoder_backward_kernel(const float* __restrict__ x,
         for (int rr = 0; rr < tc::TR; ++rr)
           s = fmaf(__bfloat162float(tb[tc::tofs(rr, k, W)]),
                    tc::rbf(rowv[rr * 4 + c]), s);
-        put(slab + OFF_WO + e, s, first);
+        put(slab + SG::wo + e, s, first);
       }
       if (tid < 3) {
         float s = 0.f;
         for (int rr = 0; rr < tc::TR; ++rr) s += rowv[rr * 4 + tid];
-        put(slab + OFF_BO + tid, s, first);
+        put(slab + SG::bo + tid, s, first);
       }
       __syncthreads();                // hc's readers are done
     }
@@ -326,13 +336,12 @@ decoder_backward_kernel(const float* __restrict__ x,
     tc::fence_proxy_async();
     __syncthreads();                  // dhc is in place; cs holds dbc
     if (want_wgrad) {
-      fold_all(cs, slab + OFF_BC, W, first);
-      wgrad<SD, W>(ta, tb, slab + S_WCF, first, ln);      // feat^T dhc
-      wgrad_x<W>(tb, xs, slab + OFF_WCX, first, ln);      // x^T dhc
+      fold_all(cs, slab + SG::bc, W, first);
+      if (tid == 0) wg::store(at(wg::DHC, tile), tb, 2 * tc::TR * W);
       if (tid == 0) {
         float s = 0.f;
         for (int rr = 0; rr < tc::TR; ++rr) s += rowv[rr * 4 + 3];
-        put(slab + S_BS + SD, s, first);
+        put(slab + SG::bs + SD, s, first);
       }
     }
     // dx = dhc wc_x^T (+ dh1 w1^T below): warpgroup wg takes columns
@@ -344,7 +353,8 @@ decoder_backward_kernel(const float* __restrict__ x,
       wd::dx_passes(dd, tb, ring, more, false);
 
     // dso[:, :SD] = dfeat = dhc wc_f^T, over feat (its readers are done at
-    // the first chunk's barrier)
+    // the first chunk's barrier, its store and dhc's read before)
+    if (want_wgrad && tid == 0) wg::stored_read();
 #pragma unroll 1
     for (int c = 0; c < wd::KS; ++c) {
       wd::bwd_block<W>(ac, tb, ring, more);
@@ -354,18 +364,21 @@ decoder_backward_kernel(const float* __restrict__ x,
     }
     tc::fence_proxy_async();
     __syncthreads();                  // dso is in place; dhc is dead
-    if (want_wgrad) fold_all(cs, slab + S_BS, SD, first);
+    if (want_wgrad) {
+      fold_all(cs, slab + SG::bs, SD, first);
+      if (tid == 0)                                       // dso[:, :SD]
+        wg::store(at(wg::DFEAT, tile), ta, 2 * tc::TR * SD);
+    }
 
     // h2 back over dhc
-    unpark(tb, park2);
+    unpark(tb, p2);
     if (want_wgrad) {
-      wgrad<W, SD>(tb, ta, slab + OFF_WS, first, ln);     // h2^T dso[:, :SD]
       for (int k = tid; k < W; k += wd::THREADS) {        // h2^T g_sdf
         float s = 0.f;
         for (int rr = 0; rr < tc::TR; ++rr)
           s = fmaf(__bfloat162float(tb[tc::tofs(rr, k, W)]),
                    tc::rbf(rowv[rr * 4 + 3]), s);
-        put(slab + S_WS_SDF + k, s, first);
+        put(slab + SG::ws_sdf + k, s, first);
       }
     }
 
@@ -374,6 +387,7 @@ decoder_backward_kernel(const float* __restrict__ x,
     // FMA units (h2's other readers are done at the first chunk's barrier)
     const float gs[2] = {tc::rbf(rowv[ln.r0 * 4 + 3]),
                          tc::rbf(rowv[(ln.r0 + 8) * 4 + 3])};
+    if (want_wgrad && tid == 0) wg::stored_read();      // dso's, before h1
 #pragma unroll 1
     for (int c = 0; c < wd::KW; ++c) {
       wd::bwd_block<SD>(ac, ta, ring, more);
@@ -391,11 +405,13 @@ decoder_backward_kernel(const float* __restrict__ x,
     }
     tc::fence_proxy_async();
     __syncthreads();                  // dh2 is in place; dso is dead
-    if (want_wgrad) fold_all(cs, slab + OFF_B2, W, first);
+    if (want_wgrad) {
+      fold_all(cs, slab + SG::b2, W, first);
+      if (tid == 0) wg::store(at(wg::DH2, tile), tb, 2 * tc::TR * W);
+    }
 
     // h1 back over dso
-    unpark(ta, park1);
-    if (want_wgrad) wgrad<W, W>(ta, tb, slab + OFF_W2, first, ln);   // h1^T dh2
+    unpark(ta, p1);
 
     // dh1 = (dh2 w2^T) * (h1 > 0), over h1
 #pragma unroll 1
@@ -408,7 +424,10 @@ decoder_backward_kernel(const float* __restrict__ x,
     }
     tc::fence_proxy_async();
     __syncthreads();                  // dh1 is in place
-    if (want_wgrad) fold_all(cs, slab + OFF_B1, W, first);
+    if (want_wgrad) {
+      fold_all(cs, slab + SG::b1, W, first);
+      if (tid == 0) wg::store(at(wg::DH1, tile), ta, 2 * tc::TR * W);
+    }
 
     // dx += dh1 w1^T
     if constexpr (wd::XC > 1) {
@@ -441,9 +460,10 @@ decoder_backward_kernel(const float* __restrict__ x,
                 make_float2(dd[4 * i + 2 * h], dd[4 * i + 2 * h + 1]);
         }
     }
-    if (want_wgrad) wgrad_x<W>(ta, xs, slab + OFF_W1, first, ln);   // x^T dh1
+    if (want_wgrad && tid == 0) wg::stored_read();      // the tile's stores
     __syncthreads();
   }
+  if (want_wgrad && tid == 0) wg::stored();
 }
 
 }  // namespace
@@ -466,14 +486,15 @@ extern "C" int decoder_forward(const float* x, const void* const* params,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K3: dx (N, D); dparams (NPARAM,) in FusedParams order when want_wgrad;
-// partial: (P, NPARAM) scratch; wpack: scratch of wd::PACKED bf16 and, after
-// them, wd::PARK bf16 per block (h1 and h2 parked). P blocks each take
-// tiles_per_block tiles.
+// K3's pass 1: dx (N, D); when want_wgrad the small gradients' slabs
+// (P, wg::small(W, SD).n) and the operands of the large ones in `scratch`
+// (decoder_wgrad.cuh's layout); wpack: scratch of
+// wd::PACKED bf16 and, after them, wd::PARK bf16 per block (h1 and h2
+// parked when dx-only). P blocks each take tiles_per_block tiles.
 // Returns cudaGetLastError() after the launches (0 = launched).
 extern "C" int decoder_backward(const float* x, const float* g,
                                 const void* const* params, void* wpack,
-                                float* dx, float* dparams, float* partial,
+                                float* dx, float* slab, void* scratch,
                                 long long N, int P, int tiles_per_block,
                                 int want_wgrad, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
@@ -484,11 +505,7 @@ extern "C" int decoder_backward(const float* x, const float* g,
   err = wd::pack_weights(prm, static_cast<bf16*>(wpack), stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   decoder_backward_kernel<<<P, wd::THREADS, K3_SMEM, stream>>>(
-      x, g, prm, static_cast<bf16*>(wpack), dx, partial, N, tiles_per_block,
-      want_wgrad);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || !want_wgrad) return static_cast<int>(err);
-  reduce_partials_kernel<<<(NPARAM + 255) / 256, 256, 0, stream>>>(
-      partial, dparams, P);
+      x, g, prm, static_cast<bf16*>(wpack), dx, slab,
+      static_cast<bf16*>(scratch), N, tiles_per_block, want_wgrad);
   return static_cast<int>(cudaGetLastError());
 }

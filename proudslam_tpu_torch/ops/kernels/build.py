@@ -6,9 +6,10 @@ library with a plain C interface, loaded with ``ctypes``; a host source is
 compiled the same way by ``g++`` (:func:`build_host`). A decoder kernel is
 built once per decoder size (in_dim, width, sdf_dim), passed as
 ``-DDEC_D/-DDEC_W/-DDEC_SD`` (``csrc/decoder_tile.cuh``): each (source,
-size) is its own library. The build happens at first use, into
-``proudslam_tpu_torch/_build/``, and is redone when the hash of the
-sources or flags changes. A missing compiler or a failed build raises;
+size) is its own library; a source that takes its sizes at run time
+(``mlp_wgrad.cu``) is built once, with ``size=None``. The build happens at
+first use, into ``proudslam_tpu_torch/_build/``, and is redone when the
+hash of the sources or flags changes. A missing compiler or a failed build raises;
 nothing falls back to another implementation.
 """
 
@@ -21,7 +22,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC = PKG_DIR / "csrc"
@@ -36,11 +37,14 @@ CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-Wall", "-shared"]
 DEFAULT_SIZE = (16, 128, 128)
 
 _lock = threading.Lock()
-_libs: Dict[Tuple[str, Tuple[int, int, int]], ctypes.CDLL] = {}
+_libs: Dict[Tuple[str, Optional[Tuple[int, int, int]]], ctypes.CDLL] = {}
 
 
-def size_flags(size: Tuple[int, int, int]) -> list:
-    """The ``nvcc`` flags that set a decoder size (in_dim, width, sdf_dim)."""
+def size_flags(size: Optional[Tuple[int, int, int]]) -> list:
+    """The ``nvcc`` flags that set a decoder size (in_dim, width, sdf_dim);
+    none for ``None`` (a source built once for all sizes)."""
+    if size is None:
+        return []
     d, w, sd = size
     return [f"-DDEC_D={d}", f"-DDEC_W={w}", f"-DDEC_SD={sd}"]
 
@@ -59,20 +63,22 @@ def _nvcc() -> str:
 
 
 def library_path(name: str, csrc: Path = CSRC,
-                 size: Tuple[int, int, int] = DEFAULT_SIZE) -> Path:
+                 size: Optional[Tuple[int, int, int]] = DEFAULT_SIZE) -> Path:
     """Path of the built library for ``<csrc>/<name>.cu`` at a decoder
-    ``size``, named by the size and a hash of the flags (the size's
-    included), the source and every header in ``csrc`` (any header may be
-    included, so an edit to any one rebuilds)."""
+    ``size`` (``None``: size-free, tagged "any"), named by the size and a
+    hash of the flags (the size's included), the source and every header in
+    ``csrc`` (any header may be included, so an edit to any one
+    rebuilds)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS + size_flags(size)).encode())
     for f in [csrc / f"{name}.cu", *sorted(csrc.glob("*.cuh"))]:
         h.update(f.name.encode())
         h.update(f.read_bytes())
-    tag = "x".join(str(v) for v in size)
+    tag = "any" if size is None else "x".join(str(v) for v in size)
     return BUILD_DIR / f"lib{name}_{tag}_{h.hexdigest()[:16]}.so"
 
 
-def build(name: str, size: Tuple[int, int, int] = DEFAULT_SIZE) -> Path:
+def build(name: str,
+          size: Optional[Tuple[int, int, int]] = DEFAULT_SIZE) -> Path:
     """Compile ``csrc/<name>.cu`` at a decoder ``size`` unless its current
     build exists; the compiler's resource report (``-Xptxas=-v``) is kept
     beside it."""
@@ -116,7 +122,7 @@ def build_host(source: Path) -> Path:
 
 
 def load(name: str, bind,
-         size: Tuple[int, int, int] = DEFAULT_SIZE) -> ctypes.CDLL:
+         size: Optional[Tuple[int, int, int]] = DEFAULT_SIZE) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu`` at a decoder ``size``,
     built if needed; ``bind(lib)`` declares its functions' ctypes
     signatures once."""
@@ -129,7 +135,8 @@ def load(name: str, bind,
         return lib
 
 
-def build_log(name: str, size: Tuple[int, int, int] = DEFAULT_SIZE) -> str:
+def build_log(name: str,
+              size: Optional[Tuple[int, int, int]] = DEFAULT_SIZE) -> str:
     """The compiler's output of the current build of ``<name>.cu`` at a
     decoder ``size``."""
     log = library_path(name, size=size).with_suffix(".log")

@@ -29,9 +29,15 @@ kernels at :func:`built_size` on zero-padded inputs and params
 (:func:`unpad_params`): exact, every padded hidden unit being 0. A larger
 size raises (:func:`check_kernel_sizes` refuses a configuration before it
 runs).
+K3 runs in two passes on the card: the backward kernel of its plan (dx,
+the small weight gradients, the bf16 operands of the large ones stored)
+and ``csrc/mlp_wgrad.cu`` (the large weight gradients summed over long
+runs of rows, :func:`decoder_wgrad`, and a fixed-order reduce), built once
+for every size.
 Each form counts its own launches (``decoder_fwd.launches`` and
 ``decoder_fwd_f32.launches``, ``decoder_bwd.launches`` and
-``decoder_bwd_f32.launches``). With bf16 operands the
+``decoder_bwd_f32.launches``, a K3 call each; ``decoder_wgrad.launches``,
+K3's second pass, a chunk of rows each). With bf16 operands the
 plain versions round at the kernels' points: both operands of every
 product are rounded to bf16, cotangents (``dzo``, ``dhc``, ``dso``,
 ``dh2``, ``dh1``) included, while bias gradients sum the unrounded f32
@@ -197,6 +203,261 @@ def decoder_bwd_plain(x: torch.Tensor, g: torch.Tensor, fp: FusedParams,
             wc_x=_dot(x.T, dhc), bc=col(dhc), wo=_dot(hc.T, dzo),
             bo=col(dzo))
         return dx, grads
+
+
+# ---- K3's weight gradients in two passes ----
+#
+# On the card K3 runs as two kernels. Pass 1 (the backward kernel of each
+# plan) computes dx, the six small gradients (the five bias sums and wo's,
+# plus ws's sdf column) and stores the bf16 operands of the five large
+# products (x, h1, h2, feat, dhc, dfeat, dh2, dh1) in a scratch; pass 2
+# (``decoder_wgrad``, csrc/mlp_wgrad.cu) sums the five large products over
+# long runs of rows in registers, split along the rows so that the card is
+# full, and a fixed-order reduce (``wgrad_reduce``) sums the splits' partials
+# and the pass-1 blocks' small-gradient slabs into the gradients. Rows go in
+# chunks, so that the scratch stays under WGRAD_SCRATCH_CAP bytes.
+#
+# The scratch: the chunk's 64-row tiles in order, and within each the eight
+# operands' (64, cols) bf16 tiles one after the other, each exactly as the
+# kernels hold it in shared memory (decoder_tc.cuh's layout: 8 x 8 core
+# matrices of 128 bytes, element (r, c) at ((r // 8) * (cols // 8) + c //
+# 8) * 64 + (r % 8) * 8 + c % 8).
+
+WGRAD_OPERANDS = ("x", "h1", "h2", "feat", "dhc", "dfeat", "dh2", "dh1")
+# the most bytes of operands one chunk of rows stores
+WGRAD_SCRATCH_CAP = 1 << 30
+# pass 2's output tile: 128 x 256 (two warpgroups of m64n256), M x N
+WGRAD_TILE = (128, 256)
+
+
+class WgradOperands(NamedTuple):
+    """Pass 1's operands of the five large weight-gradient products, (N,
+    cols) f32 tensors holding bf16-rounded values."""
+    x: torch.Tensor       # (N, in_dim)
+    h1: torch.Tensor      # (N, width)
+    h2: torch.Tensor      # (N, width)
+    feat: torch.Tensor    # (N, sdf_dim)
+    dhc: torch.Tensor     # (N, width)
+    dfeat: torch.Tensor   # (N, sdf_dim)
+    dh2: torch.Tensor     # (N, width)
+    dh1: torch.Tensor     # (N, width)
+
+
+class WgradPlan(NamedTuple):
+    """Pass 2's split of ``n_rows`` rows (:func:`wgrad_plan`)."""
+    chunk_rows: int    # rows a chunk takes (the last chunk the rest)
+    tiles: int         # output tiles of the five products
+    splits: int        # row splits of a full chunk
+    per_split: int     # 64-row tiles a split of a full chunk sums
+    sms: int           # the SMs the splits fill
+
+
+def wgrad_jobs(size: Tuple[int, int, int]) -> Tuple[Tuple[str, str, str,
+                                                          int, int], ...]:
+    """The five large products of pass 2 in their order: (gradient, A, B,
+    M, N), each summing A^T B (M x N) over the rows. dw1 and dwc_x, whose
+    rows are in_dim, are computed transposed (dh1^T x, dhc^T x)."""
+    d, w, sd = size
+    return (("w2", "h1", "dh2", w, w), ("ws", "h2", "dfeat", w, sd),
+            ("wc_f", "feat", "dhc", sd, w), ("wc_x", "dhc", "x", w, d),
+            ("w1", "dh1", "x", w, d))
+
+
+def wgrad_part_floats(size: Tuple[int, int, int]) -> int:
+    """Floats of one split's partial sums: the five products' M x N blocks
+    in :func:`wgrad_jobs` order, each row-major."""
+    return sum(m * n for *_, m, n in wgrad_jobs(size))
+
+
+def wgrad_tiles(size: Tuple[int, int, int]) -> int:
+    """Pass 2's output tiles of WGRAD_TILE (the last of a row or column
+    narrower)."""
+    tm, tn = WGRAD_TILE
+    return sum(-(-m // tm) * -(-n // tn) for *_, m, n in wgrad_jobs(size))
+
+
+def _operand_cols(size: Tuple[int, int, int]) -> Tuple[int, ...]:
+    d, w, sd = size
+    return (d, w, w, sd, w, sd, w, w)
+
+
+def wgrad_scratch_bytes(size: Tuple[int, int, int], rows: int) -> int:
+    """Bytes of pass 1's operand scratch for a chunk of ``rows`` rows: the
+    eight operands' bf16 tiles, the last tile whole."""
+    return 2 * -(-rows // TILE_ROWS) * TILE_ROWS * sum(_operand_cols(size))
+
+
+def wgrad_splits(size: Tuple[int, int, int], rows: int,
+                 sms: int) -> Tuple[int, int]:
+    """Pass 2's split of a chunk of ``rows`` rows -> (splits, 64-row tiles
+    per split): enough splits that output tiles x splits >= ``sms`` where
+    the chunk has the row tiles for it, each split a run of whole tiles,
+    none empty. No rows: (0, 0)."""
+    ntiles = -(-rows // TILE_ROWS)
+    if ntiles == 0:
+        return 0, 0
+    want = -(-sms // wgrad_tiles(size))
+    per = max(1, ntiles // want)
+    return -(-ntiles // per), per
+
+
+def wgrad_plan(size: Tuple[int, int, int], n_rows: int, sms: int,
+               cap: int = WGRAD_SCRATCH_CAP) -> WgradPlan:
+    """Pass 2's plan for ``n_rows`` rows: chunks of as many whole 64-row
+    tiles as keep the scratch at or under ``cap`` bytes (at least one
+    tile), as even as that allows (one chunk of all the rows if they
+    fit), the output tiles, and a full chunk's splits. No rows: all 0."""
+    if n_rows <= 0:
+        return WgradPlan(0, 0, 0, 0, sms)
+    ntiles = -(-n_rows // TILE_ROWS)
+    fit = max(1, cap // wgrad_scratch_bytes(size, TILE_ROWS))
+    chunks = -(-ntiles // fit)
+    chunk_rows = (n_rows if chunks == 1
+                  else -(-ntiles // chunks) * TILE_ROWS)
+    return WgradPlan(chunk_rows, wgrad_tiles(size),
+                     *wgrad_splits(size, chunk_rows, sms), sms)
+
+
+def wgrad_chunks(plan: WgradPlan, size: Tuple[int, int, int],
+                 n_rows: int):
+    """The chunks of a plan for ``n_rows`` rows -> [(first row, rows,
+    splits, tiles per split)]."""
+    if plan.chunk_rows == 0:
+        return []
+    out = []
+    for r in range(0, n_rows, plan.chunk_rows):
+        rows = min(plan.chunk_rows, n_rows - r)
+        out.append((r, rows, *wgrad_splits(size, rows, plan.sms)))
+    return out
+
+
+def small_grad_layout(size: Tuple[int, int, int]) -> dict:
+    """Offsets of the six small gradients in a pass-1 block's f32 slab,
+    and its size ("n"): b1, b2, bs (sdf_dim + 1, the sdf bias last), bc,
+    wo (width x 3, row-major), bo, and ws's sdf column (width)."""
+    _, w, sd = size
+    return dict(b1=0, b2=w, bs=2 * w, bc=2 * w + sd + 1, wo=3 * w + sd + 1,
+                bo=6 * w + sd + 1, ws_sdf=6 * w + sd + 4, n=7 * w + sd + 4)
+
+
+def decoder_bwd_operands_plain(x: torch.Tensor, g: torch.Tensor,
+                               fp: FusedParams) -> WgradOperands:
+    """The operands pass 1 stores (bf16 operands, as K3 rounds them)."""
+    with torch.no_grad():
+        h1, h2, feat, _, hc, rgb = decoder_fwd_plain(x, fp)
+        dzo = g[:, 0:3] * rgb * (1.0 - rgb)
+        dhc = (_r(dzo) @ _r(fp.wo.T)) * (hc > 0)
+        dfeat = _r(dhc) @ _r(fp.wc_f.T)
+        dso = torch.cat([dfeat, g[:, 3:4]], dim=1)
+        dh2 = (_r(dso) @ _r(fp.ws.T)) * (h2 > 0)
+        dh1 = (_r(dh2) @ _r(fp.w2.T)) * (h1 > 0)
+        return WgradOperands(*[_r(t) for t in (x, h1, h2, feat, dhc, dfeat,
+                                                dh2, dh1)])
+
+
+def _wgrad_parts_plain(ops: WgradOperands, size, splits: int,
+                       per_split: int) -> torch.Tensor:
+    """Pass 2 on one chunk's operands -> (splits, wgrad_part_floats)
+    partial sums, split s summing the rows of tiles [s per_split, (s + 1)
+    per_split) (f32 sums of the bf16 operands' products)."""
+    parts = []
+    for s in range(splits):
+        rows = slice(s * per_split * TILE_ROWS,
+                     (s + 1) * per_split * TILE_ROWS)
+        parts.append(torch.cat([
+            (getattr(ops, a)[rows].T @ getattr(ops, b)[rows]).flatten()
+            for _, a, b, _, _ in wgrad_jobs(size)]))
+    return torch.stack(parts) if parts else ops.x.new_zeros(
+        (0, wgrad_part_floats(size)))
+
+
+def decoder_wgrad_plain(ops: WgradOperands, size: Tuple[int, int, int],
+                        plan: Optional[WgradPlan] = None
+                        ) -> Tuple[torch.Tensor, ...]:
+    """The plain version of pass 2 with its reduce: the five large weight
+    gradients (w1, w2, ws's feature columns, wc_f, wc_x, in FusedParams'
+    orientation) summed chunk by chunk and split by split in the kernels'
+    order (``plan`` None: one chunk, one split)."""
+    n = ops.x.shape[0]
+    if plan is None:
+        plan = wgrad_plan(size, n, 1, cap=wgrad_scratch_bytes(size, n))
+    total = ops.x.new_zeros((wgrad_part_floats(size),))
+    for r0, rows, splits, per in wgrad_chunks(plan, size, n):
+        chunk = WgradOperands(*[t[r0:r0 + rows] for t in ops])
+        for p in _wgrad_parts_plain(chunk, size, splits, per):
+            total = total + p
+    large = _split_large(total, size)
+    return large["w1"], large["w2"], large["ws"], large["wc_f"], large["wc_x"]
+
+
+def _split_large(total: torch.Tensor, size) -> dict:
+    """One partial (or their sum) -> the five gradients by name, in
+    FusedParams' orientation."""
+    out, off = {}, 0
+    for name, _, _, m, n in wgrad_jobs(size):
+        block = total[off:off + m * n].view(m, n)
+        out[name] = block.T if name in ("w1", "wc_x") else block
+        off += m * n
+    return out
+
+
+def wgrad_reduce_plain(parts: torch.Tensor, slabs: torch.Tensor,
+                       size: Tuple[int, int, int]) -> FusedParams:
+    """The plain version of the reduce: ``parts`` (P, wgrad_part_floats)
+    and ``slabs`` (S, small_grad_layout n) summed in order -> the 11
+    gradients."""
+    large = parts[0].clone() if len(parts) else parts.new_zeros(
+        (wgrad_part_floats(size),))
+    for p in parts[1:]:
+        large = large + p
+    lay = small_grad_layout(size)
+    small = slabs[0].clone() if len(slabs) else slabs.new_zeros((lay["n"],))
+    for s in slabs[1:]:
+        small = small + s
+    big = _split_large(large, size)
+    _, w, sd = size
+
+    def sm(name, k):
+        return small[lay[name]:lay[name] + k]
+    return FusedParams(
+        w1=big["w1"], b1=sm("b1", w)[None], w2=big["w2"],
+        b2=sm("b2", w)[None],
+        ws=torch.cat([big["ws"], sm("ws_sdf", w)[:, None]], dim=1),
+        bs=sm("bs", sd + 1)[None], wc_f=big["wc_f"], wc_x=big["wc_x"],
+        bc=sm("bc", w)[None], wo=sm("wo", 3 * w).view(w, 3),
+        bo=sm("bo", 3)[None])
+
+
+def _tiles_of(t: torch.Tensor) -> torch.Tensor:
+    """(N, cols) -> its 64-row tiles in the tile layout, (tiles, 64 cols)
+    (the last tile zero-padded)."""
+    n, c = t.shape
+    nt = -(-n // TILE_ROWS)
+    t = torch.nn.functional.pad(t, (0, 0, 0, nt * TILE_ROWS - n))
+    return t.reshape(nt, 8, 8, c // 8, 8).permute(0, 1, 3, 2, 4).reshape(
+        nt, -1)
+
+
+def pack_operands(ops: WgradOperands) -> torch.Tensor:
+    """Operands -> pass 1's scratch (bf16, flat), as pass 1 writes it."""
+    return torch.cat([_tiles_of(t.to(torch.bfloat16)) for t in ops],
+                     dim=1).reshape(-1)
+
+
+def unpack_operands(scratch: torch.Tensor, size: Tuple[int, int, int],
+                    rows: int) -> WgradOperands:
+    """The inverse of :func:`pack_operands` for a chunk of ``rows`` rows
+    (f32)."""
+    nt = -(-rows // TILE_ROWS)
+    cols = _operand_cols(size)
+    tiles = scratch[:nt * TILE_ROWS * sum(cols)].reshape(nt, -1)
+    out, off = [], 0
+    for c in cols:
+        t = tiles[:, off:off + TILE_ROWS * c].reshape(nt, 8, c // 8, 8, 8)
+        out.append(t.permute(0, 1, 3, 2, 4).reshape(nt * TILE_ROWS, c)
+                   [:rows].float())
+        off += TILE_ROWS * c
+    return WgradOperands(*out)
 
 
 @functools.lru_cache(maxsize=16)
@@ -473,11 +734,12 @@ def _partition(n_rows: int, sms: int, tile_rows: int) -> Tuple[int, int]:
 
 
 def backward_partition(n_rows: int, sms: int) -> Tuple[int, int]:
-    """K3's split of ``n_rows`` rows over its blocks -> (blocks,
-    tiles_per_block). Block b takes the 64-row tiles [b * tiles_per_block,
-    (b + 1) * tiles_per_block) (the last block fewer); each block owns one
-    slab of partial weight gradients, so there are at most ``sms`` blocks
-    (one per SM) and no empty one. No rows: (0, 0), nothing to launch."""
+    """K3's (pass 1's) split of ``n_rows`` rows over its blocks ->
+    (blocks, tiles_per_block). Block b takes the 64-row tiles [b *
+    tiles_per_block, (b + 1) * tiles_per_block) (the last block fewer);
+    each block owns one slab of partial (small) weight gradients, so there
+    are at most ``sms`` blocks (one per SM) and no empty one. No rows: (0,
+    0), nothing to launch."""
     return _partition(n_rows, sms, TILE_ROWS)
 
 
@@ -546,12 +808,15 @@ decoder_fwd_f32 = SimpleNamespace(launches=0)
 def decoder_bwd(x: torch.Tensor, g: torch.Tensor, fp: FusedParams,
                 want_wgrad: bool = True, bf16: bool = True
                 ) -> Tuple[torch.Tensor, Optional[FusedParams]]:
-    """K3, the decoder backward: on CUDA tensors the kernel of the operand
-    type (``decoder_backward``, or ``decoder_backward_f32`` for
-    ``bf16=False``: 3xTF32 products on the tensor cores), on CPU tensors
+    """K3, the decoder backward: on CUDA tensors the kernels of the operand
+    type (``decoder_backward``, pass 1, then per chunk of rows
+    :func:`decoder_wgrad`, pass 2, and :func:`wgrad_reduce`; or
+    ``decoder_backward_f32`` for ``bf16=False``: 3xTF32 products on the
+    tensor cores, its weight gradients in per-block slabs), on CPU tensors
     the plain version.
     ``want_wgrad=False`` skips the parameter gradients (tracking
-    differentiates the pose only)."""
+    differentiates the pose only): one pass-1 launch that stores
+    nothing."""
     if not _kernel_device(x, "decoder_bwd"):
         return decoder_bwd_plain(x, g, fp, want_wgrad, bf16)
     fp = FusedParams(*[t.detach().contiguous() for t in fp])
@@ -566,27 +831,27 @@ def decoder_bwd(x: torch.Tensor, g: torch.Tensor, fp: FusedParams,
     N = x.shape[0]
     nparam = sum(t.numel() for t in fp)
     dx = torch.empty_like(x)
-    dflat = torch.zeros((nparam if want_wgrad else 0,), device=x.device)
+    # each form's reduce writes every gradient; no rows: zeros
+    dflat = (torch.empty if N > 0 else torch.zeros)(
+        (nparam if want_wgrad else 0,), device=x.device)
     if N > 0:
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        if not bf16 and streamed(size):
-            blocks, per_block = backward_f32_stream_partition(
-                N, sms, f32_tile_rows(size))
-        else:
-            blocks, per_block = backward_partition(N, sms)
-        partial = torch.empty(((blocks if want_wgrad else 0) * nparam,),
-                              device=x.device)
-        args = (x.data_ptr(), g.data_ptr(), build.pointer_array(fp),
-                dx.data_ptr(), dflat.data_ptr(), partial.data_ptr(), N,
-                blocks, per_block, int(want_wgrad),
-                torch.cuda.current_stream(x.device).cuda_stream)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
         if bf16:
-            lib, scratch = _bf16_library(size, x.device)
-            err = lib.decoder_backward(
-                *args[:3], *[t.data_ptr() for t in scratch], *args[3:])
-            build.check(err, "decoder_backward")
+            _k3_bf16(x, g, fp, size, dx, dflat if want_wgrad else None, sms,
+                     stream)
             decoder_bwd.launches += 1
         else:
+            if streamed(size):
+                blocks, per_block = backward_f32_stream_partition(
+                    N, sms, f32_tile_rows(size))
+            else:
+                blocks, per_block = backward_partition(N, sms)
+            partial = torch.empty(((blocks if want_wgrad else 0) * nparam,),
+                                  device=x.device)
+            args = (x.data_ptr(), g.data_ptr(), build.pointer_array(fp),
+                    dx.data_ptr(), dflat.data_ptr(), partial.data_ptr(), N,
+                    blocks, per_block, int(want_wgrad), stream)
             lib, scratch = _f32_library(size, x.device)
             err = lib.decoder_backward_f32(
                 *args[:3], *[t.data_ptr() for t in scratch], *args[3:])
@@ -604,6 +869,103 @@ def decoder_bwd(x: torch.Tensor, g: torch.Tensor, fp: FusedParams,
 decoder_bwd.launches = 0
 # K3-f32's launch count (``decoder_bwd`` with ``bf16=False`` launches it)
 decoder_bwd_f32 = SimpleNamespace(launches=0)
+
+
+def _k3_bf16(x, g, fp, size, dx, dflat, sms: int, stream: int) -> None:
+    """K3's launches on CUDA tensors at a built ``size``: pass 1 alone
+    (dx-only, ``dflat`` None), or per chunk of rows (:func:`wgrad_plan`)
+    pass 1 and pass 2, then the reduce into ``dflat``."""
+    N = x.shape[0]
+    # (the packed weights' tensors stay referenced until every launch is
+    # queued: the scratch must not take their memory)
+    lib, packed = _bf16_library(size, x.device)
+    params = build.pointer_array(fp)
+    wpack = [t.data_ptr() for t in packed]
+
+    def pass1(r0, rows, slab, scratch):
+        blocks, per_block = backward_partition(rows, sms)
+        err = lib.decoder_backward(
+            x[r0:].data_ptr(), g[r0:].data_ptr(), params, *wpack,
+            dx[r0:].data_ptr(), slab, scratch, rows, blocks, per_block,
+            int(dflat is not None), stream)
+        build.check(err, "decoder_backward")
+        return blocks
+
+    if dflat is None:
+        pass1(0, N, 0, 0)
+        return
+    plan = wgrad_plan(size, N, sms)
+    chunks = wgrad_chunks(plan, size, N)
+    nsmall, npart = small_grad_layout(size)["n"], wgrad_part_floats(size)
+    scratch = torch.empty((wgrad_scratch_bytes(size, plan.chunk_rows) // 2,),
+                          dtype=torch.bfloat16, device=x.device)
+    slabs = torch.empty((sum(backward_partition(rows, sms)[0]
+                             for _, rows, _, _ in chunks) * nsmall,),
+                        device=x.device)
+    parts = torch.empty((sum(c[2] for c in chunks) * npart,), device=x.device)
+    nslabs = nparts = 0
+    for r0, rows, splits, per in chunks:
+        nslabs += pass1(r0, rows, slabs[nslabs * nsmall:].data_ptr(),
+                        scratch.data_ptr())
+        decoder_wgrad(scratch, size, rows, splits, per,
+                      parts[nparts * npart:])
+        nparts += splits
+    wgrad_reduce(parts, nparts, slabs, nslabs, size, dflat)
+
+
+def decoder_wgrad(scratch: torch.Tensor, size: Tuple[int, int, int],
+                  rows: int, splits: int, per_split: int,
+                  part: torch.Tensor) -> None:
+    """K3's pass 2 on one chunk of ``rows`` rows whose operands pass 1
+    stored in ``scratch`` (bf16; the layout :func:`pack_operands` writes):
+    the five large products, ``splits`` splits of ``per_split`` 64-row
+    tiles each (:func:`wgrad_splits`), each split's partial sums
+    (:func:`wgrad_part_floats` floats) into ``part`` in split order. On
+    CUDA tensors ``csrc/mlp_wgrad.cu``'s kernel (built once for every
+    size), on CPU tensors the plain version."""
+    npart = wgrad_part_floats(size)
+    if part.dtype != torch.float32 or part.numel() < splits * npart:
+        raise ValueError(f"decoder_wgrad: part needs {splits * npart} f32")
+    if scratch.dtype != torch.bfloat16 or (
+            scratch.numel() * 2 < wgrad_scratch_bytes(size, rows)):
+        raise ValueError("decoder_wgrad: scratch too small")
+    if not _kernel_device(scratch, "decoder_wgrad"):
+        ops = unpack_operands(scratch, size, rows)
+        part[:splits * npart] = _wgrad_parts_plain(
+            ops, size, splits, per_split).flatten()
+        return
+    lib = build.load("mlp_wgrad", _bind_wgrad, None)
+    err = lib.decoder_wgrad(scratch.data_ptr(), rows, *size, splits,
+                            per_split, part.data_ptr(),
+                            torch.cuda.current_stream(
+                                scratch.device).cuda_stream)
+    build.check(err, "decoder_wgrad")
+    decoder_wgrad.launches += 1
+
+
+decoder_wgrad.launches = 0
+
+
+def wgrad_reduce(parts: torch.Tensor, nparts: int, slabs: torch.Tensor,
+                 nslabs: int, size: Tuple[int, int, int],
+                 dflat: torch.Tensor) -> None:
+    """K3's fixed-order reduce: ``nparts`` partials of pass 2 and
+    ``nslabs`` small-gradient slabs of pass 1 summed in their order into
+    ``dflat``, the 11 gradients flat in FusedParams order. On CUDA tensors
+    ``csrc/mlp_wgrad.cu``'s reduce kernel, on CPU tensors
+    :func:`wgrad_reduce_plain`."""
+    if not _kernel_device(dflat, "wgrad_reduce"):
+        npart, nsmall = wgrad_part_floats(size), small_grad_layout(size)["n"]
+        grads = wgrad_reduce_plain(
+            parts[:nparts * npart].view(nparts, npart),
+            slabs[:nslabs * nsmall].view(nslabs, nsmall), size)
+        dflat.copy_(torch.cat([t.flatten() for t in grads]))
+        return
+    lib = build.load("mlp_wgrad", _bind_wgrad, None)
+    err = lib.decoder_wgrad_reduce(
+        parts.data_ptr(), nparts, slabs.data_ptr(), nslabs, *size,
+        dflat.data_ptr(), torch.cuda.current_stream(dflat.device).cuda_stream)
+    build.check(err, "decoder_wgrad_reduce")
 
 
 def _argtypes(lib, fwd: str, bwd: str, wpack: bool = False) -> None:
@@ -630,6 +992,15 @@ def _bind_f32(lib) -> None:
 
 def _bind_stream_f32(lib) -> None:
     _argtypes(lib, "decoder_forward_f32", "decoder_backward_f32", wpack=True)
+
+
+def _bind_wgrad(lib) -> None:
+    import ctypes
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.decoder_wgrad.argtypes = [p, ll, i, i, i, i, i, p, p]
+    lib.decoder_wgrad.restype = i
+    lib.decoder_wgrad_reduce.argtypes = [p, i, p, i, i, i, i, p, p]
+    lib.decoder_wgrad_reduce.restype = i
 
 
 class FusedDecoder(torch.autograd.Function):

@@ -7,7 +7,7 @@ template and type at each decoder size, in seconds.
 
 Each (source, size) of ``mlp_kernel.BUILT_SIZES`` (``--all``; by default
 the sizes of widths 768 and 1024, ``mlp_kernel.PARK_SIZES``; or the sizes given as
-``D,W,SD``) is compiled with ``g++ -std=c++20`` against stub
+``D,W,SD``), and the size-free ``mlp_wgrad.cu`` once, is compiled with ``g++ -std=c++20`` against stub
 ``cuda_runtime.h`` and ``cuda_bf16.h`` headers written to a temporary
 directory: the CUDA qualifiers as no-ops, the intrinsics as plain C++,
 every inline ``asm`` dropped, the ``<<<...>>>`` launch configurations
@@ -100,6 +100,7 @@ CONSTANTS = {
     "mlp_stream": ["K2_SMEM", "K3_SMEM"], "mlp_wide": ["K2_SMEM", "K3_SMEM"],
     "mlp_park": ["K2_SMEM", "K3_SMEM"],
     "mlp_stream_f32": ["K2F_SMEM", "K3F_SMEM", "K2_TILES", "K3_TILES"],
+    "mlp_wgrad": ["SMEM"],
 }
 
 
@@ -157,7 +158,9 @@ def main() -> None:
             text = re.sub(r"\basm\s*(volatile\s*)?\(", "ASM_STUB(", text)
             with open(os.path.join(tmp, name), "w") as fh:
                 fh.write(text)
+        # the size-free pass 2 of K3 once (its build takes no size)
         jobs = [(src, size) for size in sizes for src in sources(size)]
+        jobs.append(("mlp_wgrad", sizes[0]))
         with ThreadPoolExecutor(os.cpu_count() or 4) as pool:
             lines = list(pool.map(lambda j: check(tmp, *j), jobs))
     for line in lines:

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """The machine code of the decoder kernels of two checkouts, compared.
 
-    python3 scripts/torch_sass_diff.py OLD_TREE NEW_TREE
+    python3 scripts/torch_sass_diff.py [--only=mlp_kernel,...] OLD_TREE NEW_TREE
 
 For each tree, one process imports that tree's ``proudslam_tpu_torch`` and
 builds (one ``nvcc`` each, all started together) its kernel libraries at
@@ -16,7 +16,12 @@ per library
 both trees build and kernel function, the SASS of ``cuobjdump -sass`` is
 compared: equal SASS is the same machine code, whatever the source text.
 The libraries only one tree builds (a size the other does not take) are
-counted. Needs ``nvcc`` and ``cuobjdump`` (the machine with the card).
+counted. Lines are compared with their runs of spaces made one:
+``cuobjdump`` pads each instruction to the module's widest, so a change
+to one kernel moves the padding of every other's. ``--only`` builds and
+compares only the named sources (``render_kernel``, ``mlp_kernel``,
+``mlp_kernel_f32`` and their streamed, wide and parked forms). Needs
+``nvcc`` and ``cuobjdump`` (the machine with the card).
 Prints one JSON line per library and, last, a summary.
 """
 
@@ -46,7 +51,7 @@ def _source(mk, name: str, size) -> str:
     return (WIDE_SOURCES if wide(size) else SOURCES)[name]
 
 
-def build_tree(tree: str) -> None:
+def build_tree(tree: str, only=None) -> None:
     """Child: build the tree's libraries; print {name@size: path}."""
     from concurrent.futures import ThreadPoolExecutor
 
@@ -56,7 +61,8 @@ def build_tree(tree: str) -> None:
 
     jobs = [(name if size == build.DEFAULT_SIZE else
              _source(mk, name, size), size)
-            for size in mk.BUILT_SIZES for name in SOURCES]
+            for size in mk.BUILT_SIZES for name in SOURCES
+            if only is None or name in only]
     with ThreadPoolExecutor(len(jobs)) as pool:
         paths = list(pool.map(lambda job: build.build(*job), jobs))
     print(json.dumps({f"{name}@{'x'.join(map(str, size))}": str(path)
@@ -77,16 +83,18 @@ def sass(lib: str) -> dict:
                         line.split("Function :")[1].strip())
             funcs[fn] = []
         elif fn is not None and line.strip():
-            funcs[fn].append(line.strip())
+            funcs[fn].append(" ".join(line.split()))
     return funcs
 
 
-def main(old: str, new: str) -> None:
+def main(old: str, new: str, only=None) -> None:
     libs = []
     for tree in (old, new):
         out = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--build", tree], capture_output=True,
-                             text=True, check=True).stdout
+                              "--build", tree,
+                              *([f"--only={','.join(only)}"] if only else [])],
+                             capture_output=True, text=True,
+                             check=True).stdout
         libs.append(json.loads(out.strip().splitlines()[-1]))
     same_all = True
     for key in libs[0]:
@@ -110,7 +118,10 @@ def main(old: str, new: str) -> None:
 
 
 if __name__ == "__main__":
-    if sys.argv[1] == "--build":
-        build_tree(sys.argv[2])
+    only = [a.split("=", 1)[1].split(",") for a in sys.argv[1:]
+            if a.startswith("--only=")]
+    args = [a for a in sys.argv[1:] if not a.startswith("--only=")]
+    if args[0] == "--build":
+        build_tree(args[1], only[0] if only else None)
     else:
-        main(sys.argv[1], sys.argv[2])
+        main(args[0], args[1], only[0] if only else None)

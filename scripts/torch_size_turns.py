@@ -2,7 +2,7 @@
 """The five decoder kernel forms at every built decoder size, for several
 checkouts in turns: outputs bit for bit and times.
 
-    python3 scripts/torch_size_turns.py OLD_TREE . . OLD_TREE
+    python3 scripts/torch_size_turns.py [--forms=K3,"K3 dx-only"] OLD_TREE . . OLD_TREE
 
 Each argument is the root of a checkout of the repo (default: this one).
 For each, in the order given, one process imports that tree's
@@ -26,7 +26,8 @@ the wide sizes 5 calls, median of 3, ``REDUCED_REPS``) at the mapping (5 x
 turn's digests are compared with the first turn's at the sizes both
 built, and the times of each tree are summed over its turns; with two
 trees, the second's over the first's per size and form, and per form
-summed over the sizes both built. Needs one
+summed over the sizes both built. ``--forms`` runs only the forms named
+(comma-separated, as printed) and builds only their libraries. Needs one
 card. Prints one JSON line per turn, the comparison and, last, the card's
 name and power limit.
 """
@@ -60,7 +61,13 @@ def _digest(tensors) -> str:
     return h.hexdigest()[:16]
 
 
-def turn(tree: str) -> dict:
+# the forms, by the library each needs
+FORM_LIBRARY = {"K1": "render_kernel", "K2": "mlp_kernel", "K3": "mlp_kernel",
+                "K3 dx-only": "mlp_kernel", "K2-f32": "mlp_kernel_f32",
+                "K3-f32": "mlp_kernel_f32", "K3-f32 dx-only": "mlp_kernel_f32"}
+
+
+def turn(tree: str, only=None) -> dict:
     sys.path.insert(0, os.path.abspath(tree))
     import torch
 
@@ -88,9 +95,11 @@ def turn(tree: str) -> dict:
             return mk.bf16_source(name.split("_")[0], size)
         return (cs.WIDE_LIBRARIES if wide(size)
                 else cs.STREAM_LIBRARIES)[name]
+    libraries = [name for name in cs.LIBRARIES
+                 if only is None or name in {FORM_LIBRARY[f] for f in only}]
     jobs = [(name if size == build.DEFAULT_SIZE else source(name, size),
              size)
-            for size in sizes for name in cs.LIBRARIES]
+            for size in sizes for name in libraries]
     with ThreadPoolExecutor(len(jobs)) as pool:
         for f in [pool.submit(build.build, *job) for job in jobs]:
             f.result()
@@ -135,6 +144,8 @@ def turn(tree: str) -> dict:
                     xf, gn, fp, want_wgrad=False, bf16=False),
             }
             for form, fn in forms.items():
+                if only is not None and form not in only:
+                    continue
                 if shape == "tracking":
                     out = fn()
                     flat = [out[0], *(out[1] or ())] if form.startswith(
@@ -145,14 +156,19 @@ def turn(tree: str) -> dict:
 
 
 def main() -> None:
-    if len(sys.argv) > 2 and sys.argv[1] == "--turn":
-        print(json.dumps(turn(sys.argv[2])), flush=True)
+    args = sys.argv[1:]
+    forms = [a for a in args if a.startswith("--forms=")]
+    only = forms[0].split("=", 1)[1].split(",") if forms else None
+    args = [a for a in args if not a.startswith("--forms=")]
+    if len(args) > 1 and args[0] == "--turn":
+        print(json.dumps(turn(args[1], only)), flush=True)
         return
     turns = []
-    for tree in sys.argv[1:] or ["."]:
+    for tree in args or ["."]:
         out = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--turn", tree], stdout=subprocess.PIPE,
-                             text=True, check=True).stdout
+                              "--turn", tree, *forms],
+                             stdout=subprocess.PIPE, text=True,
+                             check=True).stdout
         line = out.strip().splitlines()[-1]
         print(line, flush=True)
         turns.append(json.loads(line))

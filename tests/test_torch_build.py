@@ -36,7 +36,8 @@ def test_sources_and_headers_found():
             "mlp_stream", "mlp_stream_f32"} <= set(SOURCES)
     assert {"decoder_tile.cuh", "decoder_tc.cuh", "decoder_chain.cuh",
             "decoder_slab.cuh", "decoder_stream.cuh", "bulk_copy.cuh",
-            "tf32x3.cuh"} <= set(HEADERS)
+            "tf32x3.cuh", "decoder_wgrad.cuh"} <= set(HEADERS)
+    assert "mlp_wgrad" in SOURCES
 
 
 def _extern_c(source: str) -> dict:
@@ -64,7 +65,7 @@ class _Lib:
     ("render_kernel", rk._bind), ("mlp_kernel", mk._bind),
     ("mlp_kernel_f32", mk._bind_f32), ("render_stream", rk._bind_stream),
     ("mlp_stream", mk._bind_stream),
-    ("mlp_stream_f32", mk._bind_stream_f32)])
+    ("mlp_stream_f32", mk._bind_stream_f32), ("mlp_wgrad", mk._bind_wgrad)])
 def test_extern_c_entries_match_bindings(source, bind):
     lib = _Lib()
     bind(lib)
@@ -73,6 +74,16 @@ def test_extern_c_entries_match_bindings(source, bind):
     for name, fn in lib.fns.items():
         assert fn.restype is ctypes.c_int, name
         assert [a is ctypes.c_void_p for a in fn.argtypes] == entries[name], name
+
+
+def test_size_free_library():
+    """A source built once for all sizes (``size=None``): no size flags,
+    tagged "any", its own library beside the sized ones."""
+    assert build.size_flags(None) == []
+    free = build.library_path("mlp_wgrad", size=None)
+    assert "_any_" in free.name and free.parent == build.BUILD_DIR
+    assert free != build.library_path("mlp_wgrad")
+    assert build.library_path("mlp_wgrad", size=None) == free
 
 
 def test_copy_hashes_like_the_package(csrc):

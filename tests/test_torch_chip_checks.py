@@ -305,7 +305,8 @@ def test_size_phases_shapes(on_cpu, full):
             assert shapes["mapping"]["rows"] == 1100 * 40
             assert shapes["mapping"]["ms"] == 1.0
             assert shapes["mapping"]["plain_ms"] == 1.0
-    assert len(timed) == (20 if full else 4)
+    # K3's two passes are timed apart at each timed shape too
+    assert len(timed) == (24 if full else 6)
     rng = np.random.default_rng(1)
     x = torch.as_tensor(0.07 * rng.standard_normal((700, 16)),
                         dtype=torch.float32)
@@ -397,3 +398,49 @@ def test_k2_f32_float64_witness(on_cpu, fault):
         cs._k2_check("test", x, fp, False, cs.TOL_F32_FWD)
     with pytest.raises(AssertionError, match="disagrees"):
         cs._k2_check("test", x, fp, True, cs.TOL_F32_FWD)   # bf16: no witness
+
+
+@pytest.mark.parametrize("rows", [700, 4096])
+@pytest.mark.parametrize("size", cs.WGRAD_SIZES)
+def test_wgrad_check_on_the_first_chunk(on_cpu, size, rows):
+    """``wgrad_check`` on CPU tensors (the wrappers' plain versions stand
+    in for the kernel and the reduce) holds each size of one plan on the
+    rows of the first chunk K3 makes of the inputs, every row here, with
+    the wrapper's splits, plain against plain."""
+    on_cpu.setattr(cs, "WGRAD_SIZES", (size,))
+    rng = np.random.default_rng(2)
+    x = torch.as_tensor(0.3 * rng.standard_normal((rows, 16)),
+                        dtype=torch.float32)
+    g = torch.as_tensor(1e-2 * rng.standard_normal((rows, 4)),
+                        dtype=torch.float32)
+    fp0 = cs._decoder_at(torch.device("cpu"), (16, 128, 128), 4)
+    st = cs.wgrad_check(torch.device("cpu"), x, g, fp0)[cs._size_tag(size)]
+    assert st["rows"] == mk.wgrad_plan(size, rows, 1).chunk_rows == rows
+    assert (st["splits"], st["per_split"]) == mk.wgrad_splits(size, rows, 1)
+    assert max(st["rel_err"].values()) <= 1e-6
+
+
+@pytest.mark.parametrize("size", [(16, 64, 64), (32, 64, 64),
+                                  (16, 256, 128)])
+def test_pass2_timed_on_the_rows_operands(on_cpu, size):
+    """``_k3_pass_ms`` times pass 2 on each chunk's operands as pass 1
+    stores them (not on a scratch of zeros): the scratches it hands
+    ``decoder_wgrad`` are the packed plain operands of the rows."""
+    seen = []
+    real = mk.decoder_wgrad
+
+    def wgrad(scratch, *a):
+        seen.append(scratch)
+        real(scratch, *a)
+    on_cpu.setattr(mk, "decoder_wgrad", wgrad)
+    on_cpu.setattr(cs, "_event_ms", lambda fn, **kw: [fn(), 1.0][1])
+    rng = np.random.default_rng(3)
+    x = torch.as_tensor(0.3 * rng.standard_normal((1000, size[0])),
+                        dtype=torch.float32)
+    g = torch.as_tensor(1e-2 * rng.standard_normal((1000, 4)),
+                        dtype=torch.float32)
+    fp = cs._decoder_at(torch.device("cpu"), size, 4)
+    assert cs._k3_pass_ms(x, g, fp, {}) == (1.0, 1.0)
+    want = mk.pack_operands(mk.decoder_bwd_operands_plain(x, g, fp))
+    assert len(seen) == 1 and torch.equal(seen[0], want)
+    assert bool(want.abs().max() > 0)
