@@ -21,13 +21,14 @@ last line is printed):
    in_dim 128 at (128, 512, 256) and (128, 512, 512)), and
    ``render_park.cu``, ``mlp_park.cu`` and ``mlp_stream_f32.cu`` at its
    six parked sizes (width 768 and 1024, ``mlp_kernel.PARK_SIZES``), and
-   ``mlp_wgrad.cu`` (K3's second pass, ``decoder_wgrad``, and its reduce)
-   once for every size: 187 libraries;
+   ``mlp_wgrad.cu`` (K3's second pass, ``decoder_wgrad``, and the reduce)
+   and ``mlp_wgrad_f32.cu`` (K3-f32's second pass, ``decoder_wgrad_f32``)
+   once for every size: 188 libraries;
    each library's ``-Xptxas -v`` report (registers, spills, wgmma
    warnings) and its count of tensor-core instructions (HGMMA, HMMA) and
    FFMA in ``cuobjdump -sass`` are logged; K1, K2, K3 (its first pass) and
    ``decoder_wgrad`` must each hold HGMMA, no HMMA, and no spills at every
-   size; K2-f32 and K3-f32 (f32
+   size; K2-f32, K3-f32 (its first pass) and ``decoder_wgrad_f32`` (f32
    operands, 3xTF32 on ``mma.sync``; K3-f32's forward recompute FFMA)
    HMMA, no HGMMA, and no spills at every size;
 3. kernels: run each kernel at the slices' mapping and tracking shapes
@@ -42,11 +43,15 @@ last line is printed):
    kernel and its plain version at both shapes, each kernel's bound (least time on the
    card, from this run's shapes) and, for the decoder kernels, a chain of
    bf16 ``torch.matmul`` calls as a yardstick (no single PyTorch call
-   computes these functions); the same for K2-f32 and K3-f32 (full and
+   computes these functions; the second passes beside their five products
+   as ``torch.matmul`` calls); the same for K2-f32 and K3-f32 (full and
    dx-only) on the pcd features at the mapping, tracking and ragged row
    counts, against the plain versions with f32 operands (TF32 off), with a
    chain of f32 ``torch.matmul`` calls as the yardstick, and both the
-   3xTF32 bound (the tensor cores) and the FP32-unit bound; then hold the pcd
+   3xTF32 bound (the tensor cores) and the FP32-unit bound, K3-f32's two
+   passes timed apart and its second pass (``decoder_wgrad_f32``) against
+   its plain version on identical f32 operands at one size of each plan
+   (``wgrad_check(..., bf16=False)``, TOL_WGRAD_F32); then hold the pcd
    branch's ``render_rays`` (PointNet gather, K2, K3 through autograd) on
    the card against the same call on the CPU, outputs and gradients, on
    512 rays; and ``decoder_values`` with the Gaussian embedder (f32
@@ -141,8 +146,9 @@ last line is printed):
    per frame; ``tests/test_torch_pcd_slam.py`` run as a script prints both
    engines' drift at that test's size;
 5b. pcd-f32 slice: the pcd slice with ``matmul_dtype="f32"`` (the
-   configs' default operand type): K2-f32 and K3-f32 must have been
-   launched and K1, K2 and K3 not, the poses finite and the unaligned ATE
+   configs' default operand type): K2-f32 and K3-f32 (both its passes)
+   must have been launched and K1, K2 and K3 not, the poses finite and the
+   unaligned ATE
    under the pcd slice's 60 cm; then pcd-f32-w256, the same at the
    reference's wider decoder (16, 256, 128), which runs the streamed f32
    plan: K2-f32 and K3-f32 launched and no other kernel, the poses finite,
@@ -199,8 +205,9 @@ last line is printed):
    card, must give the saved trajectory bit for bit;
 8. cli-pcd: the same entry point on room.yaml with ``--tpu_specs.feature_mode
    pcd --tpu_specs.fused_mlp true --no-mesh``, 5 frames (the YAML's f32
-   operands): K2-f32 and K3-f32 must have been launched and no other
-   kernel, the trajectory finite and the checkpoint reloaded bit for bit;
+   operands): K2-f32 and K3-f32 (both its passes) must have been launched
+   and no other kernel, the trajectory finite and the checkpoint reloaded
+   bit for bit;
 9. cli-embed: the same entry point on a YAML derived from room.yaml with
    the NeRF embedder (4 frequencies) and a skip, 5 frames and a mesh: no
    kernel launched, the trajectory finite, the checkpoint reloaded bit for
@@ -342,6 +349,14 @@ WGRAD_SIZES = ((16, 128, 128), (16, 256, 128), (16, 512, 512),
 # such rows.
 TOL_F32_FWD = 1e-5
 TOL_F32_BWD = 1e-4
+# decoder_wgrad_f32 (K3-f32's second pass) against decoder_wgrad_plain on
+# identical f32 operands at WGRAD_SIZES: 3xTF32 products (each within a few
+# f32 ulps of the true one) summed in another order than cuBLAS's f32
+# matmuls over a chunk of up to 327,680 rows whose terms cancel (<= 3.3e-6
+# of each output's largest magnitude on an H100); held at TOL_F32_BWD, the
+# tolerance K3-f32's gradients meet whole, while a wrong row, column or
+# tile of an operand moves an output by O(1) of it
+TOL_WGRAD_F32 = TOL_F32_BWD
 # K2-f32's sdf column is a dot of W hidden values with ws[:, SD] whose
 # terms can nearly cancel: on an H100 at (32, 512, 384) on the pcd features
 # its largest magnitude is small against the terms', and K2-f32 and its
@@ -608,6 +623,10 @@ LIBRARIES = ("render_kernel", "mlp_kernel", "mlp_kernel_f32")
 # run-time arguments), and its kernel function (HGMMA, no HMMA, no spills)
 WGRAD_LIBRARY = ("mlp_wgrad", None)
 WGRAD_FUNCTION = "decoder_wgrad_kernel"
+# K3-f32's second pass: one library for every decoder size, its kernel
+# function (HMMA: 3xTF32 on mma.sync; no HGMMA, no spills)
+WGRAD_F32_LIBRARY = ("mlp_wgrad_f32", None)
+WGRAD_F32_FUNCTION = "decoder_wgrad_f32_kernel"
 # the kernels' sources at every other decoder size of mlp_kernel.BUILT_SIZES
 # (the streamed plans up to width 256 and in_dim 64, the wide ones above and
 # at in_dim 128, mlp_kernel.wide_plan, the parked ones at widths 768 and
@@ -634,7 +653,8 @@ def stream_library(lib: str, size) -> str:
 VOX_KERNELS = ("fused_render_forward", "decoder_backward", "decoder_wgrad")
 # the kernels' launch counters, by the name of the kernels JSON line
 KERNELS = ("fused_render_forward", "decoder_forward", "decoder_backward",
-           "decoder_forward_f32", "decoder_backward_f32", "decoder_wgrad")
+           "decoder_forward_f32", "decoder_backward_f32", "decoder_wgrad",
+           "decoder_wgrad_f32")
 
 
 def log(msg: str) -> None:
@@ -723,7 +743,7 @@ def build_phase():
     jobs = [(name, build.DEFAULT_SIZE) for name in LIBRARIES]
     jobs += [(stream_library(lib, size), size) for size in streamed_sizes
              for lib in LIBRARIES]
-    jobs.append(WGRAD_LIBRARY)
+    jobs += [WGRAD_LIBRARY, WGRAD_F32_LIBRARY]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(jobs)) as pool:
         for f in [pool.submit(build.build, name, size)
@@ -755,17 +775,22 @@ def build_phase():
     checks += [(stream_library(lib, size), size, fn)
                for size in streamed_sizes
                for lib, fn in KERNEL_FUNCTIONS + F32_FUNCTIONS]
-    checks.append((*WGRAD_LIBRARY, WGRAD_FUNCTION))
-    f32_fns = {fn for _, fn in F32_FUNCTIONS}
+    checks += [(*WGRAD_LIBRARY, WGRAD_FUNCTION),
+               (*WGRAD_F32_LIBRARY, WGRAD_F32_FUNCTION)]
+    f32_fns = {fn for _, fn in F32_FUNCTIONS} | {WGRAD_F32_FUNCTION}
     found, by_size = {}, {}
     for lib, size, fn in checks:
-        counts = [c for f, c in sass[lib, size].items() if fn in f]
-        res = [r for f, r in ptxas[lib, size].items() if fn in f and r]
-        if len(counts) != 1 or len(res) != 1:
-            raise AssertionError(f"{fn}: {len(counts)} functions in the "
-                                 f"SASS and {len(res)} in the ptxas report "
-                                 f"of {lib} at {size}")
-        entry = {**counts[0], **res[0]}
+        # a kernel function's instances (K3-f32's pass 1: its full and its
+        # dx-only form), each held below; the one of most registers logged
+        names = sorted(f for f in sass[lib, size] if fn in f)
+        entries = [{**sass[lib, size][f], **ptxas[lib, size].get(f, {})}
+                   for f in names]
+        if not entries or any("registers" not in e for e in entries):
+            raise AssertionError(f"{fn}: {len(names)} functions in the "
+                                 f"SASS of {lib} at {size}, not each in its "
+                                 "ptxas report")
+        entry = dict(max(entries, key=lambda e: e["registers"]),
+                     functions=len(entries))
         if size is not None:
             by_size.setdefault(_size_tag(size), {})[fn] = entry
         if size in (build.DEFAULT_SIZE, None):
@@ -773,17 +798,18 @@ def build_phase():
             log(f"{fn}: {json.dumps(entry)}")
         else:
             log(f"{fn} ({lib} at {size}): {json.dumps(entry)}")
-        if fn in f32_fns:
-            if not (counts[0]["HMMA"] > 0 and counts[0]["HGMMA"] == 0):
-                raise AssertionError(f"{fn} at {size}: instructions "
-                                     f"{counts[0]}, expected HMMA > 0, "
-                                     "HGMMA 0")
-        elif not (counts[0]["HGMMA"] > 0 and counts[0]["HMMA"] == 0):
-            raise AssertionError(f"{fn} at {size}: tensor-core instructions "
-                                 f"{counts[0]}, expected HGMMA > 0, HMMA 0")
-        if res[0].get("spill_stores", 1) or res[0].get("spill_loads", 1):
-            raise AssertionError(f"{fn} at {size}: spills in the ptxas "
-                                 f"report {res[0]}")
+        for e in entries:
+            if fn in f32_fns:
+                if not (e["HMMA"] > 0 and e["HGMMA"] == 0):
+                    raise AssertionError(f"{fn} at {size}: instructions "
+                                         f"{e}, expected HMMA > 0, HGMMA 0")
+            elif not (e["HGMMA"] > 0 and e["HMMA"] == 0):
+                raise AssertionError(f"{fn} at {size}: tensor-core "
+                                     f"instructions {e}, expected HGMMA > 0, "
+                                     "HMMA 0")
+            if e.get("spill_stores", 1) or e.get("spill_loads", 1):
+                raise AssertionError(f"{fn} at {size}: spills in the ptxas "
+                                     f"report {e}")
     return seconds, found, by_size
 
 
@@ -1287,6 +1313,7 @@ def f32_kernel_phase(x, g, fp, track_rows):
     from proudslam_tpu_torch.ops.kernels import mlp_kernel as mk
 
     N = x.shape[0]
+    size0, sms = mk.params_size(fp), _sms(x.device)
     nz = (x.abs().sum(1) > 0).nonzero().flatten()
     shapes = [("mapping", x, g), ("tracking", x[:track_rows], g[:track_rows]),
               ("ragged", x[:N - K3_RAGGED], g[:N - K3_RAGGED])]
@@ -1392,6 +1419,39 @@ def f32_kernel_phase(x, g, fp, track_rows):
                                                 nbytes)
         st["share"] = st["bound_ms"] / st["ms"]
         st["dx_only_share"] = st["dx_only_bound_ms"] / st["dx_only_ms"]
+        st["pass1_ms"], st["pass2_ms"] = _k3_pass_ms(xn, gn, fp, {},
+                                                     bf16=False)
+        st["wgrad_gb"] = _wgrad_gb(size0, rows, sms, bf16=False)
+        plan = mk.wgrad_plan(size0, rows, sms, bf16=False)
+        # a count from the code, not a measurement (_wgrad_gb)
+        log(f"K3-f32 at the {shape} shape: pass 1 in "
+            f"{mk.backward_partition(rows, sms)[0]} blocks, pass 2 in "
+            f"{plan.tiles} output tiles x {plan.splits} splits of <= "
+            f"{plan.per_split} 64-row groups, "
+            f"{len(mk.wgrad_chunks(plan, size0, rows, False))} chunk(s); "
+            f"pass 1 {st['pass1_ms']:.3f} ms, pass 2 {st['pass2_ms']:.3f} "
+            f"ms; bytes of the weight gradients through device memory, "
+            f"counted from the code: {json.dumps(st['wgrad_gb'])} GB")
+    # decoder_wgrad_f32 on its own at the mapping shape (one K3-f32 call's
+    # chunks): its time, its plain version's on the same operands, the five
+    # products as f32 torch.matmul calls (TF32 off), its bound (the
+    # operands read once, the gradients written once; the products' flops
+    # as 3xTF32)
+    ops = mk.decoder_bwd_operands_plain(x, g, fp, bf16=False)
+    plan = mk.wgrad_plan(size0, N, sms, bf16=False)
+    wgrad_ms = k3["mapping"]["pass2_ms"]
+    wgrad_plain_ms = _event_ms(lambda: mk.decoder_wgrad_plain(ops, size0,
+                                                             plan))
+    wgrad_matmul_ms = _wgrad_matmul_ms(ops, size0, bf16=False)
+    del ops
+    wgrad_bound = _bound(0, 0, _wgrad_bound_bytes(size0, N, bf16=False),
+                         2 * N * mk.wgrad_part_floats(size0))
+    log(f"decoder_wgrad_f32 at the mapping shape, N={N}: {wgrad_ms:.3f} ms "
+        f"(plain {wgrad_plain_ms:.3f} ms, 3xTF32 bound "
+        f"{wgrad_bound[0]:.4f} ms by {wgrad_bound[1]}, share "
+        f"{wgrad_bound[0] / wgrad_ms:.3f}; its five products as f32 "
+        f"torch.matmul calls {wgrad_matmul_ms:.3f} ms)")
+    wgrad_sizes = wgrad_check(x.device, x, g, fp, bf16=False)
     xg = x.detach().clone().requires_grad_(True)
 
     def chain_fwd_bwd():
@@ -1425,6 +1485,10 @@ def f32_kernel_phase(x, g, fp, track_rows):
             _entry(err_bwd, m3["ms"], m3["plain_ms"],
                    (m3["bound_ms"], m3["bound_by"]), chain_bwd_ms),
             shapes=k3, dx_err_by_margin=margin_bins),
+        "decoder_wgrad_f32": dict(
+            _entry(max(st["max_abs_err"] for st in wgrad_sizes.values()),
+                   wgrad_ms, wgrad_plain_ms, wgrad_bound),
+            matmul_ms=wgrad_matmul_ms, rows=N, checks=wgrad_sizes),
     }
 
 
@@ -1575,21 +1639,21 @@ def kernel_phase(device):
             f"{len(mk.wgrad_chunks(plan, size0, st['rows']))} chunk(s); "
             f"pass 1 {st['pass1_ms']:.3f} ms, pass 2 {st['pass2_ms']:.3f} "
             f"ms; bytes of the weight gradients through device memory, "
-            f"counted from the code: {st['wgrad_gb'] * 1e3:.0f} MB")
+            f"counted from the code: {st['wgrad_gb']['total'] * 1e3:.0f} MB")
     # decoder_wgrad on its own at the mapping shape (one K3 call's chunks):
-    # its time, its plain version's on the same operands, its bound (the
+    # its time, its plain version's on the same operands, the five products
+    # as bf16 torch.matmul calls on them (the yardstick), its bound (the
     # operands read once, the five gradients written once; the products'
     # flops)
     ops = mk.decoder_bwd_operands_plain(x, g, fp)
     plan = mk.wgrad_plan(size0, N, sms)
-    chunk_bytes = sum(mk.wgrad_scratch_bytes(size0, r)
-                      for _, r, _, _ in mk.wgrad_chunks(plan, size0, N))
     wgrad_ms = k3["mapping"]["pass2_ms"]
     wgrad_plain_ms = _event_ms(lambda: mk.decoder_wgrad_plain(ops, size0,
                                                              plan))
+    wgrad_matmul_ms = _wgrad_matmul_ms(ops, size0)
     del ops
     wgrad_bound = _bound(2 * N * mk.wgrad_part_floats(size0), 0,
-                         chunk_bytes + 4 * mk.wgrad_part_floats(size0))
+                         _wgrad_bound_bytes(size0, N))
 
     # K2 on the pcd branch's decoder inputs (PointNet features of frame 0's
     # stored points, blended per sample) at the mapping and tracking shapes
@@ -1690,7 +1754,8 @@ def kernel_phase(device):
         f"forward+backward {chain_bwd_ms:.3f} ms at N={N}")
     log(f"decoder_wgrad at the mapping shape, N={N}: {wgrad_ms:.3f} ms "
         f"(plain {wgrad_plain_ms:.3f} ms, bound {wgrad_bound[0]:.4f} ms by "
-        f"{wgrad_bound[1]}, share {wgrad_bound[0] / wgrad_ms:.3f})")
+        f"{wgrad_bound[1]}, share {wgrad_bound[0] / wgrad_ms:.3f}; its five "
+        f"products as bf16 torch.matmul calls {wgrad_matmul_ms:.3f} ms)")
     log(f"pcd gather (PointNet at {pcd_args[3].xyz.shape[1] * R * H} rows + "
         f"blend): forward {gather_ms:.3f} ms, forward+backward "
         f"{gather_bwd_ms:.3f} ms, peak memory {gather_peak_gb:.2f} GB")
@@ -1737,7 +1802,7 @@ def kernel_phase(device):
         "decoder_wgrad": dict(
             _entry(max(st["max_abs_err"] for st in wgrad_sizes.values()),
                    wgrad_ms, wgrad_plain_ms, wgrad_bound),
-            rows=N, checks=wgrad_sizes),
+            matmul_ms=wgrad_matmul_ms, rows=N, checks=wgrad_sizes),
         **f32,
         "extra": dict(pcd_gather_ms=gather_ms,
                       pcd_gather_fwd_bwd_ms=gather_bwd_ms,
@@ -1935,16 +2000,6 @@ def size_phase(device, inp, size, full=True) -> dict:
             "decoder_backward": dict(max_abs_err=err3, shapes=k3)}
 
 
-def _slab_gb(fp, rows, tile_rows) -> float:
-    """GB a full K3-f32 backward of ``rows`` rows reads and writes in its
-    blocks' slabs of partial weight gradients, by count: each tile of
-    ``tile_rows`` rows reads and rewrites its block's slab (the params'
-    size in f32) once; the first tile of a block only writes it, which
-    this count ignores."""
-    nparam = sum(t.numel() for t in fp)
-    return -(-rows // tile_rows) * 2 * nparam * 4 / 1e9
-
-
 def _sms(device) -> int:
     """The card's SM count (K3's partitions and splits follow it); one on
     the CPU, where the size phases are rehearsed with the plain
@@ -1956,84 +2011,133 @@ def _sms(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _wgrad_gb(size, rows, sms) -> float:
-    """GB K3's weight gradients move through device memory in a full
-    backward of ``rows`` rows at a built ``size``, by count from the code:
-    pass 1 writes each chunk's operand scratch once and pass 2 reads it
-    once (the output tiles that share an operand read it again from L2,
-    which this count leaves out), pass 2 writes each split's partial sums
-    and the reduce reads them, and each 64-row tile reads and rewrites its
-    pass-1 block's slab of small gradients (a block's first tile only
-    writes it, which this count ignores)."""
+def _wgrad_bound_bytes(size, rows, bf16=True) -> int:
+    """The bytes a second pass must move for ``rows`` rows at ``size``:
+    the eight operands of its five products read once (bf16 for K3, f32
+    for K3-f32: 2 or 4 (in_dim + 5 width + 2 sdf_dim) a row, the scratch's
+    padding left out) and the five gradients written once."""
     from proudslam_tpu_torch.ops.kernels import mlp_kernel as mk
 
-    chunks = mk.wgrad_chunks(mk.wgrad_plan(size, rows, sms), size, rows)
-    scratch = sum(mk.wgrad_scratch_bytes(size, r) for _, r, _, _ in chunks)
-    parts = sum(c[2] for c in chunks) * mk.wgrad_part_floats(size) * 4
-    slabs = (-(-rows // mk.TILE_ROWS) * 2 * mk.small_grad_layout(size)["n"]
-             * 4)
-    return (2 * scratch + 2 * parts + slabs) / 1e9
+    d, w, sd = size
+    return ((2 if bf16 else 4) * rows * (d + 5 * w + 2 * sd)
+            + 4 * mk.wgrad_part_floats(size))
 
 
-def _k3_pass_ms(xn, gn, fp, reps) -> tuple:
-    """K3's two passes timed apart (``_event_ms`` with ``reps``) at the
-    built size of ``fp`` -> (pass 1 ms, pass 2 ms): pass 1 with its
-    wrapper and the reduce (K3 with pass 2 stubbed out), and pass 2
-    (``decoder_wgrad``) over every chunk of ``xn``'s rows, each on its
-    chunk's operands as pass 1 stores them (their plain version, packed:
-    the rows' own values, not a stand-in, since the tensor cores' time
-    depends on the data)."""
+def _wgrad_gb(size, rows, sms, bf16=True) -> dict:
+    """GB K3's (``bf16``) or K3-f32's weight gradients move through device
+    memory in a full backward of ``rows`` rows at a built ``size``, by
+    count from the code -> {"scratch": pass 1 writes each chunk's operand
+    scratch once and pass 2 reads it once (the output tiles that share an
+    operand read it again from L2, which this count leaves out),
+    "partials": pass 2 writes each split's partial sums and the reduce
+    reads them, "slabs": each tile of pass 1 reads and rewrites its
+    block's slab of small gradients (a block's first tile only writes it,
+    which this count ignores), "total"}."""
+    from proudslam_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    chunks = mk.wgrad_chunks(mk.wgrad_plan(size, rows, sms, bf16=bf16),
+                             size, rows, bf16)
+    tile_rows = mk.wgrad_tile_rows(size, bf16)
+    gb = dict(
+        scratch=2 * sum(mk.wgrad_scratch_bytes(size, r, tile_rows, bf16)
+                        for _, r, _, _ in chunks) / 1e9,
+        partials=2 * sum(c[2] for c in chunks) * mk.wgrad_part_floats(size)
+        * 4 / 1e9,
+        slabs=-(-rows // tile_rows) * 2 * mk.small_grad_layout(size)["n"]
+        * 4 / 1e9)
+    gb["total"] = sum(gb.values())
+    return gb
+
+
+def _pass2_name(bf16: bool) -> str:
+    """The second pass's wrapper in mlp_kernel: K3's or K3-f32's."""
+    return "decoder_wgrad" if bf16 else "decoder_wgrad_f32"
+
+
+def _k3_pass_ms(xn, gn, fp, reps, bf16=True) -> tuple:
+    """K3's (``bf16``) or K3-f32's two passes timed apart (``_event_ms``
+    with ``reps``) at the built size of ``fp`` -> (pass 1 ms, pass 2 ms):
+    pass 1 with its wrapper and the reduce (the backward with pass 2
+    stubbed out), and pass 2 (``decoder_wgrad`` or ``decoder_wgrad_f32``)
+    over every chunk of ``xn``'s rows, each on its chunk's operands as pass
+    1 stores them (their plain version, packed: the rows' own values, not a
+    stand-in, since the tensor cores' time depends on the data)."""
     import torch
 
     from proudslam_tpu_torch.ops.kernels import mlp_kernel as mk
 
     size, n = mk.params_size(fp), xn.shape[0]
-    real = mk.decoder_wgrad
-    mk.decoder_wgrad = lambda *a, **k: None
+    name = _pass2_name(bf16)
+    real = getattr(mk, name)
+    setattr(mk, name, lambda *a, **k: None)
     try:
-        p1 = _event_ms(lambda: mk.decoder_bwd(xn, gn, fp), **reps)
+        p1 = _event_ms(lambda: mk.decoder_bwd(xn, gn, fp, bf16=bf16), **reps)
     finally:
-        mk.decoder_wgrad = real
-    plan = mk.wgrad_plan(size, n, _sms(xn.device))
+        setattr(mk, name, real)
+    plan = mk.wgrad_plan(size, n, _sms(xn.device), bf16=bf16)
+    tile_rows = mk.wgrad_tile_rows(size, bf16)
     chunks = [(mk.pack_operands(mk.decoder_bwd_operands_plain(
-        xn[r0:r0 + rows], gn[r0:r0 + rows], fp)), rows, splits, per)
-        for r0, rows, splits, per in mk.wgrad_chunks(plan, size, n)]
+        xn[r0:r0 + rows], gn[r0:r0 + rows], fp, bf16), tile_rows, bf16),
+        rows, splits, per)
+        for r0, rows, splits, per in mk.wgrad_chunks(plan, size, n, bf16)]
     part = torch.empty((plan.splits * mk.wgrad_part_floats(size),),
                        device=xn.device)
 
     def pass2():
         for scratch, rows, splits, per in chunks:
-            mk.decoder_wgrad(scratch, size, rows, splits, per, part)
+            getattr(mk, name)(scratch, size, rows, splits, per, part)
     return p1, _event_ms(pass2, **reps)
 
 
-def wgrad_check(device, x, g, fp0) -> dict:
-    """``decoder_wgrad`` (K3's second pass) and its reduce against
-    ``decoder_wgrad_plain`` on identical operands: pass 1's operands from
-    its plain version (``decoder_bwd_operands_plain``) on the rows of the
-    first chunk K3 makes of the kernel phase's inputs ``x``, ``g`` (the
-    mapping shape), packed as pass 1 stores them (``pack_operands``), at
-    each size of WGRAD_SIZES (one of each plan of pass 1; that size's
-    ``init_decoder`` params, ``fp0`` at (16, 128, 128)) with the wrapper's
-    splits -> {size tag: rows, splits, each output's error over its
-    largest magnitude, the largest absolute error}; raises past
-    TOL_WGRAD."""
+def _wgrad_matmul_ms(ops, size, bf16=True, reps=None) -> float:
+    """The second pass's yardstick: its five products (``wgrad_jobs``) as
+    ``torch.matmul`` calls on the same operands, bf16 for K3's, f32 with
+    TF32 off for K3-f32's (a chain of calls, not one library call: timed
+    here, used nowhere in the port)."""
+    import torch
+
+    from proudslam_tpu_torch.ops.kernels import mlp_kernel as mk
+
+    ops = mk.WgradOperands(*[t.to(torch.bfloat16) if bf16 else t
+                             for t in ops])
+    pairs = [(getattr(ops, a).T, getattr(ops, b))
+             for _, a, b, _, _ in mk.wgrad_jobs(size)]
+    return _event_ms(lambda: [torch.matmul(a, b) for a, b in pairs],
+                     **(reps or {}))
+
+
+def wgrad_check(device, x, g, fp0, bf16=True) -> dict:
+    """``decoder_wgrad`` (K3's second pass; ``decoder_wgrad_f32``, K3-f32's,
+    for ``bf16=False``) and the reduce against ``decoder_wgrad_plain`` on
+    identical operands: pass 1's operands from its plain version
+    (``decoder_bwd_operands_plain``) on the rows of the first chunk the
+    backward makes of the kernel phase's inputs ``x``, ``g`` (the mapping
+    shape), packed as pass 1 stores them (``pack_operands``), at each size
+    of WGRAD_SIZES (one of each plan of pass 1: for K3-f32 its 64-, 32-
+    and 16-row tiles and its parked ones; that size's ``init_decoder``
+    params, ``fp0`` at (16, 128, 128)) with the wrapper's splits -> {size
+    tag: rows, splits, each output's error over its largest magnitude, the
+    largest absolute error}; raises past TOL_WGRAD (TOL_WGRAD_F32)."""
     import torch
 
     from proudslam_tpu_torch.ops.kernels import mlp_kernel as mk
 
     sms = _sms(device)
+    tol = TOL_WGRAD if bf16 else TOL_WGRAD_F32
+    pass2 = _pass2_name(bf16)
     out = {}
     for size in WGRAD_SIZES:
-        n = mk.wgrad_plan(size, x.shape[0], sms).chunk_rows
+        n = mk.wgrad_plan(size, x.shape[0], sms, bf16=bf16).chunk_rows
         xn, gn = x[:n].contiguous(), g[:n].contiguous()
         fp = fp0 if mk.params_size(fp0) == size else _decoder_at(device,
                                                                 size, 2)
-        ops = mk.decoder_bwd_operands_plain(xn, gn, fp)
-        splits, per = mk.wgrad_splits(size, n, sms)
+        ops = mk.decoder_bwd_operands_plain(xn, gn, fp, bf16)
+        splits, per = mk.wgrad_splits(size, n, sms, bf16)
         part = torch.empty((splits * mk.wgrad_part_floats(size),),
                            device=device)
-        mk.decoder_wgrad(mk.pack_operands(ops), size, n, splits, per, part)
+        getattr(mk, pass2)(mk.pack_operands(
+            ops, mk.wgrad_tile_rows(size, bf16), bf16), size, n, splits, per,
+            part)
         dflat = torch.empty((sum(t.numel() for t in fp),), device=device)
         mk.wgrad_reduce(part, splits, torch.zeros(
             (mk.small_grad_layout(size)["n"],), device=device), 1, size,
@@ -2043,7 +2147,7 @@ def wgrad_check(device, x, g, fp0) -> dict:
             got[name] = dflat[off:off + t.numel()].view(t.shape)
             off += t.numel()
         want = mk.decoder_wgrad_plain(ops, size, mk.WgradPlan(
-            n, mk.wgrad_tiles(size), splits, per, sms))
+            n, mk.wgrad_tiles(size, bf16), splits, per, sms))
         torch.cuda.synchronize()
         rel, worst = {}, 0.0
         for name, w in zip(("w1", "w2", "ws", "wc_f", "wc_x"), want):
@@ -2053,11 +2157,11 @@ def wgrad_check(device, x, g, fp0) -> dict:
             rel[name] = float(f"{e / max(w.abs().max().item(), 1e-30):.3e}")
         st = dict(rows=n, splits=splits, per_split=per, rel_err=rel,
                   max_abs_err=worst)
-        log(f"decoder_wgrad at {size} on identical operands: "
-            + json.dumps(st) + f" (tol {TOL_WGRAD} of each output's "
+        log(f"{pass2} at {size} on identical operands: "
+            + json.dumps(st) + f" (tol {tol} of each output's "
             "largest magnitude)")
-        if not max(rel.values()) <= TOL_WGRAD:
-            raise AssertionError(f"decoder_wgrad at {size} disagrees with "
+        if not max(rel.values()) <= tol:
+            raise AssertionError(f"{pass2} at {size} disagrees with "
                                  "decoder_wgrad_plain")
         out[_size_tag(size)] = st
         del ops
@@ -2209,7 +2313,7 @@ def f32_size_phase(device, x, g, size, track_rows, full=True) -> dict:
                                  else None)
         st["bound_ms"], st["bound_by"] = _bound(
             0, 0, _nbytes(xn, gn, *fp, xn, *gr_k), 3 * flops * rows)
-        st["slab_gb"] = _slab_gb(fp, rows, mk.f32_tile_rows(size))
+        st["wgrad_gb"] = _wgrad_gb(size, rows, _sms(device), bf16=False)
         st["dx_only_bound_ms"], _ = _bound(0, 0, _nbytes(xn, gn, *fp, xn),
                                            2 * flops * rows)
         st["dx_only_share"] = st["dx_only_bound_ms"] / st["dx_only_ms"]
@@ -2403,7 +2507,8 @@ def pcd_render_check(r, rays_o, rays_d, device):
     if device.type == "cuda" and launched != {
             "fused_render_forward": 0, "decoder_forward": 1,
             "decoder_backward": 1, "decoder_forward_f32": 0,
-            "decoder_backward_f32": 0, "decoder_wgrad": 1}:
+            "decoder_backward_f32": 0, "decoder_wgrad": 1,
+            "decoder_wgrad_f32": 0}:
         raise AssertionError("pcd render_rays did not run K2 and K3 once")
     if not (err_out <= TOL_RENDER_OUT and err_grad <= TOL_RENDER_GRAD_REL):
         raise AssertionError("pcd render_rays on the card disagrees with "
@@ -2505,7 +2610,8 @@ def _counters():
             "decoder_backward": mk.decoder_bwd,
             "decoder_forward_f32": mk.decoder_fwd_f32,
             "decoder_backward_f32": mk.decoder_bwd_f32,
-            "decoder_wgrad": mk.decoder_wgrad}
+            "decoder_wgrad": mk.decoder_wgrad,
+            "decoder_wgrad_f32": mk.decoder_wgrad_f32}
 
 
 def _launches():
@@ -3225,7 +3331,7 @@ def parallel_phase(device, settings, frames) -> dict:
             device, "parallel", settings, frames, PARALLEL_FRAMES,
             ATE_LIMIT_CM, launched=VOX_KERNELS,
             not_launched=("decoder_forward", "decoder_forward_f32",
-                          "decoder_backward_f32"),
+                          "decoder_backward_f32", "decoder_wgrad_f32"),
             after=after, engine_mesh=mesh)
     finally:
         torch.cuda.synchronize()
@@ -3329,8 +3435,7 @@ def size_table(record) -> None:
             for shape, sh in st["shapes"].items():
                 row[shape] = {key: sh.get(key) for key in (
                     "ms", "share", "bound_ms", "plain_ms", "matmul_chain_ms",
-                    "dx_only_ms", "pass1_ms", "pass2_ms", "wgrad_gb",
-                    "slab_gb")}
+                    "dx_only_ms", "pass1_ms", "pass2_ms", "wgrad_gb")}
             log(f"size table: {k['name']} at {tag}: {json.dumps(row)}")
 
 
@@ -3366,7 +3471,8 @@ def main() -> None:
     vox = bench_settings()
     bf16_kernels = ("fused_render_forward", "decoder_forward",
                     "decoder_backward", "decoder_wgrad")
-    f32_kernels = ("decoder_forward_f32", "decoder_backward_f32")
+    f32_kernels = ("decoder_forward_f32", "decoder_backward_f32",
+                   "decoder_wgrad_f32")
     stats = {"vox": slice_phase(
         device, "vox", vox, frames, N_FRAMES, ATE_LIMIT_CM,
         launched=VOX_KERNELS,
@@ -3527,6 +3633,16 @@ def main() -> None:
          "launches_by_path": {p: st["launches"]["decoder_wgrad"]
                               for p, st in stats.items()},
          "build": built[WGRAD_FUNCTION], **kern["decoder_wgrad"]})
+    record["kernels"].append(
+        {"name": "decoder_wgrad_f32", "route": "cuda",
+         "source": f"{csrc}/mlp_wgrad_f32.cu", "replaces": f"{mlp}:172",
+         "replaces_form": "bf16=False: _bwd_kernel's weight-gradient sums "
+                          "(dw[:] += _dotg(...), lines 172-193)",
+         "launches": sum(st["launches"]["decoder_wgrad_f32"]
+                         for st in stats.values()),
+         "launches_by_path": {p: st["launches"]["decoder_wgrad_f32"]
+                              for p, st in stats.items()},
+         "build": built[WGRAD_F32_FUNCTION], **kern["decoder_wgrad_f32"]})
     size_table(record)
     unlaunched = [k["name"] for k in record["kernels"] if k["launches"] <= 0]
     if unlaunched:

@@ -49,6 +49,35 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
       : "memory");
 }
 
+// mbarrier.try_wait: true once the phase of `parity` has completed
+__device__ __forceinline__ bool mbar_test(uint64_t* b, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(saddr(b)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ unsigned long long now_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// the wait for a ring stage's phase that traps after 2 s (a copy that
+// never lands: a launch error, never a hang); the second passes'
+// (mlp_wgrad.cu, mlp_wgrad_f32.cu) rings
+__device__ inline void wait_stage(uint64_t* b, uint32_t parity) {
+  if (mbar_test(b, parity)) return;
+  const unsigned long long t0 = now_ns();
+  while (!mbar_test(b, parity))
+    if (now_ns() - t0 > 2000000000ull) __trap();
+}
+
 // orders this thread's earlier generic-proxy accesses of shared memory
 // before later async-proxy ones (a bulk copy into memory it read)
 __device__ __forceinline__ void fence_proxy_async() {

@@ -1,6 +1,9 @@
 // K3's weight gradients in two passes: the layouts pass 1 (the backward
 // kernel of each plan: mlp_kernel.cu, mlp_stream.cu, mlp_wide.cu,
-// mlp_park.cu) and pass 2 (mlp_wgrad.cu) share, and the store pass 1 makes.
+// mlp_park.cu) and pass 2 (mlp_wgrad.cu) share, and the store pass 1 makes;
+// and the same for K3-f32 (pass 1 in mlp_kernel_f32.cu and
+// mlp_stream_f32.cu, pass 2 in mlp_wgrad_f32.cu), whose scratch holds f32
+// tiles (`offset_f32`).
 // Every size here is a run-time value, so pass 2 is built once for all
 // decoder sizes.
 //
@@ -57,6 +60,22 @@ __host__ __device__ constexpr long long offset(int op, long long tile, int d,
   return (tile * row_cols(d, w, sd) + c) * TR;
 }
 
+// K3-f32's scratch (pass 1 in mlp_kernel_f32.cu and mlp_stream_f32.cu,
+// pass 2 in mlp_wgrad_f32.cu): the chunk's tiles of `tr` rows (its plan's
+// tile height: 64, 32 or 16) in order, and within each the operands' f32
+// tiles in `Operand` order, each feature-major as the kernels hold it in
+// shared memory (element (r, c) at c * (tr + 4) + r; the 4 floats past a
+// column's rows are padding, copied with it and never read), stored byte
+// for byte. Columns [c0, c1) of a tile are one contiguous run.
+// Floats before operand `op`'s tile of row tile `tile`:
+__host__ __device__ constexpr long long offset_f32(int op, long long tile,
+                                                   int d, int w, int sd,
+                                                   int tr) {
+  int c = 0;
+  for (int o = 0; o < op; ++o) c += cols(o, d, w, sd);
+  return (tile * row_cols(d, w, sd) + c) * (tr + 4);
+}
+
 // The five large products of pass 2, in their order (their partial sums
 // follow each other in it, each M x N row-major): A^T B over the rows, M =
 // A's columns, N = B's.
@@ -90,7 +109,7 @@ struct SmallAt {
 // that precedes the tile's next write, thread 0 waits until the copies
 // have read their sources (`stored_read`), and before the kernel ends
 // until they are done (`stored`).
-__device__ __forceinline__ void store(bf16* dst, const bf16* src,
+__device__ __forceinline__ void store(void* dst, const void* src,
                                       int bytes) {
   asm volatile(
       "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"

@@ -23,7 +23,8 @@
 // parameter gradients summed over all rows.
 //
 // What bounds them on an H100: arithmetic, ~108k flops per row forward
-// (3x that for the full backward) against 80 bytes of input and output: at
+// (2x that for K3-f32's dx and its stores, 3x with pass 2's) against 80
+// bytes of input and output (and K3-f32's 3,648 bytes a row stored): at
 // the tensor cores' 495 TFLOP/s in TF32, a third of that in 3xTF32, which
 // `mma.sync` reaches only in part; the issue slots of the splits and the
 // shared-memory reads that feed it; the FP32 units' 67 TFLOP/s for
@@ -33,9 +34,8 @@
 // live in shared memory feature-major (act[k][row], row stride AP = 68
 // floats, so float4 reads along rows and the tensor cores' fragment reads
 // avoid bank conflicts). The 8 warps share each product: a 64 x 128 output
-// as 2 x 4 warp tiles of 32 x 32, a 128 x 128 weight gradient (K = the
-// tile's 64 rows) as 2 x 4 tiles of 64 x 32, a 16 x 128 one as 1 x 8 tiles
-// of 16 x 16, the 64 x 16 input gradient dx as 4 x 2 tiles of 16 x 8.
+// as 2 x 4 warp tiles of 32 x 32, the 64 x 16 input gradient dx as 4 x 2
+// tiles of 16 x 8.
 //
 // Shared memory is the constraint: the f32 weights (FusedParams, 54,276
 // floats, 217 KB) do not fit beside the activation tiles in a block's
@@ -48,21 +48,31 @@
 // in mirror order (w2, ws, wc | wc, ws, w2), so it stages 4 per tile and
 // the forward 3; they come from L2, where the 212 KB of weights stay.
 //
-// K3-f32 keeps the bf16 K3's reduction (decoder_slab.cuh): each block owns
-// one f32 slab of partial weight gradients, adds each tile's products into
-// it in tile order (all of a product's reads of the slab, then its writes),
-// and reduce_partials_kernel sums the slabs in a fixed order: no float
-// atomics, bitwise repeatable. The dx-only form (tracking) writes no slab.
+// K3-f32 is the first of two passes, as K3 is (decoder_wgrad.cuh): it
+// computes dx and the six small gradients (the five bias sums, wo's and
+// ws's sdf column, added per tile into a per-block f32 slab at
+// wg::small's offsets) and stores the f32 operands of the five large
+// weight-gradient products, x, h1, h2, feat, dhc, dfeat, dh2 and dh1, each
+// finished (TR, cols) tile copied byte for byte from shared memory to the
+// scratch by one bulk copy from thread 0 (decoder_wgrad.cuh's f32 layout:
+// the tiles feature-major at row stride AP, padding included), which runs
+// while the block goes on. Pass 2 (mlp_wgrad_f32.cu) sums those products
+// over long runs of rows in registers and K3's reduce (mlp_wgrad.cu) adds
+// its partials and the slabs in a fixed order: no float atomics, bitwise
+// repeatable. The dx-only form (tracking) stores nothing and writes no
+// slab.
 // A ragged last tile is masked: its missing rows carry zero inputs and zero
 // cotangents (they add nothing to any gradient) and write no output.
 
-#include "decoder_slab.cuh"
+#include "decoder_wgrad.cuh"
 #include "tf32x3.cuh"
 
 using namespace dec;
 namespace tf = tf32x3;
 
 namespace {
+
+using SG = wg::SmallAt<W, SD>;
 
 constexpr int THREADS = 256;
 constexpr int AP = TR + 4;        // activation row stride (floats), 17 float4
@@ -248,55 +258,6 @@ __device__ __forceinline__ void bwd_store(float* dst, Acc& acc,
   });
 }
 
-// Weight-gradient product over the tile's rows, added into the slab:
-// out[m][n] (+)= sum_row act[m][row] cot[n][row] for m < M (W or D), n < W,
-// with out row-major (stride W) in global memory. M = W: warp tiles of
-// 64 x 32 (2 x 4); M = D: 16 x 16 (1 x 8).
-template <int M>
-__device__ __forceinline__ void wgrad_mm(float* __restrict__ out,
-                                         const float* act, const float* cot,
-                                         bool first) {
-  constexpr int TM = M == W ? 4 : 1, TN = M == W ? 4 : 2;
-  constexpr int WM = M / (16 * TM);         // warps along m
-  static_assert(WM * (W / (8 * TN)) == 8, "8 warps");
-  const int w = threadIdx.x >> 5;
-  const int m0 = 16 * TM * (w % WM), n0 = 8 * TN * (w / WM);
-  float acc[TM][TN][4];
-  tf::zero(acc);
-  tf::mm_kk<TM, TN, TR>(acc, act, cot, AP, m0, n0);
-  // every read of the slab, then every write; for M = W a row's two
-  // neighbouring entries as one 8-byte access (decoder_slab.cuh keeps those
-  // blocks at even offsets)
-  if (M == W) {
-    // (this loop, not for_each_pair with the test of `first` outside it:
-    // ptxas then took 255 registers instead of 227)
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const float2* o = reinterpret_cast<const float2*>(
-              out + tf::acc_row(m0 + 16 * i, 2 * h) * W +
-              tf::acc_col(n0 + 8 * j, 0));
-          if (!first) {
-            const float2 q = *o;
-            acc[i][j][2 * h] += q.x;
-            acc[i][j][2 * h + 1] += q.y;
-          }
-        }
-    tf::for_each_pair(acc, m0, n0, [&](int m, int n, float& v0, float& v1) {
-      *reinterpret_cast<float2*>(out + m * W + n) = make_float2(v0, v1);
-    });
-  } else {
-    if (!first)
-      tf::for_each_acc(acc, m0, n0,
-                       [&](int m, int n, float& v) { v += out[m * W + n]; });
-    tf::for_each_acc(acc, m0, n0,
-                     [&](int m, int n, float& v) { out[m * W + n] = v; });
-  }
-}
-
 // dx's part (tile, 64 x 16) += dcot wt^T: dcot feature-major (W, TR), wt
 // the (D, W) weight at stride WP; warp tiles of 16 x 8 (4 x 2)
 __device__ __forceinline__ void dx_mm(float (&acc)[1][1][4], const float* dcot,
@@ -447,11 +408,13 @@ decoder_forward_f32_kernel(const float* __restrict__ x, Params p,
   }
 }
 
+template <bool WGRAD>
 __global__ void __launch_bounds__(THREADS, 1)
 decoder_backward_f32_kernel(const float* __restrict__ x,
                             const float* __restrict__ g, Params p,
-                            float* __restrict__ dx, float* __restrict__ partial,
-                            long long N, int tiles_per_block, int want_wgrad) {
+                            float* __restrict__ dx, float* __restrict__ slabs,
+                            float* __restrict__ scratch, long long N,
+                            int tiles_per_block) {
   extern __shared__ __align__(16) float sm[];
   float* B0 = sm;
   float* B1 = B0 + ACT;
@@ -468,11 +431,18 @@ decoder_backward_f32_kernel(const float* __restrict__ x,
   const Lane ln{tid >> 4, tid & 15};
   const Tile tl = row_tile();
   FwdFma f{ln};
-  float* slab = partial + static_cast<long long>(blockIdx.x) * NPARAM;
+  float* slab = slabs + static_cast<long long>(blockIdx.x) * SG::n;
   const long long ntiles = (N + TR - 1) / TR;
   const long long tile0 = static_cast<long long>(blockIdx.x) * tiles_per_block;
   const long long tile1 = min(ntiles, tile0 + tiles_per_block);
   int held = NONE;
+  // thread 0: tile `tile`'s (cols, TR) tile of operand `op`, finished in
+  // shared memory at `src` (its writers fenced and past a barrier), to the
+  // scratch (decoder_wgrad.cuh)
+  auto store = [&](int op, long long tile, const float* src, int cols) {
+    wg::store(scratch + wg::offset_f32(op, tile, D, W, SD, TR), src,
+              4 * cols * AP);
+  };
 
   for (long long tile = tile0; tile < tile1; ++tile) {
     const bool first = tile == tile0;
@@ -486,12 +456,20 @@ decoder_backward_f32_kernel(const float* __restrict__ x,
         v = __ldg(reinterpret_cast<const float4*>(g + (row0 + tid) * 4));
       *reinterpret_cast<float4*>(rowv + 4 * tid) = v;   // [g_rgb | g_sdf]
     }
+    if (WGRAD) bulk::fence_proxy_async();
     __syncthreads();
+    if (WGRAD && tid == 0) store(wg::X, tile, xs, D);
 
     // forward recompute: h1 -> B0, h2 -> B1, feat -> B2, hc -> B3
     forward_feat(f, B0, B1, B2, xs, w1s, stage, held, p, nullptr);
     forward_color(f, B3, B2, xs, stage, held, p);
+    if (WGRAD) bulk::fence_proxy_async();
     __syncthreads();
+    if (WGRAD && tid == 0) {
+      store(wg::H1, tile, B0, W);
+      store(wg::H2, tile, B1, W);
+      store(wg::FEAT, tile, B2, SD);
+    }
 
     // dzo = g_rgb * rgb * (1 - rgb), per row
     color_partials(part, B3, p);
@@ -504,7 +482,7 @@ decoder_backward_f32_kernel(const float* __restrict__ x,
       }
     }
     __syncthreads();
-    if (want_wgrad) {
+    if (WGRAD) {
       // dwo[k][c] = sum_r hc[k][r] dzo[r][c]; dbo[c] = sum_r dzo[r][c]
       if (tid < W) {
         float s[3] = {0.f, 0.f, 0.f};
@@ -515,14 +493,14 @@ decoder_backward_f32_kernel(const float* __restrict__ x,
         }
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
-          float* o = slab + OFF_WO + 3 * tid + c;
+          float* o = slab + SG::wo + 3 * tid + c;
           *o = first ? s[c] : *o + s[c];
         }
       } else if (tid < W + 3) {
         const int c = tid - W;
         float s = 0.f;
         for (int r = 0; r < TR; ++r) s += rowv[4 * r + c];
-        float* o = slab + OFF_BO + c;
+        float* o = slab + SG::bo + c;
         *o = first ? s : *o + s;
       }
       __syncthreads();                              // hc's readers are done
@@ -545,41 +523,42 @@ decoder_backward_f32_kernel(const float* __restrict__ x,
       }
       *reinterpret_cast<float4*>(h) = make_float4(d[0], d[1], d[2], d[3]);
     }
+    if (WGRAD) bulk::fence_proxy_async();
     __syncthreads();
+    if (WGRAD && tid == 0) store(wg::DHC, tile, B3, W);
 
-    // with dhc (B3): dwc_f = feat^T dhc, dwc_x = x^T dhc, dbc; dx's part
-    // dhc wc_x^T; dfeat = dhc wc_f^T (-> B2 once feat's readers are done)
-    if (want_wgrad) {
-      wgrad_mm<W>(slab + S_WCF, B2, B3, first);
-      wgrad_mm<D>(slab + OFF_WCX, xs, B3, first);
-      col_sum(slab + OFF_BC, B3, first);
-    }
+    // with dhc (B3): dbc; dx's part dhc wc_x^T; dfeat = dhc wc_f^T (-> B2
+    // once feat's readers are done)
+    if (WGRAD) col_sum(slab + SG::bc, B3, first);
     float dxa[1][1][4];
     tf::zero(dxa);
     dx_mm(dxa, B3, stage + W * WP);
     Acc acc;
     tf::zero(acc);
     bwd_mm(acc, B3, stage, tl);
+    if (WGRAD && tid == 0) wg::stored_read();      // feat's store read
     __syncthreads();                                // feat's readers are done
     tf::for_each_acc(acc, tl.m0, tl.n0,
                      [&](int r, int c, float& v) { B2[c * AP + r] = v; });
+    if (WGRAD) bulk::fence_proxy_async();
     __syncthreads();                                // dfeat in place
+    if (WGRAD && tid == 0) store(wg::DFEAT, tile, B2, SD);
 
-    // with dso = [dfeat (B2) | g_sdf]: dws = h2^T dso, dbs
-    if (want_wgrad) {
-      wgrad_mm<W>(slab + OFF_WS, B1, B2, first);
-      col_sum(slab + S_BS, B2, first);
+    // with dso = [dfeat (B2) | g_sdf]: dbs, and dws's sdf column h2^T g_sdf
+    if (WGRAD) {
+      col_sum(slab + SG::bs, B2, first);
       if (tid < W) {
         float s = 0.f;
         for (int r = 0; r < TR; ++r) s = fmaf(B1[tid * AP + r], rowv[4 * r + 3], s);
-        float* o = slab + S_WS_SDF + tid;
+        float* o = slab + SG::ws_sdf + tid;
         *o = first ? s : *o + s;
       } else if (tid == W) {
         float s = 0.f;
         for (int r = 0; r < TR; ++r) s += rowv[4 * r + 3];
-        float* o = slab + S_BS + W;
+        float* o = slab + SG::bs + SD;
         *o = first ? s : *o + s;
       }
+      if (tid == 0) wg::stored_read();              // dhc's store read
     }
     // dh2 = (dfeat ws[:, :W]^T + g_sdf ws[:, W]^T) * (h2 > 0) -> B3
     ensure_stage(stage, held, ST_WS, p);
@@ -589,31 +568,36 @@ decoder_backward_f32_kernel(const float* __restrict__ x,
       const float d = fmaf(rowv[4 * r + 3], stage[c * WP + W], v);
       B3[c * AP + r] = B1[c * AP + r] > 0.f ? d : 0.f;
     });
+    if (WGRAD) bulk::fence_proxy_async();
     __syncthreads();                                // dh2 in place
+    if (WGRAD && tid == 0) store(wg::DH2, tile, B3, W);
 
-    // dw2 = h1^T dh2, db2; dh1 = (dh2 w2^T) * (h1 > 0) -> B1
-    if (want_wgrad) {
-      wgrad_mm<W>(slab + OFF_W2, B0, B3, first);
-      col_sum(slab + OFF_B2, B3, first);
+    // db2; dh1 = (dh2 w2^T) * (h1 > 0) -> B1
+    if (WGRAD) {
+      col_sum(slab + SG::b2, B3, first);
+      if (tid == 0) wg::stored_read();              // h2's store read
     }
     ensure_stage(stage, held, ST_W2, p);
     tf::zero(acc);
     bwd_mm(acc, B3, stage, tl);
     bwd_store(B1, acc, B0, tl);
+    if (WGRAD) bulk::fence_proxy_async();
     __syncthreads();                                // dh1 in place
+    if (WGRAD && tid == 0) store(wg::DH1, tile, B1, W);
 
-    // dw1 = x^T dh1, db1; dx = dh1 w1^T + dhc wc_x^T
-    if (want_wgrad) {
-      wgrad_mm<D>(slab + OFF_W1, xs, B1, first);
-      col_sum(slab + OFF_B1, B1, first);
-    }
+    // db1; dx = dh1 w1^T + dhc wc_x^T
+    if (WGRAD) col_sum(slab + SG::b1, B1, first);
     dx_mm(dxa, B1, w1s);
     const int w = tid >> 5;
     tf::for_each_acc(dxa, 16 * (w & 3), 8 * (w >> 2),
                      [&](int r, int c, float& v) {
                        if (r < nvalid) dx[(row0 + r) * D + c] = v;
                      });
+    // the tile's stores have read x, h1, dfeat, dh2 and dh1, which the next
+    // tile overwrites
+    if (WGRAD && tid == 0) wg::stored_read();
   }
+  if (WGRAD && tid == 0) wg::stored();
 }
 
 }  // namespace
@@ -632,23 +616,25 @@ extern "C" int decoder_forward_f32(const float* x, const void* const* params,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K3-f32: dx (N, D); dparams (NPARAM,) in FusedParams order when
-// want_wgrad; partial: (P, NPARAM) scratch. P blocks each take
-// tiles_per_block tiles. Returns cudaGetLastError() after the launches.
+// K3-f32's pass 1: dx (N, D); when want_wgrad the small gradients' slabs
+// (P, wg::small(W, SD).n) and the f32 operands of the large ones in
+// `scratch` (decoder_wgrad.cuh's f32 layout, TR-row tiles). P blocks each
+// take tiles_per_block tiles. Returns cudaGetLastError() after the launch
+// (0 = launched).
 extern "C" int decoder_backward_f32(const float* x, const float* g,
                                     const void* const* params, float* dx,
-                                    float* dparams, float* partial,
-                                    long long N, int P, int tiles_per_block,
+                                    float* slab, float* scratch, long long N,
+                                    int P, int tiles_per_block,
                                     int want_wgrad, cudaStream_t stream) {
+  // the full form and the dx-only one (tracking), each its own kernel: in
+  // one kernel with a run-time switch the dx-only form took up to 18% longer
+  // than before the stores (an H100 at 700 W, (64, 512, 128))
+  auto kernel = want_wgrad ? decoder_backward_f32_kernel<true>
+                           : decoder_backward_f32_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      decoder_backward_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      K3F_SMEM);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, K3F_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  decoder_backward_f32_kernel<<<P, THREADS, K3F_SMEM, stream>>>(
-      x, g, params_from(params), dx, partial, N, tiles_per_block, want_wgrad);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || !want_wgrad) return static_cast<int>(err);
-  reduce_partials_kernel<<<(NPARAM + 255) / 256, 256, 0, stream>>>(
-      partial, dparams, P);
+  kernel<<<P, THREADS, K3F_SMEM, stream>>>(
+      x, g, params_from(params), dx, slab, scratch, N, tiles_per_block);
   return static_cast<int>(cudaGetLastError());
 }

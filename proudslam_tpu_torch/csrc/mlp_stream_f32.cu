@@ -20,9 +20,10 @@
 // f32.
 //
 // What bounds them on an H100: arithmetic (~2 * 140k flops per row forward
-// at (16, 256, 128), 3x that for the full backward, against 80 bytes of
-// input and output), then the f32 weights' traffic from L2 and, for the
-// full backward, the slabs of partial weight gradients. Shared memory is
+// at (16, 256, 128), 2x that for K3-f32's dx, against 80 bytes of input
+// and output), then the f32 weights' traffic from L2 and, for the full
+// backward, the f32 operands it stores (4 (D + 5W + 2SD) bytes a row, and
+// the padding). Shared memory is
 // the wall: the f32 weights take 565 KB at (16, 256, 128) and 827 KB at
 // (16, 256, 256), and a 64-row f32 activation tile of width 256 takes 68 KB,
 // so K3-f32's four would not fit a block's 227 KB. So here:
@@ -44,9 +45,7 @@
 //     The products' sums are the resident plan's, term for term. At in_dim
 //     64 the same, with four chunks each (193,552 bytes at (64, 256,
 //     256)); there dx's 32 x 64 tile is 16 tiles of 16 x 8, two a warp
-//     (dx_part2), and the x-side weight gradients keep their 16 x 32 warp
-//     tiles (dwc_x starts at an odd slab offset: no 8-byte accesses). At
-//     in_dim 128 eight chunks each (202,768 bytes at (128, 256, 256)), the
+//     (dx_part2). At in_dim 128 eight chunks each (202,768 bytes at (128, 256, 256)), the
 //     x tile 18,432 bytes, and dx's tile 32 tiles of 16 x 8, four a warp
 //     (dx_partn; two a warp at 16-row tiles);
 //   - a per-launch pass (pack_weights_kernel) writes the streamed weights
@@ -57,25 +56,21 @@
 //     backward product (dy w^T) is again a sum over K-slices of a row-major
 //     weight: the same product, the same warp tiling, every warp busy;
 //   - the 8 warps split each row x column product by its columns (32 rows
-//     x N / 8 columns a warp); a weight gradient (act^T cot, K = the tile's
-//     32 rows) is cut into 64 x 32 (16 x 32 for w1 and wc_x) warp tiles
-//     that the warps take in turn.
+//     x N / 8 columns a warp).
 // At the wide sizes (width 384 and 512) four (W, 32) tiles alone would take
 // 294,912 bytes at width 512, so there tiles have RT = 16 rows (the
 // `mma.sync` minimum; AP = 20, still conflict-free), w1 and wc_x stream at
 // either in_dim, and the ring's chunks have 8 weight rows (16 rows would
 // take K3-f32's block to 234,512 bytes at (16, 512, *)): 202,768 bytes at
 // (32, 512, 512). Each warp then takes 16 rows x N / 8 columns, the FFMA
-// recompute 2 rows a thread, and a row's partial dots are 16. The slab of
-// partial weight gradients is read and rewritten per tile, so at 16 rows a
-// tile that traffic doubles (~130 GB per full backward of 327,680 rows at
-// (16, 512, 512), by count). And there K2-f32's h1 and h2 products run on
-// the FP32 units too, as K3-f32's recompute: the sdf column is a dot of
-// the W values of h2 whose terms can nearly cancel, and with 3xTF32's
-// h1 and h2 (each product within ~2^-21 of the true one, a few times f32's
-// rounding) K2-f32's sdf was 1.9e-5 of its largest magnitude from the
-// float64 forward at (32, 512, 384) on the pcd features, the f32 plain
-// version 3.6e-6 (an H100, 700 W), against a tolerance of 1e-5. The same
+// recompute 2 rows a thread, and a row's partial dots are 16. And there
+// K2-f32's h1 and h2 products run on the FP32 units too, as K3-f32's
+// recompute: the sdf column is a dot of the W values of h2 whose terms can
+// nearly cancel, and with 3xTF32's h1 and h2 (each product within ~2^-21
+// of the true one, a few times f32's rounding) K2-f32's sdf was 1.9e-5 of
+// its largest magnitude from the float64 forward at (32, 512, 384) on the
+// pcd features, the f32 plain version 3.6e-6 (an H100, 700 W), against a
+// tolerance of 1e-5. The same
 // at in_dim 64 (FFMA_H): on in_dim 48 zero-padded to (64, 256, 128),
 // 3xTF32's h1 and h2 put K2-f32's sdf 1.04e-5 from the float64 forward
 // (the plain version 6.8e-6; an H100, 700 W); the older sizes keep their
@@ -88,16 +83,23 @@
 // memory after the packed weights (PARK_F32 tiles at most), read and written
 // by the same plain loads and stores as the tiles in shared memory, through
 // L1 and L2: every product, sum and mask is the same.
-// K3-f32 keeps mlp_kernel_f32.cu's reduction (decoder_slab.cuh): each block
-// walks a contiguous run of tiles and adds each tile's weight gradients
-// into its own f32 slab, and reduce_partials_kernel sums the slabs in a
-// fixed order: no float atomics, bitwise repeatable. The dx-only form
-// (tracking) writes no slab. A ragged last tile is masked: its missing rows
-// carry zero inputs and zero cotangents (they add nothing to any gradient)
-// and write no output.
+// K3-f32 is pass 1 of two, as in mlp_kernel_f32.cu: each block walks a
+// contiguous run of tiles, computes dx and adds the six small gradients
+// into its own f32 slab (wg::small's offsets), and stores the f32 operands
+// of the five large weight-gradient products to the scratch tile by tile
+// (decoder_wgrad.cuh's f32 layout, RT-row tiles at row stride AP), each
+// finished tile in shared memory by one bulk copy from thread 0; a tile
+// that the kernel parks (widths 768 and 1024) it writes in the scratch, at
+// its operand's place, instead of the park. Pass 2 (mlp_wgrad_f32.cu) sums
+// the products over long runs of rows and K3's reduce (mlp_wgrad.cu) adds
+// its partials and the slabs in a fixed order: no float atomics, bitwise
+// repeatable. The dx-only form (tracking) stores nothing and writes no
+// slab. A ragged last tile is
+// masked: its missing rows carry zero inputs and zero cotangents (they add
+// nothing to any gradient) and write no output.
 
 #include "bulk_copy.cuh"
-#include "decoder_slab.cuh"
+#include "decoder_wgrad.cuh"
 #include "tf32x3.cuh"
 
 using namespace dec;
@@ -105,6 +107,7 @@ namespace tf = tf32x3;
 
 namespace {
 
+using SG = wg::SmallAt<W, SD>;
 constexpr int THREADS = 256;
 constexpr int NWARP = THREADS / 32;
 // widths above 256 (the wide sizes): 16-row tiles and 8-row chunks
@@ -400,50 +403,6 @@ __device__ __forceinline__ void stream_mm(P& f, const float* act, int nchunks,
   }
 }
 
-// Weight gradient over the tile's rows, added into the slab: out[m][n] (+)=
-// sum_row act[m][row] cot[n][row] for m < M, n < N, out row-major at
-// stride LDO in global memory; warp tiles of 64 x 32 (16 x 32 for the
-// x-side gradients, XSIDE: M = D) taken by the warps in turn. All of a
-// warp tile's reads of the slab, then its writes (each entry is one
-// warp's); for the 64 x 32 tiles a row's two neighbouring entries as one
-// 8-byte access (decoder_slab.cuh keeps those blocks at even offsets; dwc_x
-// starts at an odd one).
-template <int M, int N, int LDO, bool XSIDE = false>
-__device__ __forceinline__ void wgrad_mm(float* __restrict__ out,
-                                         const float* act, const float* cot,
-                                         bool first) {
-  constexpr int TM = M >= 64 && !XSIDE ? 4 : 1, TN = 4;
-  constexpr int MT = M / (16 * TM), NT = N / (8 * TN);
-  static_assert(M % (16 * TM) == 0 && N % (8 * TN) == 0 && LDO % 2 == 0,
-                "warp tiles");
-#pragma unroll 1
-  for (int t = threadIdx.x >> 5; t < MT * NT; t += NWARP) {
-    const int m0 = 16 * TM * (t % MT), n0 = 8 * TN * (t / MT);
-    float acc[TM][TN][4];
-    tf::zero(acc);
-    tf::mm_kk<TM, TN, RT>(acc, act, cot, AP, m0, n0);
-    if (TM == 4) {
-      if (!first)
-        tf::for_each_pair(acc, m0, n0,
-                          [&](int m, int n, float& v0, float& v1) {
-                            const float2 q = *reinterpret_cast<const float2*>(
-                                out + m * LDO + n);
-                            v0 += q.x;
-                            v1 += q.y;
-                          });
-      tf::for_each_pair(acc, m0, n0, [&](int m, int n, float& v0, float& v1) {
-        *reinterpret_cast<float2*>(out + m * LDO + n) = make_float2(v0, v1);
-      });
-    } else {
-      if (!first)
-        tf::for_each_acc(acc, m0, n0,
-                         [&](int m, int n, float& v) { v += out[m * LDO + n]; });
-      tf::for_each_acc(acc, m0, n0,
-                       [&](int m, int n, float& v) { out[m * LDO + n] = v; });
-    }
-  }
-}
-
 // dx's part (RT x D) += cot wt^T on dx's columns [n_lo, n_lo + ROWS): cot
 // feature-major (W, RT), wt those rows of a (D, W) weight at stride WP
 // (all D of them resident, or a chunk of the ring); warp w < D / 4 holds
@@ -691,12 +650,18 @@ decoder_forward_f32_kernel(const float* __restrict__ x, Params p,
   }
 }
 
+// FORM: 0 dx-only, 1 full, 2 either by `want_wgrad` (one kernel for both:
+// at widths 768 and 1024, where the full form compiled alone spilled 28
+// bytes at 255 registers at (16, 1024, 512))
+template <int FORM>
 __global__ void __launch_bounds__(THREADS, 1)
 decoder_backward_f32_kernel(const float* __restrict__ x,
                             const float* __restrict__ g, Params p,
                             const float* wpack, float* __restrict__ dx,
-                            float* __restrict__ partial, long long N,
+                            float* __restrict__ slabs,
+                            float* __restrict__ scratch, long long N,
                             int tiles_per_block, int want_wgrad) {
+  const bool wgrad = FORM == 2 ? want_wgrad != 0 : FORM == 1;
   extern __shared__ __align__(16) char smem[];
   Arena ar{smem};
   // at widths 768 and 1024 the first 4 - K3_TILES in the park
@@ -717,7 +682,7 @@ decoder_backward_f32_kernel(const float* __restrict__ x,
   }
   __syncthreads();
   const int tid = threadIdx.x;
-  float* slab = partial + static_cast<long long>(blockIdx.x) * NPARAM;
+  float* slab = slabs + static_cast<long long>(blockIdx.x) * SG::n;
   const long long ntiles = (N + RT - 1) / RT;
   const long long tile0 = static_cast<long long>(blockIdx.x) * tiles_per_block;
   const long long tile1 = min(ntiles, tile0 + tiles_per_block);
@@ -726,11 +691,37 @@ decoder_backward_f32_kernel(const float* __restrict__ x,
   Fma<SD> fs;
   Tc<W> u;
   Tc<SD> us;
+  // tile `tile` of operand `op` in the scratch (decoder_wgrad.cuh)
+  auto at = [&](int op, long long tile) {
+    return scratch + wg::offset_f32(op, tile, D, W, SD, RT);
+  };
+  // thread 0: the (cols, RT) tile at `src` in shared memory, finished (its
+  // writers fenced and past a barrier), to operand `op`'s place
+  auto store = [&](int op, long long tile, const float* src, int cols) {
+    wg::store(at(op, tile), src, 4 * cols * AP);
+  };
 
   for (long long tile = tile0; tile < tile1; ++tile) {
     const bool first = tile == tile0, more = tile + 1 < tile1;
     const long long row0 = tile * RT;
     const int nvalid = static_cast<int>(min(static_cast<long long>(RT), N - row0));
+    // the tile's buffers: h1, h2 (later dh1) and feat (later dfeat); where
+    // one is parked (K3_TILES < 4) and the operands are stored, it lies in
+    // the scratch itself, at its operand's place
+    float *h1 = B0, *h2 = B1, *dh1 = B1, *feat = B2, *dfeat = B2;
+    if constexpr (PARK) {
+      if (wgrad) {
+        if constexpr (K3_TILES <= 3) h1 = at(wg::H1, tile);
+        if constexpr (K3_TILES <= 2) {
+          h2 = at(wg::H2, tile);
+          dh1 = at(wg::DH1, tile);
+        }
+        if constexpr (K3_TILES <= 1) {
+          feat = at(wg::FEAT, tile);
+          dfeat = at(wg::DFEAT, tile);
+        }
+      }
+    }
     __syncthreads();                // the last tile's readers
     load_x(xs, x, row0, nvalid);
     if (tid < RT) {
@@ -739,24 +730,31 @@ decoder_backward_f32_kernel(const float* __restrict__ x,
         v = __ldg(reinterpret_cast<const float4*>(g + (row0 + tid) * 4));
       *reinterpret_cast<float4*>(rowv + 4 * tid) = v;   // [g_rgb | g_sdf]
     }
+    if (wgrad) bulk::fence_proxy_async();
     __syncthreads();
+    if (wgrad && tid == 0) store(wg::X, tile, xs, D);
 
-    // forward recompute on the FP32 units: h1 -> B0, h2 -> B1, feat -> B2,
-    // hc -> B3
+    // forward recompute on the FP32 units: h1, h2, feat, hc -> B3
     f.zero();
     x_mm(f, xs, w1s, ring, more);
-    f.store(B0, p.b1, true);
+    f.store(h1, p.b1, true);
     f.zero();
-    stream_mm(f, B0, N_W2, ring, more);
-    f.store(B1, p.b2, true);
+    stream_mm(f, h1, N_W2, ring, more);
+    f.store(h2, p.b2, true);
     fs.zero();
-    stream_mm(fs, B1, N_WS, ring, more);
-    fs.store(B2, p.bs, false);
+    stream_mm(fs, h2, N_WS, ring, more);
+    fs.store(feat, p.bs, false);
     f.zero();
-    stream_mm(f, B2, N_WC, ring, more);
+    stream_mm(f, feat, N_WC, ring, more);
     x_mm(f, xs, wcx, ring, more);
     f.store(B3, p.bc, true);
+    if (wgrad) bulk::fence_proxy_async();
     __syncthreads();
+    if (wgrad && tid == 0) {
+      if constexpr (K3_TILES > 3) store(wg::H1, tile, h1, W);
+      if constexpr (K3_TILES > 2) store(wg::H2, tile, h2, W);
+      if constexpr (K3_TILES > 1) store(wg::FEAT, tile, feat, SD);
+    }
 
     // dzo = g_rgb * rgb * (1 - rgb), per row
     row_partials<3>(part, B3, p.wo);
@@ -769,7 +767,7 @@ decoder_backward_f32_kernel(const float* __restrict__ x,
       }
     }
     __syncthreads();
-    if (want_wgrad) {
+    if (wgrad) {
       // dwo[k][c] = sum_r hc[k][r] dzo[r][c]; dbo[c] = sum_r dzo[r][c]
       for (int k = tid; k < W; k += THREADS) {
         float s[3] = {0.f, 0.f, 0.f};
@@ -780,14 +778,14 @@ decoder_backward_f32_kernel(const float* __restrict__ x,
         }
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
-          float* o = slab + OFF_WO + 3 * k + c;
+          float* o = slab + SG::wo + 3 * k + c;
           *o = first ? s[c] : *o + s[c];
         }
       }
       if (tid < 3) {
         float s = 0.f;
         for (int r = 0; r < RT; ++r) s += rowv[4 * r + tid];
-        float* o = slab + OFF_BO + tid;
+        float* o = slab + SG::bo + tid;
         *o = first ? s : *o + s;
       }
       __syncthreads();              // hc's readers are done
@@ -809,16 +807,13 @@ decoder_backward_f32_kernel(const float* __restrict__ x,
       }
       *reinterpret_cast<float4*>(h) = make_float4(d[0], d[1], d[2], d[3]);
     }
+    if (wgrad) bulk::fence_proxy_async();
     __syncthreads();
+    if (wgrad && tid == 0) store(wg::DHC, tile, B3, W);
 
-    // with dhc (B3): dwc_f = feat^T dhc, dwc_x = x^T dhc, dbc; dx's part
-    // dhc wc_x^T; dfeat = dhc wc_f^T (-> B2 after the chunks' barriers,
-    // feat's last readers being before the first)
-    if (want_wgrad) {
-      wgrad_mm<SD, W, W>(slab + S_WCF, B2, B3, first);
-      wgrad_mm<D, W, W, true>(slab + OFF_WCX, xs, B3, first);
-      col_sum<W>(slab + OFF_BC, B3, first);
-    }
+    // with dhc (B3): dbc; dx's part dhc wc_x^T; dfeat = dhc wc_f^T (after
+    // the chunks' barriers, feat's last readers being before the first)
+    if (wgrad) col_sum<W>(slab + SG::bc, B3, first);
     float dxa[1][1][4];
     tf::zero(dxa);
     float dxb[1][1][4];               // DXT == 2: the warp's second tile
@@ -833,59 +828,64 @@ decoder_backward_f32_kernel(const float* __restrict__ x,
     } else {
       dx_part(dxa, B3, wcx, ring, more);
     }
+    if (wgrad && tid == 0) wg::stored_read();      // feat's store read
     us.zero();
     stream_mm(us, B3, N_WCT, ring, more);
     tf::for_each_acc(us.acc, 0, us.n0(),
-                     [&](int r, int c, float& v) { B2[c * AP + r] = v; });
+                     [&](int r, int c, float& v) { dfeat[c * AP + r] = v; });
+    if (wgrad) bulk::fence_proxy_async();
     __syncthreads();                // dfeat in place
+    if (wgrad && tid == 0 && K3_TILES > 1)
+      store(wg::DFEAT, tile, dfeat, SD);
 
-    // with dso = [dfeat (B2) | g_sdf]: dws = h2^T dso, dbs
-    if (want_wgrad) {
-      wgrad_mm<W, SD, SD>(slab + OFF_WS, B1, B2, first);
-      col_sum<SD>(slab + S_BS, B2, first);
+    // with dso = [dfeat | g_sdf]: dbs, and dws's sdf column h2^T g_sdf
+    if (wgrad) {
+      col_sum<SD>(slab + SG::bs, dfeat, first);
       for (int k = tid; k < W; k += THREADS) {
         float s = 0.f;
-        for (int r = 0; r < RT; ++r) s = fmaf(B1[k * AP + r], rowv[4 * r + 3], s);
-        float* o = slab + S_WS_SDF + k;
+        for (int r = 0; r < RT; ++r) s = fmaf(h2[k * AP + r], rowv[4 * r + 3], s);
+        float* o = slab + SG::ws_sdf + k;
         *o = first ? s : *o + s;
       }
       if (tid == 0) {
         float s = 0.f;
         for (int r = 0; r < RT; ++r) s += rowv[4 * r + 3];
-        float* o = slab + S_BS + SD;
+        float* o = slab + SG::bs + SD;
         *o = first ? s : *o + s;
+        wg::stored_read();          // dhc's store read
       }
     }
     // dh2 = (dfeat ws[:, :SD]^T + g_sdf ws[:, SD]^T) * (h2 > 0) -> B3 (dhc's
     // last readers are before the first chunk's barrier)
     u.zero();
-    stream_mm(u, B2, N_WST, ring, more);
+    stream_mm(u, dfeat, N_WST, ring, more);
     tf::for_each_acc(u.acc, 0, u.n0(), [&](int r, int c, float& v) {
       const float d = fmaf(rowv[4 * r + 3], ldg(ws_sdf + c), v);
-      B3[c * AP + r] = B1[c * AP + r] > 0.f ? d : 0.f;
+      B3[c * AP + r] = h2[c * AP + r] > 0.f ? d : 0.f;
     });
+    if (wgrad) bulk::fence_proxy_async();
     __syncthreads();                // dh2 in place
+    if (wgrad && tid == 0) store(wg::DH2, tile, B3, W);
 
-    // dw2 = h1^T dh2, db2; dh1 = (dh2 w2^T) * (h1 > 0) -> B1 (h2's last
-    // readers are before the first chunk's barrier)
-    if (want_wgrad) {
-      wgrad_mm<W, W, W>(slab + OFF_W2, B0, B3, first);
-      col_sum<W>(slab + OFF_B2, B3, first);
+    // db2; dh1 = (dh2 w2^T) * (h1 > 0) (h2's last readers are before the
+    // first chunk's barrier)
+    if (wgrad) {
+      col_sum<W>(slab + SG::b2, B3, first);
+      if (tid == 0) wg::stored_read();              // h2's store read
     }
     u.zero();
     stream_mm(u, B3, N_W2T, ring, more);
     tf::for_each_acc(u.acc, 0, u.n0(), [&](int r, int c, float& v) {
-      B1[c * AP + r] = B0[c * AP + r] > 0.f ? v : 0.f;
+      dh1[c * AP + r] = h1[c * AP + r] > 0.f ? v : 0.f;
     });
+    if (wgrad) bulk::fence_proxy_async();
     __syncthreads();                // dh1 in place
+    if (wgrad && tid == 0 && K3_TILES > 2) store(wg::DH1, tile, dh1, W);
 
-    // dw1 = x^T dh1, db1; dx = dhc wc_x^T + dh1 w1^T
-    if (want_wgrad) {
-      wgrad_mm<D, W, W, true>(slab + OFF_W1, xs, B1, first);
-      col_sum<W>(slab + OFF_B1, B1, first);
-    }
+    // db1; dx = dhc wc_x^T + dh1 w1^T
+    if (wgrad) col_sum<W>(slab + SG::b1, dh1, first);
     if constexpr (D > 64) {
-      dx_partn(dxn, B1, ring, more);
+      dx_partn(dxn, dh1, ring, more);
       const int w = tid >> 5;
 #pragma unroll
       for (int j = 0; j < DXN; ++j) {
@@ -896,7 +896,7 @@ decoder_backward_f32_kernel(const float* __restrict__ x,
                          });
       }
     } else if constexpr (DXT == 2) {
-      dx_part2(dxa, dxb, B1, ring, more);
+      dx_part2(dxa, dxb, dh1, ring, more);
       const int w = tid >> 5;
       tf::for_each_acc(dxa, 16 * (w & 1), 8 * (w >> 1),
                        [&](int r, int c, float& v) {
@@ -907,7 +907,7 @@ decoder_backward_f32_kernel(const float* __restrict__ x,
                          if (r < nvalid) dx[(row0 + r) * D + c] = v;
                        });
     } else {
-    dx_part(dxa, B1, w1s, ring, more);
+    dx_part(dxa, dh1, w1s, ring, more);
     const int w = tid >> 5;
     if constexpr (RT == 32) {
       if (w < D / 4)
@@ -922,7 +922,11 @@ decoder_backward_f32_kernel(const float* __restrict__ x,
         });
     }
     }
+    // the tile's stores have read x, h1, dfeat, dh2 and dh1, which the next
+    // tile overwrites
+    if (wgrad && tid == 0) wg::stored_read();
   }
+  if (wgrad && tid == 0) wg::stored();
 }
 
 }  // namespace
@@ -946,28 +950,31 @@ extern "C" int decoder_forward_f32(const float* x, const void* const* params,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K3-f32: dx (N, D); dparams (NPARAM,) in FusedParams order when
-// want_wgrad; partial: (P, NPARAM) scratch; wpack: as K2-f32's. P blocks
-// each take tiles_per_block tiles of RT rows. Returns cudaGetLastError()
-// after the launches.
+// K3-f32's pass 1: dx (N, D); when want_wgrad the small gradients' slabs
+// (P, wg::small(W, SD).n) and the f32 operands of the large ones in
+// `scratch` (decoder_wgrad.cuh's f32 layout, RT-row tiles); wpack: as
+// K2-f32's. P blocks each take tiles_per_block tiles of RT rows. Returns
+// cudaGetLastError() after the launches (0 = launched).
 extern "C" int decoder_backward_f32(const float* x, const float* g,
                                     const void* const* params, void* wpack,
-                                    float* dx, float* dparams, float* partial,
+                                    float* dx, float* slab, float* scratch,
                                     long long N, int P, int tiles_per_block,
                                     int want_wgrad, cudaStream_t stream) {
+  // the full form and the dx-only one (tracking), each its own kernel: in
+  // one kernel with a run-time switch the dx-only form took up to 18% longer
+  // than before the stores (an H100 at 700 W, (64, 512, 128)); one kernel
+  // for both at widths 768 and 1024 (FORM's note)
+  constexpr int FULL = PARK ? 2 : 1, DX_ONLY = PARK ? 2 : 0;
+  auto kernel = want_wgrad ? decoder_backward_f32_kernel<FULL>
+                           : decoder_backward_f32_kernel<DX_ONLY>;
   cudaError_t err = cudaFuncSetAttribute(
-      decoder_backward_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      K3F_SMEM);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, K3F_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   const Params prm = params_from(params);
   err = pack_weights(prm, static_cast<float*>(wpack), NFWD + NBWD, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  decoder_backward_f32_kernel<<<P, THREADS, K3F_SMEM, stream>>>(
-      x, g, prm, static_cast<const float*>(wpack), dx, partial, N,
+  kernel<<<P, THREADS, K3F_SMEM, stream>>>(
+      x, g, prm, static_cast<const float*>(wpack), dx, slab, scratch, N,
       tiles_per_block, want_wgrad);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || !want_wgrad) return static_cast<int>(err);
-  reduce_partials_kernel<<<(NPARAM + 255) / 256, 256, 0, stream>>>(
-      partial, dparams, P);
   return static_cast<int>(cudaGetLastError());
 }

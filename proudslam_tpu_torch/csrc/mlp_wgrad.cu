@@ -62,34 +62,6 @@ struct Jobs {
   long long kstride; // bf16 elements of a row tile's operands
 };
 
-// (the ring wait of decoder_wide.cuh, whose sizes are fixed at build:
-// this library takes every size at run time)
-__device__ __forceinline__ bool mbar_test(uint64_t* b, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bulk::saddr(b)), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-__device__ __forceinline__ unsigned long long now_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// the wait for a stage's phase; traps after 2 s (a copy that never lands)
-__device__ inline void wait_stage(uint64_t* b, uint32_t parity) {
-  if (mbar_test(b, parity)) return;
-  const unsigned long long t0 = now_ns();
-  while (!mbar_test(b, parity))
-    if (now_ns() - t0 > 2000000000ull) __trap();
-}
-
 template <int TA, int TB>
 __device__ __forceinline__ void mma_m64n192(float (&d)[96], uint64_t da,
                                           uint64_t db, int scale_d) {
@@ -231,7 +203,7 @@ __device__ inline void product(const Job& jb, long long kstride, int m0,
 #pragma unroll 1
   for (long long k = 0; k < nk; ++k) {
     const int s = static_cast<int>(k % STAGES);
-    wait_stage(full + s, static_cast<uint32_t>(k / STAGES) & 1u);
+    bulk::wait_stage(full + s, static_cast<uint32_t>(k / STAGES) & 1u);
     if (live) {
       const uint64_t da =
           tc::desc_mn(sa + s * BM * TR + tc::tofs(0, 64 * w, bm), bm);

@@ -29,15 +29,18 @@ kernels at :func:`built_size` on zero-padded inputs and params
 (:func:`unpad_params`): exact, every padded hidden unit being 0. A larger
 size raises (:func:`check_kernel_sizes` refuses a configuration before it
 runs).
-K3 runs in two passes on the card: the backward kernel of its plan (dx,
-the small weight gradients, the bf16 operands of the large ones stored)
-and ``csrc/mlp_wgrad.cu`` (the large weight gradients summed over long
-runs of rows, :func:`decoder_wgrad`, and a fixed-order reduce), built once
-for every size.
+K3 and K3-f32 run in two passes on the card: the backward kernel of
+their plan (dx, the small weight gradients, the operands of the large
+ones stored: bf16 for K3, f32 for K3-f32) and a second pass that sums the
+large weight gradients over long runs of rows (``csrc/mlp_wgrad.cu``,
+:func:`decoder_wgrad`; ``csrc/mlp_wgrad_f32.cu``, :func:`decoder_wgrad_f32`,
+3xTF32), then one fixed-order reduce (``csrc/mlp_wgrad.cu``), each built
+once for every size.
 Each form counts its own launches (``decoder_fwd.launches`` and
 ``decoder_fwd_f32.launches``, ``decoder_bwd.launches`` and
-``decoder_bwd_f32.launches``, a K3 call each; ``decoder_wgrad.launches``,
-K3's second pass, a chunk of rows each). With bf16 operands the
+``decoder_bwd_f32.launches``, a K3 call each; ``decoder_wgrad.launches``
+and ``decoder_wgrad_f32.launches``, the second passes, a chunk of rows
+each). With bf16 operands the
 plain versions round at the kernels' points: both operands of every
 product are rounded to bf16, cotangents (``dzo``, ``dhc``, ``dso``,
 ``dh2``, ``dh1``) included, while bias gradients sum the unrounded f32
@@ -48,6 +51,7 @@ cotangents, so it is not this function.)
 from __future__ import annotations
 
 import functools
+import math
 from types import SimpleNamespace
 from typing import NamedTuple, Optional, Tuple
 
@@ -205,34 +209,47 @@ def decoder_bwd_plain(x: torch.Tensor, g: torch.Tensor, fp: FusedParams,
         return dx, grads
 
 
-# ---- K3's weight gradients in two passes ----
+# ---- K3's and K3-f32's weight gradients in two passes ----
 #
-# On the card K3 runs as two kernels. Pass 1 (the backward kernel of each
-# plan) computes dx, the six small gradients (the five bias sums and wo's,
-# plus ws's sdf column) and stores the bf16 operands of the five large
+# On the card K3 and K3-f32 run as two kernels. Pass 1 (the backward kernel
+# of each plan) computes dx, the six small gradients (the five bias sums and
+# wo's, plus ws's sdf column) and stores the operands of the five large
 # products (x, h1, h2, feat, dhc, dfeat, dh2, dh1) in a scratch; pass 2
-# (``decoder_wgrad``, csrc/mlp_wgrad.cu) sums the five large products over
-# long runs of rows in registers, split along the rows so that the card is
-# full, and a fixed-order reduce (``wgrad_reduce``) sums the splits' partials
-# and the pass-1 blocks' small-gradient slabs into the gradients. Rows go in
+# (``decoder_wgrad``, csrc/mlp_wgrad.cu, for K3; ``decoder_wgrad_f32``,
+# csrc/mlp_wgrad_f32.cu, for K3-f32) sums the five large products over long
+# runs of rows in registers, split along the rows so that the card is full,
+# and a fixed-order reduce (``wgrad_reduce``) sums the splits' partials and
+# the pass-1 blocks' small-gradient slabs into the gradients. Rows go in
 # chunks, so that the scratch stays under WGRAD_SCRATCH_CAP bytes.
 #
-# The scratch: the chunk's 64-row tiles in order, and within each the eight
-# operands' (64, cols) bf16 tiles one after the other, each exactly as the
-# kernels hold it in shared memory (decoder_tc.cuh's layout: 8 x 8 core
-# matrices of 128 bytes, element (r, c) at ((r // 8) * (cols // 8) + c //
-# 8) * 64 + (r % 8) * 8 + c % 8).
+# K3's scratch (bf16): the chunk's 64-row tiles in order, and within each
+# the eight operands' (64, cols) bf16 tiles one after the other, each
+# exactly as the kernels hold it in shared memory (decoder_tc.cuh's layout:
+# 8 x 8 core matrices of 128 bytes, element (r, c) at ((r // 8) * (cols //
+# 8) + c // 8) * 64 + (r % 8) * 8 + c % 8).
+# K3-f32's scratch (f32): the chunk's tiles of its plan's height T
+# (:func:`wgrad_tile_rows`: 64, 32 or 16 rows) in order, and within each the
+# eight operands' tiles, each feature-major as the kernels hold it in
+# shared memory (element (r, c) at c * (T + 4) + r; the 4 floats past each
+# column's T rows are padding that pass 2 never reads).
 
 WGRAD_OPERANDS = ("x", "h1", "h2", "feat", "dhc", "dfeat", "dh2", "dh1")
-# the most bytes of operands one chunk of rows stores
+# the most bytes of operands one chunk of rows stores: K3's, and K3-f32's
+# (on an H100 at 700 W one 4 GiB chunk at (16, 128, 128) took 3.667 ms
+# against two 1 GiB chunks' 3.788, the second pass-1 launch's last wave
+# half empty; 231.0 against 230.2 ms at (16, 1024, 1024))
 WGRAD_SCRATCH_CAP = 1 << 30
-# pass 2's output tile: 128 x 256 (two warpgroups of m64n256), M x N
+WGRAD_F32_SCRATCH_CAP = 4 << 30
+# pass 2's output tile, M x N: K3's 128 x 256 (two warpgroups of
+# m64n256), K3-f32's 128 x 128 (eight warps of 64 x 32 on mma.sync)
 WGRAD_TILE = (128, 256)
+WGRAD_F32_TILE = (128, 128)
 
 
 class WgradOperands(NamedTuple):
     """Pass 1's operands of the five large weight-gradient products, (N,
-    cols) f32 tensors holding bf16-rounded values."""
+    cols) f32 tensors: bf16-rounded values for K3, the f32 values
+    themselves for K3-f32."""
     x: torch.Tensor       # (N, in_dim)
     h1: torch.Tensor      # (N, width)
     h2: torch.Tensor      # (N, width)
@@ -269,11 +286,27 @@ def wgrad_part_floats(size: Tuple[int, int, int]) -> int:
     return sum(m * n for *_, m, n in wgrad_jobs(size))
 
 
-def wgrad_tiles(size: Tuple[int, int, int]) -> int:
-    """Pass 2's output tiles of WGRAD_TILE (the last of a row or column
-    narrower)."""
-    tm, tn = WGRAD_TILE
+def wgrad_tiles(size: Tuple[int, int, int], bf16: bool = True) -> int:
+    """Pass 2's output tiles of WGRAD_TILE (K3) or WGRAD_F32_TILE (K3-f32),
+    the last of a row or column narrower."""
+    tm, tn = WGRAD_TILE if bf16 else WGRAD_F32_TILE
     return sum(-(-m // tm) * -(-n // tn) for *_, m, n in wgrad_jobs(size))
+
+
+def wgrad_fill(size: Tuple[int, int, int], bf16: bool = True) -> float:
+    """The SMs one row split of pass 2 keeps busy: K3's output tiles; for
+    K3-f32 its tiles weighted by their area, since a 3xTF32 tile's time
+    follows its products (an x-side tile of 128 x 16 is an eighth of a
+    128 x 128 one, and its SM idles once it is done). Neither rule is the
+    faster at every size for either form (an H100 at 700 W, the mapping
+    shape, scripts/torch_wgrad_splits.py): area weighting took K3-f32's
+    pass 2 to 0.81x at (16, 128, 128), the pcd-f32 path's size, and 0.995x
+    summed over six sizes, but K3's to 1.09x summed (0.82x at (16, 128,
+    128), 1.34x at (128, 768, 768)), so each form keeps its own rule."""
+    if bf16:
+        return wgrad_tiles(size)
+    tm, tn = WGRAD_F32_TILE
+    return sum(m * n for *_, m, n in wgrad_jobs(size)) / (tm * tn)
 
 
 def _operand_cols(size: Tuple[int, int, int]) -> Tuple[int, ...]:
@@ -281,45 +314,72 @@ def _operand_cols(size: Tuple[int, int, int]) -> Tuple[int, ...]:
     return (d, w, w, sd, w, sd, w, w)
 
 
-def wgrad_scratch_bytes(size: Tuple[int, int, int], rows: int) -> int:
-    """Bytes of pass 1's operand scratch for a chunk of ``rows`` rows: the
-    eight operands' bf16 tiles, the last tile whole."""
-    return 2 * -(-rows // TILE_ROWS) * TILE_ROWS * sum(_operand_cols(size))
+def wgrad_tile_rows(size: Tuple[int, int, int], bf16: bool = True) -> int:
+    """Rows of the tiles pass 1 stores: K3's 64; K3-f32's its plan's tile
+    height (64 at (16, 128, 128), mlp_stream_f32.cu's 32 or 16 elsewhere:
+    :func:`f32_tile_rows`)."""
+    return TILE_ROWS if bf16 or not streamed(size) else f32_tile_rows(size)
 
 
-def wgrad_splits(size: Tuple[int, int, int], rows: int,
-                 sms: int) -> Tuple[int, int]:
+def _check_layout(tile_rows: int, bf16: bool) -> None:
+    if (bf16 and tile_rows != TILE_ROWS) or TILE_ROWS % tile_rows:
+        raise ValueError(f"scratch tiles of {tile_rows} rows: K3's are "
+                         f"{TILE_ROWS}, K3-f32's divide {TILE_ROWS}")
+
+
+def wgrad_scratch_bytes(size: Tuple[int, int, int], rows: int,
+                        tile_rows: int = TILE_ROWS,
+                        bf16: bool = True) -> int:
+    """Bytes of pass 1's operand scratch for a chunk of ``rows`` rows in
+    tiles of ``tile_rows`` rows, the last tile whole: the eight operands'
+    bf16 tiles (K3), or their f32 tiles at row stride ``tile_rows`` + 4
+    (K3-f32)."""
+    _check_layout(tile_rows, bf16)
+    nt = -(-rows // tile_rows)
+    if bf16:
+        return 2 * nt * TILE_ROWS * sum(_operand_cols(size))
+    return 4 * nt * (tile_rows + 4) * sum(_operand_cols(size))
+
+
+def wgrad_splits(size: Tuple[int, int, int], rows: int, sms: int,
+                 bf16: bool = True) -> Tuple[int, int]:
     """Pass 2's split of a chunk of ``rows`` rows -> (splits, 64-row tiles
-    per split): enough splits that output tiles x splits >= ``sms`` where
-    the chunk has the row tiles for it, each split a run of whole tiles,
-    none empty. No rows: (0, 0)."""
+    per split): enough splits that the SMs a split fills
+    (:func:`wgrad_fill`) x splits >= ``sms`` where the chunk has the row
+    tiles for it, each split a run of whole tiles, none empty. No rows:
+    (0, 0)."""
     ntiles = -(-rows // TILE_ROWS)
     if ntiles == 0:
         return 0, 0
-    want = -(-sms // wgrad_tiles(size))
+    want = math.ceil(sms / wgrad_fill(size, bf16))
     per = max(1, ntiles // want)
     return -(-ntiles // per), per
 
 
 def wgrad_plan(size: Tuple[int, int, int], n_rows: int, sms: int,
-               cap: int = WGRAD_SCRATCH_CAP) -> WgradPlan:
+               cap: Optional[int] = None, bf16: bool = True) -> WgradPlan:
     """Pass 2's plan for ``n_rows`` rows: chunks of as many whole 64-row
-    tiles as keep the scratch at or under ``cap`` bytes (at least one
-    tile), as even as that allows (one chunk of all the rows if they
-    fit), the output tiles, and a full chunk's splits. No rows: all 0."""
+    tiles as keep the scratch (:func:`wgrad_scratch_bytes` in the operand
+    type's layout) at or under ``cap`` bytes (at least one tile; None:
+    WGRAD_SCRATCH_CAP, WGRAD_F32_SCRATCH_CAP for K3-f32), as even as that
+    allows (one chunk of all the rows if they fit), the output tiles, and
+    a full chunk's splits. No rows: all 0."""
+    if cap is None:
+        cap = WGRAD_SCRATCH_CAP if bf16 else WGRAD_F32_SCRATCH_CAP
     if n_rows <= 0:
         return WgradPlan(0, 0, 0, 0, sms)
     ntiles = -(-n_rows // TILE_ROWS)
-    fit = max(1, cap // wgrad_scratch_bytes(size, TILE_ROWS))
+    fit = max(1, cap // wgrad_scratch_bytes(
+        size, TILE_ROWS, wgrad_tile_rows(size, bf16), bf16))
     chunks = -(-ntiles // fit)
     chunk_rows = (n_rows if chunks == 1
                   else -(-ntiles // chunks) * TILE_ROWS)
-    return WgradPlan(chunk_rows, wgrad_tiles(size),
-                     *wgrad_splits(size, chunk_rows, sms), sms)
+    return WgradPlan(chunk_rows, wgrad_tiles(size, bf16),
+                     *wgrad_splits(size, chunk_rows, sms, bf16), sms)
 
 
 def wgrad_chunks(plan: WgradPlan, size: Tuple[int, int, int],
-                 n_rows: int):
+                 n_rows: int, bf16: bool = True):
     """The chunks of a plan for ``n_rows`` rows -> [(first row, rows,
     splits, tiles per split)]."""
     if plan.chunk_rows == 0:
@@ -327,7 +387,7 @@ def wgrad_chunks(plan: WgradPlan, size: Tuple[int, int, int],
     out = []
     for r in range(0, n_rows, plan.chunk_rows):
         rows = min(plan.chunk_rows, n_rows - r)
-        out.append((r, rows, *wgrad_splits(size, rows, plan.sms)))
+        out.append((r, rows, *wgrad_splits(size, rows, plan.sms, bf16)))
     return out
 
 
@@ -341,25 +401,28 @@ def small_grad_layout(size: Tuple[int, int, int]) -> dict:
 
 
 def decoder_bwd_operands_plain(x: torch.Tensor, g: torch.Tensor,
-                               fp: FusedParams) -> WgradOperands:
-    """The operands pass 1 stores (bf16 operands, as K3 rounds them)."""
+                               fp: FusedParams,
+                               bf16: bool = True) -> WgradOperands:
+    """The operands pass 1 stores: bf16-rounded as K3 rounds them, or the
+    f32 values of K3-f32 (``bf16=False``)."""
+    _dot = _make_dot(bf16)
     with torch.no_grad():
-        h1, h2, feat, _, hc, rgb = decoder_fwd_plain(x, fp)
+        h1, h2, feat, _, hc, rgb = decoder_fwd_plain(x, fp, bf16)
         dzo = g[:, 0:3] * rgb * (1.0 - rgb)
-        dhc = (_r(dzo) @ _r(fp.wo.T)) * (hc > 0)
-        dfeat = _r(dhc) @ _r(fp.wc_f.T)
+        dhc = _dot(dzo, fp.wo.T) * (hc > 0)
+        dfeat = _dot(dhc, fp.wc_f.T)
         dso = torch.cat([dfeat, g[:, 3:4]], dim=1)
-        dh2 = (_r(dso) @ _r(fp.ws.T)) * (h2 > 0)
-        dh1 = (_r(dh2) @ _r(fp.w2.T)) * (h1 > 0)
-        return WgradOperands(*[_r(t) for t in (x, h1, h2, feat, dhc, dfeat,
-                                                dh2, dh1)])
+        dh2 = _dot(dso, fp.ws.T) * (h2 > 0)
+        dh1 = _dot(dh2, fp.w2.T) * (h1 > 0)
+        ops = (x, h1, h2, feat, dhc, dfeat, dh2, dh1)
+        return WgradOperands(*[_r(t) if bf16 else t for t in ops])
 
 
 def _wgrad_parts_plain(ops: WgradOperands, size, splits: int,
                        per_split: int) -> torch.Tensor:
     """Pass 2 on one chunk's operands -> (splits, wgrad_part_floats)
     partial sums, split s summing the rows of tiles [s per_split, (s + 1)
-    per_split) (f32 sums of the bf16 operands' products)."""
+    per_split) (f32 sums of the operands' products)."""
     parts = []
     for s in range(splits):
         rows = slice(s * per_split * TILE_ROWS,
@@ -377,10 +440,11 @@ def decoder_wgrad_plain(ops: WgradOperands, size: Tuple[int, int, int],
     """The plain version of pass 2 with its reduce: the five large weight
     gradients (w1, w2, ws's feature columns, wc_f, wc_x, in FusedParams'
     orientation) summed chunk by chunk and split by split in the kernels'
-    order (``plan`` None: one chunk, one split)."""
+    order (``plan`` None: one chunk, one split). Both operand types: the
+    products of what ``ops`` holds, in f32."""
     n = ops.x.shape[0]
     if plan is None:
-        plan = wgrad_plan(size, n, 1, cap=wgrad_scratch_bytes(size, n))
+        plan = WgradPlan(n, wgrad_tiles(size), 1, -(-n // TILE_ROWS), 1)
     total = ops.x.new_zeros((wgrad_part_floats(size),))
     for r0, rows, splits, per in wgrad_chunks(plan, size, n):
         chunk = WgradOperands(*[t[r0:r0 + rows] for t in ops])
@@ -428,35 +492,50 @@ def wgrad_reduce_plain(parts: torch.Tensor, slabs: torch.Tensor,
         bo=sm("bo", 3)[None])
 
 
-def _tiles_of(t: torch.Tensor) -> torch.Tensor:
-    """(N, cols) -> its 64-row tiles in the tile layout, (tiles, 64 cols)
-    (the last tile zero-padded)."""
+def _tiles_of(t: torch.Tensor, tile_rows: int, bf16: bool) -> torch.Tensor:
+    """(N, cols) -> its tiles of ``tile_rows`` rows in the scratch layout,
+    (tiles, floats a tile) (the last tile zero-padded): K3's 8 x 8 core
+    matrices, or K3-f32's feature-major columns at stride ``tile_rows`` +
+    4 (the padding zero)."""
     n, c = t.shape
-    nt = -(-n // TILE_ROWS)
-    t = torch.nn.functional.pad(t, (0, 0, 0, nt * TILE_ROWS - n))
+    nt = -(-n // tile_rows)
+    t = torch.nn.functional.pad(t, (0, 0, 0, nt * tile_rows - n))
+    if not bf16:
+        t = t.reshape(nt, tile_rows, c).transpose(1, 2)
+        return torch.nn.functional.pad(t, (0, 4)).reshape(nt, -1)
     return t.reshape(nt, 8, 8, c // 8, 8).permute(0, 1, 3, 2, 4).reshape(
         nt, -1)
 
 
-def pack_operands(ops: WgradOperands) -> torch.Tensor:
-    """Operands -> pass 1's scratch (bf16, flat), as pass 1 writes it."""
-    return torch.cat([_tiles_of(t.to(torch.bfloat16)) for t in ops],
+def pack_operands(ops: WgradOperands, tile_rows: int = TILE_ROWS,
+                  bf16: bool = True) -> torch.Tensor:
+    """Operands -> pass 1's scratch (flat; bf16 for K3, f32 for K3-f32 in
+    tiles of ``tile_rows`` rows), as pass 1 writes it."""
+    _check_layout(tile_rows, bf16)
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    return torch.cat([_tiles_of(t.to(dtype), tile_rows, bf16) for t in ops],
                      dim=1).reshape(-1)
 
 
 def unpack_operands(scratch: torch.Tensor, size: Tuple[int, int, int],
-                    rows: int) -> WgradOperands:
+                    rows: int, tile_rows: int = TILE_ROWS,
+                    bf16: bool = True) -> WgradOperands:
     """The inverse of :func:`pack_operands` for a chunk of ``rows`` rows
     (f32)."""
-    nt = -(-rows // TILE_ROWS)
+    _check_layout(tile_rows, bf16)
+    nt = -(-rows // tile_rows)
     cols = _operand_cols(size)
-    tiles = scratch[:nt * TILE_ROWS * sum(cols)].reshape(nt, -1)
+    ld = TILE_ROWS if bf16 else tile_rows + 4
+    tiles = scratch[:nt * ld * sum(cols)].reshape(nt, -1)
     out, off = [], 0
     for c in cols:
-        t = tiles[:, off:off + TILE_ROWS * c].reshape(nt, 8, c // 8, 8, 8)
-        out.append(t.permute(0, 1, 3, 2, 4).reshape(nt * TILE_ROWS, c)
-                   [:rows].float())
-        off += TILE_ROWS * c
+        t = tiles[:, off:off + ld * c]
+        if bf16:
+            t = t.reshape(nt, 8, c // 8, 8, 8).permute(0, 1, 3, 2, 4)
+        else:
+            t = t.reshape(nt, c, ld)[:, :, :tile_rows].transpose(1, 2)
+        out.append(t.reshape(nt * tile_rows, c)[:rows].float())
+        off += ld * c
     return WgradOperands(*out)
 
 
@@ -809,11 +888,11 @@ def decoder_bwd(x: torch.Tensor, g: torch.Tensor, fp: FusedParams,
                 want_wgrad: bool = True, bf16: bool = True
                 ) -> Tuple[torch.Tensor, Optional[FusedParams]]:
     """K3, the decoder backward: on CUDA tensors the kernels of the operand
-    type (``decoder_backward``, pass 1, then per chunk of rows
-    :func:`decoder_wgrad`, pass 2, and :func:`wgrad_reduce`; or
-    ``decoder_backward_f32`` for ``bf16=False``: 3xTF32 products on the
-    tensor cores, its weight gradients in per-block slabs), on CPU tensors
-    the plain version.
+    type (:func:`_k3`: per chunk of rows ``decoder_backward``, pass 1, and
+    :func:`decoder_wgrad`, pass 2, then :func:`wgrad_reduce`; for
+    ``bf16=False`` ``decoder_backward_f32`` and :func:`decoder_wgrad_f32`,
+    3xTF32 products on the tensor cores), on CPU tensors the plain
+    version.
     ``want_wgrad=False`` skips the parameter gradients (tracking
     differentiates the pose only): one pass-1 launch that stores
     nothing."""
@@ -831,32 +910,15 @@ def decoder_bwd(x: torch.Tensor, g: torch.Tensor, fp: FusedParams,
     N = x.shape[0]
     nparam = sum(t.numel() for t in fp)
     dx = torch.empty_like(x)
-    # each form's reduce writes every gradient; no rows: zeros
+    # the reduce writes every gradient; no rows: zeros
     dflat = (torch.empty if N > 0 else torch.zeros)(
         (nparam if want_wgrad else 0,), device=x.device)
     if N > 0:
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if bf16:
-            _k3_bf16(x, g, fp, size, dx, dflat if want_wgrad else None, sms,
-                     stream)
-            decoder_bwd.launches += 1
-        else:
-            if streamed(size):
-                blocks, per_block = backward_f32_stream_partition(
-                    N, sms, f32_tile_rows(size))
-            else:
-                blocks, per_block = backward_partition(N, sms)
-            partial = torch.empty(((blocks if want_wgrad else 0) * nparam,),
-                                  device=x.device)
-            args = (x.data_ptr(), g.data_ptr(), build.pointer_array(fp),
-                    dx.data_ptr(), dflat.data_ptr(), partial.data_ptr(), N,
-                    blocks, per_block, int(want_wgrad), stream)
-            lib, scratch = _f32_library(size, x.device)
-            err = lib.decoder_backward_f32(
-                *args[:3], *[t.data_ptr() for t in scratch], *args[3:])
-            build.check(err, "decoder_backward_f32")
-            decoder_bwd_f32.launches += 1
+        _k3(x, g, fp, size, dx, dflat if want_wgrad else None, sms, stream,
+            bf16)
+        (decoder_bwd if bf16 else decoder_bwd_f32).launches += 1
     if not want_wgrad:
         return dx, None
     parts, off = [], 0
@@ -871,35 +933,51 @@ decoder_bwd.launches = 0
 decoder_bwd_f32 = SimpleNamespace(launches=0)
 
 
-def _k3_bf16(x, g, fp, size, dx, dflat, sms: int, stream: int) -> None:
-    """K3's launches on CUDA tensors at a built ``size``: pass 1 alone
-    (dx-only, ``dflat`` None), or per chunk of rows (:func:`wgrad_plan`)
-    pass 1 and pass 2, then the reduce into ``dflat``."""
+def _k3_partition(size, rows: int, sms: int, bf16: bool) -> Tuple[int, int]:
+    """Pass 1's blocks and tiles per block for ``rows`` rows."""
+    if bf16 or not streamed(size):
+        return backward_partition(rows, sms)
+    return backward_f32_stream_partition(rows, sms, f32_tile_rows(size))
+
+
+def _k3(x, g, fp, size, dx, dflat, sms: int, stream: int,
+        bf16: bool) -> None:
+    """K3's (``bf16``) or K3-f32's launches on CUDA tensors at a built
+    ``size``: pass 1 alone (dx-only, ``dflat`` None), or per chunk of rows
+    (:func:`wgrad_plan`) pass 1 and pass 2 (:func:`decoder_wgrad` or
+    :func:`decoder_wgrad_f32`), then the reduce into ``dflat``."""
     N = x.shape[0]
     # (the packed weights' tensors stay referenced until every launch is
     # queued: the scratch must not take their memory)
-    lib, packed = _bf16_library(size, x.device)
+    if bf16:
+        lib, packed = _bf16_library(size, x.device)
+        entry, pass2 = lib.decoder_backward, decoder_wgrad
+    else:
+        lib, packed = _f32_library(size, x.device)
+        entry, pass2 = lib.decoder_backward_f32, decoder_wgrad_f32
     params = build.pointer_array(fp)
     wpack = [t.data_ptr() for t in packed]
 
     def pass1(r0, rows, slab, scratch):
-        blocks, per_block = backward_partition(rows, sms)
-        err = lib.decoder_backward(
-            x[r0:].data_ptr(), g[r0:].data_ptr(), params, *wpack,
-            dx[r0:].data_ptr(), slab, scratch, rows, blocks, per_block,
-            int(dflat is not None), stream)
-        build.check(err, "decoder_backward")
+        blocks, per_block = _k3_partition(size, rows, sms, bf16)
+        err = entry(x[r0:].data_ptr(), g[r0:].data_ptr(), params, *wpack,
+                    dx[r0:].data_ptr(), slab, scratch, rows, blocks,
+                    per_block, int(dflat is not None), stream)
+        build.check(err, entry.__name__)
         return blocks
 
     if dflat is None:
         pass1(0, N, 0, 0)
         return
-    plan = wgrad_plan(size, N, sms)
-    chunks = wgrad_chunks(plan, size, N)
+    plan = wgrad_plan(size, N, sms, bf16=bf16)
+    chunks = wgrad_chunks(plan, size, N, bf16)
     nsmall, npart = small_grad_layout(size)["n"], wgrad_part_floats(size)
-    scratch = torch.empty((wgrad_scratch_bytes(size, plan.chunk_rows) // 2,),
-                          dtype=torch.bfloat16, device=x.device)
-    slabs = torch.empty((sum(backward_partition(rows, sms)[0]
+    tile_rows = wgrad_tile_rows(size, bf16)
+    nbytes = wgrad_scratch_bytes(size, plan.chunk_rows, tile_rows, bf16)
+    scratch = torch.empty((nbytes // 2 if bf16 else nbytes // 4,),
+                          dtype=torch.bfloat16 if bf16 else torch.float32,
+                          device=x.device)
+    slabs = torch.empty((sum(_k3_partition(size, rows, sms, bf16)[0]
                              for _, rows, _, _ in chunks) * nsmall,),
                         device=x.device)
     parts = torch.empty((sum(c[2] for c in chunks) * npart,), device=x.device)
@@ -907,10 +985,21 @@ def _k3_bf16(x, g, fp, size, dx, dflat, sms: int, stream: int) -> None:
     for r0, rows, splits, per in chunks:
         nslabs += pass1(r0, rows, slabs[nslabs * nsmall:].data_ptr(),
                         scratch.data_ptr())
-        decoder_wgrad(scratch, size, rows, splits, per,
-                      parts[nparts * npart:])
+        pass2(scratch, size, rows, splits, per, parts[nparts * npart:])
         nparts += splits
     wgrad_reduce(parts, nparts, slabs, nslabs, size, dflat)
+
+
+def _check_wgrad_args(what, scratch, size, rows, splits, part, bf16):
+    npart = wgrad_part_floats(size)
+    if part.dtype != torch.float32 or part.numel() < splits * npart:
+        raise ValueError(f"{what}: part needs {splits * npart} f32")
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    nbytes = wgrad_scratch_bytes(size, rows, wgrad_tile_rows(size, bf16),
+                                 bf16)
+    if scratch.dtype != dtype or scratch.numel() * scratch.element_size() < (
+            nbytes):
+        raise ValueError(f"{what}: scratch too small or not {dtype}")
 
 
 def decoder_wgrad(scratch: torch.Tensor, size: Tuple[int, int, int],
@@ -923,15 +1012,11 @@ def decoder_wgrad(scratch: torch.Tensor, size: Tuple[int, int, int],
     (:func:`wgrad_part_floats` floats) into ``part`` in split order. On
     CUDA tensors ``csrc/mlp_wgrad.cu``'s kernel (built once for every
     size), on CPU tensors the plain version."""
-    npart = wgrad_part_floats(size)
-    if part.dtype != torch.float32 or part.numel() < splits * npart:
-        raise ValueError(f"decoder_wgrad: part needs {splits * npart} f32")
-    if scratch.dtype != torch.bfloat16 or (
-            scratch.numel() * 2 < wgrad_scratch_bytes(size, rows)):
-        raise ValueError("decoder_wgrad: scratch too small")
+    _check_wgrad_args("decoder_wgrad", scratch, size, rows, splits, part,
+                      True)
     if not _kernel_device(scratch, "decoder_wgrad"):
         ops = unpack_operands(scratch, size, rows)
-        part[:splits * npart] = _wgrad_parts_plain(
+        part[:splits * wgrad_part_floats(size)] = _wgrad_parts_plain(
             ops, size, splits, per_split).flatten()
         return
     lib = build.load("mlp_wgrad", _bind_wgrad, None)
@@ -944,6 +1029,34 @@ def decoder_wgrad(scratch: torch.Tensor, size: Tuple[int, int, int],
 
 
 decoder_wgrad.launches = 0
+
+
+def decoder_wgrad_f32(scratch: torch.Tensor, size: Tuple[int, int, int],
+                      rows: int, splits: int, per_split: int,
+                      part: torch.Tensor) -> None:
+    """K3-f32's pass 2, :func:`decoder_wgrad` with f32 operands: the scratch
+    (f32) in tiles of :func:`wgrad_tile_rows` rows as :func:`pack_operands`
+    writes them with ``bf16=False``, the products as 3xTF32 with f32 sums.
+    On CUDA tensors ``csrc/mlp_wgrad_f32.cu``'s kernel (built once for
+    every size), on CPU tensors the plain version."""
+    _check_wgrad_args("decoder_wgrad_f32", scratch, size, rows, splits,
+                      part, False)
+    tile_rows = wgrad_tile_rows(size, False)
+    if not _kernel_device(scratch, "decoder_wgrad_f32"):
+        ops = unpack_operands(scratch, size, rows, tile_rows, bf16=False)
+        part[:splits * wgrad_part_floats(size)] = _wgrad_parts_plain(
+            ops, size, splits, per_split).flatten()
+        return
+    lib = build.load("mlp_wgrad_f32", _bind_wgrad_f32, None)
+    err = lib.decoder_wgrad_f32(scratch.data_ptr(), rows, *size, tile_rows,
+                                splits, per_split, part.data_ptr(),
+                                torch.cuda.current_stream(
+                                    scratch.device).cuda_stream)
+    build.check(err, "decoder_wgrad_f32")
+    decoder_wgrad_f32.launches += 1
+
+
+decoder_wgrad_f32.launches = 0
 
 
 def wgrad_reduce(parts: torch.Tensor, nparts: int, slabs: torch.Tensor,
@@ -1001,6 +1114,13 @@ def _bind_wgrad(lib) -> None:
     lib.decoder_wgrad.restype = i
     lib.decoder_wgrad_reduce.argtypes = [p, i, p, i, i, i, i, p, p]
     lib.decoder_wgrad_reduce.restype = i
+
+
+def _bind_wgrad_f32(lib) -> None:
+    import ctypes
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.decoder_wgrad_f32.argtypes = [p, ll, i, i, i, i, i, i, p, p]
+    lib.decoder_wgrad_f32.restype = i
 
 
 class FusedDecoder(torch.autograd.Function):

@@ -7,7 +7,7 @@ template and type at each decoder size, in seconds.
 
 Each (source, size) of ``mlp_kernel.BUILT_SIZES`` (``--all``; by default
 the sizes of widths 768 and 1024, ``mlp_kernel.PARK_SIZES``; or the sizes given as
-``D,W,SD``), and the size-free ``mlp_wgrad.cu`` once, is compiled with ``g++ -std=c++20`` against stub
+``D,W,SD``), and the size-free ``mlp_wgrad.cu`` and ``mlp_wgrad_f32.cu`` once, is compiled with ``g++ -std=c++20`` against stub
 ``cuda_runtime.h`` and ``cuda_bf16.h`` headers written to a temporary
 directory: the CUDA qualifiers as no-ops, the intrinsics as plain C++,
 every inline ``asm`` dropped, the ``<<<...>>>`` launch configurations
@@ -46,7 +46,7 @@ struct dim3s { unsigned x, y, z; };
 inline thread_local dim3s threadIdx, blockIdx, blockDim, gridDim;
 typedef int cudaError_t;
 typedef void* cudaStream_t;
-enum { cudaSuccess = 0 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 template <class F>
 inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
@@ -57,6 +57,7 @@ inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
 inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, 4); return f; }
+inline unsigned __float_as_uint(float f) { unsigned u; std::memcpy(&u, &f, 4); return u; }
 template <class T> inline T __ldg(const T* p) { return *p; }
 inline float __shfl_xor_sync(unsigned, float v, int) { return v; }
 inline size_t __cvta_generic_to_shared(const void* p) { return (size_t)p; }
@@ -158,9 +159,10 @@ def main() -> None:
             text = re.sub(r"\basm\s*(volatile\s*)?\(", "ASM_STUB(", text)
             with open(os.path.join(tmp, name), "w") as fh:
                 fh.write(text)
-        # the size-free pass 2 of K3 once (its build takes no size)
+        # the size-free second passes of K3 and K3-f32 once (their builds
+        # take no size)
         jobs = [(src, size) for size in sizes for src in sources(size)]
-        jobs.append(("mlp_wgrad", sizes[0]))
+        jobs += [("mlp_wgrad", sizes[0]), ("mlp_wgrad_f32", sizes[0])]
         with ThreadPoolExecutor(os.cpu_count() or 4) as pool:
             lines = list(pool.map(lambda j: check(tmp, *j), jobs))
     for line in lines:

@@ -10,7 +10,9 @@ source line that follows it), and one around each weight staging
 (``ensure_stage``), builds it with the package's ``nvcc`` flags into
 ``proudslam_tpu_torch/_build/phases/``, and runs K2-f32, K3-f32 and its
 dx-only form once each at the pcd path's mapping and tracking shapes on
-the inputs of ``scripts/torch_f32_turns.py``. For each it prints one JSON
+the inputs of ``scripts/torch_f32_turns.py`` (K3-f32's second pass,
+``mlp_wgrad_f32.cu``, runs uninstrumented inside the full form's time).
+For each it prints one JSON
 line: the call's CUDA-event time, and per phase the SM cycles per 64-row
 tile (summed over the blocks, over the tiles) and its share. The first
 phase of a block's first tile also holds the block's start (w1's copy).
@@ -53,15 +55,15 @@ PHASES = {
         ("forward recompute, FFMA (stages w2, ws, wc)",
          "    // dzo = g_rgb * rgb * (1 - rgb), per row"),
         ("dzo, dwo, dbo", "    // dhc = (dzo wo^T) * (hc > 0)"),
-        ("dhc", "    // with dhc (B3): dwc_f"),
-        ("dwc_f, dwc_x, dbc", "    float dxa[1][1][4];"),
+        ("dhc", "    // with dhc (B3): dbc"),
+        ("dbc", "    float dxa[1][1][4];"),
         ("dx part dhc wc_x^T", "    Acc acc;"),
         ("dfeat", "    // with dso = [dfeat (B2) | g_sdf]"),
-        ("dws, dbs", "    // dh2 = (dfeat ws"),
-        ("dh2 (stages ws)", "    // dw2 = h1^T dh2"),
-        ("dw2, db2", "    ensure_stage(stage, held, ST_W2, p);"),
-        ("dh1 (stages w2)", "    // dw1 = x^T dh1"),
-        ("dw1, db1", "    dx_mm(dxa, B1, w1s);"),
+        ("dbs, ws's sdf column", "    // dh2 = (dfeat ws"),
+        ("dh2 (stages ws)", "    // db2; dh1"),
+        ("db2", "    ensure_stage(stage, held, ST_W2, p);"),
+        ("dh1 (stages w2)", "    // db1; dx"),
+        ("db1", "    dx_mm(dxa, B1, w1s);"),
     ],
 }
 STAGING = 31          # the clock slot of the weight stagings
@@ -143,7 +145,7 @@ def main() -> None:
     lib.phase_reset.argtypes = []
     lib.phase_read.restype = lib.phase_reset.restype = ctypes.c_int
     # the package's wrappers launch from this library from here on
-    build._libs["mlp_kernel_f32"] = lib
+    build._libs["mlp_kernel_f32", build.DEFAULT_SIZE] = lib
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
     dec = bench_settings().decoder

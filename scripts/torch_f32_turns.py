@@ -3,8 +3,12 @@
 in turns.
 
     python3 scripts/torch_f32_turns.py OLD_TREE . . OLD_TREE
+    python3 scripts/torch_f32_turns.py . .@--register-usage-level=10 .
 
-Each argument is the root of a checkout of the repo (default: this one).
+Each argument is the root of a checkout of the repo (default: this one),
+optionally followed by ``@`` and ptxas options (comma-separated): that
+turn builds the tree's ``mlp_kernel_f32.cu`` with them added (``-Xptxas``,
+into ``_build/variant/``) and runs it in place of the package's build.
 For each, in the order given, one process imports that tree's
 ``proudslam_tpu_torch``, builds its f32 kernel library and times K2-f32
 (``decoder_fwd`` with ``bf16=False``) and K3-f32 (``decoder_bwd`` with
@@ -17,7 +21,8 @@ kernels do the same work whatever the values, so times from these inputs
 stand for the path's. Each turn also holds every form against its plain
 version (max abs error over each output's largest magnitude, logged), and
 reads the tree's build: registers and spills (``-Xptxas -v``) and HMMA,
-HGMMA and FFMA counts (``cuobjdump -sass``) of both kernel functions.
+HGMMA and FFMA counts (``cuobjdump -sass``) of each instance of both
+kernel functions (K3-f32's full and dx-only ones where a tree has two).
 ``ms`` is ``chip_smoke.py``'s time of one call (CUDA events around 10
 back-to-back calls, median of 5); ``device_ms`` is the kernel's mean
 duration on the card's timeline (``torch.profiler``). The bounds are this
@@ -77,7 +82,27 @@ def _rel_err(a, b) -> float:
     return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
 
 
-def turn(tree: str) -> dict:
+def _variant(build, flags) -> tuple:
+    """``mlp_kernel_f32.cu`` at the default size built with the package's
+    nvcc flags and ``flags`` added for ptxas -> (library path, ptxas
+    output)."""
+    out_dir = build.BUILD_DIR / "variant"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tag = "_".join(f.strip("-").replace("=", "") for f in flags)
+    so = out_dir / f"libmlp_kernel_f32_{tag}.so"
+    res = subprocess.run(
+        [build._nvcc(), *build.NVCC_FLAGS, *[f"-Xptxas={f}" for f in flags],
+         *build.size_flags(build.DEFAULT_SIZE), "-o", str(so),
+         str(build.CSRC / "mlp_kernel_f32.cu")], capture_output=True,
+        text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc with {flags} failed:\n{res.stderr}")
+    return so, res.stdout + res.stderr
+
+
+def turn(arg: str) -> dict:
+    tree, _, flags = arg.partition("@")
+    flags = [f for f in flags.split(",") if f]
     sys.path.insert(0, os.path.abspath(tree))
     import torch
 
@@ -99,14 +124,23 @@ def turn(tree: str) -> dict:
     n = max(SHAPES.values())
     x = 0.07 * torch.randn((n, dec.in_dim), generator=gen, device=device)
     g = 1e-2 * torch.randn((n, 4), generator=gen, device=device)
-    lib = build.build("mlp_kernel_f32")
+    if flags:
+        import ctypes
+
+        lib, log = _variant(build, flags)
+        cdll = ctypes.CDLL(str(lib))
+        mk._bind_f32(cdll)
+        build._libs["mlp_kernel_f32", build.DEFAULT_SIZE] = cdll
+    else:
+        lib = build.build("mlp_kernel_f32")
+        log = build.build_log("mlp_kernel_f32")
     sass = cs.sass_counts(lib)
-    ptxas = cs.ptxas_resources(build.build_log("mlp_kernel_f32"))
-    res = {"tree": tree,
+    ptxas = cs.ptxas_resources(log)
+    res = {"tree": tree, "ptxas_flags": flags,
            "package": os.path.dirname(proudslam_tpu_torch.__file__),
-           "build": {k: {**next(c for f, c in sass.items() if fn in f),
-                         **next(r for f, r in ptxas.items() if fn in f and r)}
-                     for k, fn in KERNELS.items()}}
+           "build": {f[-60:]: {**c, **ptxas.get(f, {})}
+                     for f, c in sass.items()
+                     if any(fn in f for fn in KERNELS.values())}}
     for shape, rows in SHAPES.items():
         xn, gn = x[:rows], g[:rows]
         _, _, _, sdf, _, rgb = mk.decoder_fwd_plain(xn, fp, False)
@@ -146,10 +180,15 @@ def main() -> None:
         print(json.dumps(turn(sys.argv[2])), flush=True)
         return
     for tree in sys.argv[1:] or ["."]:
-        out = subprocess.run([sys.executable, os.path.abspath(__file__),
+        run = subprocess.run([sys.executable, os.path.abspath(__file__),
                               "--turn", tree], stdout=subprocess.PIPE,
-                             text=True, check=True).stdout
-        print(out.strip().splitlines()[-1], flush=True)
+                             stderr=subprocess.PIPE, text=True)
+        if run.returncode != 0:     # a variant ptxas refuses, say
+            print(json.dumps({"tree": tree, "rc": run.returncode,
+                              "error": run.stderr.strip()[-600:]}),
+                  flush=True)
+            continue
+        print(run.stdout.strip().splitlines()[-1], flush=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())

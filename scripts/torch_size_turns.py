@@ -2,7 +2,7 @@
 """The five decoder kernel forms at every built decoder size, for several
 checkouts in turns: outputs bit for bit and times.
 
-    python3 scripts/torch_size_turns.py [--forms=K3,"K3 dx-only"] OLD_TREE . . OLD_TREE
+    python3 scripts/torch_size_turns.py [--forms=K3,"K3 dx-only"] [--sizes=16x768x256,...] OLD_TREE . . OLD_TREE
 
 Each argument is the root of a checkout of the repo (default: this one).
 For each, in the order given, one process imports that tree's
@@ -27,7 +27,8 @@ turn's digests are compared with the first turn's at the sizes both
 built, and the times of each tree are summed over its turns; with two
 trees, the second's over the first's per size and form, and per form
 summed over the sizes both built. ``--forms`` runs only the forms named
-(comma-separated, as printed) and builds only their libraries. Needs one
+(comma-separated, as printed) and builds only their libraries;
+``--sizes`` only the sizes named (in_dim x width x sdf_dim). Needs one
 card. Prints one JSON line per turn, the comparison and, last, the card's
 name and power limit.
 """
@@ -67,7 +68,7 @@ FORM_LIBRARY = {"K1": "render_kernel", "K2": "mlp_kernel", "K3": "mlp_kernel",
                 "K3-f32": "mlp_kernel_f32", "K3-f32 dx-only": "mlp_kernel_f32"}
 
 
-def turn(tree: str, only=None) -> dict:
+def turn(tree: str, only=None, only_sizes=None) -> dict:
     sys.path.insert(0, os.path.abspath(tree))
     import torch
 
@@ -85,7 +86,8 @@ def turn(tree: str, only=None) -> dict:
     from concurrent.futures import ThreadPoolExecutor
 
     from proudslam_tpu_torch.ops.kernels import build
-    sizes = mk.BUILT_SIZES
+    sizes = [s for s in mk.BUILT_SIZES
+             if only_sizes is None or "x".join(map(str, s)) in only_sizes]
     # the tree's own choice of plan (``bf16_source``; one from before in_dim
     # 128: by width)
     wide = getattr(mk, "wide_plan", mk.wide)
@@ -157,11 +159,12 @@ def turn(tree: str, only=None) -> dict:
 
 def main() -> None:
     args = sys.argv[1:]
-    forms = [a for a in args if a.startswith("--forms=")]
-    only = forms[0].split("=", 1)[1].split(",") if forms else None
-    args = [a for a in args if not a.startswith("--forms=")]
+    forms = [a for a in args if a.startswith(("--forms=", "--sizes="))]
+    opts = {a.split("=", 1)[0]: a.split("=", 1)[1].split(",") for a in forms}
+    only, only_sizes = opts.get("--forms"), opts.get("--sizes")
+    args = [a for a in args if a not in forms]
     if len(args) > 1 and args[0] == "--turn":
-        print(json.dumps(turn(args[1], only)), flush=True)
+        print(json.dumps(turn(args[1], only, only_sizes)), flush=True)
         return
     turns = []
     for tree in args or ["."]:

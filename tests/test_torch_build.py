@@ -35,9 +35,9 @@ def test_sources_and_headers_found():
     assert {"render_kernel", "mlp_kernel", "mlp_kernel_f32", "render_stream",
             "mlp_stream", "mlp_stream_f32"} <= set(SOURCES)
     assert {"decoder_tile.cuh", "decoder_tc.cuh", "decoder_chain.cuh",
-            "decoder_slab.cuh", "decoder_stream.cuh", "bulk_copy.cuh",
+            "decoder_stream.cuh", "bulk_copy.cuh",
             "tf32x3.cuh", "decoder_wgrad.cuh"} <= set(HEADERS)
-    assert "mlp_wgrad" in SOURCES
+    assert {"mlp_wgrad", "mlp_wgrad_f32"} <= set(SOURCES)
 
 
 def _extern_c(source: str) -> dict:
@@ -65,7 +65,8 @@ class _Lib:
     ("render_kernel", rk._bind), ("mlp_kernel", mk._bind),
     ("mlp_kernel_f32", mk._bind_f32), ("render_stream", rk._bind_stream),
     ("mlp_stream", mk._bind_stream),
-    ("mlp_stream_f32", mk._bind_stream_f32), ("mlp_wgrad", mk._bind_wgrad)])
+    ("mlp_stream_f32", mk._bind_stream_f32), ("mlp_wgrad", mk._bind_wgrad),
+    ("mlp_wgrad_f32", mk._bind_wgrad_f32)])
 def test_extern_c_entries_match_bindings(source, bind):
     lib = _Lib()
     bind(lib)

@@ -420,6 +420,30 @@ def test_wgrad_check_on_the_first_chunk(on_cpu, size, rows):
     assert max(st["rel_err"].values()) <= 1e-6
 
 
+@pytest.mark.parametrize("rows", [700, 4096])
+@pytest.mark.parametrize("size", cs.WGRAD_SIZES)
+def test_wgrad_f32_check_on_the_first_chunk(on_cpu, size, rows):
+    """``wgrad_check(..., bf16=False)``: K3-f32's second pass
+    (``decoder_wgrad_f32``, its plain version here) on the f32 operands in
+    the tiles of that size's plan (64, 32 and 16 rows, parked), held on
+    the rows of the first chunk K3-f32 makes, with its splits, plain
+    against plain."""
+    on_cpu.setattr(cs, "WGRAD_SIZES", (size,))
+    rng = np.random.default_rng(2)
+    x = torch.as_tensor(0.3 * rng.standard_normal((rows, 16)),
+                        dtype=torch.float32)
+    g = torch.as_tensor(1e-2 * rng.standard_normal((rows, 4)),
+                        dtype=torch.float32)
+    fp0 = cs._decoder_at(torch.device("cpu"), (16, 128, 128), 4)
+    st = cs.wgrad_check(torch.device("cpu"), x, g, fp0,
+                        bf16=False)[cs._size_tag(size)]
+    assert st["rows"] == mk.wgrad_plan(size, rows, 1,
+                                       bf16=False).chunk_rows == rows
+    assert (st["splits"], st["per_split"]) == mk.wgrad_splits(size, rows, 1,
+                                                              False)
+    assert max(st["rel_err"].values()) <= 1e-6
+
+
 @pytest.mark.parametrize("size", [(16, 64, 64), (32, 64, 64),
                                   (16, 256, 128)])
 def test_pass2_timed_on_the_rows_operands(on_cpu, size):
@@ -444,3 +468,54 @@ def test_pass2_timed_on_the_rows_operands(on_cpu, size):
     want = mk.pack_operands(mk.decoder_bwd_operands_plain(x, g, fp))
     assert len(seen) == 1 and torch.equal(seen[0], want)
     assert bool(want.abs().max() > 0)
+
+
+@pytest.mark.parametrize("size", [(16, 64, 64), (16, 512, 128)])
+def test_f32_pass2_timed_on_the_rows_operands(on_cpu, size):
+    """``_k3_pass_ms(..., bf16=False)`` times K3-f32's pass 2 on each
+    chunk's f32 operands as pass 1 stores them: the scratches it hands
+    ``decoder_wgrad_f32`` are the packed plain f32 operands of the rows, in
+    the tiles of the size's plan (32 and 16 rows); K3's pass 2 is not
+    called."""
+    seen = []
+    real = mk.decoder_wgrad_f32
+
+    def wgrad(scratch, *a):
+        seen.append(scratch)
+        real(scratch, *a)
+    on_cpu.setattr(mk, "decoder_wgrad_f32", wgrad)
+    on_cpu.setattr(mk, "decoder_wgrad", None)
+    on_cpu.setattr(cs, "_event_ms", lambda fn, **kw: [fn(), 1.0][1])
+    rng = np.random.default_rng(3)
+    x = torch.as_tensor(0.3 * rng.standard_normal((1000, size[0])),
+                        dtype=torch.float32)
+    g = torch.as_tensor(1e-2 * rng.standard_normal((1000, 4)),
+                        dtype=torch.float32)
+    fp = cs._decoder_at(torch.device("cpu"), size, 4)
+    assert cs._k3_pass_ms(x, g, fp, {}, bf16=False) == (1.0, 1.0)
+    want = mk.pack_operands(
+        mk.decoder_bwd_operands_plain(x, g, fp, bf16=False),
+        mk.wgrad_tile_rows(size, False), bf16=False)
+    assert len(seen) == 1 and torch.equal(seen[0], want)
+    assert want.dtype == torch.float32 and bool(want.abs().max() > 0)
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+def test_wgrad_bound_counts_the_operands_once(bf16):
+    """The second passes' bound moves each operand once and each gradient
+    once, with no padding: 4 (in_dim + 5 width + 2 sdf_dim) bytes a row for
+    K3-f32 (3,648 at (16, 128, 128), 28,736 at (16, 1024, 1024)), half that
+    for K3; K3's equals its scratch (unpadded) at whole tiles, K3-f32's is
+    less than its scratch, whose columns are padded to tile height + 4."""
+    for size, row_bytes in (((16, 128, 128), 3648),
+                            ((16, 1024, 1024), 28736)):
+        rows = 64 * 10
+        grads = 4 * mk.wgrad_part_floats(size)
+        got = cs._wgrad_bound_bytes(size, rows, bf16)
+        assert got == (row_bytes // 2 if bf16 else row_bytes) * rows + grads
+        scratch = mk.wgrad_scratch_bytes(size, rows,
+                                         mk.wgrad_tile_rows(size, bf16), bf16)
+        if bf16:
+            assert got == scratch + grads
+        else:
+            assert got < scratch + grads
