@@ -157,8 +157,9 @@ last line is printed):
    against their plain versions (f32 tolerances); then pcd-f32-d32, the
    same at (32, 256, 128) (PointNet's output width follows in_dim): only
    K2-f32 and K3-f32 launched, the same bounds and checks; then
-   pcd-f32-w512, the same at (16, 512, 256) (the wide f32 plan's 16-row
-   tiles), the same launches, bound and checks; then pcd-f32-d64, the
+   pcd-f32-w512, the same at (16, 512, 256) (the wide f32 plan: K2-f32's
+   16-row tiles, K3-f32's two live 32-row tiles), the same launches, bound
+   and checks; then pcd-f32-d64, the
    same at (64, 256, 128), the same launches, bound and checks; then
    pcd-f32-d128, the same at (128, 256, 128), the same launches, bound and
    checks;
@@ -2114,7 +2115,7 @@ def wgrad_check(device, x, g, fp0, bf16=True) -> dict:
     backward makes of the kernel phase's inputs ``x``, ``g`` (the mapping
     shape), packed as pass 1 stores them (``pack_operands``), at each size
     of WGRAD_SIZES (one of each plan of pass 1: for K3-f32 its 64-, 32-
-    and 16-row tiles and its parked ones; that size's ``init_decoder``
+    and 16-row tiles and its parked tile A; that size's ``init_decoder``
     params, ``fp0`` at (16, 128, 128)) with the wrapper's splits -> {size
     tag: rows, splits, each output's error over its largest magnitude, the
     largest absolute error}; raises past TOL_WGRAD (TOL_WGRAD_F32)."""
@@ -2330,8 +2331,15 @@ def f32_size_phase(device, x, g, size, track_rows, full=True) -> dict:
             f"dx-only {b['dx_only_ms']:.3f} ms (3xTF32 bound "
             f"{b['dx_only_bound_ms']:.4f} ms, share "
             f"{b['dx_only_share']:.3f}); {rows} rows")
+    # K3-f32's tile rows and block bytes as its library has them (its
+    # tile rows alone where the plain version stands in, on the CPU)
+    tile_rows, block_bytes = (mk.backward_f32_layout(size)
+                              if x.device.type == "cuda"
+                              else (mk.wgrad_tile_rows(size, False), None))
     return {"decoder_forward_f32": dict(max_abs_err=err2, shapes=k2),
-            "decoder_backward_f32": dict(max_abs_err=err3, shapes=k3)}
+            "decoder_backward_f32": dict(max_abs_err=err3, shapes=k3,
+                                         tile_rows=tile_rows,
+                                         block_bytes=block_bytes)}
 
 
 def pad_phase(device, inp, x2_by_dim, g) -> dict:
@@ -3425,13 +3433,16 @@ def size_table(record) -> None:
     """One log line per kernel and streamed decoder size: its times at the
     mapping and tracking shapes with the bound's share, the plain version's
     and the matmul chain's times, its error against the plain version, and
-    its build (registers, spills, HGMMA / HMMA / FFMA counts)."""
+    its build (registers, spills, HGMMA / HMMA / FFMA counts; K3-f32's
+    tile rows and a block's shared-memory bytes)."""
     for k in record["kernels"]:
         for tag, st in k.get("sizes", {}).items():
             b = k["build_by_size"].get(tag, {})
             row = {"max_abs_err": st["max_abs_err"], **{
                 key: b.get(key) for key in ("registers", "spill_stores",
-                                            "HGMMA", "HMMA", "FFMA")}}
+                                            "HGMMA", "HMMA", "FFMA")},
+                   **{key: st[key] for key in ("tile_rows", "block_bytes")
+                      if key in st}}
             for shape, sh in st["shapes"].items():
                 row[shape] = {key: sh.get(key) for key in (
                     "ms", "share", "bound_ms", "plain_ms", "matmul_chain_ms",

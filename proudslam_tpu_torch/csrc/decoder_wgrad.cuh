@@ -120,6 +120,11 @@ __device__ __forceinline__ void store(void* dst, const void* src,
 __device__ __forceinline__ void stored_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
+// the same for all but the N copies issued last, which may still read
+template <int N>
+__device__ __forceinline__ void stored_read_but() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
 __device__ __forceinline__ void stored() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }

@@ -57,46 +57,58 @@
 //     weight: the same product, the same warp tiling, every warp busy;
 //   - the 8 warps split each row x column product by its columns (32 rows
 //     x N / 8 columns a warp).
-// At the wide sizes (width 384 and 512) four (W, 32) tiles alone would take
-// 294,912 bytes at width 512, so there tiles have RT = 16 rows (the
-// `mma.sync` minimum; AP = 20, still conflict-free), w1 and wc_x stream at
-// either in_dim, and the ring's chunks have 8 weight rows (16 rows would
-// take K3-f32's block to 234,512 bytes at (16, 512, *)): 202,768 bytes at
-// (32, 512, 512). Each warp then takes 16 rows x N / 8 columns, the FFMA
-// recompute 2 rows a thread, and a row's partial dots are 16. And there
-// K2-f32's h1 and h2 products run on the FP32 units too, as K3-f32's
-// recompute: the sdf column is a dot of the W values of h2 whose terms can
-// nearly cancel, and with 3xTF32's h1 and h2 (each product within ~2^-21
-// of the true one, a few times f32's rounding) K2-f32's sdf was 1.9e-5 of
-// its largest magnitude from the float64 forward at (32, 512, 384) on the
-// pcd features, the f32 plain version 3.6e-6 (an H100, 700 W), against a
-// tolerance of 1e-5. The same
-// at in_dim 64 (FFMA_H): on in_dim 48 zero-padded to (64, 256, 128),
-// 3xTF32's h1 and h2 put K2-f32's sdf 1.04e-5 from the float64 forward
-// (the plain version 6.8e-6; an H100, 700 W); the older sizes keep their
-// 3xTF32 h1 and h2. In_dim 128 keeps FFMA_H.
-// At widths 768 and 1024 (PARK) not even K2-f32's two 16-row tiles fit
-// beside the ring (243,984 bytes at (128, 1024, *)), nor K3-f32's four
-// (327,680 bytes of tiles at width 1024). There each kernel keeps in shared
-// memory as many of its tiles as fit (K2_TILES, K3_TILES: one at width
-// 1024, two at 768), and the others lie in a per-block scratch in global
-// memory after the packed weights (PARK_F32 tiles at most), read and written
-// by the same plain loads and stores as the tiles in shared memory, through
-// L1 and L2: every product, sum and mask is the same.
+// At the wide sizes (widths 384 to 1024) K2-f32 keeps two tiles of RT =
+// 16 rows (the `mma.sync` minimum; AP = 20, still conflict-free), w1 and
+// wc_x stream at either in_dim, and the ring's chunks have 8 weight rows.
+// Each warp then takes 16 rows x N / 8 columns and a row's partial dots
+// are 16. And there K2-f32's h1 and h2 products run on the FP32 units,
+// as K3-f32's recompute: the sdf column is a dot of the W values of h2
+// whose terms can nearly cancel, and with 3xTF32's h1 and h2 (each product
+// within ~2^-21 of the true one, a few times f32's rounding) K2-f32's sdf
+// was 1.9e-5 of its largest magnitude from the float64 forward at (32,
+// 512, 384) on the pcd features, the f32 plain version 3.6e-6 (an H100,
+// 700 W), against a tolerance of 1e-5. The same at in_dim 64 (FFMA_H): on
+// in_dim 48 zero-padded to (64, 256, 128), 3xTF32's h1 and h2 put K2-f32's
+// sdf 1.04e-5 from the float64 forward (the plain version 6.8e-6; an H100,
+// 700 W); the older sizes keep their 3xTF32 h1 and h2. In_dim 128 keeps
+// FFMA_H. At widths 768 and 1024 (PARK) not even K2-f32's two 16-row tiles
+// fit beside the ring at width 1024 (243,984 bytes at (128, 1024, *)):
+// there its second tile lies in a per-block park in global memory after
+// the packed weights, read and written by the same plain loads and stores
+// as a tile in shared memory, through L1 and L2.
+// K3-f32 at the wide sizes keeps only two live f32 tiles (RT3 rows): A
+// holds h1, then feat, dfeat, dh1, and B h2, then hc (dhc in place), dh2,
+// each written over one that no later step reads. Its backward reads h1
+// and h2 only through their ReLU masks, which the recompute keeps as bits
+// (a 32-bit word a feature column) when it writes them; dws's sdf column
+// is taken while h2 is in B, dwo while hc is. So its tiles have RT3 = 32
+// rows at widths 384 and 512 (209,680 bytes at (128, 512, 512)) and 16 at
+// 768 and 1024, where none is parked at 768 (192,016 bytes at (128, 768,
+// 768)) and A is at 1024 (two 16-row tiles of width 1024 and the ring's
+// 8-row chunks would take 251,408 bytes). Its recompute runs on the FP32
+// units with each weight element read from shared memory once a block per
+// k (Fma3: a lane holds 4 rows x CC columns of its warp's N / 8), each
+// output the same sequential sum as Fma's; the color logits take the
+// 16-row plan's 16 partial dots a row. dx's x-side products (dhc wc_x^T,
+// dh1 w1^T) stream wc_x^T and w1^T as K-slices of KX rows, so that every
+// warp holding dx tiles works on every chunk and keeps its sums across
+// them, each output the same k8 steps as one product over K = W: dx and
+// every stored operand are the 16-row plan's bit for bit.
 // K3-f32 is pass 1 of two, as in mlp_kernel_f32.cu: each block walks a
 // contiguous run of tiles, computes dx and adds the six small gradients
 // into its own f32 slab (wg::small's offsets), and stores the f32 operands
 // of the five large weight-gradient products to the scratch tile by tile
-// (decoder_wgrad.cuh's f32 layout, RT-row tiles at row stride AP), each
-// finished tile in shared memory by one bulk copy from thread 0; a tile
-// that the kernel parks (widths 768 and 1024) it writes in the scratch, at
-// its operand's place, instead of the park. Pass 2 (mlp_wgrad_f32.cu) sums
-// the products over long runs of rows and K3's reduce (mlp_wgrad.cu) adds
-// its partials and the slabs in a fixed order: no float atomics, bitwise
-// repeatable. The dx-only form (tracking) stores nothing and writes no
-// slab. A ragged last tile is
-// masked: its missing rows carry zero inputs and zero cotangents (they add
-// nothing to any gradient) and write no output.
+// (decoder_wgrad.cuh's f32 layout, tiles of its height at row stride
+// height + 4), each finished tile in shared memory by one bulk copy from
+// thread 0; tile A at width 1024 it writes in the scratch, at each
+// operand's place. Pass 2 (mlp_wgrad_f32.cu) sums the products over long
+// runs of rows and K3's reduce (mlp_wgrad.cu) adds its partials and the
+// slabs in a fixed order: no float atomics, bitwise repeatable. The
+// dx-only form (tracking) stores nothing and writes no slab. A ragged last
+// tile is masked: its missing rows carry zero inputs and zero cotangents
+// (they add nothing to any gradient) and write no output.
+
+#include <type_traits>
 
 #include "bulk_copy.cuh"
 #include "decoder_wgrad.cuh"
@@ -110,7 +122,8 @@ namespace {
 using SG = wg::SmallAt<W, SD>;
 constexpr int THREADS = 256;
 constexpr int NWARP = THREADS / 32;
-// widths above 256 (the wide sizes): 16-row tiles and 8-row chunks
+// widths above 256 (the wide sizes): 16-row tiles (K3-f32: RT3) and 8-row
+// chunks
 constexpr bool WIDE = W > 256;
 constexpr int RT = WIDE ? 16 : 32;  // rows of a tile
 constexpr int AP = RT + 4;          // activation row stride (floats)
@@ -149,27 +162,82 @@ constexpr bool FFMA_H = WIDE || D > 32;
 // DXN a warp (dx_partn)
 constexpr int DXT = (RT / 16) * (D / 8) > NWARP ? 2 : 1;
 constexpr int DXN = D > 64 ? (RT / 16) * (D / 8) / NWARP : 1;
-// widths 768 and 1024: the tiles that do not fit a block lie in global
-// memory (the note above), PARK_F32 of them at most a block
+// widths 768 and 1024: K2-f32's tile that does not fit a block lies in
+// global memory (the note above), in a per-block park PARK_F32 tiles apart
+// (the stride of its machine code since K3-f32 parked three tiles there)
 constexpr bool PARK = W > 512;
 constexpr int PARK_F32 = 3;
 constexpr int K2F_REST = 4 * (XT + 2 * RES + NQ * RT + PART) + RING_SMEM;
-constexpr int K3F_REST = 4 * (XT + 2 * RES + 4 * RT + PART) + RING_SMEM;
 constexpr int tiles_in_smem(int rest, int n) {
   return PARK && (232448 - rest) / (4 * ACT) < n ? (232448 - rest) / (4 * ACT)
                                                  : n;
 }
 constexpr int K2_TILES = tiles_in_smem(K2F_REST, 2);
-constexpr int K3_TILES = tiles_in_smem(K3F_REST, 4);
-static_assert(K2_TILES >= 1 && K3_TILES >= 1 && 4 - K3_TILES <= PARK_F32,
-              "the tiles in shared memory and in the park");
+static_assert(K2_TILES >= 1, "the tiles in shared memory and in the park");
 constexpr int K2F_SMEM = 4 * K2_TILES * ACT + K2F_REST;
-constexpr int K3F_SMEM = 4 * K3_TILES * ACT + K3F_REST;
-static_assert(K2F_SMEM <= 232448 && K3F_SMEM <= 232448,
-              "one block's shared memory");
+static_assert(K2F_SMEM <= 232448, "one block's shared memory");
 static_assert((ACT * 4) % 16 == 0 && (XT * 4) % 16 == 0 && (RES * 4) % 16 == 0
                   && (CHUNK * 4) % 16 == 0,
               "16-byte aligned pieces and bulk copies");
+
+#if DEC_W > 256
+// K3-f32 at the wide sizes (the note on them): two (W, RT3) tiles, A and B
+constexpr int RT3 = W <= 512 ? 32 : 16;   // rows of a tile
+constexpr int AP3 = RT3 + 4;              // activation row stride (floats)
+constexpr int ACT3 = W * AP3;             // one activation tile
+constexpr int XT3 = D * AP3;              // the input tile
+constexpr int NQ3 = 16;                   // partial color dots of a row
+// width 1024: tile A lies in global memory (park3)
+constexpr bool PARK3 = W > 768;
+// the ReLU masks: bit r of word k for row r, a word of RT3 bits
+using Mask = std::conditional_t<RT3 == 32, uint32_t, uint16_t>;
+// a block's shared memory with ring chunks of `cr` weight rows (the color
+// logits' partial dots lie in the ring's free slot, row_partials3's note)
+constexpr int k3f_smem(int cr) {
+  return 4 * ((PARK3 ? 1 : 2) * ACT3 + XT3 + 4 * RT3)
+         + 2 * W * static_cast<int>(sizeof(Mask)) + 2 * cr * WP * 4 + 16;
+}
+// its ring's chunks: 16 weight rows where the block has room, else 8
+constexpr int CR3 = k3f_smem(16) <= 232448 ? 16 : 8;
+constexpr int CHUNK3 = CR3 * WP;
+// chunks of a weight of W or SD rows
+constexpr int NW3 = W / CR3, NSD3 = SD / CR3;
+// dx's x-side products take wc_x^T and w1^T (W x D) as K-slices of KX rows
+// at row stride DP, NXT chunks each: the most rows (a power of two
+// dividing W) a ring slot holds
+constexpr int DP = D + 4;
+constexpr int kx_rows() {
+  int k = 256;
+  while (k > 8 && (k * DP > CHUNK3 || W % k != 0)) k /= 2;
+  return k;
+}
+constexpr int KX = kx_rows(), NXT = W / KX;
+// forward: w1, w2, ws, wc_f, wc_x; backward: wc_x^T, wc_f^T, ws^T, w2^T,
+// w1^T; after them ws's sdf column
+constexpr int NFWD3 = D / CR3 + NW3 + NW3 + NSD3 + D / CR3;
+constexpr int NBWD3 = NXT + NW3 + NSD3 + NW3 + NXT;
+constexpr int SDF3 = (NFWD3 + NBWD3) * CHUNK3;
+constexpr int PACKED3 = SDF3 + W;
+constexpr int K3F_SMEM = k3f_smem(CR3);
+static_assert(XSTREAM && D % CR3 == 0 && KX % 8 == 0 && KX * DP <= CHUNK3
+                  && W % KX == 0 && THREADS % RT3 == 0
+                  && 3 * NQ3 * RT3 <= CHUNK3,
+              "the wide K3-f32's chunks");
+static_assert(K3F_SMEM <= 232448, "one block's shared memory");
+// dx's (RT3 / 16) x (D / 8) tiles of 16 x 8: with more than NWARP, warp w
+// holds all RT3 rows of dx's columns [w D / 8, (w + 1) D / 8) (DXM x DXN
+// tiles); else warp w < DX_TILES holds tile (w % (RT3 / 16), w / (RT3 /
+// 16)) (at in_dim 16 four warps at 32-row tiles, two at 16-row ones: the
+// x-side products are ~2% of the MACs there, so they take no K split)
+constexpr int DX_TILES = (RT3 / 16) * (D / 8);
+constexpr bool DX_ALL = DX_TILES > NWARP;
+constexpr int DXM = DX_ALL ? RT3 / 16 : 1, DXN3 = DX_ALL ? D / 64 : 1;
+static_assert(!DX_ALL || DXM * DXN3 * NWARP == DX_TILES, "dx's warp tiling");
+#else
+constexpr int K3F_SMEM =
+    4 * (4 * ACT + XT + 2 * RES + 4 * RT + PART) + RING_SMEM;
+static_assert(K3F_SMEM <= 232448, "one block's shared memory");
+#endif
 
 __device__ __forceinline__ float ldg(const float* p) { return __ldg(p); }
 
@@ -223,10 +291,14 @@ cudaError_t pack_weights(const Params& p, float* dst, int nchunks,
 // ---- the ring ----
 
 // The chunks a block consumes, in order: `len` per tile (NFWD for K2-f32,
-// NFWD + NBWD for K3-f32), the same sequence for every tile; chunk i of
-// the sequence is chunk i of the packed buffer.
-struct Ring {
-  float* slot;        // two slots of CHUNK floats
+// NFWD + NBWD for K3-f32; NFWD3 + NBWD3 for K3-f32 at the wide sizes), the
+// same sequence for every tile; chunk i of the sequence is chunk i of the
+// packed buffer. A chunk is ROWS weight rows at stride WP (CR; K3-f32 at
+// the wide sizes CR3).
+template <int ROWS_>
+struct RingT {
+  static constexpr int ROWS = ROWS_, FLOATS = ROWS_ * WP;
+  float* slot;        // two slots of FLOATS floats
   uint64_t* bar;      // their mbarriers
   const float* src;   // the packed weights
   int len;            // chunks per tile
@@ -234,17 +306,21 @@ struct Ring {
   int cur;            // its slot
   uint32_t phase;     // bit s: the parity slot s completes next
 };
+using Ring = RingT<CR>;
 
 // thread 0: the bulk copy of sequence index i into slot s
-__device__ __forceinline__ void issue(const Ring& r, int i, int s) {
-  bulk::mbar_expect(r.bar + s, CHUNK * 4);
-  bulk::bulk_copy(r.slot + s * CHUNK, r.src + static_cast<long long>(i) * CHUNK,
-                  CHUNK * 4, r.bar + s);
+template <class R>
+__device__ __forceinline__ void issue(const R& r, int i, int s) {
+  constexpr int F = R::FLOATS;
+  bulk::mbar_expect(r.bar + s, F * 4);
+  bulk::bulk_copy(r.slot + s * F, r.src + static_cast<long long>(i) * F,
+                  F * 4, r.bar + s);
 }
 
-__device__ inline Ring ring_init(Arena& ar, const float* src, int len) {
-  Ring r;
-  r.slot = ar.take<float>(2 * CHUNK);
+template <class R = Ring>
+__device__ inline R ring_init(Arena& ar, const float* src, int len) {
+  R r;
+  r.slot = ar.take<float>(2 * R::FLOATS);
   r.bar = ar.take<uint64_t>(2);
   r.src = src;
   r.len = len;
@@ -265,7 +341,8 @@ __device__ inline Ring ring_init(Arena& ar, const float* src, int len) {
 // the coming products read. It starts the chunk after it into the other
 // slot: the sequence's next, or, after a tile's last chunk, the next
 // tile's first if `more`.
-__device__ __forceinline__ const float* acquire(Ring& r, bool more) {
+template <class R>
+__device__ __forceinline__ const float* acquire(R& r, bool more) {
   bulk::fence_proxy_async();
   __syncthreads();
   const int s = r.cur;
@@ -280,7 +357,7 @@ __device__ __forceinline__ const float* acquire(Ring& r, bool more) {
   r.phase ^= 1u << s;
   r.cur = s ^ 1;
   r.next = nx;
-  return r.slot + s * CHUNK;
+  return r.slot + s * R::FLOATS;
 }
 
 // ---- products ----
@@ -290,15 +367,15 @@ __device__ __forceinline__ const float* acquire(Ring& r, bool more) {
 // row-major at stride WP), N output columns, warp w taking columns
 // [w N / 8, (w + 1) N / 8) of all RT rows (RT / 16 x N / 64 tiles of
 // 16 x 8).
-template <int N>
+template <int N, int R = RT>
 struct Tc {
-  static constexpr int TM = RT / 16, TN = N / 64;
+  static constexpr int TM = R / 16, TN = N / 64, LDA = R + 4;
   float acc[TM][TN][4];
   __device__ __forceinline__ int n0() const { return (threadIdx.x >> 5) * (N / 8); }
   __device__ __forceinline__ void zero() { tf::zero(acc); }
   template <int K>
   __device__ __forceinline__ void mm(const float* act, const float* w) {
-    tf::mm_fm<TM, TN, K, true>(acc, act, AP, w, WP, 0, n0());
+    tf::mm_fm<TM, TN, K, true>(acc, act, LDA, w, WP, 0, n0());
   }
   // dst[n][row] = act(out + bias[n])
   __device__ __forceinline__ void store(float* dst,
@@ -306,7 +383,7 @@ struct Tc {
                                         bool relu) {
     tf::for_each_acc(acc, 0, n0(), [&](int r, int c, float& v) {
       const float o = v + ldg(bias + c);
-      dst[c * AP + r] = relu ? fmaxf(o, 0.f) : o;
+      dst[c * LDA + r] = relu ? fmaxf(o, 0.f) : o;
     });
   }
 };
@@ -317,7 +394,7 @@ struct Tc {
 // column pairs 64 j + 2 l, 64 j + 2 l + 1 (j < N / 64).
 template <int N>
 struct Fma {
-  static constexpr int NP = N / 64, RR = RT / 8;
+  static constexpr int NP = N / 64, RR = RT / 8, LDA = AP;
   float acc[RR][2 * NP];
   __device__ __forceinline__ void zero() {
 #pragma unroll
@@ -393,42 +470,35 @@ struct Fma {
 // out = sum over the streamed chunks of act's K-slices times the chunks:
 // the `nchunks` next chunks of the ring, act's rows [CR c, CR c + CR) with
 // chunk c
-template <class P>
+template <class P, class R>
 __device__ __forceinline__ void stream_mm(P& f, const float* act, int nchunks,
-                                          Ring& r, bool more) {
+                                          R& r, bool more) {
 #pragma unroll 1
   for (int c = 0; c < nchunks; ++c) {
     const float* w = acquire(r, more);
-    f.template mm<CR>(act + c * CR * AP, w);
+    f.template mm<R::ROWS>(act + c * R::ROWS * P::LDA, w);
   }
 }
 
 // dx's part (RT x D) += cot wt^T on dx's columns [n_lo, n_lo + ROWS): cot
 // feature-major (W, RT), wt those rows of a (D, W) weight at stride WP
 // (all D of them resident, or a chunk of the ring); warp w < D / 4 holds
-// dx's 16 x 8 tile at (16 (w & 1), 8 (w >> 1)) with 32-row tiles, warp
-// w < D / 8 the tile at (0, 8 w) with 16-row ones
+// dx's 16 x 8 tile at (16 (w & 1), 8 (w >> 1)) (K3-f32 up to width 256)
 template <int ROWS>
 __device__ __forceinline__ void dx_mm(float (&acc)[1][1][4], const float* cot,
                                       const float* wt, int n_lo) {
-  if constexpr (RT == 32) {
-    const int w = threadIdx.x >> 5, n0 = 8 * (w >> 1);
-    if (w < D / 4 && n0 >= n_lo && n0 < n_lo + ROWS)
-      tf::mm_fm<1, 1, W, false>(acc, cot, AP, wt, WP, 16 * (w & 1), n0 - n_lo);
-  } else {
-    const int w = threadIdx.x >> 5, n0 = 8 * w;
-    if (w < D / 8 && n0 >= n_lo && n0 < n_lo + ROWS)
-      tf::mm_fm<1, 1, W, false>(acc, cot, AP, wt, WP, 0, n0 - n_lo);
-  }
+  const int w = threadIdx.x >> 5, n0 = 8 * (w >> 1);
+  if (w < D / 4 && n0 >= n_lo && n0 < n_lo + ROWS)
+    tf::mm_fm<1, 1, W, false>(acc, cot, AP, wt, WP, 16 * (w & 1), n0 - n_lo);
 }
 
 // the forward's x-side product f (+)= x w with w = w1 or wc_x: resident, or
-// its XS chunks from the ring
-template <class P>
+// its D / R::ROWS chunks from the ring (XS for K2-f32)
+template <class P, class R>
 __device__ __forceinline__ void x_mm(P& f, const float* xs, const float* res,
-                                     Ring& r, bool more) {
+                                     R& r, bool more) {
   if constexpr (XSTREAM)
-    stream_mm(f, xs, XS, r, more);
+    stream_mm(f, xs, D / R::ROWS, r, more);
   else
     f.template mm<D>(xs, res);
 }
@@ -468,6 +538,7 @@ __device__ __forceinline__ void dx_part2(float (&a0)[1][1][4],
 // dx_part at in_dim 128: warp w holds dx's 16 x 8 tiles t = w + NWARP j
 // (j < DXN), tile t at rows 16 (t % (RT / 16)), columns 8 (t / (RT / 16));
 // w's XS chunks from the ring (chunk c: dx's columns [CR c, CR c + CR))
+// (K3-f32 up to width 256)
 __device__ __forceinline__ void dx_partn(float (&a)[DXN][1][1][4],
                                          const float* cot, Ring& r,
                                          bool more) {
@@ -487,14 +558,14 @@ __device__ __forceinline__ void dx_partn(float (&a)[DXN][1][1][4],
 
 // Column sums over the tile's rows of a feature-major tile of NC columns,
 // added into out[col]
-template <int NC>
+template <int NC, int R = RT>
 __device__ __forceinline__ void col_sum(float* __restrict__ out,
                                         const float* cot, bool first) {
   for (int k = threadIdx.x; k < NC; k += THREADS) {
     float s = 0.f;
 #pragma unroll
-    for (int r = 0; r < RT; r += 4) {
-      const float4 v = *reinterpret_cast<const float4*>(cot + k * AP + r);
+    for (int r = 0; r < R; r += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(cot + k * (R + 4) + r);
       s += v.x;
       s += v.y;
       s += v.z;
@@ -514,23 +585,25 @@ __device__ __forceinline__ void load_resident(float* dst,
   }
 }
 
-// x's tile (zeros past the last row) into xs, feature-major: thread
-// (row, q) = (tid / 4, tid % 4) < (RT, 4) reads x[row, 16k + 4q : 16k +
-// 4q + 4] for k < D / 16
+// x's tile of R rows (zeros past the last row) into xs, feature-major at
+// row stride R + 4: thread (row, q) = (tid / 4, tid % 4) < (R, 4) reads
+// x[row, 16k + 4q : 16k + 4q + 4] for k < D / 16
+template <int R = RT>
 __device__ __forceinline__ void load_x(float* xs, const float* __restrict__ x,
                                        long long row0, int nvalid) {
+  constexpr int LD = R + 4;
   const int r = threadIdx.x >> 2, q = threadIdx.x & 3;
-  if (r >= RT) return;
+  if (r >= R) return;
 #pragma unroll
   for (int k = 0; k < D / 16; ++k) {
     const int c = 16 * k + 4 * q;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (r < nvalid)
       v = __ldg(reinterpret_cast<const float4*>(x + (row0 + r) * D + c));
-    xs[(c + 0) * AP + r] = v.x;
-    xs[(c + 1) * AP + r] = v.y;
-    xs[(c + 2) * AP + r] = v.z;
-    xs[(c + 3) * AP + r] = v.w;
+    xs[(c + 0) * LD + r] = v.x;
+    xs[(c + 1) * LD + r] = v.y;
+    xs[(c + 2) * LD + r] = v.z;
+    xs[(c + 3) * LD + r] = v.w;
   }
 }
 
@@ -650,9 +723,243 @@ decoder_forward_f32_kernel(const float* __restrict__ x, Params p,
   }
 }
 
-// FORM: 0 dx-only, 1 full, 2 either by `want_wgrad` (one kernel for both:
-// at widths 768 and 1024, where the full form compiled alone spilled 28
-// bytes at 255 registers at (16, 1024, 512))
+#if DEC_W > 256
+// ---- K3-f32 at the wide sizes: two live tiles, ReLU bit masks ----
+
+using Ring3 = RingT<CR3>;
+
+// K3-f32's packed chunks at the wide sizes (CR3 weight rows at stride WP,
+// zeros past a row's end), in the order a tile takes them: w1, w2, ws's
+// feature part, wc_f, wc_x; then wc_x^T's NXT K-slices of KX rows (KX x D at
+// row stride DP, zeros past a slice's end), wc_f^T, ws^T and w2^T, w1^T's
+// NXT K-slices; then ws's sdf column at SDF3
+__global__ void pack_k3_kernel(Params p, float* __restrict__ dst) {
+  const int n = (NFWD3 + NBWD3) * CHUNK3;
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < n + W;
+       e += gridDim.x * blockDim.x) {
+    if (e >= n) {
+      const int k = e - n;
+      dst[SDF3 + k] = p.ws[k * SO + SD];
+      continue;
+    }
+    int i = e / CHUNK3;
+    const int q = e - i * CHUNK3, r = q / WP, c = q - r * WP;
+    float v = 0.f;
+    if (i < NFWD3) {
+      if (i < D / CR3) {                             // w1 (D, W)
+        if (c < W) v = p.w1[(i * CR3 + r) * W + c];
+      } else if ((i -= D / CR3) < NW3) {             // w2 (W, W)
+        if (c < W) v = p.w2[(i * CR3 + r) * W + c];
+      } else if ((i -= NW3) < NW3) {                 // ws[:, :SD] (W, SD)
+        if (c < SD) v = p.ws[(i * CR3 + r) * SO + c];
+      } else if ((i -= NW3) < NSD3) {                // wc_f (SD, W)
+        if (c < W) v = p.wc_f[(i * CR3 + r) * W + c];
+      } else {                                       // wc_x (D, W)
+        i -= NSD3;
+        if (c < W) v = p.wc_x[(i * CR3 + r) * W + c];
+      }
+    } else if ((i -= NFWD3) < NXT || i >= NBWD3 - NXT) {
+      const float* src = i < NXT ? p.wc_x : p.w1;    // wc_x^T, w1^T (W, D)
+      if (i >= NXT) i -= NBWD3 - NXT;
+      const int rx = q / DP, cx = q - rx * DP;
+      if (rx < KX && cx < D) v = src[cx * W + i * KX + rx];
+    } else if ((i -= NXT) < NW3) {                   // wc_f^T (W, SD)
+      if (c < SD) v = p.wc_f[c * W + i * CR3 + r];
+    } else if ((i -= NW3) < NSD3) {                  // ws[:, :SD]^T (SD, W)
+      if (c < W) v = p.ws[c * SO + i * CR3 + r];
+    } else {                                         // w2^T (W, W)
+      i -= NSD3;
+      if (c < W) v = p.w2[c * W + i * CR3 + r];
+    }
+    dst[e] = v;
+  }
+}
+
+// The forward recompute's products on the FP32 units at the wide sizes,
+// each output a sequential fused multiply-add over k in the chunks' order
+// (Fma's sums, term for term). Warp w takes the columns [w N / 8, (w + 1) N
+// / 8) of all RT3 rows, as Tc splits its products; lane l = LC lr + lc
+// holds the R rows R lr .. R lr + R - 1 and the C columns w N / 8 + V lc +
+// V LC j + v (j < C / V, v < V). Per k a lane reads R / 4 float4 of act
+// (the same for the LC lanes of its rows) and C / V vectors of V floats of
+// the weight row (the same for the LR lanes of its columns): the block
+// reads each weight element from shared memory once per k, and a lane's
+// R + C values feed R C FFMA (8 x 8 where a warp has 48 columns or more,
+// else 4 rows). UNROLL: the k steps unrolled at once, 0 all of a chunk.
+template <int N, int UNROLL>
+struct Fma3 {
+  static constexpr int NW = N / NWARP, R = NW >= 48 ? 8 : 4, LR = RT3 / R,
+                       LC = 32 / LR, C = NW / LC, V = C % 4 == 0 ? 4 : 2,
+                       LDA = AP3;
+  static_assert(LR * R == RT3 && LC * C == NW && C % V == 0,
+                "a lane's rows and columns");
+  float acc[R][C];
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < C; ++j) acc[i][j] = 0.f;
+  }
+  __device__ __forceinline__ int col(int j) const {
+    const int l = threadIdx.x & 31;
+    return (threadIdx.x >> 5) * NW + V * (l % LC) + V * LC * (j / V) + j % V;
+  }
+  template <int K>
+  __device__ __forceinline__ void mm(const float* act, const float* w) {
+    const int l = threadIdx.x & 31;
+    const float* a0 = act + R * (l / LC);
+    const float* w0 = w + col(0);
+    if constexpr (UNROLL == 0) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) step(a0, w0, k);
+    } else {
+#pragma unroll UNROLL
+      for (int k = 0; k < K; ++k) step(a0, w0, k);
+    }
+  }
+  // acc += act[k][rows] w[k][cols]
+  __device__ __forceinline__ void step(const float* a0, const float* w0,
+                                       int k) {
+    float av[R], b[C];
+#pragma unroll
+    for (int i = 0; i < R; i += 4) {
+      const float4 a = *reinterpret_cast<const float4*>(a0 + k * AP3 + i);
+      av[i] = a.x;
+      av[i + 1] = a.y;
+      av[i + 2] = a.z;
+      av[i + 3] = a.w;
+    }
+#pragma unroll
+    for (int j = 0; j < C; j += V) {
+      const float* q = w0 + k * WP + LC * j;
+      if constexpr (V == 4) {
+        const float4 v = *reinterpret_cast<const float4*>(q);
+        b[j] = v.x;
+        b[j + 1] = v.y;
+        b[j + 2] = v.z;
+        b[j + 3] = v.w;
+      } else {
+        const float2 v = *reinterpret_cast<const float2*>(q);
+        b[j] = v.x;
+        b[j + 1] = v.y;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < C; ++j) acc[i][j] = fmaf(av[i], b[j], acc[i][j]);
+  }
+  // dst[n][row] = act(out + bias[n]); with `mask`, bit r of mask[n] set
+  // where dst[n][r] > 0 (the lanes of a column OR their bits together)
+  __device__ __forceinline__ void store(float* dst,
+                                        const float* __restrict__ bias,
+                                        bool relu, Mask* mask) {
+    const int lr = (threadIdx.x & 31) / LC;
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      const int c = col(j);
+      const float b = ldg(bias + c);
+      float v[R];
+      uint32_t bits = 0;
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        v[i] = acc[i][j] + b;
+        if (relu) v[i] = fmaxf(v[i], 0.f);
+        bits |= static_cast<uint32_t>(v[i] > 0.f) << (R * lr + i);
+      }
+#pragma unroll
+      for (int i = 0; i < R; i += 4)
+        *reinterpret_cast<float4*>(dst + c * AP3 + R * lr + i) =
+            make_float4(v[i], v[i + 1], v[i + 2], v[i + 3]);
+      if (mask != nullptr) {
+#pragma unroll
+        for (int o = LC; o < 32; o *= 2)
+          bits |= __shfl_xor_sync(0xffffffffu, bits, o);
+        if (lr == 0) mask[c] = static_cast<Mask>(bits);
+      }
+    }
+  }
+};
+
+// dx's x-side products, cot (W, RT3) times wc_x^T or w1^T (W, D): the NXT
+// K-slices from the ring, each feeding every warp that holds dx tiles
+// (DX_ALL's note), which keep their sums over the slices; each output the
+// same k8 steps in the same order as one product over K = W
+struct Dx3 {
+  float acc[DXM][DXN3][4];
+  __device__ __forceinline__ bool holds() const {
+    return DX_ALL || (threadIdx.x >> 5) < DX_TILES;
+  }
+  __device__ __forceinline__ int m0() const {
+    return DX_ALL ? 0 : 16 * ((threadIdx.x >> 5) % (RT3 / 16));
+  }
+  __device__ __forceinline__ int n0() const {
+    return DX_ALL ? (threadIdx.x >> 5) * (D / NWARP)
+                  : 8 * ((threadIdx.x >> 5) / (RT3 / 16));
+  }
+  __device__ __forceinline__ void zero() { tf::zero(acc); }
+  __device__ __forceinline__ void part(const float* cot, Ring3& r, bool more) {
+#pragma unroll 1
+    for (int c = 0; c < NXT; ++c) {
+      const float* wt = acquire(r, more);
+      if (holds())
+        tf::mm_fm<DXM, DXN3, KX, true>(acc, cot + c * KX * AP3, AP3, wt, DP,
+                                       m0(), n0());
+    }
+  }
+  __device__ __forceinline__ void write(float* __restrict__ dx, long long row0,
+                                        int nvalid) {
+    if (holds())
+      tf::for_each_acc(acc, m0(), n0(), [&](int r, int c, float& v) {
+        if (r < nvalid) dx[(row0 + r) * D + c] = v;
+      });
+  }
+};
+
+// Partial dots of each row with a W-vector, NQ3 a row as the 16-row plan
+// takes them: (r, q) = (e % RT3, e / RT3) for e = tid, tid + THREADS, ...
+// sums act[k][r] v[k] over k in [q W / NQ3, (q + 1) W / NQ3) into
+// part[(C q + c) RT3 + r] for each of the C columns of v (v[C k + c]). The
+// kernel puts `part` in the ring slot of the chunk last read: free from the
+// barrier after its readers to the next acquire, which issues the next
+// copy into it after its proxy fence and barrier
+template <int C>
+__device__ __forceinline__ void row_partials3(float* part, const float* act,
+                                              const float* __restrict__ v) {
+#pragma unroll 1
+  for (int e = threadIdx.x; e < NQ3 * RT3; e += THREADS) {
+    const int r = e % RT3, q = e / RT3;
+    float s[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) s[c] = 0.f;
+#pragma unroll 8
+    for (int k = q * (W / NQ3); k < (q + 1) * (W / NQ3); ++k) {
+      const float h = act[k * AP3 + r];
+#pragma unroll
+      for (int c = 0; c < C; ++c) s[c] = fmaf(h, ldg(v + C * k + c), s[c]);
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c) part[(C * q + c) * RT3 + r] = s[c];
+  }
+}
+
+// this block's tile A at width 1024 in the dx-only form: ACT3 floats after
+// the packed weights
+__device__ __forceinline__ float* park3(const float* wpack) {
+  return const_cast<float*>(wpack) + PACKED3
+         + static_cast<long long>(blockIdx.x) * ACT3;
+}
+
+// K3-f32's pass 1 at the wide sizes. Two (W, RT3) f32 tiles hold every
+// activation a tile needs at once: A takes h1, feat, dfeat, dh1 and B h2,
+// hc (dhc in place), dh2, each written over one that no later step reads;
+// the backward reads h1 and h2 only through their `> 0` masks, kept as bits
+// (m1, m2: bit r of word k for row r) when they are written, and takes
+// dws's sdf column while h2 is in B and dwo while hc is. At width 1024 A
+// lies in global memory (at each operand's place in the scratch in the full
+// form, else in park3). FORM: 0 dx-only, 1 full, 2 either by `want_wgrad`
+// (one kernel for both at widths 768 and 1024, where the parent plan's full
+// form compiled alone spilled at (16, 1024, 512)).
 template <int FORM>
 __global__ void __launch_bounds__(THREADS, 1)
 decoder_backward_f32_kernel(const float* __restrict__ x,
@@ -664,10 +971,252 @@ decoder_backward_f32_kernel(const float* __restrict__ x,
   const bool wgrad = FORM == 2 ? want_wgrad != 0 : FORM == 1;
   extern __shared__ __align__(16) char smem[];
   Arena ar{smem};
-  // at widths 768 and 1024 the first 4 - K3_TILES in the park
-  float* B0 = K3_TILES > 3 ? ar.take<float>(ACT) : park_of(wpack);
-  float* B1 = K3_TILES > 2 ? ar.take<float>(ACT) : park_of(wpack) + ACT;
-  float* B2 = K3_TILES > 1 ? ar.take<float>(ACT) : park_of(wpack) + 2 * ACT;
+  float* A = PARK3 ? park3(wpack) : ar.take<float>(ACT3);
+  float* B = ar.take<float>(ACT3);
+  float* xs = ar.take<float>(XT3);
+  Mask* m1 = ar.take<Mask>(W);                  // h1 > 0
+  Mask* m2 = ar.take<Mask>(W);                  // h2 > 0
+  float* rowv = ar.take<float>(4 * RT3);        // per row [dzo (3) | g_sdf]
+  Ring3 ring = ring_init<Ring3>(ar, wpack, NFWD3 + NBWD3);
+  const float* ws_sdf = wpack + SDF3;
+  __syncthreads();
+  const int tid = threadIdx.x;
+  float* slab = slabs + static_cast<long long>(blockIdx.x) * SG::n;
+  const long long ntiles = (N + RT3 - 1) / RT3;
+  const long long tile0 = static_cast<long long>(blockIdx.x) * tiles_per_block;
+  const long long tile1 = min(ntiles, tile0 + tiles_per_block);
+  if (tid == 0 && tile0 < tile1) issue(ring, 0, 0);
+  // the full form's recompute unrolls 4 k steps at a time: fully unrolled
+  // it took 1.06-1.14x as long at widths 384 and 512, dx-only 0.99-1.22x
+  // the other way (an H100 at 700 W, in turns, the mapping shape)
+  constexpr int UNROLL = FORM == 1 ? 4 : 0;
+  Fma3<W, UNROLL> f;
+  Fma3<SD, UNROLL> fs;
+  Tc<W, RT3> u;
+  Tc<SD, RT3> us;
+  Dx3 dxp;
+  // tile `tile` of operand `op` in the scratch (decoder_wgrad.cuh)
+  auto at = [&](int op, long long tile) {
+    return scratch + wg::offset_f32(op, tile, D, W, SD, RT3);
+  };
+  // thread 0: the (cols, RT3) tile at `src` in shared memory, finished (its
+  // writers fenced and past a barrier), to operand `op`'s place
+  auto store = [&](int op, long long tile, const float* src, int cols) {
+    wg::store(at(op, tile), src, 4 * cols * AP3);
+  };
+  // thread 0, before B's (or, in shared memory, A's) next write: the store
+  // of the tile's last contents has read it (at most the one store issued
+  // since may still read; none are of A's at width 1024)
+  constexpr int LAG = PARK3 ? 0 : 1;
+
+  for (long long tile = tile0; tile < tile1; ++tile) {
+    const bool first = tile == tile0, more = tile + 1 < tile1;
+    const long long row0 = tile * RT3;
+    const int nvalid = static_cast<int>(min(static_cast<long long>(RT3), N - row0));
+    float *h1 = A, *feat = A, *dfeat = A, *dh1 = A;
+    if constexpr (PARK3) {
+      if (wgrad) {
+        h1 = at(wg::H1, tile);
+        feat = at(wg::FEAT, tile);
+        dfeat = at(wg::DFEAT, tile);
+        dh1 = at(wg::DH1, tile);
+      }
+    }
+    __syncthreads();                // the last tile's readers
+    load_x<RT3>(xs, x, row0, nvalid);
+    if (tid < RT3) {
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (tid < nvalid)
+        v = __ldg(reinterpret_cast<const float4*>(g + (row0 + tid) * 4));
+      *reinterpret_cast<float4*>(rowv + 4 * tid) = v;   // [g_rgb | g_sdf]
+    }
+    if (wgrad) bulk::fence_proxy_async();
+    __syncthreads();
+    if (wgrad && tid == 0) store(wg::X, tile, xs, D);
+
+    // h1 = relu(x w1 + b1) -> A, its mask
+    f.zero();
+    x_mm(f, xs, nullptr, ring, more);
+    f.store(h1, p.b1, true, m1);
+    // h2 = relu(h1 w2 + b2) -> B, its mask
+    f.zero();
+    stream_mm(f, h1, NW3, ring, more);
+    f.store(B, p.b2, true, m2);
+    if (wgrad) {
+      bulk::fence_proxy_async();
+      __syncthreads();
+      if (tid == 0) {
+        if constexpr (!PARK3) store(wg::H1, tile, A, W);
+        store(wg::H2, tile, B, W);
+      }
+      // dws's sdf column h2^T g_sdf
+      for (int k = tid; k < W; k += THREADS) {
+        float s = 0.f;
+        for (int r = 0; r < RT3; ++r) s = fmaf(B[k * AP3 + r], rowv[4 * r + 3], s);
+        float* o = slab + SG::ws_sdf + k;
+        *o = first ? s : *o + s;
+      }
+    }
+    // feat = h2 ws[:, :SD] + bs[:SD] -> A (h1's store read before the first
+    // chunk's barrier)
+    if (!PARK3 && wgrad && tid == 0) wg::stored_read_but<1>();
+    fs.zero();
+    stream_mm(fs, B, NW3, ring, more);
+    fs.store(feat, p.bs, false, nullptr);
+    if (!PARK3 && wgrad) {
+      bulk::fence_proxy_async();
+      __syncthreads();
+      if (tid == 0) store(wg::FEAT, tile, A, SD);
+    }
+    // hc = relu(feat wc_f + x wc_x + bc) -> B (h2's store read and h2's
+    // readers before the first chunk's barrier)
+    if (wgrad && tid == 0) wg::stored_read_but<LAG>();
+    f.zero();
+    stream_mm(f, feat, NSD3, ring, more);
+    x_mm(f, xs, nullptr, ring, more);
+    f.store(B, p.bc, true, nullptr);
+    __syncthreads();
+
+    // dzo = g_rgb * rgb * (1 - rgb), per row (the partials in the ring's
+    // slot of hc's last chunk, free since the barrier above)
+    float* part = ring.slot + (ring.cur ^ 1) * CHUNK3;
+    row_partials3<3>(part, B, p.wo);
+    __syncthreads();
+    if (tid < RT3) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        float z = 0.f;
+#pragma unroll
+        for (int q = 0; q < NQ3; ++q) z += part[(3 * q + c) * RT3 + tid];
+        const float rgb = sigmoid(z + ldg(p.bo + c));
+        rowv[4 * tid + c] = rowv[4 * tid + c] * rgb * (1.f - rgb);
+      }
+    }
+    __syncthreads();
+    if (wgrad) {
+      // dwo[k][c] = sum_r hc[k][r] dzo[r][c]; dbo[c] = sum_r dzo[r][c]
+      for (int k = tid; k < W; k += THREADS) {
+        float s[3] = {0.f, 0.f, 0.f};
+        for (int r = 0; r < RT3; ++r) {
+          const float h = B[k * AP3 + r];
+#pragma unroll
+          for (int c = 0; c < 3; ++c) s[c] = fmaf(h, rowv[4 * r + c], s[c]);
+        }
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          float* o = slab + SG::wo + 3 * k + c;
+          *o = first ? s[c] : *o + s[c];
+        }
+      }
+      if (tid < 3) {
+        float s = 0.f;
+        for (int r = 0; r < RT3; ++r) s += rowv[4 * r + tid];
+        float* o = slab + SG::bo + tid;
+        *o = first ? s : *o + s;
+      }
+      __syncthreads();              // hc's readers are done
+    }
+    // dhc = (dzo wo^T) * (hc > 0), in place over hc (B)
+    for (int e = tid; e < W * (RT3 / 4); e += THREADS) {
+      const int k = e / (RT3 / 4), r4 = 4 * (e - k * (RT3 / 4));
+      const float w0 = ldg(p.wo + 3 * k), w1 = ldg(p.wo + 3 * k + 1),
+                  w2 = ldg(p.wo + 3 * k + 2);
+      float* h = B + k * AP3 + r4;
+      const float4 hv = *reinterpret_cast<const float4*>(h);
+      const float hh[4] = {hv.x, hv.y, hv.z, hv.w};
+      float d[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float* z = rowv + 4 * (r4 + i);
+        const float v = fmaf(z[2], w2, fmaf(z[1], w1, z[0] * w0));
+        d[i] = hh[i] > 0.f ? v : 0.f;
+      }
+      *reinterpret_cast<float4*>(h) = make_float4(d[0], d[1], d[2], d[3]);
+    }
+    if (wgrad) {
+      bulk::fence_proxy_async();
+      __syncthreads();
+      if (tid == 0) store(wg::DHC, tile, B, W);
+      col_sum<W, RT3>(slab + SG::bc, B, first);
+    }
+
+    // dx = dhc wc_x^T: every warp that holds dx tiles, on every K-slice
+    dxp.zero();
+    dxp.part(B, ring, more);
+    // dfeat = dhc wc_f^T -> A (feat's store read before the first chunk's
+    // barrier, feat's last readers before it)
+    if (!PARK3 && wgrad && tid == 0) wg::stored_read_but<1>();
+    us.zero();
+    stream_mm(us, B, NW3, ring, more);
+    tf::for_each_acc(us.acc, 0, us.n0(),
+                     [&](int r, int c, float& v) { dfeat[c * AP3 + r] = v; });
+    if (wgrad) {
+      bulk::fence_proxy_async();
+      __syncthreads();              // dfeat in place
+      if (tid == 0) {
+        if constexpr (!PARK3) store(wg::DFEAT, tile, A, SD);
+        float s = 0.f;              // dbs's sdf entry: sum_r g_sdf[r]
+        for (int r = 0; r < RT3; ++r) s += rowv[4 * r + 3];
+        float* o = slab + SG::bs + SD;
+        *o = first ? s : *o + s;
+      }
+      col_sum<SD, RT3>(slab + SG::bs, dfeat, first);
+    }
+    // dh2 = (dfeat ws[:, :SD]^T + g_sdf ws[:, SD]^T) * (h2 > 0) -> B (dhc's
+    // store read and dhc's last readers before the first chunk's barrier)
+    if (wgrad && tid == 0) wg::stored_read_but<LAG>();
+    u.zero();
+    stream_mm(u, dfeat, NSD3, ring, more);
+    tf::for_each_acc(u.acc, 0, u.n0(), [&](int r, int c, float& v) {
+      const float d = fmaf(rowv[4 * r + 3], ldg(ws_sdf + c), v);
+      B[c * AP3 + r] = (m2[c] >> r) & 1u ? d : 0.f;
+    });
+    if (wgrad) {
+      bulk::fence_proxy_async();
+      __syncthreads();              // dh2 in place
+      if (tid == 0) store(wg::DH2, tile, B, W);
+      col_sum<W, RT3>(slab + SG::b2, B, first);
+    }
+    // dh1 = (dh2 w2^T) * (h1 > 0) -> A (dfeat's store read and dfeat's last
+    // readers before the first chunk's barrier)
+    if (!PARK3 && wgrad && tid == 0) wg::stored_read_but<1>();
+    u.zero();
+    stream_mm(u, B, NW3, ring, more);
+    tf::for_each_acc(u.acc, 0, u.n0(), [&](int r, int c, float& v) {
+      dh1[c * AP3 + r] = (m1[c] >> r) & 1u ? v : 0.f;
+    });
+    if (wgrad) {
+      bulk::fence_proxy_async();
+      __syncthreads();              // dh1 in place
+      if (!PARK3 && tid == 0) store(wg::DH1, tile, A, W);
+      col_sum<W, RT3>(slab + SG::b1, dh1, first);
+    }
+    // dx += dh1 w1^T
+    dxp.part(dh1, ring, more);
+    dxp.write(dx, row0, nvalid);
+    // the tile's stores have read x, A and B, which the next tile overwrites
+    if (wgrad && tid == 0) wg::stored_read();
+  }
+  if (wgrad && tid == 0) wg::stored();
+}
+
+#else
+// K3-f32's pass 1 up to width 256: four (W, RT) tiles. FORM: 0 dx-only,
+// 1 full.
+template <int FORM>
+__global__ void __launch_bounds__(THREADS, 1)
+decoder_backward_f32_kernel(const float* __restrict__ x,
+                            const float* __restrict__ g, Params p,
+                            const float* wpack, float* __restrict__ dx,
+                            float* __restrict__ slabs,
+                            float* __restrict__ scratch, long long N,
+                            int tiles_per_block, int want_wgrad) {
+  const bool wgrad = FORM == 1;
+  extern __shared__ __align__(16) char smem[];
+  Arena ar{smem};
+  float* B0 = ar.take<float>(ACT);
+  float* B1 = ar.take<float>(ACT);
+  float* B2 = ar.take<float>(ACT);
   float* B3 = ar.take<float>(ACT);
   float* xs = ar.take<float>(XT);
   float* w1s = ar.take<float>(RES);
@@ -705,23 +1254,8 @@ decoder_backward_f32_kernel(const float* __restrict__ x,
     const bool first = tile == tile0, more = tile + 1 < tile1;
     const long long row0 = tile * RT;
     const int nvalid = static_cast<int>(min(static_cast<long long>(RT), N - row0));
-    // the tile's buffers: h1, h2 (later dh1) and feat (later dfeat); where
-    // one is parked (K3_TILES < 4) and the operands are stored, it lies in
-    // the scratch itself, at its operand's place
+    // the tile's buffers: h1, h2 (later dh1) and feat (later dfeat)
     float *h1 = B0, *h2 = B1, *dh1 = B1, *feat = B2, *dfeat = B2;
-    if constexpr (PARK) {
-      if (wgrad) {
-        if constexpr (K3_TILES <= 3) h1 = at(wg::H1, tile);
-        if constexpr (K3_TILES <= 2) {
-          h2 = at(wg::H2, tile);
-          dh1 = at(wg::DH1, tile);
-        }
-        if constexpr (K3_TILES <= 1) {
-          feat = at(wg::FEAT, tile);
-          dfeat = at(wg::DFEAT, tile);
-        }
-      }
-    }
     __syncthreads();                // the last tile's readers
     load_x(xs, x, row0, nvalid);
     if (tid < RT) {
@@ -751,9 +1285,9 @@ decoder_backward_f32_kernel(const float* __restrict__ x,
     if (wgrad) bulk::fence_proxy_async();
     __syncthreads();
     if (wgrad && tid == 0) {
-      if constexpr (K3_TILES > 3) store(wg::H1, tile, h1, W);
-      if constexpr (K3_TILES > 2) store(wg::H2, tile, h2, W);
-      if constexpr (K3_TILES > 1) store(wg::FEAT, tile, feat, SD);
+      store(wg::H1, tile, h1, W);
+      store(wg::H2, tile, h2, W);
+      store(wg::FEAT, tile, feat, SD);
     }
 
     // dzo = g_rgb * rgb * (1 - rgb), per row
@@ -835,8 +1369,7 @@ decoder_backward_f32_kernel(const float* __restrict__ x,
                      [&](int r, int c, float& v) { dfeat[c * AP + r] = v; });
     if (wgrad) bulk::fence_proxy_async();
     __syncthreads();                // dfeat in place
-    if (wgrad && tid == 0 && K3_TILES > 1)
-      store(wg::DFEAT, tile, dfeat, SD);
+    if (wgrad && tid == 0) store(wg::DFEAT, tile, dfeat, SD);
 
     // with dso = [dfeat | g_sdf]: dbs, and dws's sdf column h2^T g_sdf
     if (wgrad) {
@@ -880,7 +1413,7 @@ decoder_backward_f32_kernel(const float* __restrict__ x,
     });
     if (wgrad) bulk::fence_proxy_async();
     __syncthreads();                // dh1 in place
-    if (wgrad && tid == 0 && K3_TILES > 2) store(wg::DH1, tile, dh1, W);
+    if (wgrad && tid == 0) store(wg::DH1, tile, dh1, W);
 
     // db1; dx = dhc wc_x^T + dh1 w1^T
     if (wgrad) col_sum<W>(slab + SG::b1, dh1, first);
@@ -909,18 +1442,11 @@ decoder_backward_f32_kernel(const float* __restrict__ x,
     } else {
     dx_part(dxa, dh1, w1s, ring, more);
     const int w = tid >> 5;
-    if constexpr (RT == 32) {
-      if (w < D / 4)
-        tf::for_each_acc(dxa, 16 * (w & 1), 8 * (w >> 1),
-                         [&](int r, int c, float& v) {
-                           if (r < nvalid) dx[(row0 + r) * D + c] = v;
-                         });
-    } else {
-      if (w < D / 8)
-        tf::for_each_acc(dxa, 0, 8 * w, [&](int r, int c, float& v) {
-          if (r < nvalid) dx[(row0 + r) * D + c] = v;
-        });
-    }
+    if (w < D / 4)
+      tf::for_each_acc(dxa, 16 * (w & 1), 8 * (w >> 1),
+                       [&](int r, int c, float& v) {
+                         if (r < nvalid) dx[(row0 + r) * D + c] = v;
+                       });
     }
     // the tile's stores have read x, h1, dfeat, dh2 and dh1, which the next
     // tile overwrites
@@ -928,6 +1454,7 @@ decoder_backward_f32_kernel(const float* __restrict__ x,
   }
   if (wgrad && tid == 0) wg::stored();
 }
+#endif
 
 }  // namespace
 
@@ -952,9 +1479,10 @@ extern "C" int decoder_forward_f32(const float* x, const void* const* params,
 
 // K3-f32's pass 1: dx (N, D); when want_wgrad the small gradients' slabs
 // (P, wg::small(W, SD).n) and the f32 operands of the large ones in
-// `scratch` (decoder_wgrad.cuh's f32 layout, RT-row tiles); wpack: as
-// K2-f32's. P blocks each take tiles_per_block tiles of RT rows. Returns
-// cudaGetLastError() after the launches (0 = launched).
+// `scratch` (decoder_wgrad.cuh's f32 layout, tiles of its height: RT up to
+// width 256, RT3 above); wpack: as K2-f32's. P blocks each take
+// tiles_per_block tiles. Returns cudaGetLastError() after the launches (0 =
+// launched).
 extern "C" int decoder_backward_f32(const float* x, const float* g,
                                     const void* const* params, void* wpack,
                                     float* dx, float* slab, float* scratch,
@@ -971,10 +1499,38 @@ extern "C" int decoder_backward_f32(const float* x, const float* g,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, K3F_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   const Params prm = params_from(params);
+#if DEC_W > 256
+  pack_k3_kernel<<<((NFWD3 + NBWD3) * CHUNK3 + W + 255) / 256, 256, 0,
+                   stream>>>(prm, static_cast<float*>(wpack));
+  err = cudaGetLastError();
+#else
   err = pack_weights(prm, static_cast<float*>(wpack), NFWD + NBWD, stream);
+#endif
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<P, THREADS, K3F_SMEM, stream>>>(
       x, g, prm, static_cast<const float*>(wpack), dx, slab, scratch, N,
       tiles_per_block, want_wgrad);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The plan's layout: out[0] K3-f32's tile rows, out[1] its block's
+// shared-memory bytes, out[2] the floats of the packed-weight scratch that
+// `blocks` persistent blocks of either kernel need: the chunks and ws's sdf
+// column of K2-f32's and K3-f32's layouts, K2-f32's parked tiles (width
+// 1024: one a block, PARK_F32 tiles apart) and K3-f32's tile A there (one a
+// block, after its layout). Returns 0.
+extern "C" int decoder_f32_layout(int blocks, long long* out) {
+  long long n = PACKED;
+  if (K2_TILES < 2) n += (static_cast<long long>(blocks - 1) * PARK_F32 + 1) * ACT;
+#if DEC_W > 256
+  const long long k3 =
+      PACKED3 + (PARK3 ? static_cast<long long>(blocks) * ACT3 : 0);
+  if (k3 > n) n = k3;
+  out[0] = RT3;
+#else
+  out[0] = RT;
+#endif
+  out[1] = K3F_SMEM;
+  out[2] = n;
+  return 0;
 }

@@ -62,9 +62,10 @@ from proudslam_tpu_torch.ops.kernels import build
 
 # rows of the kernels' tiles
 TILE_ROWS = 64
-# rows of the streamed f32 kernels' tiles (mlp_stream_f32.cu), whose four
+# rows of the streamed f32 kernels' tiles (mlp_stream_f32.cu): K3-f32's four
 # f32 activation tiles of width 256 fit a block only at this height, and
-# at the widths above 256 (the `mma.sync` minimum)
+# so do its two of width 384 and 512; K2-f32's at the widths above 256 and
+# K3-f32's at 768 and 1024 (the `mma.sync` minimum)
 STREAM_F32_ROWS = 32
 WIDE_F32_ROWS = 16
 
@@ -77,10 +78,12 @@ WIDE_F32_ROWS = 16
 # (render_kernel.cu, mlp_kernel.cu; mlp_kernel_f32.cu stages them through
 # one buffer); every other size up to width 256 streams the large ones from
 # L2 (render_stream.cu, mlp_stream.cu, mlp_stream_f32.cu), and the wide
-# sizes stream all five (render_wide.cu, mlp_wide.cu; mlp_stream_f32.cu at
-# WIDE_F32_ROWS-row tiles). At in_dim 64 the streamed K3 streams w1 and
-# wc_x too, and K1 blends a sample's corners in passes where its whole row
-# does not fit the gather buffer (render_gather.cuh). In_dim 128 is built
+# sizes stream all five (render_wide.cu, mlp_wide.cu; mlp_stream_f32.cu:
+# K2-f32 at WIDE_F32_ROWS-row tiles, K3-f32 at two live tiles of
+# STREAM_F32_ROWS rows, WIDE_F32_ROWS at widths 768 and 1024). At in_dim 64
+# the streamed K3 streams w1 and wc_x too, and K1 blends a sample's corners
+# in passes where its whole row does not fit the gather buffer
+# (render_gather.cuh). In_dim 128 is built
 # at five sizes only (D128_SIZES), to which every in_dim from 65 up is
 # padded; the bf16 forms run the wide plan there at every width
 # (:func:`wide_plan`), which takes w1 and wc_x in chunks of 64 input rows.
@@ -111,9 +114,10 @@ FORMS = ("K1", "K2", "K3", "K2-f32", "K3-f32")
 # takes
 MAX_IN_DIM, MAX_WIDTH = BUILT_IN_DIMS[-1], PARK_SIZES[-1][1]
 # the parked plan's (TILE_ROWS, width) bf16 tiles a block parks in global
-# memory (K3's four; K1 and K2 park one), and the most of the f32 forms'
-# (WIDE_F32_ROWS, width) tiles that lie there (mlp_stream_f32.cu)
-PARK_TILES, PARK_F32_TILES = 4, 3
+# memory (K3's four; K1 and K2 park one), and the stride in (WIDE_F32_ROWS,
+# width) f32 tiles of K2-f32's blocks' parks at width 1024
+# (mlp_stream_f32.cu's PARK_F32)
+PARK_TILES, K2_F32_PARK_STRIDE = 4, 3
 
 
 class FusedParams(NamedTuple):
@@ -317,8 +321,9 @@ def _operand_cols(size: Tuple[int, int, int]) -> Tuple[int, ...]:
 def wgrad_tile_rows(size: Tuple[int, int, int], bf16: bool = True) -> int:
     """Rows of the tiles pass 1 stores: K3's 64; K3-f32's its plan's tile
     height (64 at (16, 128, 128), mlp_stream_f32.cu's 32 or 16 elsewhere:
-    :func:`f32_tile_rows`)."""
-    return TILE_ROWS if bf16 or not streamed(size) else f32_tile_rows(size)
+    :func:`backward_f32_tile_rows`)."""
+    return (TILE_ROWS if bf16 or not streamed(size)
+            else backward_f32_tile_rows(size))
 
 
 def _check_layout(tile_rows: int, bf16: bool) -> None:
@@ -587,8 +592,8 @@ def _covering(d: int, w: int, sd: int) -> Tuple[int, int, int]:
 
 
 def wide(size: Tuple[int, int, int]) -> bool:
-    """True at the built sizes of width 384 and 512 (the bf16 forms' wide
-    plan, the f32 forms' 16-row tiles)."""
+    """True at the built sizes of width above 256 (the bf16 forms' wide
+    plan, K2-f32's 16-row tiles, K3-f32's two live tiles)."""
     return size[1] > 256
 
 
@@ -603,9 +608,10 @@ def wide_plan(size: Tuple[int, int, int]) -> bool:
 def parked(size: Tuple[int, int, int]) -> bool:
     """True at the built sizes of width 768 and 1024, where the kernels
     park activation tiles in global memory: the bf16 forms run the parked
-    plan (decoder_park.cuh: one (64, width) tile in shared memory), the
-    f32 forms keep as many of their 16-row tiles in shared memory as fit
-    (mlp_stream_f32.cu)."""
+    plan (decoder_park.cuh: one (64, width) tile in shared memory), K2-f32
+    keeps one of its two 16-row tiles in shared memory at width 1024 and
+    K3-f32 one of its two (mlp_stream_f32.cu); at width 768 both keep
+    theirs in shared memory."""
     return size[1] > WIDE_WIDTHS[-1]
 
 
@@ -703,8 +709,15 @@ def streamed(size: Tuple[int, int, int]) -> bool:
 
 
 def f32_tile_rows(size: Tuple[int, int, int]) -> int:
-    """Rows of mlp_stream_f32.cu's tiles at a streamed size."""
+    """Rows of mlp_stream_f32.cu's K2-f32 tiles at a streamed size."""
     return WIDE_F32_ROWS if wide(size) else STREAM_F32_ROWS
+
+
+def backward_f32_tile_rows(size: Tuple[int, int, int]) -> int:
+    """Rows of mlp_stream_f32.cu's K3-f32 tiles at a streamed size: 32, and
+    16 at the :func:`parked` sizes, where two 32-row tiles of width 768
+    would not fit a block beside the ring."""
+    return WIDE_F32_ROWS if parked(size) else STREAM_F32_ROWS
 
 
 def bf16_source(base: str, size: Tuple[int, int, int]) -> str:
@@ -740,21 +753,69 @@ def packed_weights(size: Tuple[int, int, int], device) -> torch.Tensor:
     return torch.empty((n,), dtype=torch.bfloat16, device=device)
 
 
-def packed_f32_weights(size: Tuple[int, int, int], device) -> torch.Tensor:
-    """Scratch for mlp_stream_f32.cu's packed chunks: w2, ws's feature part
-    and wc_f, then their transposes, 16 rows a chunk (8 at the wide sizes)
-    at row stride W + 4, and ws's sdf column; at in_dim 32 to 128 and at
-    the wide sizes also w1 and wc_x, twice each (the forward's x-side
-    products and dx); at the :func:`parked` sizes then
-    :data:`PARK_F32_TILES` activation tiles (width x 20 floats) a block."""
+def backward_f32_chunk_rows(size: Tuple[int, int, int]) -> int:
+    """Weight rows of a ring chunk of mlp_stream_f32.cu's K3-f32 at the
+    wide sizes (CR3): 16 where a block holds two such slots beside its two
+    tiles (tile A parked at width 1024), the input tile, the masks (a word
+    of tile-height bits a column each) and the row vectors, else 8,
+    K2-f32's."""
+    d, w, _ = size
+    rt = backward_f32_tile_rows(size)
+    rest = (4 * ((1 if w > 768 else 2) * w * (rt + 4) + d * (rt + 4) + 4 * rt)
+            + 2 * w * rt // 8 + 16)
+    return 16 if rest + 2 * 16 * (w + 4) * 4 <= 232448 else 8
+
+
+def backward_f32_x_slice_rows(size: Tuple[int, int, int]) -> int:
+    """Rows of the K-slices (of wc_x^T and w1^T, at row stride in_dim + 4)
+    in which K3-f32's dx takes its x-side products at the wide sizes: the
+    most, a power of two from 8 to 256 dividing the width, that a ring
+    chunk holds (mlp_stream_f32.cu's KX)."""
+    d, w, _ = size
+    k = 256
+    while k > 8 and (k * (d + 4) > backward_f32_chunk_rows(size) * (w + 4)
+                     or w % k):
+        k //= 2
+    return k
+
+
+def packed_f32_floats(size: Tuple[int, int, int], blocks: int) -> int:
+    """Floats of mlp_stream_f32.cu's packed-weight scratch for ``blocks``
+    blocks (its ``decoder_f32_layout``): the chunks of w2, ws's
+    feature part and wc_f, then of their transposes (16 weight rows a chunk,
+    8 at the wide sizes, row stride width + 4), and ws's sdf column; at
+    in_dim 32 to 128 and at the wide sizes w1 and wc_x too, twice each.
+    At the wide sizes K3-f32 has a layout of its own, in chunks of
+    :func:`backward_f32_chunk_rows` rows: the forward's, then wc_x^T and
+    w1^T as K-slices of :func:`backward_f32_x_slice_rows` rows (a chunk
+    each) beside the other transposes, and its sdf column; the larger
+    layout counts. At width 1024 each block's parked tile (width x 20
+    floats) comes after: K2-f32's :data:`K2_F32_PARK_STRIDE` tiles apart
+    after the first layout, K3-f32's tile A after its own."""
     d, w, sd = size
-    rows = 2 * (2 * w + sd) + (4 * d if d > BUILT_IN_DIMS[0] or wide(size)
-                               else 0)
-    n = rows * (w + 4) + w
-    if parked(size):
-        sms = torch.cuda.get_device_properties(device).multi_processor_count
-        n += sms * PARK_F32_TILES * w * (WIDE_F32_ROWS + 4)
-    return torch.empty((n,), dtype=torch.float32, device=device)
+    cr = 8 if wide(size) else 16
+    xs = d // cr if d > BUILT_IN_DIMS[0] or wide(size) else 0
+    nfwd = 2 * xs + (2 * w + sd) // cr        # the backward's count too
+    tile = w * (WIDE_F32_ROWS + 4)
+    n = 2 * nfwd * cr * (w + 4) + w
+    if w > 768:
+        n += ((blocks - 1) * K2_F32_PARK_STRIDE + 1) * tile
+    if wide(size):
+        cr3 = backward_f32_chunk_rows(size)
+        nxt = w // backward_f32_x_slice_rows(size)
+        k3 = (2 * d // cr3 + 2 * nxt + 2 * (2 * w + sd) // cr3) * cr3 * (
+            w + 4) + w
+        n = max(n, k3 + (blocks * tile if w > 768 else 0))
+    return n
+
+
+def packed_f32_weights(size: Tuple[int, int, int], device) -> torch.Tensor:
+    """Scratch for mlp_stream_f32.cu's packed chunks and parks
+    (:func:`packed_f32_floats`) for one block on each of the device's
+    SMs."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return torch.empty((packed_f32_floats(size, sms),), dtype=torch.float32,
+                       device=device)
 
 
 def _bf16_library(size, device):
@@ -772,8 +833,15 @@ def _f32_library(size, device):
     passed as pointers after the params: the streamed plan's packed
     weights, none for the resident plan (mlp_kernel_f32.cu)."""
     if streamed(size):
-        return (build.load("mlp_stream_f32", _bind_stream_f32, size),
-                [packed_f32_weights(size, device)])
+        lib = build.load("mlp_stream_f32", _bind_stream_f32, size)
+        packed = packed_f32_weights(size, device)
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        need = _f32_layout(lib, sms)[2]
+        if packed.numel() < need:
+            raise RuntimeError(f"mlp_stream_f32 at {size}: packed weights of "
+                               f"{packed.numel()} floats, the library "
+                               f"needs {need}")
+        return lib, [packed]
     return build.load("mlp_kernel_f32", _bind_f32), []
 
 
@@ -937,7 +1005,8 @@ def _k3_partition(size, rows: int, sms: int, bf16: bool) -> Tuple[int, int]:
     """Pass 1's blocks and tiles per block for ``rows`` rows."""
     if bf16 or not streamed(size):
         return backward_partition(rows, sms)
-    return backward_f32_stream_partition(rows, sms, f32_tile_rows(size))
+    return backward_f32_stream_partition(rows, sms,
+                                         backward_f32_tile_rows(size))
 
 
 def _k3(x, g, fp, size, dx, dflat, sms: int, stream: int,
@@ -1104,7 +1173,27 @@ def _bind_f32(lib) -> None:
 
 
 def _bind_stream_f32(lib) -> None:
+    import ctypes
     _argtypes(lib, "decoder_forward_f32", "decoder_backward_f32", wpack=True)
+    lib.decoder_f32_layout.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    lib.decoder_f32_layout.restype = ctypes.c_int
+
+
+def _f32_layout(lib, blocks: int) -> Tuple[int, int, int]:
+    """mlp_stream_f32.cu's ``decoder_f32_layout``: (K3-f32's tile rows, its
+    block's shared-memory bytes, the packed-weight floats ``blocks`` blocks
+    need)."""
+    import ctypes
+    out = (ctypes.c_longlong * 3)()
+    build.check(lib.decoder_f32_layout(blocks, out), "decoder_f32_layout")
+    return out[0], out[1], out[2]
+
+
+def backward_f32_layout(size: Tuple[int, int, int]) -> Tuple[int, int]:
+    """K3-f32's pass 1 at a streamed built ``size``, as its library reports
+    it: (tile rows, a block's shared-memory bytes). Builds the library."""
+    return _f32_layout(build.load("mlp_stream_f32", _bind_stream_f32, size),
+                       1)[:2]
 
 
 def _bind_wgrad(lib) -> None:

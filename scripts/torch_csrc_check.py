@@ -59,7 +59,7 @@ inline float __fdiv_rn(float a, float b) { return a / b; }
 inline float __uint_as_float(unsigned u) { float f; std::memcpy(&f, &u, 4); return f; }
 inline unsigned __float_as_uint(float f) { unsigned u; std::memcpy(&u, &f, 4); return u; }
 template <class T> inline T __ldg(const T* p) { return *p; }
-inline float __shfl_xor_sync(unsigned, float v, int) { return v; }
+template <class T> inline T __shfl_xor_sync(unsigned, T v, int) { return v; }
 inline size_t __cvta_generic_to_shared(const void* p) { return (size_t)p; }
 using std::max;
 using std::min;
@@ -100,7 +100,7 @@ CONSTANTS = {
     "render_park": ["SMEM"],
     "mlp_stream": ["K2_SMEM", "K3_SMEM"], "mlp_wide": ["K2_SMEM", "K3_SMEM"],
     "mlp_park": ["K2_SMEM", "K3_SMEM"],
-    "mlp_stream_f32": ["K2F_SMEM", "K3F_SMEM", "K2_TILES", "K3_TILES"],
+    "mlp_stream_f32": ["K2F_SMEM", "K3F_SMEM", "K2_TILES"],
     "mlp_wgrad": ["SMEM"],
 }
 

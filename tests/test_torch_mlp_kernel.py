@@ -341,6 +341,9 @@ def test_kernel_sizes_refused():
         "mlp_stream", "mlp_wide", "mlp_wide", "mlp_park", "mlp_park"]
     assert tmk.f32_tile_rows((128, 256, 128)) == tmk.STREAM_F32_ROWS
     assert tmk.f32_tile_rows((16, 1024, 1024)) == tmk.WIDE_F32_ROWS
+    # K3-f32's own height: its two live tiles take 32 rows up to width 512
+    assert tmk.backward_f32_tile_rows((16, 512, 512)) == tmk.STREAM_F32_ROWS
+    assert tmk.backward_f32_tile_rows((16, 1024, 1024)) == tmk.WIDE_F32_ROWS
     assert [s for s in tmk.BUILT_SIZES if s[0] == 64] == [
         (64, w, sd) for w, sd in [s[1:] for s in tmk.BUILT_SIZES
                                   if s[0] == 16 and not tmk.parked(s)]]
@@ -458,6 +461,68 @@ def test_built_size(size, built):
     always built."""
     assert tmk.built_size(size) == built
     assert built in tmk.BUILT_SIZES
+
+
+@pytest.mark.parametrize("size", tmk.BUILT_SIZES,
+                         ids=["x".join(map(str, s)) for s in tmk.BUILT_SIZES])
+def test_f32_tile_heights(size):
+    """mlp_stream_f32.cu's tile heights: K3-f32's two live tiles have 32
+    rows at every built size of width 384 and 512 (as its four do up to
+    width 256) and 16 at widths 768 and 1024; K2-f32's tiles keep 16 rows
+    at every width above 256; (16, 128, 128) is mlp_kernel_f32.cu's 64-row
+    plan."""
+    k3 = tmk.wgrad_tile_rows(size, bf16=False)
+    if size == (16, 128, 128):
+        assert k3 == tmk.TILE_ROWS
+        return
+    assert k3 == tmk.backward_f32_tile_rows(size) == (
+        16 if size[1] > 512 else 32)
+    assert tmk.f32_tile_rows(size) == (16 if size[1] > 256 else 32)
+
+
+@pytest.mark.parametrize("size,n_rows,want", [
+    ((16, 384, 128), 327680, (132, 78)),
+    ((128, 512, 256), 65536, (128, 16)),
+    ((16, 512, 256), 1000, (32, 1)),
+    ((16, 768, 256), 327680, (132, 156)),
+    ((128, 1024, 1024), 65536 - 37, (128, 32))])
+def test_f32_wide_backward_partition(size, n_rows, want):
+    """K3-f32's pass 1 at the wide sizes splits its rows into tiles of its
+    own height (32 rows at widths 384 and 512, 16 at 768 and 1024): at most
+    one block per SM, each a run of whole tiles, the last ragged."""
+    assert tmk._k3_partition(size, n_rows, 132, bf16=False) == want
+    rows = tmk.backward_f32_tile_rows(size)
+    assert tmk.backward_f32_stream_partition(n_rows, 132, rows) == want
+    blocks, per = want
+    assert (blocks - 1) * per < -(-n_rows // rows) <= blocks * per
+
+
+@pytest.mark.parametrize("size,floats", [
+    # up to width 256 one layout: 2 (2 W + SD) weight rows at stride W + 4
+    # and ws's sdf column
+    ((16, 256, 128), 1280 * 260 + 256),
+    # K3-f32's: 98 forward chunks of 16 x 516 floats (w1 and wc_x one
+    # each), 100 backward ones (wc_x^T and w1^T as two K-slices of 256
+    # rows each), the column
+    ((16, 512, 512), (98 + 100) * 16 * 516 + 512),
+    # no parked tile at width 768: chunks of 8 rows there, K-slices of 32
+    # rows, 24 a weight
+    ((128, 768, 768), (320 + 336) * 8 * 772 + 768),
+    # width 1024: K2-f32's layout and its parks (one tile of 1024 x 20 a
+    # block, three tiles apart) are the larger
+    ((16, 1024, 1024), 776 * 8 * 1028 + 1024 + (131 * 3 + 1) * 1024 * 20)])
+def test_f32_packed_floats(size, floats):
+    """The packed-weight scratch mlp_stream_f32.cu's two kernels need on
+    132 SMs: the larger of K2-f32's layout (with its parks at width 1024)
+    and, at the wide sizes, K3-f32's (chunks of 16 weight rows where its
+    block has room, dx's x-side weights as K-slices, its tile A parked at
+    width 1024, none at 768)."""
+    assert tmk.packed_f32_floats(size, 132) == floats
+    if size[1] == 1024:
+        k3 = (194 + 200) * 16 * 1028 + 1024 + 132 * 1024 * 20
+        assert tmk.backward_f32_chunk_rows(size) == 16
+        assert tmk.backward_f32_x_slice_rows(size) == 256
+        assert k3 < floats
 
 
 @pytest.mark.parametrize("sms", [132, 7, 1])

@@ -279,16 +279,84 @@ def test_f32_scratch_bytes(size, rows, nbytes):
 
 def test_f32_tile_rows():
     """K3-f32's stored tiles have its plan's height: 64 rows at (16, 128,
-    128), 32 at the streamed sizes up to width 256, 16 above; K3's 64."""
+    128), 32 at the streamed sizes up to width 512, 16 above; K3's 64."""
     for size in tmk.BUILT_SIZES:
         assert tmk.wgrad_tile_rows(size) == 64
         want = (64 if size == (16, 128, 128)
-                else 16 if size[1] > 256 else 32)
+                else 16 if size[1] > 512 else 32)
         assert tmk.wgrad_tile_rows(size, False) == want
     with pytest.raises(ValueError):
         tmk.wgrad_scratch_bytes((16, 64, 64), 10, 32)      # bf16: 64 rows
     with pytest.raises(ValueError):
         tmk.wgrad_scratch_bytes((16, 64, 64), 10, 24, bf16=False)
+
+
+def _f32_operands(rng, size, rows):
+    cols = (size[0], *(size[1],) * 2, size[2], size[1], size[2],
+            *(size[1],) * 2)
+    return cols, tmk.WgradOperands(*[
+        t(rng.standard_normal((rows, c)).astype(np.float32)) for c in cols])
+
+
+@pytest.mark.parametrize("size", [(16, 384, 128), (128, 512, 256)])
+def test_f32_wide_scratch_round_trip(size):
+    """At widths 384 and 512 K3-f32 stores 32-row f32 tiles: on 150 rows
+    (five tiles, the last ragged) the scratch holds 5 x 36 floats a column
+    of the eight operands, as wgrad_scratch_bytes counts, and
+    unpack_operands inverts pack_operands exactly."""
+    rows = tmk.wgrad_tile_rows(size, False)
+    assert rows == 32
+    cols, ops = _f32_operands(np.random.default_rng(5), size, 150)
+    scratch = tmk.pack_operands(ops, rows, bf16=False)
+    assert scratch.numel() * 4 == tmk.wgrad_scratch_bytes(
+        size, 150, rows, False) == 4 * 5 * 36 * sum(cols)
+    back = tmk.unpack_operands(scratch, size, 150, rows, bf16=False)
+    assert all(torch.equal(a, b) for a, b in zip(ops, back))
+
+
+def test_f32_wide_passes_plain():
+    """K3-f32's two passes at (16, 384, 128) in its 32-row tiles, on 333
+    rows (no multiple of 32): the plain operands of pass 1
+    (``decoder_bwd_operands_plain``) through the scratch and back, pass
+    2's plain version (``decoder_wgrad_plain``) over several chunks and
+    splits, and the reduce's (``wgrad_reduce_plain``) with the small
+    gradients in two slabs, give all 11 of ``decoder_bwd_plain``'s f32
+    gradients within 1e-5 of each one's largest magnitude. Params and
+    inputs from numpy with a seed."""
+    size, n = (16, 384, 128), 333
+    rng = np.random.default_rng(11)
+    fp = tmk.FusedParams(*[
+        t((rng.standard_normal(s) / (np.sqrt(s[0]) if s[0] > 1 else 10.0))
+          .astype(np.float32)) for s in tmk.param_shapes(size)])
+    x = t(rng.standard_normal((n, size[0])).astype(np.float32))
+    g = t(rng.standard_normal((n, 4)).astype(np.float32))
+    _, want = tmk.decoder_bwd_plain(x, g, fp, bf16=False)
+    rows = tmk.wgrad_tile_rows(size, False)
+    ops = tmk.unpack_operands(
+        tmk.pack_operands(tmk.decoder_bwd_operands_plain(x, g, fp, False),
+                          rows, bf16=False), size, n, rows, bf16=False)
+    plan = tmk.wgrad_plan(size, n, 7, cap=_cap(size, 128, False),
+                          bf16=False)
+    assert len(tmk.wgrad_chunks(plan, size, n, False)) > 1
+    large = dict(zip(("w1", "w2", "ws", "wc_f", "wc_x"),
+                     tmk.decoder_wgrad_plain(ops, size, plan)))
+    part = torch.cat([(large[name].T if name in ("w1", "wc_x")
+                       else large[name]).flatten()
+                      for name, *_ in tmk.wgrad_jobs(size)])
+    lay = tmk.small_grad_layout(size)
+    d, w, sd = size
+    slab = torch.zeros(lay["n"])
+    for name, k in (("b1", w), ("b2", w), ("bs", sd + 1), ("bc", w),
+                    ("bo", 3)):
+        slab[lay[name]:lay[name] + k] = getattr(want, name)[0]
+    slab[lay["wo"]:lay["wo"] + 3 * w] = want.wo.flatten()
+    slab[lay["ws_sdf"]:lay["ws_sdf"] + w] = want.ws[:, sd]
+    got = tmk.wgrad_reduce_plain(part[None],
+                                 torch.stack([0.25 * slab, 0.75 * slab]),
+                                 size)
+    for name, a, b in zip(tmk.FusedParams._fields, got, want):
+        assert a.shape == b.shape, name
+        assert_close_scaled(a, b, 1e-5, name)
 
 
 @pytest.mark.parametrize("tile_rows", [64, 32, 16])
