@@ -158,7 +158,7 @@ last line is printed):
    same at (32, 256, 128) (PointNet's output width follows in_dim): only
    K2-f32 and K3-f32 launched, the same bounds and checks; then
    pcd-f32-w512, the same at (16, 512, 256) (the wide f32 plan: K2-f32's
-   16-row tiles, K3-f32's two live 32-row tiles), the same launches, bound
+   and K3-f32's two live 32-row tiles), the same launches, bound
    and checks; then pcd-f32-d64, the
    same at (64, 256, 128), the same launches, bound and checks; then
    pcd-f32-d128, the same at (128, 256, 128), the same launches, bound and
@@ -2118,7 +2118,11 @@ def wgrad_check(device, x, g, fp0, bf16=True) -> dict:
     and 16-row tiles and its parked tile A; that size's ``init_decoder``
     params, ``fp0`` at (16, 128, 128)) with the wrapper's splits -> {size
     tag: rows, splits, each output's error over its largest magnitude, the
-    largest absolute error}; raises past TOL_WGRAD (TOL_WGRAD_F32)."""
+    largest absolute error}; raises past TOL_WGRAD (TOL_WGRAD_F32). For
+    K3 (``bf16``) also against the five products summed in float64 from
+    the same operands: pass 2's error and ``decoder_wgrad_plain``'s,
+    logged at every size and pass 2's held at TOL_WGRAD at (16, 128, 128)
+    and at the size whose splits sum the longest runs of rows."""
     import torch
 
     from proudslam_tpu_torch.ops.kernels import mlp_kernel as mk
@@ -2126,6 +2130,10 @@ def wgrad_check(device, x, g, fp0, bf16=True) -> dict:
     sms = _sms(device)
     tol = TOL_WGRAD if bf16 else TOL_WGRAD_F32
     pass2 = _pass2_name(bf16)
+    runs = {size: mk.wgrad_splits(size, mk.wgrad_plan(
+        size, x.shape[0], sms, bf16=bf16).chunk_rows, sms, bf16)[1]
+        for size in WGRAD_SIZES}
+    held_f64 = {(16, 128, 128), max(runs, key=runs.get)}
     out = {}
     for size in WGRAD_SIZES:
         n = mk.wgrad_plan(size, x.shape[0], sms, bf16=bf16).chunk_rows
@@ -2150,20 +2158,36 @@ def wgrad_check(device, x, g, fp0, bf16=True) -> dict:
         want = mk.decoder_wgrad_plain(ops, size, mk.WgradPlan(
             n, mk.wgrad_tiles(size, bf16), splits, per, sms))
         torch.cuda.synchronize()
-        rel, worst = {}, 0.0
-        for name, w in zip(("w1", "w2", "ws", "wc_f", "wc_x"), want):
-            a = got[name][:, :size[2]] if name == "ws" else got[name]
-            e = (a - w).abs().max().item()
-            worst = max(worst, e)
-            rel[name] = float(f"{e / max(w.abs().max().item(), 1e-30):.3e}")
+        names = ("w1", "w2", "ws", "wc_f", "wc_x")
+        got = [got[k][:, :size[2]] if k == "ws" else got[k] for k in names]
+
+        def rel_to(ref, outs):
+            rel = {}
+            for k, a, w in zip(names, outs, ref):
+                e = (a.double() - w).abs().max().item()
+                rel[k] = float(f"{e / max(w.abs().max().item(), 1e-30):.3e}")
+            return rel
+        rel = rel_to(want, got)
+        worst = max((a - w).abs().max().item() for a, w in zip(got, want))
         st = dict(rows=n, splits=splits, per_split=per, rel_err=rel,
                   max_abs_err=worst)
+        if bf16:
+            exact = mk.decoder_wgrad_plain(
+                mk.WgradOperands(*[t.double() for t in ops]), size)
+            st["rel_err_f64"] = rel_to(exact, got)
+            st["plain_rel_err_f64"] = rel_to(exact, want)
         log(f"{pass2} at {size} on identical operands: "
             + json.dumps(st) + f" (tol {tol} of each output's "
-            "largest magnitude)")
+            "largest magnitude" + (", against float64 too at "
+                                   f"{sorted(held_f64)}" if bf16 else "")
+            + ")")
         if not max(rel.values()) <= tol:
             raise AssertionError(f"{pass2} at {size} disagrees with "
                                  "decoder_wgrad_plain")
+        if bf16 and size in held_f64 and not max(
+                st["rel_err_f64"].values()) <= tol:
+            raise AssertionError(f"{pass2} at {size} disagrees with the "
+                                 "float64 products")
         out[_size_tag(size)] = st
         del ops
     return out

@@ -57,13 +57,10 @@
 //     weight: the same product, the same warp tiling, every warp busy;
 //   - the 8 warps split each row x column product by its columns (32 rows
 //     x N / 8 columns a warp).
-// At the wide sizes (widths 384 to 1024) K2-f32 keeps two tiles of RT =
-// 16 rows (the `mma.sync` minimum; AP = 20, still conflict-free), w1 and
-// wc_x stream at either in_dim, and the ring's chunks have 8 weight rows.
-// Each warp then takes 16 rows x N / 8 columns and a row's partial dots
-// are 16. And there K2-f32's h1 and h2 products run on the FP32 units,
-// as K3-f32's recompute: the sdf column is a dot of the W values of h2
-// whose terms can nearly cancel, and with 3xTF32's h1 and h2 (each product
+// At the wide sizes (widths 384 to 1024) w1 and wc_x stream at either
+// in_dim, and K2-f32's h1 and h2 products run on the FP32 units, as
+// K3-f32's recompute: the sdf column is a dot of the W values of h2 whose
+// terms can nearly cancel, and with 3xTF32's h1 and h2 (each product
 // within ~2^-21 of the true one, a few times f32's rounding) K2-f32's sdf
 // was 1.9e-5 of its largest magnitude from the float64 forward at (32,
 // 512, 384) on the pcd features, the f32 plain version 3.6e-6 (an H100,
@@ -71,11 +68,20 @@
 // in_dim 48 zero-padded to (64, 256, 128), 3xTF32's h1 and h2 put K2-f32's
 // sdf 1.04e-5 from the float64 forward (the plain version 6.8e-6; an H100,
 // 700 W); the older sizes keep their 3xTF32 h1 and h2. In_dim 128 keeps
-// FFMA_H. At widths 768 and 1024 (PARK) not even K2-f32's two 16-row tiles
-// fit beside the ring at width 1024 (243,984 bytes at (128, 1024, *)):
-// there its second tile lies in a per-block park in global memory after
-// the packed weights, read and written by the same plain loads and stores
-// as a tile in shared memory, through L1 and L2.
+// FFMA_H.
+// Both kernels at the wide sizes keep two live f32 tiles of RT3 rows and
+// take their ring's chunks from one packed layout (pack_k3_kernel; K2-f32
+// packs and reads only the forward's chunks). K2-f32's A holds h1, then
+// feat, and B h2, then hc; its h1 and h2 are Fma3 products (below), feat
+// and hc 3xTF32 ones, the sdf column and the color logits 16 partial dots
+// a row (row_partials3), each sum the 16-row plan's term for term, so its
+// output is the same bit for bit. Its sdf partials, written while ws's
+// chunks stream, take a place of their own, its color partials the ring's
+// free slot. At width 1024 its tile B lies in park3's place: there h1
+// stays in shared memory for h2's FFMA product, the largest, and h2 and hc
+// are read through L1 by the 3xTF32 products and the partial dots
+// (parking B took 0.945-0.951 of parking A's time at the three sizes of
+// width 1024 at the mapping shape, an H100 at 700 W).
 // K3-f32 at the wide sizes keeps only two live f32 tiles (RT3 rows): A
 // holds h1, then feat, dfeat, dh1, and B h2, then hc (dhc in place), dh2,
 // each written over one that no later step reads. Its backward reads h1
@@ -122,12 +128,10 @@ namespace {
 using SG = wg::SmallAt<W, SD>;
 constexpr int THREADS = 256;
 constexpr int NWARP = THREADS / 32;
-// widths above 256 (the wide sizes): 16-row tiles (K3-f32: RT3) and 8-row
-// chunks
-constexpr bool WIDE = W > 256;
-constexpr int RT = WIDE ? 16 : 32;  // rows of a tile
+// the plan up to width 256 (the wide sizes' own below, `#if DEC_W > 256`)
+constexpr int RT = 32;              // rows of a tile
 constexpr int AP = RT + 4;          // activation row stride (floats)
-constexpr int CR = WIDE ? 8 : 16;   // weight rows of a streamed chunk
+constexpr int CR = 16;              // weight rows of a streamed chunk
 constexpr int NQ = THREADS / RT;    // partial dots of a row (row_partials)
 constexpr int WP = W + 4;           // weight row stride (floats)
 constexpr int CHUNK = CR * WP;      // floats of a chunk, and of a ring slot
@@ -135,7 +139,7 @@ constexpr int ACT = W * AP;         // one (W, RT) activation tile
 constexpr int XT = D * AP;          // the input tile
 // in_dim 32 and the wide sizes: w1 and wc_x stream through the ring (XS
 // chunks each) rather than stay resident (RES floats each)
-constexpr bool XSTREAM = D > 16 || WIDE;
+constexpr bool XSTREAM = D > 16 || W > 256;
 constexpr int XS = XSTREAM ? D / CR : 0;
 constexpr int RES = XSTREAM ? 0 : D * WP;
 // chunks of each streamed weight, in the order a tile takes them
@@ -155,38 +159,26 @@ static_assert(SO <= WP, "a chunk row holds any streamed weight's row");
 
 constexpr int RING_SMEM = 2 * CHUNK * 4 + 16;   // two slots, two mbarriers
 constexpr int PART = 3 * NQ * RT;   // NQ partial color logits x 3 per row
-// K2-f32's h1 and h2 on the FP32 units (the note on the wide sizes)
-constexpr bool FFMA_H = WIDE || D > 32;
+// K2-f32's h1 and h2 on the FP32 units at in_dim 64 (the note on the
+// wide sizes)
+constexpr bool FFMA_H = D > 32;
 // dx's 16 x 8 tiles a warp holds: RT / 16 x D / 8 tiles over the warps,
 // two a warp at in_dim 64 with 32-row tiles (dx_part2); at in_dim 128
 // DXN a warp (dx_partn)
 constexpr int DXT = (RT / 16) * (D / 8) > NWARP ? 2 : 1;
 constexpr int DXN = D > 64 ? (RT / 16) * (D / 8) / NWARP : 1;
-// widths 768 and 1024: K2-f32's tile that does not fit a block lies in
-// global memory (the note above), in a per-block park PARK_F32 tiles apart
-// (the stride of its machine code since K3-f32 parked three tiles there)
-constexpr bool PARK = W > 512;
-constexpr int PARK_F32 = 3;
-constexpr int K2F_REST = 4 * (XT + 2 * RES + NQ * RT + PART) + RING_SMEM;
-constexpr int tiles_in_smem(int rest, int n) {
-  return PARK && (232448 - rest) / (4 * ACT) < n ? (232448 - rest) / (4 * ACT)
-                                                 : n;
-}
-constexpr int K2_TILES = tiles_in_smem(K2F_REST, 2);
-static_assert(K2_TILES >= 1, "the tiles in shared memory and in the park");
-constexpr int K2F_SMEM = 4 * K2_TILES * ACT + K2F_REST;
-static_assert(K2F_SMEM <= 232448, "one block's shared memory");
 static_assert((ACT * 4) % 16 == 0 && (XT * 4) % 16 == 0 && (RES * 4) % 16 == 0
                   && (CHUNK * 4) % 16 == 0,
               "16-byte aligned pieces and bulk copies");
 
 #if DEC_W > 256
-// K3-f32 at the wide sizes (the note on them): two (W, RT3) tiles, A and B
+// both kernels at the wide sizes (the notes on them): two (W, RT3) tiles,
+// A and B
 constexpr int RT3 = W <= 512 ? 32 : 16;   // rows of a tile
 constexpr int AP3 = RT3 + 4;              // activation row stride (floats)
 constexpr int ACT3 = W * AP3;             // one activation tile
 constexpr int XT3 = D * AP3;              // the input tile
-constexpr int NQ3 = 16;                   // partial color dots of a row
+constexpr int NQ3 = 16;                   // partial dots of a row
 // width 1024: tile A lies in global memory (park3)
 constexpr bool PARK3 = W > 768;
 // the ReLU masks: bit r of word k for row r, a word of RT3 bits
@@ -224,6 +216,13 @@ static_assert(XSTREAM && D % CR3 == 0 && KX % 8 == 0 && KX * DP <= CHUNK3
                   && 3 * NQ3 * RT3 <= CHUNK3,
               "the wide K3-f32's chunks");
 static_assert(K3F_SMEM <= 232448, "one block's shared memory");
+// K2-f32's block: its tiles (B parked at width 1024), the input tile, the
+// sdf partial dots (NQ3 a row) and the ring; at (128, 512, *) and (128,
+// 768, 768), where K3-f32's ring has 8-row chunks, 16-row ones would take
+// it to 234,000 and 232,976 bytes
+constexpr int K2F_SMEM =
+    4 * ((PARK3 ? 1 : 2) * ACT3 + XT3 + NQ3 * RT3) + 2 * CHUNK3 * 4 + 16;
+static_assert(K2F_SMEM <= 232448, "one block's shared memory");
 // dx's (RT3 / 16) x (D / 8) tiles of 16 x 8: with more than NWARP, warp w
 // holds all RT3 rows of dx's columns [w D / 8, (w + 1) D / 8) (DXM x DXN
 // tiles); else warp w < DX_TILES holds tile (w % (RT3 / 16), w / (RT3 /
@@ -234,13 +233,17 @@ constexpr bool DX_ALL = DX_TILES > NWARP;
 constexpr int DXM = DX_ALL ? RT3 / 16 : 1, DXN3 = DX_ALL ? D / 64 : 1;
 static_assert(!DX_ALL || DXM * DXN3 * NWARP == DX_TILES, "dx's warp tiling");
 #else
+constexpr int K2F_SMEM =
+    4 * (2 * ACT + XT + 2 * RES + NQ * RT + PART) + RING_SMEM;
 constexpr int K3F_SMEM =
     4 * (4 * ACT + XT + 2 * RES + 4 * RT + PART) + RING_SMEM;
-static_assert(K3F_SMEM <= 232448, "one block's shared memory");
+static_assert(K2F_SMEM <= 232448 && K3F_SMEM <= 232448,
+              "one block's shared memory");
 #endif
 
 __device__ __forceinline__ float ldg(const float* p) { return __ldg(p); }
 
+#if DEC_W <= 256
 // f32 FusedParams -> the packed chunks (row stride WP, zeros past a row's
 // end): the first `nchunks` of the sequence and ws's sdf column
 __global__ void pack_weights_kernel(Params p, float* __restrict__ dst,
@@ -287,6 +290,7 @@ cudaError_t pack_weights(const Params& p, float* dst, int nchunks,
       p, dst, nchunks);
   return cudaGetLastError();
 }
+#endif
 
 // ---- the ring ----
 
@@ -389,12 +393,14 @@ struct Tc {
 };
 
 // The same product on the FP32 units, each output a sequential fused
-// multiply-add over k (K3-f32's forward recompute). Thread (ty, l) = (tid /
-// 32, tid % 32) owns the RR = RT / 8 rows RR ty .. RR ty + RR - 1 and the
-// column pairs 64 j + 2 l, 64 j + 2 l + 1 (j < N / 64).
+// multiply-add over k (K3-f32's forward recompute up to width 256, K2-f32's h1
+// and h2 at in_dim 64). Thread (ty, l) = (tid / 32, tid % 32) owns the RR = RT
+// / 8 = 4 rows RR ty .. RR ty + RR - 1 and the column pairs 64 j + 2 l, 64 j +
+// 2 l + 1 (j < N / 64).
 template <int N>
 struct Fma {
   static constexpr int NP = N / 64, RR = RT / 8, LDA = AP;
+  static_assert(RR == 4, "a thread's rows");
   float acc[RR][2 * NP];
   __device__ __forceinline__ void zero() {
 #pragma unroll
@@ -407,31 +413,16 @@ struct Fma {
     const int ty = threadIdx.x >> 5, l = threadIdx.x & 31;
 #pragma unroll 4
     for (int r = 0; r < K; ++r) {
-      if constexpr (RR == 4) {
-        const float4 a = *reinterpret_cast<const float4*>(act + r * AP + 4 * ty);
-        const float av[4] = {a.x, a.y, a.z, a.w};
+      const float4 a = *reinterpret_cast<const float4*>(act + r * AP + 4 * ty);
+      const float av[4] = {a.x, a.y, a.z, a.w};
 #pragma unroll
-        for (int j = 0; j < NP; ++j) {
-          const float2 b =
-              *reinterpret_cast<const float2*>(w + r * WP + 64 * j + 2 * l);
+      for (int j = 0; j < NP; ++j) {
+        const float2 b =
+            *reinterpret_cast<const float2*>(w + r * WP + 64 * j + 2 * l);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            acc[i][2 * j] = fmaf(av[i], b.x, acc[i][2 * j]);
-            acc[i][2 * j + 1] = fmaf(av[i], b.y, acc[i][2 * j + 1]);
-          }
-        }
-      } else {
-        const float2 a = *reinterpret_cast<const float2*>(act + r * AP + 2 * ty);
-        const float av[2] = {a.x, a.y};
-#pragma unroll
-        for (int j = 0; j < NP; ++j) {
-          const float2 b =
-              *reinterpret_cast<const float2*>(w + r * WP + 64 * j + 2 * l);
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            acc[i][2 * j] = fmaf(av[i], b.x, acc[i][2 * j]);
-            acc[i][2 * j + 1] = fmaf(av[i], b.y, acc[i][2 * j + 1]);
-          }
+        for (int i = 0; i < 4; ++i) {
+          acc[i][2 * j] = fmaf(av[i], b.x, acc[i][2 * j]);
+          acc[i][2 * j + 1] = fmaf(av[i], b.y, acc[i][2 * j + 1]);
         }
       }
     }
@@ -444,25 +435,14 @@ struct Fma {
     for (int j = 0; j < 2 * NP; ++j) {
       const int c = 64 * (j >> 1) + 2 * l + (j & 1);
       const float b = ldg(bias + c);
-      if constexpr (RR == 4) {
-        float v[4];
+      float v[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          v[i] = acc[i][j] + b;
-          if (relu) v[i] = fmaxf(v[i], 0.f);
-        }
-        *reinterpret_cast<float4*>(dst + c * AP + 4 * ty) =
-            make_float4(v[0], v[1], v[2], v[3]);
-      } else {
-        float v[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          v[i] = acc[i][j] + b;
-          if (relu) v[i] = fmaxf(v[i], 0.f);
-        }
-        *reinterpret_cast<float2*>(dst + c * AP + 2 * ty) =
-            make_float2(v[0], v[1]);
+      for (int i = 0; i < 4; ++i) {
+        v[i] = acc[i][j] + b;
+        if (relu) v[i] = fmaxf(v[i], 0.f);
       }
+      *reinterpret_cast<float4*>(dst + c * AP + 4 * ty) =
+          make_float4(v[0], v[1], v[2], v[3]);
     }
   }
 };
@@ -627,13 +607,14 @@ __device__ __forceinline__ void row_partials(float* part, const float* act,
   for (int c = 0; c < C; ++c) part[(C * q + c) * RT + r] = s[c];
 }
 
-// the sum of row r's NQ partials of column c, in order, plus b
-template <int C>
+// the sum of row r's Q partials of column c, in order, plus b (tiles of R
+// rows)
+template <int C, int Q = NQ, int R = RT>
 __device__ __forceinline__ float row_sum(const float* part, int r, int c,
                                          float b) {
   float z = 0.f;
 #pragma unroll
-  for (int q = 0; q < NQ; ++q) z += part[(C * q + c) * RT + r];
+  for (int q = 0; q < Q; ++q) z += part[(C * q + c) * R + r];
   return z + b;
 }
 
@@ -641,13 +622,7 @@ __device__ __forceinline__ float sigmoid(float z) {
   return 1.f / (1.f + expf(-z));
 }
 
-// this block's parked tiles (widths 768 and 1024): PARK_F32 (W, RT) tiles
-// after the packed weights
-__device__ __forceinline__ float* park_of(const float* wpack) {
-  return const_cast<float*>(wpack) + PACKED
-         + static_cast<long long>(blockIdx.x) * PARK_F32 * ACT;
-}
-
+#if DEC_W <= 256
 __global__ void __launch_bounds__(THREADS, 1)
 decoder_forward_f32_kernel(const float* __restrict__ x, Params p,
                            const float* wpack, float* __restrict__ out,
@@ -655,7 +630,7 @@ decoder_forward_f32_kernel(const float* __restrict__ x, Params p,
   extern __shared__ __align__(16) char smem[];
   Arena ar{smem};
   float* a = ar.take<float>(ACT);
-  float* b = K2_TILES > 1 ? ar.take<float>(ACT) : park_of(wpack);
+  float* b = ar.take<float>(ACT);
   float* xs = ar.take<float>(XT);
   float* w1s = ar.take<float>(RES);
   float* wcx = ar.take<float>(RES);
@@ -722,19 +697,22 @@ decoder_forward_f32_kernel(const float* __restrict__ x, Params p,
     }
   }
 }
+#endif
 
 #if DEC_W > 256
-// ---- K3-f32 at the wide sizes: two live tiles, ReLU bit masks ----
+// ---- the wide sizes: two live tiles (K3-f32: ReLU bit masks) ----
 
 using Ring3 = RingT<CR3>;
 
-// K3-f32's packed chunks at the wide sizes (CR3 weight rows at stride WP,
-// zeros past a row's end), in the order a tile takes them: w1, w2, ws's
-// feature part, wc_f, wc_x; then wc_x^T's NXT K-slices of KX rows (KX x D at
-// row stride DP, zeros past a slice's end), wc_f^T, ws^T and w2^T, w1^T's
-// NXT K-slices; then ws's sdf column at SDF3
-__global__ void pack_k3_kernel(Params p, float* __restrict__ dst) {
-  const int n = (NFWD3 + NBWD3) * CHUNK3;
+// The packed chunks at the wide sizes (CR3 weight rows at stride WP, zeros
+// past a row's end), in the order a tile takes them: w1, w2, ws's feature
+// part, wc_f, wc_x (K2-f32's NFWD3); then wc_x^T's NXT K-slices of KX rows
+// (KX x D at row stride DP, zeros past a slice's end), wc_f^T, ws^T and
+// w2^T, w1^T's NXT K-slices; then ws's sdf column at SDF3. Writes the
+// first `nchunks` chunks and the column.
+__global__ void pack_k3_kernel(Params p, float* __restrict__ dst,
+                               int nchunks) {
+  const int n = nchunks * CHUNK3;
   for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < n + W;
        e += gridDim.x * blockDim.x) {
     if (e >= n) {
@@ -775,17 +753,24 @@ __global__ void pack_k3_kernel(Params p, float* __restrict__ dst) {
   }
 }
 
-// The forward recompute's products on the FP32 units at the wide sizes,
-// each output a sequential fused multiply-add over k in the chunks' order
-// (Fma's sums, term for term). Warp w takes the columns [w N / 8, (w + 1) N
-// / 8) of all RT3 rows, as Tc splits its products; lane l = LC lr + lc
-// holds the R rows R lr .. R lr + R - 1 and the C columns w N / 8 + V lc +
-// V LC j + v (j < C / V, v < V). Per k a lane reads R / 4 float4 of act
-// (the same for the LC lanes of its rows) and C / V vectors of V floats of
-// the weight row (the same for the LR lanes of its columns): the block
-// reads each weight element from shared memory once per k, and a lane's
-// R + C values feed R C FFMA (8 x 8 where a warp has 48 columns or more,
-// else 4 rows). UNROLL: the k steps unrolled at once, 0 all of a chunk.
+cudaError_t pack_k3(const Params& p, float* dst, int nchunks,
+                    cudaStream_t stream) {
+  pack_k3_kernel<<<(nchunks * CHUNK3 + W + 255) / 256, 256, 0, stream>>>(
+      p, dst, nchunks);
+  return cudaGetLastError();
+}
+
+// The products on the FP32 units at the wide sizes (K2-f32's h1 and h2,
+// K3-f32's forward recompute), each output a sequential fused multiply-add over
+// k in the chunks' order (Fma's sums, term for term). Warp w takes the columns
+// [w N / 8, (w + 1) N / 8) of all RT3 rows, as Tc splits its products; lane l =
+// LC lr + lc holds the R rows R lr .. R lr + R - 1 and the C columns w N / 8 +
+// V lc + V LC j + v (j < C / V, v < V). Per k a lane reads R / 4 float4 of act
+// (the same for the LC lanes of its rows) and C / V vectors of V floats of the
+// weight row (the same for the LR lanes of its columns): the block reads each
+// weight element from shared memory once per k, and a lane's R + C values feed
+// R C FFMA (8 x 8 where a warp has 48 columns or more, else 4 rows). UNROLL:
+// the k steps unrolled at once, 0 all of a chunk.
 template <int N, int UNROLL>
 struct Fma3 {
   static constexpr int NW = N / NWARP, R = NW >= 48 ? 8 : 4, LR = RT3 / R,
@@ -943,11 +928,76 @@ __device__ __forceinline__ void row_partials3(float* part, const float* act,
   }
 }
 
-// this block's tile A at width 1024 in the dx-only form: ACT3 floats after
-// the packed weights
+// this block's parked tile at width 1024 (K3-f32's A in its dx-only form,
+// K2-f32's B): ACT3 floats after the packed weights
 __device__ __forceinline__ float* park3(const float* wpack) {
   return const_cast<float*>(wpack) + PACKED3
          + static_cast<long long>(blockIdx.x) * ACT3;
+}
+
+// K2-f32 at the wide sizes (the note on them): persistent blocks, block b
+// taking the RT3-row tiles b, b + blocks, ...; the ring's chunks the first
+// NFWD3 of the packed layout, the same for every tile.
+__global__ void __launch_bounds__(THREADS, 1)
+decoder_forward_f32_kernel(const float* __restrict__ x, Params p,
+                           const float* wpack, float* __restrict__ out,
+                           long long N) {
+  extern __shared__ __align__(16) char smem[];
+  Arena ar{smem};
+  float* A = ar.take<float>(ACT3);
+  float* B = PARK3 ? park3(wpack) : ar.take<float>(ACT3);
+  float* xs = ar.take<float>(XT3);
+  float* sdfp = ar.take<float>(NQ3 * RT3);      // partial sdf dots
+  Ring3 ring = ring_init<Ring3>(ar, wpack, NFWD3);
+  const float* ws_sdf = wpack + SDF3;
+  __syncthreads();                  // the mbarriers
+  const long long ntiles = (N + RT3 - 1) / RT3;
+  if (threadIdx.x == 0 && blockIdx.x < ntiles) issue(ring, 0, 0);
+  Fma3<W, 0> h;
+  Tc<SD, RT3> fs;
+  Tc<W, RT3> fc;
+  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const bool more = tile + gridDim.x < ntiles;
+    const long long row0 = tile * RT3;
+    const int nvalid = static_cast<int>(min(static_cast<long long>(RT3), N - row0));
+    __syncthreads();                // the last tile's readers
+    load_x<RT3>(xs, x, row0, nvalid);
+    __syncthreads();
+    // h1 = relu(x w1 + b1) -> A
+    h.zero();
+    x_mm(h, xs, nullptr, ring, more);
+    h.store(A, p.b1, true, nullptr);
+    // h2 = relu(h1 w2 + b2) -> B (the first chunk's barrier: h1 in place)
+    h.zero();
+    stream_mm(h, A, NW3, ring, more);
+    h.store(B, p.b2, true, nullptr);
+    // feat = h2 ws[:, :SD] + bs[:SD] -> A, and h2's sdf dots (h1's last
+    // readers are before the first chunk's barrier)
+    fs.zero();
+    stream_mm(fs, B, NW3, ring, more);
+    row_partials3<1>(sdfp, B, ws_sdf);
+    fs.store(A, p.bs, false);
+    // hc = relu(feat wc_f + x wc_x + bc) -> B (h2's last readers are
+    // before the first chunk's barrier)
+    fc.zero();
+    stream_mm(fc, A, NSD3, ring, more);
+    x_mm(fc, xs, nullptr, ring, more);
+    fc.store(B, p.bc, true);
+    __syncthreads();
+    // the color logits' partials in the ring's slot of hc's last chunk,
+    // free since the barrier above
+    float* part = ring.slot + (ring.cur ^ 1) * CHUNK3;
+    row_partials3<3>(part, B, p.wo);
+    __syncthreads();
+    if (static_cast<int>(threadIdx.x) < nvalid) {
+      const int r = threadIdx.x;
+      *reinterpret_cast<float4*>(out + (row0 + r) * 4) = make_float4(
+          sigmoid(row_sum<3, NQ3, RT3>(part, r, 0, ldg(p.bo))),
+          sigmoid(row_sum<3, NQ3, RT3>(part, r, 1, ldg(p.bo + 1))),
+          sigmoid(row_sum<3, NQ3, RT3>(part, r, 2, ldg(p.bo + 2))),
+          row_sum<1, NQ3, RT3>(sdfp, r, 0, ldg(p.bs + SD)));
+    }
+  }
 }
 
 // K3-f32's pass 1 at the wide sizes. Two (W, RT3) f32 tiles hold every
@@ -1458,10 +1508,10 @@ decoder_backward_f32_kernel(const float* __restrict__ x,
 
 }  // namespace
 
-// K2-f32: out (N, D) from x (N, D); wpack: scratch of PACKED floats (at
-// widths 768 and 1024 then PARK_F32 tiles of ACT floats for each block);
-// `blocks` persistent blocks (<= tiles of RT rows, <= the SMs). Returns
-// cudaGetLastError() after the launches (0 = launched).
+// K2-f32: out (N, 4) from x (N, D); wpack: the packed-weight scratch
+// (decoder_f32_layout's floats); `blocks` persistent blocks (<= tiles of
+// the plan's rows, <= the SMs). Returns cudaGetLastError() after the
+// launches (0 = launched).
 extern "C" int decoder_forward_f32(const float* x, const void* const* params,
                                    void* wpack, float* out, long long N,
                                    int blocks, cudaStream_t stream) {
@@ -1470,7 +1520,11 @@ extern "C" int decoder_forward_f32(const float* x, const void* const* params,
       K2F_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   const Params prm = params_from(params);
+#if DEC_W > 256
+  err = pack_k3(prm, static_cast<float*>(wpack), NFWD3, stream);
+#else
   err = pack_weights(prm, static_cast<float*>(wpack), NFWD, stream);
+#endif
   if (err != cudaSuccess) return static_cast<int>(err);
   decoder_forward_f32_kernel<<<blocks, THREADS, K2F_SMEM, stream>>>(
       x, prm, static_cast<const float*>(wpack), out, N);
@@ -1492,7 +1546,7 @@ extern "C" int decoder_backward_f32(const float* x, const float* g,
   // one kernel with a run-time switch the dx-only form took up to 18% longer
   // than before the stores (an H100 at 700 W, (64, 512, 128)); one kernel
   // for both at widths 768 and 1024 (FORM's note)
-  constexpr int FULL = PARK ? 2 : 1, DX_ONLY = PARK ? 2 : 0;
+  constexpr int FULL = W > 512 ? 2 : 1, DX_ONLY = W > 512 ? 2 : 0;
   auto kernel = want_wgrad ? decoder_backward_f32_kernel<FULL>
                            : decoder_backward_f32_kernel<DX_ONLY>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -1500,9 +1554,7 @@ extern "C" int decoder_backward_f32(const float* x, const float* g,
   if (err != cudaSuccess) return static_cast<int>(err);
   const Params prm = params_from(params);
 #if DEC_W > 256
-  pack_k3_kernel<<<((NFWD3 + NBWD3) * CHUNK3 + W + 255) / 256, 256, 0,
-                   stream>>>(prm, static_cast<float*>(wpack));
-  err = cudaGetLastError();
+  err = pack_k3(prm, static_cast<float*>(wpack), NFWD3 + NBWD3, stream);
 #else
   err = pack_weights(prm, static_cast<float*>(wpack), NFWD + NBWD, stream);
 #endif
@@ -1513,24 +1565,19 @@ extern "C" int decoder_backward_f32(const float* x, const float* g,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The plan's layout: out[0] K3-f32's tile rows, out[1] its block's
-// shared-memory bytes, out[2] the floats of the packed-weight scratch that
-// `blocks` persistent blocks of either kernel need: the chunks and ws's sdf
-// column of K2-f32's and K3-f32's layouts, K2-f32's parked tiles (width
-// 1024: one a block, PARK_F32 tiles apart) and K3-f32's tile A there (one a
-// block, after its layout). Returns 0.
+// The plan's layout: out[0] the tile rows of both kernels, out[1] K3-f32's
+// block's shared-memory bytes, out[2] the floats of the packed-weight
+// scratch that `blocks` persistent blocks of either kernel need: the
+// chunks and ws's sdf column, and at width 1024 each block's parked tile
+// after them (park3). Returns 0.
 extern "C" int decoder_f32_layout(int blocks, long long* out) {
-  long long n = PACKED;
-  if (K2_TILES < 2) n += (static_cast<long long>(blocks - 1) * PARK_F32 + 1) * ACT;
 #if DEC_W > 256
-  const long long k3 =
-      PACKED3 + (PARK3 ? static_cast<long long>(blocks) * ACT3 : 0);
-  if (k3 > n) n = k3;
   out[0] = RT3;
+  out[2] = PACKED3 + (PARK3 ? static_cast<long long>(blocks) * ACT3 : 0);
 #else
   out[0] = RT;
+  out[2] = PACKED;
 #endif
   out[1] = K3F_SMEM;
-  out[2] = n;
   return 0;
 }

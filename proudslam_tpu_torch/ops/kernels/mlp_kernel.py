@@ -64,8 +64,8 @@ from proudslam_tpu_torch.ops.kernels import build
 TILE_ROWS = 64
 # rows of the streamed f32 kernels' tiles (mlp_stream_f32.cu): K3-f32's four
 # f32 activation tiles of width 256 fit a block only at this height, and
-# so do its two of width 384 and 512; K2-f32's at the widths above 256 and
-# K3-f32's at 768 and 1024 (the `mma.sync` minimum)
+# so do both kernels' two of width 384 and 512; at 768 and 1024 the
+# `mma.sync` minimum
 STREAM_F32_ROWS = 32
 WIDE_F32_ROWS = 16
 
@@ -79,8 +79,8 @@ WIDE_F32_ROWS = 16
 # one buffer); every other size up to width 256 streams the large ones from
 # L2 (render_stream.cu, mlp_stream.cu, mlp_stream_f32.cu), and the wide
 # sizes stream all five (render_wide.cu, mlp_wide.cu; mlp_stream_f32.cu:
-# K2-f32 at WIDE_F32_ROWS-row tiles, K3-f32 at two live tiles of
-# STREAM_F32_ROWS rows, WIDE_F32_ROWS at widths 768 and 1024). At in_dim 64
+# K2-f32 and K3-f32 at two live tiles of STREAM_F32_ROWS rows,
+# WIDE_F32_ROWS at widths 768 and 1024). At in_dim 64
 # the streamed K3 streams w1 and wc_x too, and K1 blends a sample's corners
 # in passes where its whole row does not fit the gather buffer
 # (render_gather.cuh). In_dim 128 is built
@@ -90,9 +90,9 @@ WIDE_F32_ROWS = 16
 # Widths 768 and 1024 are built at six sizes (PARK_SIZES), in_dim 16 and
 # 128, to which every in_dim from 17 up is padded at those widths; there
 # the activation tiles do not fit a block beside each other, and the
-# kernels keep one (the bf16 forms, decoder_park.cuh) or as many as fit
-# (the f32 forms) in shared memory and park the others in a per-block
-# scratch in global memory (:func:`parked`).
+# kernels keep one (the bf16 forms, decoder_park.cuh; the f32 forms at
+# width 1024) in shared memory and park the others in a per-block scratch
+# in global memory (:func:`parked`).
 BUILT_IN_DIMS = (16, 32, 64, 128)
 WIDE_WIDTHS = (384, 512)
 D128_SIZES = ((128, 128, 128), (128, 256, 128), (128, 256, 256),
@@ -114,10 +114,8 @@ FORMS = ("K1", "K2", "K3", "K2-f32", "K3-f32")
 # takes
 MAX_IN_DIM, MAX_WIDTH = BUILT_IN_DIMS[-1], PARK_SIZES[-1][1]
 # the parked plan's (TILE_ROWS, width) bf16 tiles a block parks in global
-# memory (K3's four; K1 and K2 park one), and the stride in (WIDE_F32_ROWS,
-# width) f32 tiles of K2-f32's blocks' parks at width 1024
-# (mlp_stream_f32.cu's PARK_F32)
-PARK_TILES, K2_F32_PARK_STRIDE = 4, 3
+# memory (K3's four; K1 and K2 park one)
+PARK_TILES = 4
 
 
 class FusedParams(NamedTuple):
@@ -321,9 +319,9 @@ def _operand_cols(size: Tuple[int, int, int]) -> Tuple[int, ...]:
 def wgrad_tile_rows(size: Tuple[int, int, int], bf16: bool = True) -> int:
     """Rows of the tiles pass 1 stores: K3's 64; K3-f32's its plan's tile
     height (64 at (16, 128, 128), mlp_stream_f32.cu's 32 or 16 elsewhere:
-    :func:`backward_f32_tile_rows`)."""
+    :func:`f32_tile_rows`)."""
     return (TILE_ROWS if bf16 or not streamed(size)
-            else backward_f32_tile_rows(size))
+            else f32_tile_rows(size))
 
 
 def _check_layout(tile_rows: int, bf16: bool) -> None:
@@ -593,7 +591,7 @@ def _covering(d: int, w: int, sd: int) -> Tuple[int, int, int]:
 
 def wide(size: Tuple[int, int, int]) -> bool:
     """True at the built sizes of width above 256 (the bf16 forms' wide
-    plan, K2-f32's 16-row tiles, K3-f32's two live tiles)."""
+    plan, the f32 forms' two live tiles)."""
     return size[1] > 256
 
 
@@ -608,10 +606,10 @@ def wide_plan(size: Tuple[int, int, int]) -> bool:
 def parked(size: Tuple[int, int, int]) -> bool:
     """True at the built sizes of width 768 and 1024, where the kernels
     park activation tiles in global memory: the bf16 forms run the parked
-    plan (decoder_park.cuh: one (64, width) tile in shared memory), K2-f32
-    keeps one of its two 16-row tiles in shared memory at width 1024 and
-    K3-f32 one of its two (mlp_stream_f32.cu); at width 768 both keep
-    theirs in shared memory."""
+    plan (decoder_park.cuh: one (64, width) tile in shared memory), and
+    the f32 forms keep one of their two 16-row tiles in shared memory at
+    width 1024 (mlp_stream_f32.cu: K2-f32 parks its tile B, K3-f32 its
+    tile A); at width 768 both keep theirs in shared memory."""
     return size[1] > WIDE_WIDTHS[-1]
 
 
@@ -709,14 +707,9 @@ def streamed(size: Tuple[int, int, int]) -> bool:
 
 
 def f32_tile_rows(size: Tuple[int, int, int]) -> int:
-    """Rows of mlp_stream_f32.cu's K2-f32 tiles at a streamed size."""
-    return WIDE_F32_ROWS if wide(size) else STREAM_F32_ROWS
-
-
-def backward_f32_tile_rows(size: Tuple[int, int, int]) -> int:
-    """Rows of mlp_stream_f32.cu's K3-f32 tiles at a streamed size: 32, and
-    16 at the :func:`parked` sizes, where two 32-row tiles of width 768
-    would not fit a block beside the ring."""
+    """Rows of mlp_stream_f32.cu's K2-f32 and K3-f32 tiles at a streamed
+    size: 32, and 16 at the :func:`parked` sizes, where two 32-row tiles of
+    width 768 would not fit a block beside the ring."""
     return WIDE_F32_ROWS if parked(size) else STREAM_F32_ROWS
 
 
@@ -753,14 +746,14 @@ def packed_weights(size: Tuple[int, int, int], device) -> torch.Tensor:
     return torch.empty((n,), dtype=torch.bfloat16, device=device)
 
 
-def backward_f32_chunk_rows(size: Tuple[int, int, int]) -> int:
-    """Weight rows of a ring chunk of mlp_stream_f32.cu's K3-f32 at the
-    wide sizes (CR3): 16 where a block holds two such slots beside its two
-    tiles (tile A parked at width 1024), the input tile, the masks (a word
-    of tile-height bits a column each) and the row vectors, else 8,
-    K2-f32's."""
+def f32_chunk_rows(size: Tuple[int, int, int]) -> int:
+    """Weight rows of a ring chunk of mlp_stream_f32.cu's kernels at the
+    wide sizes (CR3, one packed layout for both): 16 where K3-f32's block
+    holds two such slots beside its two tiles (tile A parked at width 1024),
+    the input tile, the masks (a word of tile-height bits a column each)
+    and the row vectors, else 8."""
     d, w, _ = size
-    rt = backward_f32_tile_rows(size)
+    rt = f32_tile_rows(size)
     rest = (4 * ((1 if w > 768 else 2) * w * (rt + 4) + d * (rt + 4) + 4 * rt)
             + 2 * w * rt // 8 + 16)
     return 16 if rest + 2 * 16 * (w + 4) * 4 <= 232448 else 8
@@ -773,7 +766,7 @@ def backward_f32_x_slice_rows(size: Tuple[int, int, int]) -> int:
     chunk holds (mlp_stream_f32.cu's KX)."""
     d, w, _ = size
     k = 256
-    while k > 8 and (k * (d + 4) > backward_f32_chunk_rows(size) * (w + 4)
+    while k > 8 and (k * (d + 4) > f32_chunk_rows(size) * (w + 4)
                      or w % k):
         k //= 2
     return k
@@ -781,32 +774,23 @@ def backward_f32_x_slice_rows(size: Tuple[int, int, int]) -> int:
 
 def packed_f32_floats(size: Tuple[int, int, int], blocks: int) -> int:
     """Floats of mlp_stream_f32.cu's packed-weight scratch for ``blocks``
-    blocks (its ``decoder_f32_layout``): the chunks of w2, ws's
-    feature part and wc_f, then of their transposes (16 weight rows a chunk,
-    8 at the wide sizes, row stride width + 4), and ws's sdf column; at
-    in_dim 32 to 128 and at the wide sizes w1 and wc_x too, twice each.
-    At the wide sizes K3-f32 has a layout of its own, in chunks of
-    :func:`backward_f32_chunk_rows` rows: the forward's, then wc_x^T and
-    w1^T as K-slices of :func:`backward_f32_x_slice_rows` rows (a chunk
-    each) beside the other transposes, and its sdf column; the larger
-    layout counts. At width 1024 each block's parked tile (width x 20
-    floats) comes after: K2-f32's :data:`K2_F32_PARK_STRIDE` tiles apart
-    after the first layout, K3-f32's tile A after its own."""
+    blocks (its ``decoder_f32_layout``), one layout for both kernels. Up to
+    width 256: the chunks of w2, ws's feature part and wc_f, then of their
+    transposes (16 weight rows a chunk, row stride width + 4), at in_dim 32
+    to 128 w1 and wc_x too, twice each, and ws's sdf column. At the wide
+    sizes, in chunks of :func:`f32_chunk_rows` rows: the forward's (w1, w2,
+    ws, wc_f, wc_x), then wc_x^T and w1^T as K-slices of
+    :func:`backward_f32_x_slice_rows` rows (a chunk each) beside the other
+    transposes, and the sdf column; at width 1024 each block's parked tile
+    (width x 20 floats: K3-f32's A, K2-f32's B) after them."""
     d, w, sd = size
-    cr = 8 if wide(size) else 16
-    xs = d // cr if d > BUILT_IN_DIMS[0] or wide(size) else 0
-    nfwd = 2 * xs + (2 * w + sd) // cr        # the backward's count too
-    tile = w * (WIDE_F32_ROWS + 4)
-    n = 2 * nfwd * cr * (w + 4) + w
-    if w > 768:
-        n += ((blocks - 1) * K2_F32_PARK_STRIDE + 1) * tile
-    if wide(size):
-        cr3 = backward_f32_chunk_rows(size)
-        nxt = w // backward_f32_x_slice_rows(size)
-        k3 = (2 * d // cr3 + 2 * nxt + 2 * (2 * w + sd) // cr3) * cr3 * (
-            w + 4) + w
-        n = max(n, k3 + (blocks * tile if w > 768 else 0))
-    return n
+    if not wide(size):
+        xs = d // 16 if d > BUILT_IN_DIMS[0] else 0
+        return 2 * (2 * xs + (2 * w + sd) // 16) * 16 * (w + 4) + w
+    cr = f32_chunk_rows(size)
+    nxt = w // backward_f32_x_slice_rows(size)
+    n = (2 * d // cr + 2 * nxt + 2 * (2 * w + sd) // cr) * cr * (w + 4) + w
+    return n + (blocks * w * (WIDE_F32_ROWS + 4) if w > 768 else 0)
 
 
 def packed_f32_weights(size: Tuple[int, int, int], device) -> torch.Tensor:
@@ -1005,8 +989,7 @@ def _k3_partition(size, rows: int, sms: int, bf16: bool) -> Tuple[int, int]:
     """Pass 1's blocks and tiles per block for ``rows`` rows."""
     if bf16 or not streamed(size):
         return backward_partition(rows, sms)
-    return backward_f32_stream_partition(rows, sms,
-                                         backward_f32_tile_rows(size))
+    return backward_f32_stream_partition(rows, sms, f32_tile_rows(size))
 
 
 def _k3(x, g, fp, size, dx, dflat, sms: int, stream: int,

@@ -100,7 +100,7 @@ CONSTANTS = {
     "render_park": ["SMEM"],
     "mlp_stream": ["K2_SMEM", "K3_SMEM"], "mlp_wide": ["K2_SMEM", "K3_SMEM"],
     "mlp_park": ["K2_SMEM", "K3_SMEM"],
-    "mlp_stream_f32": ["K2F_SMEM", "K3F_SMEM", "K2_TILES"],
+    "mlp_stream_f32": ["K2F_SMEM", "K3F_SMEM"],
     "mlp_wgrad": ["SMEM"],
 }
 
@@ -119,7 +119,9 @@ def check(tmp: str, src: str, size) -> str:
     d, w, sd = size
     consts = CONSTANTS.get(src, []) + (
         ["G"] if src.startswith("render_") and d > 32 and src != "render_kernel"
-        else [])
+        else []) + (
+        # the wide plan's tile rows and chunk rows, both kernels'
+        ["RT3", "CR3"] if src == "mlp_stream_f32" and w > 256 else [])
     main = os.path.join(tmp, f"{src}_{d}x{w}x{sd}.cpp")
     with open(main, "w") as fh:
         fh.write(f'#include "{src}.cu"\n#include <cstdio>\nint main() {{\n')

@@ -14,14 +14,16 @@ dx-only form once each at the pcd path's mapping and tracking shapes on
 the inputs of ``scripts/torch_f32_turns.py`` (K3-f32's second pass,
 ``mlp_wgrad_f32.cu``, runs uninstrumented inside the full form's time).
 
-With ``--size=D,W,SD`` (repeatable): the same for K3-f32's first pass in
-``mlp_stream_f32.cu`` (the streamed plan) at that built size, full and
-dx-only, on ``chip_smoke.py``'s ``init_decoder`` params at the size and
-inputs from a seed. Its phases are the tree's own (``STREAM_PHASES``: the
-first set whose anchor lines all stand in the source): the forward
-recompute's four products, dzo and dhc, dfeat, dh2, dh1 and dx's x-side
-products; besides them, thread 0's waits for the ring's chunks
-(``acquire``) and for the operand stores to have read their tiles
+With ``--size=D,W,SD`` (repeatable): the same for K2-f32 and K3-f32's
+first pass in ``mlp_stream_f32.cu`` (the streamed plan) at that built
+size, K3-f32 full and dx-only, on ``chip_smoke.py``'s ``init_decoder``
+params at the size and inputs from a seed. Their phases are the tree's
+own (``STREAM_PHASES``: per kernel the first set whose anchor lines all
+stand in one of its definitions): K2-f32's h1, h2, feat with the sdf dots,
+hc, and the logits with the output; K3-f32's forward recompute's four
+products, dzo and dhc, dfeat, dh2, dh1 and dx's x-side products; besides
+them, thread 0's waits for the ring's chunks (``acquire``) and, in
+K3-f32, for the operand stores to have read their tiles
 (``wg::stored_read``) are counted apart (they lie inside the phases).
 ``--tree=DIR`` instruments and runs the checkout at DIR (its package and
 its sources), so a parent unpacked into ``diag/`` is measured the same
@@ -29,7 +31,7 @@ way.
 
 For each form it prints one JSON line: the call's CUDA-event time, and per
 phase the SM cycles per tile (summed over the blocks, over the tiles of
-the plan's height) and its share. The first phase of a block's first tile
+the plan's height) and its share, and the cycles a row. The first phase of a block's first tile
 also holds the block's start. The added barriers make the instrumented
 kernels slower than the real ones (``scripts/torch_f32_turns.py`` and
 ``scripts/torch_size_turns.py`` time those); the shares are what the tool
@@ -83,10 +85,38 @@ PHASES = {
     ],
 }
 STAGING = 31          # the clock slot of the weight stagings
-# mlp_stream_f32.cu's K3-f32 (decoder_backward_f32_kernel): per plan, the
-# phases as (phase, anchor line, "before" | "after" it), in the order a
-# tile runs them; the first phase runs from the tile before's last anchor
-STREAM_PHASES = {
+# mlp_stream_f32.cu's kernels: per kernel function and plan, the phases as
+# (phase, anchor line, "before" | "after" it), in the order a tile runs
+# them; the first phase runs from the tile before's last anchor
+K2F_PHASES = {
+    "two live tiles, Fma3 h1 and h2": [
+        ("logits, output (the tile before)",
+         "    __syncthreads();                // the last tile's readers",
+         "before"),
+        ("load x", "    // h1 = relu(x w1 + b1) -> A\n", "before"),
+        ("h1 (FFMA)", "    // h2 = relu(h1 w2 + b2) -> B (the first chunk's",
+         "before"),
+        ("h2 (FFMA)", "    // feat = h2 ws[:, :SD] + bs[:SD] -> A, and h2's",
+         "before"),
+        ("feat (3xTF32), sdf dots",
+         "    // hc = relu(feat wc_f + x wc_x + bc) -> B (h2's", "before"),
+        ("hc (3xTF32)", "    // the color logits' partials in the ring's",
+         "before"),
+    ],
+    "16-row wide tiles, Fma h1 and h2": [
+        ("logits, output (the tile before)",
+         "    __syncthreads();                // the last tile's readers",
+         "before"),
+        ("load x", "    if constexpr (FFMA_H) {", "before"),
+        ("h1 (FFMA)", "      h.zero();\n      stream_mm(h, a, N_W2", "before"),
+        ("h2 (FFMA)", "    // feat = h2 ws[:, :SD] + bs[:SD] -> a, and h2's",
+         "before"),
+        ("feat (3xTF32), sdf dots",
+         "    // hc = relu(feat wc_f + x wc_x + bc) -> b (h2's", "before"),
+        ("hc (3xTF32)", "    row_partials<3>(part, b, p.wo);", "before"),
+    ],
+}
+K3F_PHASES = {
     "two live tiles, ReLU bit masks": [
         ("dh1 w1^T, dx out (the tile before); load x, g",
          "    // h1 = relu(x w1 + b1) -> A, its mask", "before"),
@@ -120,6 +150,8 @@ STREAM_PHASES = {
         ("dh1, db1", "    // db1; dx = dhc wc_x^T + dh1 w1^T", "before"),
     ],
 }
+STREAM_PHASES = {"decoder_forward_f32_kernel": K2F_PHASES,
+                 "decoder_backward_f32_kernel": K3F_PHASES}
 RING, STORES = 30, 29   # the clock slots of the ring's and the stores' waits
 HEADER = r"""
 __device__ unsigned long long g_phase[1024][32];
@@ -170,19 +202,35 @@ def instrumented_source(src: str) -> str:
     return out + FOOTER
 
 
-def stream_phases(src: str):
-    """The (plan, phases) of STREAM_PHASES whose anchors all stand in
+def _kernel_at(src: str, fn: str, anchors) -> int:
+    """The offset of the definition of kernel ``fn`` in ``src`` (one of
+    several under ``#if``) whose body holds every anchor line, or -1."""
+    at = src.find(fn + "(")
+    while at >= 0:
+        body = src.index("{", at)
+        end = src.index("\n}\n", body)
+        if all(0 <= src.find(line, body) < end for line in anchors):
+            return at
+        at = src.find(fn + "(", at + 1)
+    return -1
+
+
+def stream_phases(src: str, fn: str):
+    """The (plan, phases, offset of the kernel) of ``STREAM_PHASES[fn]``
+    whose anchors all stand in one definition of ``fn`` in
     mlp_stream_f32.cu's ``src``."""
-    for plan, phases in STREAM_PHASES.items():
-        if all(line in src for _, line, _ in phases):
-            return plan, phases
-    raise RuntimeError("mlp_stream_f32.cu: no STREAM_PHASES plan matches")
+    for plan, phases in STREAM_PHASES[fn].items():
+        at = _kernel_at(src, fn, [line for _, line, _ in phases])
+        if at >= 0:
+            return plan, phases, at
+    raise RuntimeError(f"mlp_stream_f32.cu: no STREAM_PHASES plan of {fn} "
+                       "matches")
 
 
 def instrumented_stream_source(src: str) -> str:
-    """mlp_stream_f32.cu with the phase clocks in K3-f32's pass 1 and the
-    ring's and the stores' waits timed (the module docstring)."""
-    _, phases = stream_phases(src)
+    """mlp_stream_f32.cu with the phase clocks in K2-f32 and K3-f32's pass
+    1 and the ring's and the stores' waits timed (the module
+    docstring)."""
     out = src.replace('#include "tf32x3.cuh"\n',
                       '#include "tf32x3.cuh"\n' + HEADER, 1)
     wait = "  bulk::mbar_wait(r.bar + s, (r.phase >> s) & 1u);\n"
@@ -190,20 +238,23 @@ def instrumented_stream_source(src: str) -> str:
         "  const long long w0_ = clock64();\n" + wait
         + f"  if (threadIdx.x == 0) g_phase[blockIdx.x][{RING}] += "
         "clock64() - w0_;\n"), 1)
-    start = out.index("decoder_backward_f32_kernel(")
-    body = out.index("extern __shared__ __align__(16) char smem[];", start)
-    nl = out.index("\n", body) + 1
-    out = out[:nl] + "  long long t_last_ = clock64();\n" + out[nl:]
-    end = out.index("\n}\n", start)
-    kernel = re.sub(
-        r"wg::stored_read(_but<\w+>)?\(\);",
-        lambda m: ("{ const long long s0_ = clock64(); " + m.group(0)
-                   + f" g_phase[blockIdx.x][{STORES}] += clock64() - s0_; }}"),
-        out[start:end])
-    out = out[:start] + kernel + out[end:]
-    for i, (_, line, where) in enumerate(phases):
-        put = _insert_before if where == "before" else _insert_after
-        out = put(out, start, line, f"    PHASE({i});\n")
+    for fn in STREAM_PHASES:
+        _, phases, start = stream_phases(out, fn)
+        body = out.index("extern __shared__ __align__(16) char smem[];",
+                         start)
+        nl = out.index("\n", body) + 1
+        out = out[:nl] + "  long long t_last_ = clock64();\n" + out[nl:]
+        end = out.index("\n}\n", start)
+        kernel = re.sub(
+            r"wg::stored_read(_but<\w+>)?\(\);",
+            lambda m: ("{ const long long s0_ = clock64(); " + m.group(0)
+                       + f" g_phase[blockIdx.x][{STORES}] += clock64() - "
+                       "s0_; }"),
+            out[start:end])
+        out = out[:start] + kernel + out[end:]
+        for i, (_, line, where) in enumerate(phases):
+            put = _insert_before if where == "before" else _insert_after
+            out = put(out, start, line, f"    PHASE({i});\n")
     return out + FOOTER
 
 
@@ -263,6 +314,7 @@ def _measure(lib, forms, rows, tile_rows, names, extra):
             "form": form, "rows": rows, "tile_rows": tile_rows,
             "instrumented_ms": s.elapsed_time(e),
             "cycles_per_tile": float(total),
+            "cycles_per_row": float(total) / tile_rows,
             "phases": {name: [round(per_tile[i]),
                               round(per_tile[i] / total, 4)]
                        for i, name in enumerate(names)},
@@ -308,15 +360,16 @@ def resident_phases(device) -> None:
 
 
 def stream_phases_at(device, size) -> None:
-    """mlp_stream_f32.cu's K3-f32 at ``size``, full and dx-only, at the
-    mapping and tracking shapes."""
+    """mlp_stream_f32.cu's K2-f32 and K3-f32 (full and dx-only) at
+    ``size``, at the mapping and tracking shapes."""
     import torch
 
     from proudslam_tpu_torch.ops.kernels import build
     from proudslam_tpu_torch.ops.kernels import mlp_kernel as mk
 
     src = (build.CSRC / "mlp_stream_f32.cu").read_text()
-    plan, phases = stream_phases(src)
+    k2_plan, k2_phases, _ = stream_phases(src, "decoder_forward_f32_kernel")
+    plan, phases, _ = stream_phases(src, "decoder_backward_f32_kernel")
     lib = _compile("mlp_stream_f32", instrumented_stream_source(src), size)
     mk._bind_stream_f32(lib)
     build._libs["mlp_stream_f32", size] = lib
@@ -333,6 +386,12 @@ def stream_phases_at(device, size) -> None:
     tile_rows = mk.wgrad_tile_rows(size, False)
     for shape, rows in SHAPES.items():
         xn, gn = x[:rows], g[:rows]
+        print(json.dumps({"size": list(size), "plan": k2_plan,
+                          "shape": shape}), end=" ", flush=True)
+        _measure(lib, {
+            "K2-f32": lambda: mk.decoder_fwd(xn, fp, bf16=False)},
+            rows, mk.f32_tile_rows(size), [name for name, _, _ in k2_phases],
+            {"ring_wait_cycles_per_tile": RING})
         print(json.dumps({"size": list(size), "plan": plan, "shape": shape}),
               end=" ", flush=True)
         _measure(lib, {

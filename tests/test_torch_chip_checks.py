@@ -406,7 +406,8 @@ def test_wgrad_check_on_the_first_chunk(on_cpu, size, rows):
     """``wgrad_check`` on CPU tensors (the wrappers' plain versions stand
     in for the kernel and the reduce) holds each size of one plan on the
     rows of the first chunk K3 makes of the inputs, every row here, with
-    the wrapper's splits, plain against plain."""
+    the wrapper's splits, plain against plain, and both against the five
+    products summed in float64 (f32 sums of the same bf16 operands)."""
     on_cpu.setattr(cs, "WGRAD_SIZES", (size,))
     rng = np.random.default_rng(2)
     x = torch.as_tensor(0.3 * rng.standard_normal((rows, 16)),
@@ -418,6 +419,9 @@ def test_wgrad_check_on_the_first_chunk(on_cpu, size, rows):
     assert st["rows"] == mk.wgrad_plan(size, rows, 1).chunk_rows == rows
     assert (st["splits"], st["per_split"]) == mk.wgrad_splits(size, rows, 1)
     assert max(st["rel_err"].values()) <= 1e-6
+    for key in ("rel_err_f64", "plain_rel_err_f64"):
+        assert set(st[key]) == {"w1", "w2", "ws", "wc_f", "wc_x"}
+        assert max(st[key].values()) <= 1e-5
 
 
 @pytest.mark.parametrize("rows", [700, 4096])

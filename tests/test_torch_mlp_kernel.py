@@ -339,11 +339,11 @@ def test_kernel_sizes_refused():
         (64, 256, 256), (128, 128, 128), (16, 384, 128), (16, 768, 256),
         (128, 1024, 1024))] == [
         "mlp_stream", "mlp_wide", "mlp_wide", "mlp_park", "mlp_park"]
+    # K2-f32's and K3-f32's height: their two live tiles take 32 rows up
+    # to width 512, 16 at 768 and 1024
     assert tmk.f32_tile_rows((128, 256, 128)) == tmk.STREAM_F32_ROWS
+    assert tmk.f32_tile_rows((16, 512, 512)) == tmk.STREAM_F32_ROWS
     assert tmk.f32_tile_rows((16, 1024, 1024)) == tmk.WIDE_F32_ROWS
-    # K3-f32's own height: its two live tiles take 32 rows up to width 512
-    assert tmk.backward_f32_tile_rows((16, 512, 512)) == tmk.STREAM_F32_ROWS
-    assert tmk.backward_f32_tile_rows((16, 1024, 1024)) == tmk.WIDE_F32_ROWS
     assert [s for s in tmk.BUILT_SIZES if s[0] == 64] == [
         (64, w, sd) for w, sd in [s[1:] for s in tmk.BUILT_SIZES
                                   if s[0] == 16 and not tmk.parked(s)]]
@@ -466,18 +466,15 @@ def test_built_size(size, built):
 @pytest.mark.parametrize("size", tmk.BUILT_SIZES,
                          ids=["x".join(map(str, s)) for s in tmk.BUILT_SIZES])
 def test_f32_tile_heights(size):
-    """mlp_stream_f32.cu's tile heights: K3-f32's two live tiles have 32
-    rows at every built size of width 384 and 512 (as its four do up to
-    width 256) and 16 at widths 768 and 1024; K2-f32's tiles keep 16 rows
-    at every width above 256; (16, 128, 128) is mlp_kernel_f32.cu's 64-row
-    plan."""
+    """mlp_stream_f32.cu's tile heights, one for both kernels: K2-f32's
+    and K3-f32's two live tiles have 32 rows at every built size of width
+    384 and 512 (as K3-f32's four do up to width 256) and 16 at widths 768
+    and 1024; (16, 128, 128) is mlp_kernel_f32.cu's 64-row plan."""
     k3 = tmk.wgrad_tile_rows(size, bf16=False)
     if size == (16, 128, 128):
         assert k3 == tmk.TILE_ROWS
         return
-    assert k3 == tmk.backward_f32_tile_rows(size) == (
-        16 if size[1] > 512 else 32)
-    assert tmk.f32_tile_rows(size) == (16 if size[1] > 256 else 32)
+    assert k3 == tmk.f32_tile_rows(size) == (16 if size[1] > 512 else 32)
 
 
 @pytest.mark.parametrize("size,n_rows,want", [
@@ -491,7 +488,7 @@ def test_f32_wide_backward_partition(size, n_rows, want):
     own height (32 rows at widths 384 and 512, 16 at 768 and 1024): at most
     one block per SM, each a run of whole tiles, the last ragged."""
     assert tmk._k3_partition(size, n_rows, 132, bf16=False) == want
-    rows = tmk.backward_f32_tile_rows(size)
+    rows = tmk.f32_tile_rows(size)
     assert tmk.backward_f32_stream_partition(n_rows, 132, rows) == want
     blocks, per = want
     assert (blocks - 1) * per < -(-n_rows // rows) <= blocks * per
@@ -508,21 +505,63 @@ def test_f32_wide_backward_partition(size, n_rows, want):
     # no parked tile at width 768: chunks of 8 rows there, K-slices of 32
     # rows, 24 a weight
     ((128, 768, 768), (320 + 336) * 8 * 772 + 768),
-    # width 1024: K2-f32's layout and its parks (one tile of 1024 x 20 a
-    # block, three tiles apart) are the larger
-    ((16, 1024, 1024), 776 * 8 * 1028 + 1024 + (131 * 3 + 1) * 1024 * 20)])
+    # width 1024: 194 forward chunks of 16 x 1028 floats, 200 backward
+    # ones, the column, then one parked tile of 1024 x 20 a block (K3-f32's
+    # A, K2-f32's B)
+    ((16, 1024, 1024), (194 + 200) * 16 * 1028 + 1024 + 132 * 1024 * 20)])
 def test_f32_packed_floats(size, floats):
     """The packed-weight scratch mlp_stream_f32.cu's two kernels need on
-    132 SMs: the larger of K2-f32's layout (with its parks at width 1024)
-    and, at the wide sizes, K3-f32's (chunks of 16 weight rows where its
-    block has room, dx's x-side weights as K-slices, its tile A parked at
-    width 1024, none at 768)."""
+    132 SMs, one layout for both: up to width 256 16-row chunks of the
+    streamed weights and their transposes; at the wide sizes K3-f32's
+    (chunks of 16 weight rows where its block has room, dx's x-side weights
+    as K-slices, one tile a block parked at width 1024, none at 768),
+    of which K2-f32 packs and reads the forward's chunks."""
     assert tmk.packed_f32_floats(size, 132) == floats
     if size[1] == 1024:
-        k3 = (194 + 200) * 16 * 1028 + 1024 + 132 * 1024 * 20
-        assert tmk.backward_f32_chunk_rows(size) == 16
+        assert tmk.f32_chunk_rows(size) == 16
         assert tmk.backward_f32_x_slice_rows(size) == 256
-        assert k3 < floats
+
+
+WIDE_SIZES = [s for s in tmk.BUILT_SIZES if tmk.wide(s)]
+
+
+def _k2_f32_block_bytes(size, chunk_rows):
+    """A mirror of mlp_stream_f32.cu's K2F_SMEM at a wide size: its two
+    (width, rows + 4) f32 tiles (tile B parked at width 1024), the input
+    tile, 16 partial sdf dots a row and two ring slots of ``chunk_rows``
+    weight rows at stride width + 4, with their two mbarriers."""
+    d, w, _ = size
+    rt = tmk.f32_tile_rows(size)
+    return (4 * ((1 if w > 768 else 2) * w * (rt + 4) + d * (rt + 4) + 16 * rt)
+            + 2 * chunk_rows * (w + 4) * 4 + 16)
+
+
+@pytest.mark.parametrize("size", WIDE_SIZES,
+                         ids=["x".join(map(str, s)) for s in WIDE_SIZES])
+def test_f32_wide_forward_plan(size):
+    """K2-f32 at the 29 wide sizes runs K3-f32's plan: tiles of 32 rows at
+    widths 384 and 512 and 16 at 768 and 1024, one persistent block an SM
+    over them, its ring's chunks K3-f32's (16 weight rows, 8 at (128, 512,
+    *) and (128, 768, 768), where 16-row ones would not fit K2-f32's block
+    either), its block within the 232,448 bytes of an H100's, and the
+    packed scratch K3-f32's layout plus one parked tile a block at width
+    1024."""
+    d, w, sd = size
+    rows = tmk.f32_tile_rows(size)
+    assert rows == (32 if w <= 512 else 16)
+    for n_rows in (327680, 65536, 327643, 27):
+        tiles = -(-n_rows // rows)
+        assert tmk.forward_f32_stream_grid(n_rows, 132, rows) == min(tiles,
+                                                                     132)
+    cr = tmk.f32_chunk_rows(size)
+    assert cr == (8 if d == 128 and w in (512, 768) else 16)
+    assert _k2_f32_block_bytes(size, cr) <= 232448
+    assert (_k2_f32_block_bytes(size, 16) <= 232448) == (cr == 16)
+    kx = tmk.backward_f32_x_slice_rows(size)
+    chunks = 2 * (d // cr) + 2 * (w // kx) + 2 * (2 * w + sd) // cr
+    park = 132 * w * 20 if w == 1024 else 0
+    assert tmk.packed_f32_floats(size, 132) == (
+        chunks * cr * (w + 4) + w + park)
 
 
 @pytest.mark.parametrize("sms", [132, 7, 1])
